@@ -1,0 +1,187 @@
+"""The port's scoring slice as a whole against the JAX package: on a
+synthetic MVTec category, JAX `pipeline.eval.score_nf` with tiny models and
+the port's `score_nf` with the converted weights agree on image scores and
+maps; the port's `cli.score.main` writes the same scores.csv from
+`export_vit` / `export_nf_head` .pth files. Plus the port's import hygiene and
+chip_smoke.py's refusal to run without a GPU."""
+
+import csv
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_data import pil_decode
+from test_torch_vit import D, DEPTH, HEADS, IMG, PATCH, jax_encoder, jax_params, jitter
+from vit_ad_tpu.config import DtypePolicy as JaxDtypePolicy
+from vit_ad_tpu.config import HyperParams as JaxHyperParams
+from vit_ad_tpu.data.loader import DataPipeline as JaxPipeline
+from vit_ad_tpu.data.synthetic import make_mvtec_category
+from vit_ad_tpu.models.flow import NormalizingFlow as JaxFlow
+from vit_ad_tpu.pipeline.eval import score_nf as jax_score_nf
+from vit_ad_tpu.scoring import payload_to_scores as jax_payload_to_scores
+from vit_ad_tpu.utils.torch_convert import export_nf_head, export_vit
+from vit_ad_tpu_torch import registry
+from vit_ad_tpu_torch.cli import score as score_cli
+from vit_ad_tpu_torch.config import DtypePolicy, HyperParams
+from vit_ad_tpu_torch.data.dataset import default_norm_stats
+from vit_ad_tpu_torch.data.loader import DataPipeline
+from vit_ad_tpu_torch.models.flow import NormalizingFlow
+from vit_ad_tpu_torch.models.vit import ViTEncoder
+from vit_ad_tpu_torch.pipeline.eval import score_nf
+from vit_ad_tpu_torch.scoring import payload_to_scores
+from vit_ad_tpu_torch.utils.convert import nf_state_dict_from_jax, vit_state_dict_from_jax
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+STEPS, RATIO, BATCH = 4, 0.16, 4
+# f32 end to end (encoder, flow, resize): sums in other orders; scores and
+# maps lie in [0, 1).
+ATOL = 2e-5
+
+
+def _tiny_port_encoder(img_size=IMG, dtypes=None, generator=None):
+    # the registry entry the CLI calls, pinned to the tiny f32 encoder
+    return ViTEncoder(img_size=IMG, patch_size=PATCH, embed_dim=D, depth=DEPTH,
+                      num_heads=HEADS, num_prefix_tokens=2, dtypes=DtypePolicy.f32(),
+                      generator=generator)
+
+
+@pytest.fixture(scope="module")
+def slice_run(tmp_path_factory):
+    """Synthetic category, tiny JAX DeiT + NF-4 with jittered weights, and the
+    JAX package's own scores for the test folder (PIL decode)."""
+    mp = pytest.MonkeyPatch()
+    pil_decode(mp)
+    root = tmp_path_factory.mktemp("torch_score")
+    cat = make_mvtec_category(str(root), "widget", img_size=48, n_train=1,
+                              n_test_good=3, n_test_defect=4)
+    test_dir = os.path.join(cat, "test")
+    files = score_cli.list_images(test_dir)
+    enc_params = jax_params(2, seed=11)
+    flow = JaxFlow(num_channels=D, img_size=IMG, num_patches=(IMG // PATCH) ** 2,
+                   hidden_ratio=RATIO, flow_steps=STEPS, dtypes=JaxDtypePolicy.f32())
+    flow_params = jitter(flow.init(jax.random.key(0), jnp.zeros((1, 4, 4, D))),
+                         np.random.default_rng(12), 0.1)
+    hp = JaxHyperParams(img_size=IMG, batch_size=BATCH, dtypes=JaxDtypePolicy.f32())
+    mean, std = default_norm_stats()
+    want = jax_score_nf(jax_encoder(2, JaxDtypePolicy.f32()), enc_params, flow, flow_params,
+                        JaxPipeline(batch_size=BATCH, img_size=IMG, files=files), hp,
+                        mean, std)
+    yield {"root": root, "test_dir": test_dir, "files": files, "enc_params": enc_params,
+           "flow_params": flow_params, "want": want, "mean": mean, "std": std}
+    mp.undo()
+
+
+def test_score_nf_matches_jax(slice_run):
+    r = slice_run
+    enc = _tiny_port_encoder()
+    enc.load_state_dict(vit_state_dict_from_jax(r["enc_params"]), strict=True)
+    flow = NormalizingFlow(D, IMG, (IMG // PATCH) ** 2, hidden_ratio=RATIO, flow_steps=STEPS)
+    flow.load_state_dict(nf_state_dict_from_jax(r["flow_params"], (IMG // PATCH) ** 2),
+                         strict=True)
+    hp = HyperParams(img_size=IMG, batch_size=BATCH, dtypes=DtypePolicy.f32())
+    got = score_nf(enc.eval(), flow.eval(), DataPipeline(BATCH, IMG, files=r["files"]), hp,
+                   r["mean"], r["std"])
+    want = r["want"]
+    assert got.pixel_scores.shape == (len(r["files"]), IMG, IMG)
+    np.testing.assert_allclose(got.image_scores, want.image_scores, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got.pixel_scores, want.pixel_scores, rtol=0, atol=ATOL)
+    assert np.array_equal(got.labels, want.labels) and np.array_equal(got.masks, want.masks)
+
+
+def test_cli_scores_csv_matches_jax_row_by_row(slice_run, tmp_path, monkeypatch):
+    r = slice_run
+    monkeypatch.setitem(registry._BUILDERS, "enc_deit", _tiny_port_encoder)
+    deit = tmp_path / "deit.pth"
+    head = tmp_path / "nf_widget.pth"
+    torch.save({"model": {**{k: torch.from_numpy(v)
+                             for k, v in export_vit(r["enc_params"]["params"]).items()},
+                          "head.weight": torch.zeros(10, D)}}, deit)
+    torch.save({k: torch.from_numpy(v) for k, v in
+                export_nf_head(r["flow_params"], (IMG // PATCH) ** 2).items()}, head)
+    out = tmp_path / "out"
+    rc = score_cli.main(["--pth", str(head), "-a", "nf", "-m", "enc_deit", "-E", str(deit),
+                         "-d", r["test_dir"], "-b", str(BATCH), "-i", str(IMG),
+                         "-f", str(STEPS), "--hidden-ratio", str(RATIO), "-o", str(out),
+                         "--device", "cpu"])
+    assert rc == 0
+    with open(out / "scores.csv") as f:
+        rows = list(csv.reader(f))
+    assert rows[0] == ["path", "image_score"]
+    assert [row[0] for row in rows[1:]] == r["files"]
+    np.testing.assert_allclose([float(row[1]) for row in rows[1:]],
+                               r["want"].image_scores, rtol=0, atol=ATOL)
+    assert (out / "summary.json").exists()
+
+
+@pytest.mark.parametrize("kind,ref_max", [("nf", None), ("recon", None), ("mdn", None),
+                                          ("mdn", [1.5]), ("mdn_resnet", None),
+                                          ("mdn_resnet", [0.5, 2.0])])
+def test_payload_to_scores_matches_jax(kind, ref_max):
+    """The host score tail of every head kind (the MDN ones through
+    `ll_to_anomaly_maps`: global-max normalization, align_corners=True
+    upsample, inversion); f32, same tolerance reasoning as the slice."""
+    rng = np.random.default_rng(7)
+    if kind == "mdn":
+        payload = 2.0 * rng.standard_normal((3, 16)).astype(np.float32)
+    elif kind == "mdn_resnet":
+        payload = tuple(2.0 * rng.standard_normal((3, p)).astype(np.float32) for p in (16, 4))
+    else:
+        payload = rng.random((3, 8, 8), dtype=np.float32)
+    want = jax_payload_to_scores(kind, payload, 8, ref_max)
+    got = payload_to_scores(kind, payload, 8, ref_max)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=0, atol=ATOL)
+    with pytest.raises(ValueError, match="unknown score kind"):
+        payload_to_scores("gan", payload, 8)
+
+
+@pytest.mark.parametrize("args,match", [
+    (["-r", "run_dir"], "orbax"),
+    (["--pth", "x.pth", "-a", "mdn"], "A5"),
+    (["--pth", "x.pth", "-a", "nf", "--watch", "5"], "A10"),
+    (["--pth", "x.pth", "-a", "nf", "--mesh", "2"], "A11"),
+    (["--pth", "x.pth"], "-a nf"),
+])
+def test_cli_refuses_unported_options_clearly(args, match, capsys):
+    with pytest.raises(SystemExit) as e:
+        score_cli.main(args + ["-d", "images"])
+    assert e.value.code != 0
+    assert match in capsys.readouterr().err
+
+
+def test_registry_names_the_roadmap_item():
+    with pytest.raises(NotImplementedError, match="A6"):
+        registry.get_model("enc_esvit")
+    with pytest.raises(NotImplementedError, match="A8"):
+        registry.get_model("ae_deit")
+    with pytest.raises(KeyError):
+        registry.get_model("no_such_model")
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys, vit_ad_tpu_torch, vit_ad_tpu_torch.cli.score, "
+        "vit_ad_tpu_torch.pipeline.loading, vit_ad_tpu_torch.pipeline.eval, "
+        "vit_ad_tpu_torch.utils.convert, vit_ad_tpu_torch.registry, "
+        "vit_ad_tpu_torch.ops.cuda.build\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'vit_ad_tpu'))\n"
+        "print(bad); sys.exit(1 if bad else 0)\n"
+    )
+    p = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=120)
+    assert p.returncode == 0, p.stdout + p.stderr
+
+
+def test_chip_smoke_refuses_without_a_gpu():
+    p = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True,
+                       text=True, timeout=120,
+                       env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert p.returncode != 0
+    assert '"ok"' not in p.stdout

@@ -1,0 +1,166 @@
+"""Score a folder of images with reference-format `.pth` weights on the GPU.
+
+Port of `python -m vit_ad_tpu.cli.score` (the `--pth` path, NF heads):
+
+    python -m vit_ad_tpu_torch.cli.score --pth <nf head .pth> -a nf \\
+        -m enc_deit -E <deit .pth> -d /path/to/images [-o out_dir] [-b BATCH]
+
+Outputs (under -o, default `<pth stem>_scores`), as the JAX CLI writes them:
+  scores.csv      path,image_score — one row per input image, input order
+  summary.json    n_images, score stats, run config echo
+
+Image score = max over the NF anomaly map (reference ValidatorNF.py:137-142).
+Run directories (`-r`, orbax checkpoints), `--watch`, `--heatmaps`, `--mesh`,
+`--weights-dtype bf16` and `-a mdn|recon` are ROADMAP A5/A8/A10 and exit with
+a message. `--device` (default: cuda when available) picks the card or CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import csv
+import json
+import os
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from vit_ad_tpu_torch.config import set_numerics_policy
+from vit_ad_tpu_torch.data.files import IMAGE_EXTENSIONS
+
+
+def list_images(images_dir: str) -> List[str]:
+    """Every image under images_dir (recursive), sorted — deterministic
+    input order, mirrored row-for-row by scores.csv."""
+    out: List[str] = []
+    for root, _, fs in os.walk(images_dir):
+        for f in fs:
+            if f.lower().endswith(IMAGE_EXTENSIONS):
+                out.append(os.path.join(root, f))
+    return sorted(out)
+
+
+def score_pth(
+    pths: List[str],
+    arch: str,
+    images_dir: str,
+    out_dir: Optional[str] = None,
+    model_name: str = "enc_deit",
+    img_size: int = 224,
+    hidden_ratio: float = 0.16,
+    flow_steps: int = 20,
+    encoder_ckpt: str = "",
+    batch: int = 0,
+    device: Optional[str] = None,
+) -> dict:
+    """Score a folder with a reference-format head `.pth` (plus the pretrained
+    trunk `encoder_ckpt`); write scores.csv and summary.json; return the
+    summary."""
+    from vit_ad_tpu_torch.pipeline.loading import build_pth_models
+
+    if len(pths) != 1:
+        raise SystemExit("two .pth files = the ResNet-MDN convention, not ported yet "
+                         "(ROADMAP A7)")
+    models = build_pth_models(pths[0], model_name, arch, img_size=img_size,
+                              hidden_ratio=hidden_ratio, flow_steps=flow_steps,
+                              encoder_ckpt=encoder_ckpt, device=device)
+    return _score_with_models(models, pths[0], {"architecture": arch}, images_dir,
+                              out_dir or os.path.splitext(pths[0])[0] + "_scores", batch)
+
+
+def _score_with_models(models, source: str, cfg: dict, images_dir: str, out_dir: str,
+                       batch: int) -> dict:
+    from vit_ad_tpu_torch.data.dataset import default_norm_stats
+    from vit_ad_tpu_torch.data.loader import DataPipeline
+    from vit_ad_tpu_torch.pipeline.loading import score_models
+
+    files = list_images(images_dir)
+    if not files:
+        raise SystemExit(f"no images found under {images_dir!r}")
+    hp = models.hp
+    if batch:
+        hp.batch_size = batch
+    mean, std = default_norm_stats()
+    pipe = DataPipeline(batch_size=hp.batch_size, img_size=hp.img_size, files=files)
+    s = score_models(models, pipe, mean, std)
+
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "scores.csv"), "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["path", "image_score"])
+        for path, score in zip(files, s.image_scores):
+            w.writerow([path, repr(float(score))])
+    summary = {
+        "run": source,
+        "images": len(files),
+        "arch": cfg.get("architecture", hp.architecture),
+        "model": hp.model_name,
+        "score_min": float(np.min(s.image_scores)),
+        "score_mean": float(np.mean(s.image_scores)),
+        "score_max": float(np.max(s.image_scores)),
+        "top": [{"path": files[i], "image_score": float(s.image_scores[i])}
+                for i in np.argsort(s.image_scores)[::-1][:5]],
+    }
+    with open(os.path.join(out_dir, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    return summary
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description="score a folder of images with reference-format legacy .pth "
+                    "weights (PyTorch/CUDA port)")
+    src = ap.add_mutually_exclusive_group(required=True)
+    src.add_argument("-r", "--run", help="run dir (not ported: orbax needs jax)")
+    src.add_argument("--pth", nargs="+", metavar="PTH",
+                     help="reference-format .pth head weights; needs -a")
+    ap.add_argument("-d", "--images", required=True,
+                    help="directory of images to score (recursive)")
+    ap.add_argument("-o", "--out", default="", help="output dir (default <pth>_scores)")
+    ap.add_argument("--heatmaps", type=int, default=0, help="not ported (ROADMAP A10)")
+    ap.add_argument("-b", "--batch", type=int, default=0, help="scoring batch size")
+    ap.add_argument("--train-data", default="",
+                    help="training image dir (only --centering runs read it)")
+    ap.add_argument("--mesh", default="", help="not ported (ROADMAP A11)")
+    ap.add_argument("--watch", type=float, default=0.0, metavar="SECS",
+                    help="not ported (ROADMAP A10)")
+    ap.add_argument("--watch-waves", type=int, default=0, help="not ported (ROADMAP A10)")
+    ap.add_argument("-a", "--arch", default="", help="nf (mdn|recon: ROADMAP A5/A8)")
+    ap.add_argument("-m", "--model", default="enc_deit", help="encoder registry key")
+    ap.add_argument("-E", "--encoder-ckpt", default="",
+                    help="pretrained trunk (timm .pth) the head was trained against")
+    ap.add_argument("-i", "--img-size", type=int, default=224)
+    ap.add_argument("-f", "--flow-steps", type=int, default=20)
+    ap.add_argument("--hidden-ratio", type=float, default=0.16)
+    ap.add_argument("--weights-dtype", default="auto", choices=("auto", "f32", "bf16"),
+                    help="weights at rest (auto = f32; bf16: ROADMAP A10)")
+    ap.add_argument("--device", default="",
+                    help="torch device (default: cuda when available, else cpu)")
+    args = ap.parse_args(argv)
+    if args.run:
+        ap.error("-r/--run: run directories hold orbax checkpoints, which need jax; "
+                 "the port scores --pth weights (run dirs: ROADMAP A10)")
+    for flag, on, item in (("--watch", args.watch, "A10"), ("--heatmaps", args.heatmaps, "A10"),
+                           ("--mesh", args.mesh, "A11"),
+                           ("--weights-dtype bf16", args.weights_dtype == "bf16", "A10")):
+        if on:
+            ap.error(f"{flag} is not ported to vit_ad_tpu_torch yet (ROADMAP {item})")
+    if not args.arch:
+        ap.error("--pth needs -a nf")
+    if args.arch != "nf":
+        ap.error(f"-a {args.arch}: only nf heads are ported (mdn: ROADMAP A5, recon: A8)")
+    set_numerics_policy()
+    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    summary = score_pth(args.pth, args.arch, args.images, out_dir=args.out or None,
+                        model_name=args.model, img_size=args.img_size,
+                        hidden_ratio=args.hidden_ratio, flow_steps=args.flow_steps,
+                        encoder_ckpt=args.encoder_ckpt, batch=args.batch, device=device)
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

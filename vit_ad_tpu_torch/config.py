@@ -1,0 +1,97 @@
+"""Configuration dataclasses and the numerics policy.
+
+Port of `vit_ad_tpu/config.py` (:16-115): the same fields and defaults, with
+torch dtypes in `DtypePolicy`. `set_numerics_policy` pins the f32 behaviour of
+the CUDA libraries, which the JAX package never had to state.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import torch
+
+# ImageNet statistics, identical values to reference src/util/ModelHelper.py:5-6.
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def set_numerics_policy() -> None:
+    """Full f32 for f32 matmuls and convolutions on the card. cuDNN runs f32
+    convolutions in TF32 by default (about three decimal digits), which would
+    silently diverge from the JAX flow's full-f32 convs; the entry points
+    (`cli/score.main`, `chip_smoke.py`) call this first."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+@dataclasses.dataclass(frozen=True)
+class DtypePolicy:
+    """Numeric policy: params are kept in `param_dtype`, matmuls/convs run in
+    `compute_dtype` (bf16 feeds the tensor cores), reductions and losses
+    accumulate in `accum_dtype`."""
+
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.bfloat16
+    accum_dtype: torch.dtype = torch.float32
+
+    @staticmethod
+    def f32() -> "DtypePolicy":
+        return DtypePolicy(compute_dtype=torch.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Logical device mesh (`vit_ad_tpu/config.py:36-62`). The port runs on one
+    card; multi-GPU scoring is ROADMAP A11."""
+
+    data: int = 1
+    model: int = 1
+    axis_names: Sequence[str] = ("data", "model")
+
+
+@dataclasses.dataclass
+class HyperParams:
+    """Training hyper-parameters. Field names follow the reference's
+    HyperParameterConfig (reference src/pipeline/LearnerRecon.py:23-52) so CLI
+    plumbing and logged configs stay comparable with the JAX package."""
+
+    # Model selection (registry keys).
+    model_name: str = "ae_cnn"
+    architecture: str = "reconstruction"  # reconstruction | mdn | nf
+    # Optimization.
+    epochs: int = 50
+    patience: int = 30
+    learning_rate: float = 1e-3
+    weight_decay: float = 1e-4
+    batch_size: int = 64
+    # Data.
+    base_path: str = "data/mvtec"
+    train_pref: str = "train/good"
+    valid_path: Optional[str] = None
+    test_path: Optional[str] = None
+    img_size: int = 224
+    amount_data: int = 0
+    centering: bool = False
+    dataset: str = "mvtec"
+    data_class: str = ""
+    # Head-specific.
+    num_gaussians: int = 150          # MDN (reference startTraining_mdn.py:33)
+    kmeans_init: bool = False
+    hidden_ratio: float = 0.16        # NF  (reference startTraining_NF.py:35)
+    flow_steps: int = 20              # NF  (reference startTraining_NF.py:36)
+    block_index: int = 0              # transformer feature depth (0 = last)
+    # Loss weights for the SSIM recon variant (reference LearnerRecon.py:278).
+    mse_weight: float = 5.0
+    ssim_weight: float = 0.5
+    # Eval.
+    fp_threshold: float = 0.3
+    # Reproducibility / execution.
+    seed: int = 24                    # matches reference file-shuffle seed
+    dtypes: DtypePolicy = dataclasses.field(default_factory=DtypePolicy)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    cache_frozen_features: bool = True
+    prefetch: int = 2
+    log_dir: str = "runs"
+    enable_wandb: bool = False

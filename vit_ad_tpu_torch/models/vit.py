@@ -1,0 +1,216 @@
+"""ViT / DeiT encoders (port of `vit_ad_tpu/models/vit.py`).
+
+Module layout and state-dict keys are timm's (`patch_embed.proj`, `cls_token`,
+`dist_token`, `pos_embed`, `blocks.{i}.{norm1,attn.qkv,attn.proj,norm2,
+mlp.fc1,mlp.fc2}`, `norm`), the layout `utils/torch_convert.export_vit` emits,
+so exported JAX weights and upstream timm checkpoints load with strict=True.
+
+Cast points follow `_block_apply` (:70-149): the residual stream is in the
+compute dtype, LayerNorm statistics run in f32 (eps 1e-6), the matmul weights
+run in the compute dtype and attention is the packed-qkv kernel
+(`ops/cuda/window_attention.vit_attention_qkv`). The compute-dtype copies of
+the weights are made once and reused while the parameters are unchanged
+(JAX casts them once per call outside its block scan, :255-258).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vit_ad_tpu_torch.config import DtypePolicy
+from vit_ad_tpu_torch.models.layers import PatchEmbed, resolve_gelu_approx
+from vit_ad_tpu_torch.models.outputs import EncoderOutput
+from vit_ad_tpu_torch.ops.cuda.window_attention import vit_attention_qkv
+
+LN_EPS = 1e-6
+
+
+def _trunc_normal_(t: torch.Tensor, std: float, generator: Optional[torch.Generator]) -> None:
+    """N(0, std²) truncated at ±2 std (flax `truncated_normal` semantics)."""
+    nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)
+
+
+class Attention(nn.Module):
+    def __init__(self, dim: int) -> None:
+        super().__init__()
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.proj = nn.Linear(dim, dim)
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int) -> None:
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+
+class Block(nn.Module):
+    """Parameter holder of one pre-LN block; `_block_apply` runs it."""
+
+    def __init__(self, dim: int, mlp_ratio: float) -> None:
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.attn = Attention(dim)
+        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+
+
+def _block_apply(x: torch.Tensor, blk: Block, w: Dict[str, torch.Tensor], num_heads: int,
+                 cd: torch.dtype, gelu_approx: bool) -> torch.Tensor:
+    """One pre-LN transformer block (JAX `_block_apply` :70). `w` holds the
+    block's matmul weights in the compute dtype."""
+    d = x.shape[-1]
+    y = F.layer_norm(x.float(), (d,), blk.norm1.weight, blk.norm1.bias, LN_EPS).to(cd)
+    qkv = F.linear(y, w["qkv_w"], w["qkv_b"])  # [B, N, 3D] packed
+    out = vit_attention_qkv(qkv, num_heads).to(cd)
+    x = x + F.linear(out, w["proj_w"], w["proj_b"])
+    y = F.layer_norm(x.float(), (d,), blk.norm2.weight, blk.norm2.bias, LN_EPS).to(cd)
+    h = F.gelu(F.linear(y, w["fc1_w"], w["fc1_b"]),
+               approximate="tanh" if gelu_approx else "none")
+    return x + F.linear(h, w["fc2_w"], w["fc2_b"])
+
+
+class ViTEncoder(nn.Module):
+    """Pre-LN vision transformer (ViT/DeiT family). Input [B, H, W, 3] float
+    (preprocessed), output `EncoderOutput` with patch tokens [B, P, D] and
+    the cls token [B, D]. Parameters are made on the CPU from `generator`
+    (JAX's initializers, other random numbers); move the module with `.to`."""
+
+    def __init__(
+        self,
+        img_size: int = 224,
+        patch_size: int = 16,
+        embed_dim: int = 768,
+        depth: int = 12,
+        num_heads: int = 12,
+        mlp_ratio: float = 4.0,
+        num_prefix_tokens: int = 1,
+        dtypes: DtypePolicy = DtypePolicy(),
+        gelu_tanh: Optional[bool] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        if num_prefix_tokens not in (1, 2):
+            raise ValueError(f"num_prefix_tokens must be 1 (cls) or 2 (cls + dist), "
+                             f"got {num_prefix_tokens}")
+        self.img_size = img_size
+        self.patch_size = patch_size
+        self.embed_dim = embed_dim
+        self.depth = depth
+        self.num_heads = num_heads
+        self.num_prefix_tokens = num_prefix_tokens
+        self.dtypes = dtypes
+        self.gelu_tanh = gelu_tanh
+        self.patch_embed = PatchEmbed(patch_size, embed_dim)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
+        if num_prefix_tokens == 2:
+            self.dist_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
+        self.pos_embed = nn.Parameter(
+            torch.zeros(1, num_prefix_tokens + self.num_patches, embed_dim))
+        self.blocks = nn.ModuleList(Block(embed_dim, mlp_ratio) for _ in range(depth))
+        self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        self._cast_key: Optional[tuple] = None
+        self._cast: Optional[dict] = None
+        self.reset_parameters(generator)
+
+    @property
+    def num_patches(self) -> int:
+        return (self.img_size // self.patch_size) ** 2
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """JAX's initializers: truncated normal 0.02 for the prefix tokens and
+        pos_embed, Glorot uniform for the block Linears, LeCun (truncated)
+        normal for the patch conv, zero biases, unit LayerNorms."""
+        conv = self.patch_embed.proj
+        fan_in = conv.weight[0].numel()
+        _trunc_normal_(conv.weight, math.sqrt(1.0 / fan_in) / 0.87962566103423978, generator)
+        nn.init.zeros_(conv.bias)
+        for t in self._prefix_params() + [self.pos_embed]:
+            _trunc_normal_(t, 0.02, generator)
+        for blk in self.blocks:
+            for lin in (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2):
+                nn.init.xavier_uniform_(lin.weight, generator=generator)
+                nn.init.zeros_(lin.bias)
+        for norm in [self.norm] + [n for b in self.blocks for n in (b.norm1, b.norm2)]:
+            nn.init.ones_(norm.weight)
+            nn.init.zeros_(norm.bias)
+
+    def _prefix_params(self) -> List[nn.Parameter]:
+        return [self.cls_token] + ([self.dist_token] if self.num_prefix_tokens == 2 else [])
+
+    def _matmul_params(self) -> Dict[str, object]:
+        blocks = [
+            {"qkv_w": b.attn.qkv.weight, "qkv_b": b.attn.qkv.bias,
+             "proj_w": b.attn.proj.weight, "proj_b": b.attn.proj.bias,
+             "fc1_w": b.mlp.fc1.weight, "fc1_b": b.mlp.fc1.bias,
+             "fc2_w": b.mlp.fc2.weight, "fc2_b": b.mlp.fc2.bias}
+            for b in self.blocks
+        ]
+        return {"patch_w": self.patch_embed.proj.weight, "patch_b": self.patch_embed.proj.bias,
+                "prefix": torch.cat(self._prefix_params(), dim=1), "pos": self.pos_embed,
+                "blocks": blocks}
+
+    def compute_weights(self) -> Dict[str, object]:
+        """The matmul weights, prefix tokens and pos_embed in the compute
+        dtype. Under a bf16 policy the casts are cached and made again only
+        when a parameter changed (storage or in-place version); while
+        gradients flow to the parameters they are cast per call."""
+        cd = self.dtypes.compute_dtype
+        if cd == self.dtypes.param_dtype or (
+            torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters())
+        ):
+            return self._cast_weights(cd)
+        key = tuple((p.data_ptr(), p._version, p.device) for p in self.parameters())
+        if key != self._cast_key:
+            with torch.inference_mode(False), torch.no_grad():
+                self._cast = self._cast_weights(cd)
+            self._cast_key = key
+        return self._cast
+
+    def _cast_weights(self, cd: torch.dtype) -> Dict[str, object]:
+        w = self._matmul_params()
+        blocks = [{n: t.to(cd) for n, t in b.items()} for b in w.pop("blocks")]
+        return {**{k: v.to(cd) for k, v in w.items()}, "blocks": blocks}
+
+    def _final_norm(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), (self.embed_dim,), self.norm.weight, self.norm.bias,
+                            LN_EPS).to(self.dtypes.compute_dtype)
+
+    def forward(self, x: torch.Tensor, block_index: int = 0) -> EncoderOutput:
+        cd = self.dtypes.compute_dtype
+        w = self.compute_weights()
+        tokens = self.patch_embed(x.to(cd), w["patch_w"], w["patch_b"])
+        prefix = w["prefix"].expand(x.shape[0], -1, -1)
+        tokens = torch.cat([prefix, tokens], dim=1) + w["pos"]
+        gelu_approx = resolve_gelu_approx(self.dtypes, self.gelu_tanh)
+        if block_index != 0:
+            # FastFlow truncation: final norm after every block
+            # (reference TransformerEncoder.py:159-163)
+            for blk, bw in zip(self.blocks[: block_index + 1], w["blocks"][: block_index + 1]):
+                tokens = _block_apply(tokens, blk, bw, self.num_heads, cd, gelu_approx)
+                tokens = self._final_norm(tokens)
+        else:
+            for blk, bw in zip(self.blocks, w["blocks"]):
+                tokens = _block_apply(tokens, blk, bw, self.num_heads, cd, gelu_approx)
+            tokens = self._final_norm(tokens)
+        return EncoderOutput(patch_embedding=tokens[:, self.num_prefix_tokens:, :],
+                             latent=tokens[:, 0, :])
+
+
+def deit_base_distilled_patch16(img_size: int = 224, dtypes: DtypePolicy = DtypePolicy(),
+                                generator: Optional[torch.Generator] = None) -> ViTEncoder:
+    """DeiT-base distilled /16 — reference EncoderDeit (TransformerEncoder.py:116)."""
+    return ViTEncoder(img_size=img_size, patch_size=16, embed_dim=768, depth=12,
+                      num_heads=12, num_prefix_tokens=2, dtypes=dtypes, generator=generator)
+
+
+def vit_base_patch16(img_size: int = 224, dtypes: DtypePolicy = DtypePolicy(),
+                     generator: Optional[torch.Generator] = None) -> ViTEncoder:
+    """ViT-base /16 — reference EncoderVit (TransformerEncoder.py:176)."""
+    return ViTEncoder(img_size=img_size, patch_size=16, embed_dim=768, depth=12,
+                      num_heads=12, num_prefix_tokens=1, dtypes=dtypes, generator=generator)

@@ -1,0 +1,98 @@
+"""Build the port's CUDA kernels at first use and bind them with ctypes.
+
+Every `*.cu` under `vit_ad_tpu_torch/csrc/` is compiled by `nvcc` for Hopper
+(`sm_90a`) into one shared library with a plain C interface. The library
+lands in `vit_ad_tpu_torch/_build/` (git-ignored) under a name keyed on a hash
+of the sources and flags, so an edited kernel is rebuilt and an unchanged one
+is loaded as it is. Nothing here runs at import: the first wrapper call on a
+CUDA tensor builds and loads.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import List, Optional
+
+_PACKAGE = Path(__file__).resolve().parents[2]
+CSRC_DIR = _PACKAGE / "csrc"
+BUILD_DIR = _PACKAGE / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def find_nvcc() -> str:
+    """`nvcc` from PATH, else `$CUDA_HOME/bin` (default `/usr/local/cuda`)."""
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError(
+        "nvcc not found on PATH or in $CUDA_HOME/bin: the port's CUDA kernels "
+        f"are compiled from {CSRC_DIR} at first use and need the CUDA toolkit "
+        "(12.x, for sm_90a)"
+    )
+
+
+def source_files() -> List[Path]:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in source_files():
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"libvitad_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists; return
+    its path. The compiler's register and shared-memory report (`-Xptxas=-v`)
+    is kept beside it as `<library>.log`."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+           *(str(f) for f in source_files() if f.suffix == ".cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    out.with_name(out.name + ".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)  # atomic: another process never loads a half-written library
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with every entry
+    point's argument types declared."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            fn = lib.vit_attention_qkv_forward
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p,            # qkv, out
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,    # batch, n, heads
+                ctypes.c_int, ctypes.c_int, ctypes.c_float,  # head_dim, is_bf16, scale
+                ctypes.c_int, ctypes.c_void_p,               # device, stream
+            ]
+            fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib

@@ -1,0 +1,151 @@
+"""Rebuild live models from reference-format `.pth` checkpoints (port of the
+legacy-checkpoint half of `vit_ad_tpu/pipeline/loading.py`; run directories
+hold orbax checkpoints and are ROADMAP A10).
+
+Every `.pth` is read with `torch.load(weights_only=True)`: tensors only, no
+pickled code.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from vit_ad_tpu_torch.config import DtypePolicy, HyperParams
+from vit_ad_tpu_torch.models.flow import NormalizingFlow
+from vit_ad_tpu_torch.models.vit import ViTEncoder
+from vit_ad_tpu_torch.registry import get_model
+
+
+@dataclass
+class RunModels:
+    """Live models for one head. `parts` is the positional model prefix the
+    matching `pipeline.eval.score_*` function takes."""
+
+    kind: str  # 'nf' in this slice
+    hp: HyperParams
+    parts: Tuple[Any, ...]
+
+
+def parse_pth_filename(filename: str, arch: str):
+    """Reference filename convention (validation_loop.py:38-41,92-95,163-166):
+    MDN files lead with the gaussian count, every file ends with the data
+    class; 'nut'/'metal' tails mean metal_nut. Returns (num_gaussians | None,
+    dataclass)."""
+    stem = os.path.basename(filename)
+    stem = stem[:-4] if stem.endswith(".pth") else stem
+    dataclass = stem.split("_")[-1]
+    if dataclass in ("nut", "metal"):
+        dataclass = "metal_nut"
+    num_gaussians = None
+    if arch == "mdn":
+        lead = stem.split("_")[0]
+        if not lead.isdigit():
+            raise SystemExit(
+                f"MDN .pth filenames must lead with the gaussian count (reference "
+                f"convention '<K>_..._<dataclass>.pth'); got {os.path.basename(filename)!r}"
+            )
+        num_gaussians = int(lead)
+    return num_gaussians, dataclass
+
+
+def load_pth(path: str) -> Dict[str, torch.Tensor]:
+    """A `.pth` state dict on the CPU, unwrapped from a {'state_dict'|'model':
+    ...} container."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("state_dict", "model"):
+        if isinstance(sd, dict) and isinstance(sd.get(key), dict):
+            return sd[key]
+    return sd
+
+
+def load_encoder_checkpoint(encoder: ViTEncoder, encoder_ckpt: str) -> ViTEncoder:
+    """Load a timm ViT/DeiT `.pth` into `encoder` strictly: strip a
+    DataParallel `module.` prefix and drop the classifier heads (`head.*`,
+    `head_dist.*`, `pre_logits.*`), as the JAX `convert_vit` (:122) does."""
+    if not encoder_ckpt.endswith(".pth"):
+        raise SystemExit(
+            f"encoder checkpoint {encoder_ckpt!r}: the port reads timm .pth files; "
+            "orbax checkpoint directories need jax (ROADMAP A10)"
+        )
+    sd = {(k[len("module."):] if k.startswith("module.") else k): v
+          for k, v in load_pth(encoder_ckpt).items()}
+    if "distillation_token" in sd:
+        sd["dist_token"] = sd.pop("distillation_token")
+    sd = {k: v for k, v in sd.items()
+          if not k.startswith(("head.", "head_dist.", "pre_logits."))
+          and not k.endswith("num_batches_tracked")}
+    encoder.load_state_dict(sd, strict=True)
+    return encoder
+
+
+def _flow_decoder_state(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The AllInOneBlock entries of a reference NF state dict, rooted at
+    `module_list.` (accepts the `fast_flow_decoder.` and legacy `nf.` roots
+    and a bare SequenceINN save; the unused `layer_norm` member is dropped,
+    as the JAX `convert_nf_head` drops it)."""
+    out = {}
+    for k, v in sd.items():
+        for root in ("fast_flow_decoder.", "nf."):
+            if k.startswith(root):
+                k = k[len(root):]
+                break
+        if k.startswith("module_list."):
+            out[k] = v
+        elif not k.startswith("layer_norm."):
+            raise KeyError(f"unexpected key {k!r} in a normalizing-flow state dict")
+    return out
+
+
+def build_pth_models(
+    pth_path: str,
+    model_name: str,
+    arch: str,
+    img_size: int = 224,
+    hidden_ratio: float = 0.16,
+    flow_steps: int = 20,
+    encoder_ckpt: str = "",
+    dtypes: Optional[DtypePolicy] = None,
+    device: Optional[torch.device] = None,
+) -> RunModels:
+    """Encoder + NF head from a reference-format head `.pth`. `encoder_ckpt`
+    is the pretrained trunk the head was trained against (timm `.pth`);
+    without it the encoder is the seed-random init (warned). The models are
+    moved to `device` (default CPU) in eval mode."""
+    if arch != "nf":
+        raise NotImplementedError(
+            f"legacy .pth scoring of arch {arch!r} is not ported yet (ROADMAP A5 for "
+            "mdn, A8 for recon); the port scores -a nf"
+        )
+    _, dataclass = parse_pth_filename(pth_path, arch)
+    hp = HyperParams(model_name=model_name, architecture=arch, img_size=img_size,
+                     hidden_ratio=hidden_ratio, flow_steps=flow_steps, data_class=dataclass)
+    if dtypes is not None:
+        hp.dtypes = dtypes
+    encoder = get_model(hp.model_name, hp.img_size, hp.dtypes,
+                        generator=torch.Generator().manual_seed(hp.seed))
+    if encoder_ckpt:
+        load_encoder_checkpoint(encoder, encoder_ckpt)
+    else:
+        print(f"build_pth_models ({arch}): no encoder checkpoint given (-E) — "
+              "evaluating against the seed-random trunk; reference-trained heads "
+              "need their pretrained trunk weights for meaningful scores")
+    flow = NormalizingFlow(num_channels=encoder.embed_dim, img_size=hp.img_size,
+                           num_patches=encoder.num_patches, hidden_ratio=hp.hidden_ratio,
+                           flow_steps=hp.flow_steps)
+    flow.fast_flow_decoder.load_state_dict(_flow_decoder_state(load_pth(pth_path)),
+                                           strict=True)
+    return RunModels(kind="nf", hp=hp,
+                     parts=(encoder.to(device).eval(), flow.to(device).eval()))
+
+
+def score_models(m: RunModels, test_data, mean=None, std=None):
+    """Label-free scoring dispatch: RunModels → pipeline.eval.ScoreOutput."""
+    from vit_ad_tpu_torch.pipeline.eval import score_nf
+
+    if m.kind != "nf":
+        raise NotImplementedError(f"scoring kind {m.kind!r} is not ported yet")
+    return score_nf(*m.parts, test_data, m.hp, mean, std)

@@ -1,0 +1,103 @@
+"""Carry JAX-trained weights into the port.
+
+`vit_state_dict_from_jax` and `nf_state_dict_from_jax` take the JAX package's
+params as nested dicts of numpy arrays (the caller does jax → numpy) and
+return the port's state dicts, in the timm and FrEIA layouts that
+`vit_ad_tpu/utils/torch_convert.export_vit` (:607) and `export_nf_head` (:518)
+emit. numpy only: no jax, no `vit_ad_tpu`.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from vit_ad_tpu_torch.models.flow import default_perms
+
+_VIT_BLOCK_KEYS = {  # timm key → (JAX stacked leaf, transpose)
+    "norm1.weight": ("norm1_scale", False),
+    "norm1.bias": ("norm1_bias", False),
+    "attn.qkv.weight": ("qkv_kernel", True),
+    "attn.qkv.bias": ("qkv_bias", False),
+    "attn.proj.weight": ("proj_kernel", True),
+    "attn.proj.bias": ("proj_bias", False),
+    "norm2.weight": ("norm2_scale", False),
+    "norm2.bias": ("norm2_bias", False),
+    "mlp.fc1.weight": ("fc1_kernel", True),
+    "mlp.fc1.bias": ("fc1_bias", False),
+    "mlp.fc2.weight": ("fc2_kernel", True),
+    "mlp.fc2.bias": ("fc2_bias", False),
+}
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
+
+
+def _hwio_to_oihw(kernel) -> np.ndarray:
+    return np.transpose(np.asarray(kernel, np.float32), (3, 2, 0, 1))
+
+
+def _unwrap(params: Mapping[str, Any]) -> Mapping[str, Any]:
+    return params["params"] if "params" in params else params
+
+
+def vit_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Scan-stacked JAX `ViTEncoder` params (or `{'params': ...}`) → the
+    port's `ViTEncoder` state dict (timm keys; `dist_token` when the model
+    has two prefix tokens)."""
+    p = _unwrap(params)
+    pe = p["patch_embed"]["proj"]
+    prefix = np.asarray(p["prefix_tokens"], np.float32)  # [1, n, D]
+    sd = {"patch_embed.proj.weight": _t(_hwio_to_oihw(pe["kernel"])),
+          "patch_embed.proj.bias": _t(pe["bias"]),
+          "cls_token": _t(prefix[:, :1])}
+    if prefix.shape[1] == 2:
+        sd["dist_token"] = _t(prefix[:, 1:2])
+    sd["pos_embed"] = _t(p["pos_embed"])
+    for i in range(int(np.asarray(p["norm1_scale"]).shape[0])):
+        for key, (leaf, transpose) in _VIT_BLOCK_KEYS.items():
+            a = np.asarray(p[leaf][i], np.float32)
+            sd[f"blocks.{i}.{key}"] = _t(a.T if transpose else a)
+    sd["norm.weight"] = _t(p["norm_scale"])
+    sd["norm.bias"] = _t(p["norm_bias"])
+    return sd
+
+
+def nf_state_dict_from_jax(params: Mapping[str, Any], num_patches: int,
+                           perms: Optional[Sequence[Sequence[int]]] = None
+                           ) -> Dict[str, torch.Tensor]:
+    """Scan-stacked JAX `NormalizingFlow` params (`a_*` 3x3 pair steps, `b_*`
+    1x1 pair steps, `t_*` odd tail) → the port's `NormalizingFlow` state dict
+    (FrEIA keys). `perms` defaults to `default_perms`, as for the JAX model."""
+    p = _unwrap(params)
+    n_pairs = np.asarray(p["a_conv1_kernel"]).shape[0] if "a_conv1_kernel" in p else 0
+    tail = "t_conv1_kernel" in p
+    steps = 2 * n_pairs + int(tail)
+    c = np.asarray(p["a_global_scale" if n_pairs else "t_global_scale"]).shape[-1]
+    perms = default_perms(steps, c) if perms is None else perms
+    if len(perms) != steps:
+        raise ValueError(f"{len(perms)} perms for {steps} steps")
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(steps):
+        if tail and i == steps - 1:
+            leaf = lambda name: np.asarray(p[f"t_{name}"], np.float32)
+        else:
+            tag = "a" if i % 2 == 0 else "b"
+            leaf = lambda name: np.asarray(p[f"{tag}_{name}"][i // 2], np.float32)
+        pre = f"fast_flow_decoder.module_list.{i}"
+        for slot, src in (("0", "conv1"), ("2", "conv2")):
+            sd[f"{pre}.subnet.{slot}.weight"] = _t(_hwio_to_oihw(leaf(f"{src}_kernel")))
+            sd[f"{pre}.subnet.{slot}.bias"] = _t(leaf(f"{src}_bias"))
+        sd[f"{pre}.global_scale"] = _t(leaf("global_scale").reshape(1, c, 1, 1))
+        sd[f"{pre}.global_offset"] = _t(leaf("global_offset").reshape(1, c, 1, 1))
+        w_perm = np.zeros((c, c), np.float32)
+        w_perm[np.arange(c), np.asarray(perms[i], np.int64)] = 1.0
+        sd[f"{pre}.w_perm"] = _t(w_perm.reshape(c, c, 1, 1))
+        sd[f"{pre}.w_perm_inv"] = _t(w_perm.T.reshape(c, c, 1, 1))
+    side = int(round(np.sqrt(num_patches)))
+    sd["layer_norm.weight"] = torch.ones(c, side, side)
+    sd["layer_norm.bias"] = torch.zeros(c, side, side)
+    return sd
