@@ -116,4 +116,4 @@ def test_build_is_keyed_on_the_sources():
     path = build.library_path()
     assert path.parent == build.BUILD_DIR and path.suffix == ".so"
     assert path == build.library_path()
-    assert [f.name for f in build.source_files()] == ["vit_attention_qkv.cu"]
+    assert [f.name for f in build.source_files()] == ["gmm.cu", "vit_attention_qkv.cu"]

@@ -143,7 +143,7 @@ def test_payload_to_scores_matches_jax(kind, ref_max):
 
 @pytest.mark.parametrize("args,match", [
     (["-r", "run_dir"], "orbax"),
-    (["--pth", "x.pth", "-a", "mdn"], "A5"),
+    (["--pth", "x.pth", "-a", "recon"], "A8"),
     (["--pth", "x.pth", "-a", "nf", "--watch", "5"], "A10"),
     (["--pth", "x.pth", "-a", "nf", "--mesh", "2"], "A11"),
     (["--pth", "x.pth"], "-a nf"),
@@ -169,7 +169,13 @@ def test_port_imports_no_jax():
         "import sys, vit_ad_tpu_torch, vit_ad_tpu_torch.cli.score, "
         "vit_ad_tpu_torch.pipeline.loading, vit_ad_tpu_torch.pipeline.eval, "
         "vit_ad_tpu_torch.utils.convert, vit_ad_tpu_torch.registry, "
-        "vit_ad_tpu_torch.ops.cuda.build\n"
+        "vit_ad_tpu_torch.ops.cuda.build, vit_ad_tpu_torch.ops.cuda.gmm, "
+        "vit_ad_tpu_torch.ops.gmm, vit_ad_tpu_torch.models.mdn, "
+        "vit_ad_tpu_torch.pipeline.metrics, vit_ad_tpu_torch.pipeline.features, "
+        "vit_ad_tpu_torch.pipeline.optimizers, vit_ad_tpu_torch.pipeline.early_stopping, "
+        "vit_ad_tpu_torch.pipeline.train, vit_ad_tpu_torch.cli.common, "
+        "vit_ad_tpu_torch.cli.train_mdn, vit_ad_tpu_torch.data.files, "
+        "vit_ad_tpu_torch.data.loader, vit_ad_tpu_torch.data.synthetic\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'vit_ad_tpu'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"

@@ -1,18 +1,24 @@
 """Score a folder of images with reference-format `.pth` weights on the GPU.
 
-Port of `python -m vit_ad_tpu.cli.score` (the `--pth` path, NF heads):
+Port of `python -m vit_ad_tpu.cli.score` (the `--pth` path, NF and MDN
+heads):
 
-    python -m vit_ad_tpu_torch.cli.score --pth <nf head .pth> -a nf \\
+    python -m vit_ad_tpu_torch.cli.score --pth <head .pth> -a nf|mdn \\
         -m enc_deit -E <deit .pth> -d /path/to/images [-o out_dir] [-b BATCH]
+
+MDN files are named `<K>_..._<class>.pth` (K = number of gaussians), as
+`cli.train_mdn` saves them.
 
 Outputs (under -o, default `<pth stem>_scores`), as the JAX CLI writes them:
   scores.csv      path,image_score — one row per input image, input order
   summary.json    n_images, score stats, run config echo
 
-Image score = max over the NF anomaly map (reference ValidatorNF.py:137-142).
+Image score: max over the NF anomaly map (reference ValidatorNF.py:137-142);
+for MDN the inverted min patch probability (reference ValidatorMDN.py:133).
 Run directories (`-r`, orbax checkpoints), `--watch`, `--heatmaps`, `--mesh`,
-`--weights-dtype bf16` and `-a mdn|recon` are ROADMAP A5/A8/A10 and exit with
-a message. `--device` (default: cuda when available) picks the card or CPU.
+`--weights-dtype bf16` and `-a recon` are ROADMAP A8/A10/A11 and exit with a
+message. `--device` defaults to cuda; without a card the CLI exits unless
+`--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -24,8 +30,8 @@ import os
 from typing import List, Optional
 
 import numpy as np
-import torch
 
+from vit_ad_tpu_torch.cli.common import check_device
 from vit_ad_tpu_torch.config import set_numerics_policy
 from vit_ad_tpu_torch.data.files import IMAGE_EXTENSIONS
 
@@ -126,7 +132,7 @@ def main(argv=None) -> int:
     ap.add_argument("--watch", type=float, default=0.0, metavar="SECS",
                     help="not ported (ROADMAP A10)")
     ap.add_argument("--watch-waves", type=int, default=0, help="not ported (ROADMAP A10)")
-    ap.add_argument("-a", "--arch", default="", help="nf (mdn|recon: ROADMAP A5/A8)")
+    ap.add_argument("-a", "--arch", default="", help="nf | mdn (recon: ROADMAP A8)")
     ap.add_argument("-m", "--model", default="enc_deit", help="encoder registry key")
     ap.add_argument("-E", "--encoder-ckpt", default="",
                     help="pretrained trunk (timm .pth) the head was trained against")
@@ -135,8 +141,8 @@ def main(argv=None) -> int:
     ap.add_argument("--hidden-ratio", type=float, default=0.16)
     ap.add_argument("--weights-dtype", default="auto", choices=("auto", "f32", "bf16"),
                     help="weights at rest (auto = f32; bf16: ROADMAP A10)")
-    ap.add_argument("--device", default="",
-                    help="torch device (default: cuda when available, else cpu)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; give --device cpu to run on the CPU)")
     args = ap.parse_args(argv)
     if args.run:
         ap.error("-r/--run: run directories hold orbax checkpoints, which need jax; "
@@ -147,11 +153,11 @@ def main(argv=None) -> int:
         if on:
             ap.error(f"{flag} is not ported to vit_ad_tpu_torch yet (ROADMAP {item})")
     if not args.arch:
-        ap.error("--pth needs -a nf")
-    if args.arch != "nf":
-        ap.error(f"-a {args.arch}: only nf heads are ported (mdn: ROADMAP A5, recon: A8)")
+        ap.error("--pth needs -a nf or -a mdn")
+    if args.arch not in ("nf", "mdn"):
+        ap.error(f"-a {args.arch}: only nf and mdn heads are ported (recon: ROADMAP A8)")
+    device = check_device(args.device)
     set_numerics_policy()
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
     summary = score_pth(args.pth, args.arch, args.images, out_dir=args.out or None,
                         model_name=args.model, img_size=args.img_size,
                         hidden_ratio=args.hidden_ratio, flow_steps=args.flow_steps,

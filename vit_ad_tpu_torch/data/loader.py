@@ -1,5 +1,6 @@
-"""Batched data pipeline (port of `vit_ad_tpu/data/loader.py`, the explicit
-file-list scoring path; the training splits are ROADMAP A4).
+"""Batched data pipeline (port of `vit_ad_tpu/data/loader.py`: the dataset
+layout splits of `DataPipeline` and the explicit file-list scoring path; the
+native decoder is ROADMAP A4).
 
 Host does decode + resize only; images stay uint8 until the device, where
 `preprocess` scales and standardizes them. Batches are padded to a static
@@ -11,12 +12,13 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator, List, NamedTuple, Optional
+from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from vit_ad_tpu_torch.data.dataset import AnomalyDataset
+from vit_ad_tpu_torch.data.files import join_to_file_list, train_valid_split
 
 
 class Batch(NamedTuple):
@@ -104,19 +106,65 @@ def prefetch(it: Iterator[Batch], size: int = 2) -> Iterator[Batch]:
 
 
 class DataPipeline:
-    """Scoring pipeline over an explicit file list (JAX `DataPipeline(files=)`):
-    order preserved, missing ground-truth masks read as zeros."""
+    """Train/valid/test pipelines for one dataset category (JAX
+    `DataPipeline` :139). Either the dataset layout (`base_path` + the
+    `data_path` suffix: seed-24 shuffle, 80/20 train/valid split unless
+    `valid_path` is given; `validation_mode=True` makes it a labelled test
+    set), or an explicit `files` list for label-free scoring (order kept,
+    missing ground-truth masks read as zeros)."""
 
     def __init__(self, batch_size: int, img_size: int = 224,
-                 files: Optional[List[str]] = None) -> None:
-        if not files:
-            raise FileNotFoundError("DataPipeline needs a non-empty file list "
-                                    "(dataset-layout splits are ROADMAP A4)")
+                 files: Optional[List[str]] = None, *, base_path: str = "",
+                 data_path: str = "", valid_path: Optional[str] = None,
+                 validation_mode: bool = False, amount_data: int = 0) -> None:
         self.batch_size = batch_size
         self.img_size = img_size
-        self.test_files = list(files)
+        self.explicit_files = files is not None
+        self.train_files: List[str] = []
+        self.valid_files: List[str] = []
+        if files is not None:
+            if not files:
+                raise FileNotFoundError("DataPipeline needs a non-empty file list")
+            self.test_files = list(files)
+        elif validation_mode:
+            self.test_files = join_to_file_list(base_path, data_path)
+            if amount_data > 0:
+                self.test_files = self.test_files[:amount_data]
+        else:
+            self.test_files = []
+            self.train_files, self.valid_files = train_valid_split(
+                base_path, data_path, valid_path, amount_data)
+        if not (self.test_files or self.train_files):
+            raise FileNotFoundError(f"No images found under {base_path!r} matching suffix "
+                                    f"{data_path!r} — check the dataset root and layout.")
+
+    def _batches(self, files: List[str], validation: bool, prefetch_size: int) -> Iterator[Batch]:
+        ds = AnomalyDataset(files, self.img_size, validation=validation,
+                            missing_mask_ok=self.explicit_files)
+        return prefetch(_batches_from_dataset(ds, self.batch_size), prefetch_size)
+
+    def train_batches(self, prefetch_size: int = 2) -> Iterator[Batch]:
+        return self._batches(self.train_files, False, prefetch_size)
+
+    def valid_batches(self, prefetch_size: int = 2) -> Iterator[Batch]:
+        return self._batches(self.valid_files, False, prefetch_size)
 
     def test_batches(self, prefetch_size: int = 2) -> Iterator[Batch]:
-        ds = AnomalyDataset(self.test_files, self.img_size, validation=True,
-                            missing_mask_ok=True)
-        return prefetch(_batches_from_dataset(ds, self.batch_size), prefetch_size)
+        return self._batches(self.test_files, True, prefetch_size)
+
+    def compute_mean_std(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Per-channel mean and (biased) std of the train images in [0, 1]
+        (JAX `compute_mean_std` :225, summed in f64 on the host)."""
+        if not self.train_files:
+            raise ValueError("compute_mean_std needs train files")
+        ds = AnomalyDataset(self.train_files, self.img_size)
+        s = np.zeros(3)
+        s2 = np.zeros(3)
+        for i in range(len(ds)):
+            x = ds[i].astype(np.float64) / 255.0
+            s += x.sum(axis=(0, 1))
+            s2 += (x * x).sum(axis=(0, 1))
+        pixels = len(ds) * self.img_size * self.img_size
+        mean = s / pixels
+        std = np.sqrt(s2 / pixels - mean**2)
+        return mean.astype(np.float32), std.astype(np.float32)

@@ -1,0 +1,71 @@
+"""Gaussian mixture density network anomaly head (port of
+`vit_ad_tpu/models/mdn.py::GaussianMDN` :34).
+
+Three linear heads over per-patch features: pi D→K mixture logits, sigma
+D→D*K (sigma = elu + 1 + 1e-15) and mu D→D*K. Parameters are the reference's
+`pi`/`sigma`/`mu` nn.Linear modules (reference
+src/classes/MixtureDensityNetwork.py:129-141), so
+`vit_ad_tpu/utils/torch_convert.export_mdn_head` output loads with
+strict=True; the GMM kernels read that layout in place.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vit_ad_tpu_torch.config import DtypePolicy
+from vit_ad_tpu_torch.models.vit import _trunc_normal_
+from vit_ad_tpu_torch.ops import gmm
+from vit_ad_tpu_torch.ops.cuda.gmm import gmm_log_likelihood
+
+
+class GaussianMDN(nn.Module):
+    def __init__(self, features: int, num_gaussians: int, dtypes: DtypePolicy = DtypePolicy(),
+                 generator: Optional[torch.Generator] = None) -> None:
+        super().__init__()
+        self.features = features
+        self.num_gaussians = num_gaussians
+        self.dtypes = dtypes
+        self.pi = nn.Linear(features, num_gaussians)
+        self.sigma = nn.Linear(features, features * num_gaussians)
+        self.mu = nn.Linear(features, features * num_gaussians)
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """The JAX init: xavier-normal (flax's truncated form) on the flat
+        weights, mu bias 0.001, the other biases 0."""
+        for lin in (self.pi, self.sigma, self.mu):
+            fan_out, fan_in = lin.weight.shape
+            std = math.sqrt(2.0 / (fan_in + fan_out)) / 0.87962566103423978
+            _trunc_normal_(lin.weight.data, std, generator)
+            nn.init.zeros_(lin.bias)
+        nn.init.constant_(self.mu.bias, 0.001)
+
+    def log_pi(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+               tau: float = 1.0) -> torch.Tensor:
+        """log mixture weights [..., K] from the f32 pi head; Gumbel noise
+        from `generator` when one is given."""
+        logits = F.linear(x.float(), self.pi.weight.float(), self.pi.bias.float())
+        return gmm.mixture_log_weights(logits, generator, tau)
+
+    def log_likelihood(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                       tau: float = 1.0) -> torch.Tensor:
+        """Per-feature log-likelihood [B,P,D]: the GMM kernels (B2, B3, B4)
+        on CUDA tensors, `ops/gmm`'s plain version on CPU tensors; matmul
+        operands in the policy's compute dtype."""
+        return gmm_log_likelihood(x.float(), self.log_pi(x, generator, tau), self.sigma.weight,
+                                  self.sigma.bias, self.mu.weight, self.mu.bias,
+                                  self.dtypes.compute_dtype)
+
+    def loss(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return gmm.mdn_loss_from_log_likelihood(self.log_likelihood(x, generator))
+
+    def probability_map(self, x: torch.Tensor,
+                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """[B, P] per-patch probability map."""
+        return gmm.probability_map(self.log_likelihood(x, generator))

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
 Every `*.cu` under `vit_ad_tpu_torch/csrc/` is compiled by `nvcc` for Hopper
-(`sm_90a`) into one shared library with a plain C interface. The library
+(`sm_90a`), one process per source, all started together, and the objects
+are linked into one shared library with a plain C interface. The library
 lands in `vit_ad_tpu_torch/_build/` (git-ignored) under a name keyed on a hash
 of the sources and flags, so an edited kernel is rebuilt and an unchanged one
 is loaded as it is. Nothing here runs at import: the first wrapper call on a
@@ -24,7 +25,7 @@ CSRC_DIR = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _lock = threading.Lock()
@@ -66,17 +67,55 @@ def build() -> Path:
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *(str(f) for f in source_files() if f.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    out.with_name(out.name + ".log").write_text(proc.stdout + proc.stderr)
+    srcs = [f for f in source_files() if f.suffix == ".cu"]
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in srcs]
+    spawn = lambda cmd: subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True)
+    log = []
+
+    def wait(proc: subprocess.Popen) -> None:
+        log.append(proc.communicate()[0])
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code {proc.returncode}: "
+                               f"{' '.join(proc.args)}\n{log[-1]}")
+
+    procs = [spawn([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)])
+             for src, o in zip(srcs, objs)]
+    try:
+        for proc in procs:
+            wait(proc)
+        wait(spawn([nvcc, "-shared", "-o", str(tmp), *map(str, objs)]))
+    finally:
+        for proc in procs:  # a failed compile stops the others
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    out.with_name(out.name + ".log").write_text("".join(log))
     os.replace(tmp, out)  # atomic: another process never loads a half-written library
     return out
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# Every entry point's argument types; each returns a CUDA error code (int).
+ENTRY_POINTS = {
+    # qkv, out, batch, n, heads, head_dim, is_bf16, scale, device, stream
+    "vit_attention_qkv_forward": [_P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+    # x, log_pi, w_mu, w_sigma, b_mu, b_sigma, ll, rows, d, k, is_bf16,
+    # device, stream
+    "gmm_forward": [_P] * 7 + [_I] * 5 + [_P],
+    # x, log_pi, g, ll, w_mu, w_sigma, b_mu, b_sigma, k0, kc, dmu, dpre,
+    # bmu_part, bsig_part, dlp_part, dmu_sum, rows, d, k, is_bf16, device,
+    # stream
+    "gmm_backward_terms": [_P] * 8 + [_I] * 2 + [_P] * 6 + [_I] * 5 + [_P],
+    # x, dmu, dpre, dw_mu, dw_sigma, k0, kc, rows, d, k, is_bf16, device,
+    # stream
+    "gmm_backward_weights": [_P] * 5 + [_I] * 7 + [_P],
+    # dmu, dpre, w_mu, w_sigma, dmu_sum, dx, k0, kc, first, last, rows, d, k,
+    # is_bf16, device, stream
+    "gmm_backward_x": [_P] * 6 + [_I] * 9 + [_P],
+}
 
 
 def load_library() -> ctypes.CDLL:
@@ -86,13 +125,9 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            fn = lib.vit_attention_qkv_forward
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p,            # qkv, out
-                ctypes.c_int, ctypes.c_int, ctypes.c_int,    # batch, n, heads
-                ctypes.c_int, ctypes.c_int, ctypes.c_float,  # head_dim, is_bf16, scale
-                ctypes.c_int, ctypes.c_void_p,               # device, stream
-            ]
-            fn.restype = ctypes.c_int
+            for name, argtypes in ENTRY_POINTS.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _lib = lib
     return _lib

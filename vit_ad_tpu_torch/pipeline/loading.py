@@ -16,6 +16,7 @@ import torch
 
 from vit_ad_tpu_torch.config import DtypePolicy, HyperParams
 from vit_ad_tpu_torch.models.flow import NormalizingFlow
+from vit_ad_tpu_torch.models.mdn import GaussianMDN
 from vit_ad_tpu_torch.models.vit import ViTEncoder
 from vit_ad_tpu_torch.registry import get_model
 
@@ -25,7 +26,7 @@ class RunModels:
     """Live models for one head. `parts` is the positional model prefix the
     matching `pipeline.eval.score_*` function takes."""
 
-    kind: str  # 'nf' in this slice
+    kind: str  # 'nf' | 'mdn' in the ported slices
     hp: HyperParams
     parts: Tuple[Any, ...]
 
@@ -111,18 +112,20 @@ def build_pth_models(
     dtypes: Optional[DtypePolicy] = None,
     device: Optional[torch.device] = None,
 ) -> RunModels:
-    """Encoder + NF head from a reference-format head `.pth`. `encoder_ckpt`
-    is the pretrained trunk the head was trained against (timm `.pth`);
-    without it the encoder is the seed-random init (warned). The models are
-    moved to `device` (default CPU) in eval mode."""
-    if arch != "nf":
+    """Encoder + NF or MDN head from a reference-format head `.pth` (MDN:
+    K from the `<K>_..._<class>.pth` filename). `encoder_ckpt` is the
+    pretrained trunk the head was trained against (timm `.pth`); without it
+    the encoder is the seed-random init (warned). The models are moved to
+    `device` (default CPU) in eval mode."""
+    if arch not in ("nf", "mdn"):
         raise NotImplementedError(
-            f"legacy .pth scoring of arch {arch!r} is not ported yet (ROADMAP A5 for "
-            "mdn, A8 for recon); the port scores -a nf"
+            f"legacy .pth scoring of arch {arch!r} is not ported yet (ROADMAP A8 for "
+            "recon); the port scores -a nf and -a mdn"
         )
-    _, dataclass = parse_pth_filename(pth_path, arch)
+    num_gaussians, dataclass = parse_pth_filename(pth_path, arch)
     hp = HyperParams(model_name=model_name, architecture=arch, img_size=img_size,
-                     hidden_ratio=hidden_ratio, flow_steps=flow_steps, data_class=dataclass)
+                     hidden_ratio=hidden_ratio, flow_steps=flow_steps,
+                     num_gaussians=num_gaussians or 150, data_class=dataclass)
     if dtypes is not None:
         hp.dtypes = dtypes
     encoder = get_model(hp.model_name, hp.img_size, hp.dtypes,
@@ -133,19 +136,24 @@ def build_pth_models(
         print(f"build_pth_models ({arch}): no encoder checkpoint given (-E) — "
               "evaluating against the seed-random trunk; reference-trained heads "
               "need their pretrained trunk weights for meaningful scores")
-    flow = NormalizingFlow(num_channels=encoder.embed_dim, img_size=hp.img_size,
-                           num_patches=encoder.num_patches, hidden_ratio=hp.hidden_ratio,
-                           flow_steps=hp.flow_steps)
-    flow.fast_flow_decoder.load_state_dict(_flow_decoder_state(load_pth(pth_path)),
-                                           strict=True)
-    return RunModels(kind="nf", hp=hp,
-                     parts=(encoder.to(device).eval(), flow.to(device).eval()))
+    if arch == "mdn":
+        head = GaussianMDN(encoder.embed_dim, hp.num_gaussians, dtypes=hp.dtypes)
+        head.load_state_dict(load_pth(pth_path), strict=True)
+    else:
+        head = NormalizingFlow(num_channels=encoder.embed_dim, img_size=hp.img_size,
+                               num_patches=encoder.num_patches, hidden_ratio=hp.hidden_ratio,
+                               flow_steps=hp.flow_steps)
+        head.fast_flow_decoder.load_state_dict(_flow_decoder_state(load_pth(pth_path)),
+                                               strict=True)
+    return RunModels(kind=arch, hp=hp,
+                     parts=(encoder.to(device).eval(), head.to(device).eval()))
 
 
 def score_models(m: RunModels, test_data, mean=None, std=None):
     """Label-free scoring dispatch: RunModels → pipeline.eval.ScoreOutput."""
-    from vit_ad_tpu_torch.pipeline.eval import score_nf
+    from vit_ad_tpu_torch.pipeline.eval import score_mdn, score_nf
 
-    if m.kind != "nf":
+    score = {"nf": score_nf, "mdn": score_mdn}.get(m.kind)
+    if score is None:
         raise NotImplementedError(f"scoring kind {m.kind!r} is not ported yet")
-    return score_nf(*m.parts, test_data, m.hp, mean, std)
+    return score(*m.parts, test_data, m.hp, mean, std)

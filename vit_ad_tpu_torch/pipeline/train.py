@@ -1,0 +1,147 @@
+"""Head training loops (port of `vit_ad_tpu/pipeline/train.py`; this slice
+carries `train_mdn` :113; `train_nf` is ROADMAP A4, the ResNet and recon
+trainers A7/A8).
+
+The trunk is frozen: its features are extracted once and the head trains on
+them, cached on the device, with torch-semantics Adam, early stopping on the
+validation loss and a final metric evaluation (reference
+src/pipeline/LearnerMDN.py:97-240).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from vit_ad_tpu_torch.config import HyperParams, MeshConfig
+from vit_ad_tpu_torch.data.dataset import default_norm_stats
+from vit_ad_tpu_torch.data.loader import DataPipeline
+from vit_ad_tpu_torch.models.mdn import GaussianMDN
+from vit_ad_tpu_torch.models.vit import ViTEncoder
+from vit_ad_tpu_torch.pipeline.early_stopping import run_epochs
+from vit_ad_tpu_torch.pipeline.features import (
+    extract_features,
+    make_feature_extractor,
+    stage_feature_batches,
+)
+from vit_ad_tpu_torch.pipeline.optimizers import torch_adam
+from vit_ad_tpu_torch.registry import get_model
+
+
+@dataclasses.dataclass
+class TrainResult:
+    head: torch.nn.Module            # holds the best (lowest validation loss) weights
+    encoder: torch.nn.Module
+    history: Dict[str, Any]
+    metrics: Dict[str, float]
+    epochs_ran: int
+    best_epoch: int
+    best_valid_loss: float
+
+
+def default_encoder(hp: HyperParams) -> ViTEncoder:
+    """The registry trunk with its seed-deterministic init (on the CPU)."""
+    return get_model(hp.model_name, hp.img_size, hp.dtypes,
+                     generator=torch.Generator().manual_seed(hp.seed))
+
+
+def _weighted_mean(losses: List[torch.Tensor], weights: List[float]) -> float:
+    """Weighted mean of per-step loss scalars, fetched once per epoch."""
+    if not losses:
+        return float("nan")
+    vals = torch.stack(losses).double().cpu().numpy()
+    return float(np.average(vals, weights=weights))
+
+
+def masked_mdn_loss(mdn: GaussianMDN, feats: torch.Tensor, valid: torch.Tensor,
+                    generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Mean NLL over the valid rows of a padded batch (JAX `masked_loss`
+    :171-176); Gumbel noise from `generator` (None: the noiseless eval
+    loss)."""
+    per_example = -torch.mean(mdn.log_likelihood(feats, generator), dim=(1, 2))
+    return torch.sum(per_example * valid) / torch.clamp(torch.sum(valid), min=1.0)
+
+
+def mdn_train_step(mdn: GaussianMDN, opt: torch.optim.Optimizer, feats: torch.Tensor,
+                   valid: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """One optimizer step on one padded batch; returns the (detached) loss."""
+    opt.zero_grad(set_to_none=True)
+    loss = masked_mdn_loss(mdn, feats, valid, generator)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def _check_unported(hp: HyperParams) -> None:
+    if hp.kmeans_init:
+        raise NotImplementedError("k-means init of the MDN (pipeline/cluster_init.py) is not "
+                                  "ported to vit_ad_tpu_torch yet (ROADMAP A5)")
+    if hp.mesh != MeshConfig():
+        raise NotImplementedError("--mesh training is not ported to vit_ad_tpu_torch yet "
+                                  "(ROADMAP A11)")
+    if not hp.cache_frozen_features:
+        raise NotImplementedError("re-extracting features every epoch is not ported; the "
+                                  "port always caches the frozen trunk's features")
+
+
+def train_mdn(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPipeline] = None,
+              encoder: Optional[ViTEncoder] = None, device: Optional[str] = None,
+              log: Optional[Callable[[Dict[str, Any]], None]] = None) -> TrainResult:
+    """Train the GMM/MDN head on frozen-trunk features.
+
+    `encoder` defaults to the registry trunk with its seeded init; it and
+    the head live on `device` (default: the encoder's device, else the CPU).
+    Each training step draws fresh Gumbel noise from one generator seeded
+    with `hp.seed`; the validation loss is noiseless. The head ends with the
+    weights of its best validation epoch, and is evaluated on `test_data`."""
+    from vit_ad_tpu_torch.pipeline.eval import evaluate_mdn
+
+    _check_unported(hp)
+    if encoder is None:
+        encoder = default_encoder(hp)
+    if device is None:
+        device = next(encoder.parameters()).device
+    device = torch.device(device)
+    encoder = encoder.to(device).eval()
+    # --centering: the train set's statistics; else ImageNet's
+    mean, std = data.compute_mean_std() if hp.centering else default_norm_stats()
+    extractor = make_feature_extractor(encoder, hp.block_index, mean, std)
+    feats_train = extract_features(extractor, data.train_batches(hp.prefetch), device)
+    feats_valid = extract_features(extractor, data.valid_batches(hp.prefetch), device)
+
+    mdn = GaussianMDN(feats_train.shape[-1], hp.num_gaussians, dtypes=hp.dtypes,
+                      generator=torch.Generator().manual_seed(hp.seed)).to(device)
+    opt = torch_adam(mdn.parameters(), hp.learning_rate, hp.weight_decay)
+    noise = torch.Generator(device=device).manual_seed(hp.seed)
+    train_batches = stage_feature_batches(feats_train, hp.batch_size)
+    valid_batches = stage_feature_batches(feats_valid, hp.batch_size)
+
+    def train_epoch(epoch: int):
+        losses, weights = [], []
+        for feats, valid, w in train_batches():
+            losses.append(mdn_train_step(mdn, opt, feats, valid, noise))
+            weights.append(w)
+        return _weighted_mean(losses, weights), float(sum(weights))
+
+    def valid_epoch() -> float:
+        losses, weights = [], []
+        with torch.no_grad():
+            for feats, valid, w in valid_batches():
+                losses.append(masked_mdn_loss(mdn, feats, valid, None))
+                weights.append(w)
+        return _weighted_mean(losses, weights)
+
+    history, epochs_ran, stopper = run_epochs(hp, train_epoch, valid_epoch, mdn.state_dict,
+                                              log)
+    if stopper.best_params is not None:
+        mdn.load_state_dict(stopper.best_params)
+    metrics: Dict[str, float] = {}
+    if test_data is not None:
+        metrics = evaluate_mdn(encoder, mdn, test_data, hp, mean, std)
+    return TrainResult(
+        head=mdn, encoder=encoder, history=history, metrics=metrics, epochs_ran=epochs_ran,
+        best_epoch=stopper.best_epoch,
+        best_valid_loss=float("nan") if stopper.best_loss is None else stopper.best_loss)

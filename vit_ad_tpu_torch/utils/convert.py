@@ -1,10 +1,11 @@
 """Carry JAX-trained weights into the port.
 
-`vit_state_dict_from_jax` and `nf_state_dict_from_jax` take the JAX package's
-params as nested dicts of numpy arrays (the caller does jax → numpy) and
-return the port's state dicts, in the timm and FrEIA layouts that
-`vit_ad_tpu/utils/torch_convert.export_vit` (:607) and `export_nf_head` (:518)
-emit. numpy only: no jax, no `vit_ad_tpu`.
+`vit_state_dict_from_jax`, `nf_state_dict_from_jax` and
+`mdn_state_dict_from_jax` take the JAX package's params as nested dicts of
+numpy arrays (the caller does jax → numpy) and return the port's state
+dicts, in the timm, FrEIA and reference-MDN layouts that
+`vit_ad_tpu/utils/torch_convert.export_vit` (:607), `export_nf_head` (:518)
+and `export_mdn_head` (:497) emit. numpy only: no jax, no `vit_ad_tpu`.
 """
 
 from __future__ import annotations
@@ -101,3 +102,22 @@ def nf_state_dict_from_jax(params: Mapping[str, Any], num_patches: int,
     sd["layer_norm.weight"] = torch.ones(c, side, side)
     sd["layer_norm.bias"] = torch.zeros(c, side, side)
     return sd
+
+
+def mdn_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX `GaussianMDN` params (w [D_in, D_out, K], b [D_out, K]) → the
+    port's `GaussianMDN` state dict, the reference's pi/sigma/mu nn.Linear
+    layout: the inverse of `torch_convert.convert_mdn_head` (:418). Row
+    e*K + k of sigma/mu.weight is output feature e of component k."""
+    p = _unwrap(params)
+    w_sigma = np.asarray(p["w_sigma"], np.float32)
+    d, _, k = w_sigma.shape
+    flat = lambda w: _t(np.asarray(w, np.float32).reshape(d, d * k).T)
+    return {
+        "pi.weight": _t(np.asarray(p["w_pi"], np.float32).T),
+        "pi.bias": _t(p["b_pi"]),
+        "sigma.weight": flat(w_sigma),
+        "sigma.bias": _t(np.asarray(p["b_sigma"], np.float32).reshape(d * k)),
+        "mu.weight": flat(p["w_mu"]),
+        "mu.bias": _t(np.asarray(p["b_mu"], np.float32).reshape(d * k)),
+    }
