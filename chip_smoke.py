@@ -3,26 +3,35 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths on a full-width DeiT-base/16 trunk, bf16
-compute, through the port's CLIs, after building and checking the
-hand-written kernels: the flagship serving path (score a folder with an NF-20
+Drives the port's three main paths at full width, bf16 compute, through the
+port's CLIs, after building and checking the hand-written kernels: on a
+DeiT-base/16 trunk the flagship serving path (score a folder with an NF-20
 head) and the MDN path (train a K=150 GMM head on cached features, save it,
-score a folder with it). Phases:
+score a folder with it); on the EsViT Swin-T trunk the NF path (train an NF-20
+head on cached Swin features, save it, score a folder with it). Phases:
 
   1. device   card name and power limit (nvidia-smi)
   2. build    compile the kernels from vit_ad_tpu_torch/csrc (nvcc, sm_90a)
   3. kernels  each kernel against its plain PyTorch version on the card:
-              attention (B1), GMM forward (B2), its parameter and feature
-              backwards (B3, B4)
+              ViT attention (B1), GMM forward (B2), its parameter and feature
+              backwards (B3, B4), Swin window attention from packed and from
+              split inputs (B5, B5a), one-pass LayerNorm (B7)
   4. NF path  40 synthetic 224-px PNGs scored by `cli.score.main` with seeded
               random full-width weights; launch counts; CUDA-vs-CPU f32 scores
   5. MDN path a synthetic category: `cli.train_mdn.main` (K=150, a few
               epochs), then `cli.score.main -a mdn` on its .pth; launch
               counts per step and batch; CUDA-vs-CPU f32 scores
-  6. times    kernels vs plain (B3 and B4 also checked at 64 x 196 rows);
-              flagship NF and MDN uint8→scores img/s at batch 128; the MDN
-              train step and its peak memory
-  7. result   a kernels JSON line, the nvidia-smi line, and last the
+  6. EsViT    a synthetic category: `cli.train_nf.main -m esvit --fused-ln`
+              (a few epochs), then `cli.score.main -a nf -m enc_esvit` on its
+              .pth; B5 and B7 launch counts per encoder batch; CUDA-vs-CPU
+              f32 scores
+  7. times    kernels vs plain vs the one PyTorch call that computes the same
+              function, where there is one, each beside its bound (B3 and B4
+              also checked at 64 x 196 rows); DeiT NF and MDN and EsViT NF
+              uint8→scores img/s at batch 128 (EsViT with the fused LayerNorm
+              on and off); the MDN and NF train steps; where the device time
+              of an EsViT batch goes (torch.profiler)
+  8. result   a kernels JSON line, the nvidia-smi line, and last the
               {"ok": true, "device": ...} line
 
 Every phase raises on failure, so the script exits non-zero and prints no
@@ -82,6 +91,44 @@ GMM_BWD_CASES = [(392, 768, 150, "bfloat16"), (392, 768, 150, "float32"),
 # the MDN main path: K=150 (startTraining_mdn.py:33) on DeiT-base, D=768
 MDN_K, MDN_TRAIN, MDN_TEST, MDN_EPOCHS, MDN_BATCH, MDN_SCORE_BATCH = 150, 32, 4, 3, 16, 4
 MDN_TIMED_RUNS = 3
+# the EsViT main path: Swin-T + NF-20 (startTraining_NF.py:26-39 defaults)
+ESVIT_TRAIN, ESVIT_TEST, ESVIT_EPOCHS, ESVIT_BATCH, ESVIT_SCORE_BATCH = 32, 4, 3, 16, 4
+# kernel launches of one EsViT encoder batch: 12 window attentions; with the
+# fused LayerNorm 24 block norms, the patch norm, 3 merge norms, the final norm
+ESVIT_B5_PER_BATCH, ESVIT_B7_PER_BATCH = 12, 24 + 1 + 3 + 1
+NO_LAUNCHES = {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B5": 0, "B5a": 0, "B7": 0}
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense): HBM3 bytes/s
+# and bf16 tensor-core FLOP/s, the rates of every kernel's bound
+HBM_BYTES_PER_S, PEAK_BF16_FLOPS = 3.35e12, 989e12
+# Swin-T window attention at B=128, 224 px: (stage, windows, window side, C,
+# heads, windows per image under the shift mask)
+SWIN_STAGES = [("stage 0", 2048, 14, 96, 3, 16), ("stage 1", 512, 14, 192, 6, 4),
+               ("stage 2", 128, 14, 384, 12, 0), ("stage 3", 128, 7, 768, 24, 0)]
+# Swin-T block LayerNorms at B=128: (rows, D)
+LN_STAGES = [(401408, 96), (100352, 192), (25088, 384), (6272, 768)]
+# Window attention (B5 packed, B5a split) vs plain, TOL as for B1; cases are
+# (windows, window side, C, heads, images sharing the mask | 0 = no mask,
+# padded map side | 0): the four EsViT Swin-T stage shapes at B=2 images
+# (hd = 32 everywhere), and a 20x20 map padded to 28x28 under window 14.
+WINDOW_CASES = [
+    (32, 14, 96, 3, 2, 0), (32, 14, 96, 3, 0, 0),     # stage 0: shifted, unshifted
+    (8, 14, 192, 6, 2, 0), (8, 14, 192, 6, 0, 0),     # stage 1
+    (4, 14, 384, 12, 0, 0),                           # stage 2: window clamped, no mask
+    (4, 7, 768, 24, 0, 0),                            # stage 3: N = 49
+    (8, 14, 96, 3, 2, 28),                            # padded geometry, 4 windows per image
+]
+SPLIT_CASES = [(32, 14, 96, 3, 2, 0), (4, 7, 768, 24, 0, 0)]
+# LayerNorm (B7) vs plain: |kernel - plain| <= atol + rtol |plain|. Both
+# compute in f32 and round once; under bf16 a last-bit f32 difference can flip
+# that rounding, one bf16 ulp (2^-8 relative, 2^-7 allowed); f32: summation
+# order of the two reductions.
+LN_TOL = {"bfloat16": (1e-3, 2.0**-7), "float32": (1e-5, 1e-5)}
+# (rows, D): the Swin-T block widths and the widest merge norm at rows that
+# fill no block of 4, and two widths that are no multiple of 32 lanes x 8
+# (100 is no multiple of 8 either: the kernel's scalar vectors)
+LN_CASES = [(4099, 96), (2051, 192), (1027, 384), (515, 768), (259, 1536), (1027, 100),
+            (515, 1000)]
+LN_EPS = 1e-5
 
 
 def phase(name: str) -> None:
@@ -113,6 +160,22 @@ def median_ms(fn, torch, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def back_to_back_ms(fn, torch, launches: int = 200, warmup: int = 10) -> float:
+    """ms per call of `launches` calls enqueued back to back between two CUDA
+    events: the device time of a short kernel without the host's gap between
+    calls, which `median_ms` includes."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
 
 
 def gmm_inputs(rows: int, d: int, k: int, gen, dev):
@@ -186,6 +249,451 @@ def check_gmm_backward(rows: int, d: int, k: int, dt: str, gen, dev) -> float:
     return worst
 
 
+def window_inputs(case, dtype, gen, dev):
+    """Seeded inputs of one window-attention case: packed qkv windows, a bias
+    table (std 0.5, so the bias moves the softmax) and the shift mask."""
+    import torch
+    from vit_ad_tpu_torch.ops import window_attention as wops
+
+    windows, side, c, heads, masked_images, padded = case
+    n = side * side
+    qkv3 = torch.randn(windows, n, 3 * c, device=dev, generator=gen).to(dtype)
+    table = 0.5 * torch.randn((2 * side - 1) ** 2, heads, device=dev, generator=gen)
+    mask = None
+    if masked_images:
+        hp = padded or int(math.isqrt(windows // masked_images)) * side
+        mask = torch.from_numpy(wops.shift_attention_mask(hp, hp, side, side // 2)).to(dev)
+        assert mask.shape[0] * masked_images == windows, (mask.shape, case)
+    return qkv3, table, mask
+
+
+def check_window_attention(case, dt: str, gen, dev, split: bool = False) -> float:
+    """B5 (packed) or B5a (split) against its plain version; returns max |diff|."""
+    import torch
+    from vit_ad_tpu_torch.ops import window_attention as wops
+    from vit_ad_tpu_torch.ops.cuda import window_attention as wa
+
+    windows, side, c, heads, _, _ = case
+    qkv3, table, mask = window_inputs(case, getattr(torch, dt), gen, dev)
+    index = torch.from_numpy(wops.relative_position_index(side, side)).to(dev)
+    bias = wops.gather_bias(table, index)
+    before = (wa.window_launches, wa.split_launches)
+    if split:
+        q, k, v = (t.contiguous() for t in
+                   qkv3.reshape(windows, side * side, 3, heads, c // heads).unbind(2))
+        out = wa.window_attention(q, k, v, table, heads, (side, side), mask)
+        ref = wops.window_attention_core_reference(q, k, v, bias, mask)
+    else:
+        out = wa.swin_attention_windows(qkv3, table, heads, side, mask)
+        ref = wops.window_attention_reference(qkv3, bias, mask, heads)
+    torch.cuda.synchronize()
+    launched = (wa.window_launches - before[0], wa.split_launches - before[1])
+    err = (out.float() - ref.float()).abs().max().item()
+    name = "window_attention (B5a, split)" if split else "swin_attention_windows (B5)"
+    print(f"{name} windows={windows} N={side * side} C={c} H={heads} "
+          f"mask={'none' if mask is None else tuple(mask.shape)} {dt}: max|kernel-plain| "
+          f"{err:.3e} (tol {TOL[dt]:.0e}), launches +{launched}")
+    if not (math.isfinite(err) and err <= TOL[dt]) or launched != ((0, 1) if split else (1, 0)):
+        raise AssertionError(f"{name} disagrees with its plain version: {err}")
+    return err
+
+
+def check_layer_norm(rows: int, d: int, dt: str, gen, dev) -> float:
+    """B7 against its plain version; returns max |diff|."""
+    import torch
+    from vit_ad_tpu_torch.ops.cuda import layer_norm as ln
+
+    x = (1.5 * torch.randn(rows, d, device=dev, generator=gen) + 0.3).to(getattr(torch, dt))
+    scale = 1.0 + 0.2 * torch.randn(d, device=dev, generator=gen)
+    bias = 0.2 * torch.randn(d, device=dev, generator=gen)
+    before = ln.launches
+    out = ln.layer_norm(x, scale, bias, LN_EPS)
+    ref = ln.layer_norm_reference(x, scale, bias, LN_EPS)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    atol, rtol = LN_TOL[dt]
+    ok = bool(torch.isfinite(out).all()) and bool((diff <= atol + rtol * ref.float().abs()).all())
+    print(f"layer_norm (B7) rows={rows} D={d} {dt}: max|kernel-plain| {diff.max().item():.3e} "
+          f"(tol {atol:.0e} + {rtol:.1e}|plain|), launches +{ln.launches - before}")
+    if not ok or out.dtype != x.dtype or ln.launches != before + 1:
+        raise AssertionError("layer_norm kernel disagrees with its plain version")
+    return diff.max().item()
+
+
+def check_swin_kernels(gen, dev) -> None:
+    """Phase 3, the Swin slice: B5 at every stage shape and a padded
+    geometry, B5a at two of them, B7 at the block and merge widths, each in
+    bf16 and f32; and the recompute backwards against plain autograd."""
+    import torch
+    from vit_ad_tpu_torch.ops import window_attention as wops
+    from vit_ad_tpu_torch.ops.cuda import layer_norm as ln
+    from vit_ad_tpu_torch.ops.cuda import window_attention as wa
+
+    for dt in ("bfloat16", "float32"):
+        for case in WINDOW_CASES:
+            check_window_attention(case, dt, gen, dev)
+        for case in SPLIT_CASES:
+            check_window_attention(case, dt, gen, dev, split=True)
+        for rows, d in LN_CASES:
+            check_layer_norm(rows, d, dt, gen, dev)
+    # backwards recompute through the plain versions, so the gradients must
+    # equal autograd of the plain version (f32, tiny shapes)
+    case = (8, 7, 64, 2, 2, 0)
+    qkv3, table, mask = window_inputs(case, torch.float32, gen, dev)
+    qkv3.requires_grad_(True)
+    table.requires_grad_(True)
+    g = torch.randn(8, 49, 64, device=dev, generator=gen)
+    got = torch.autograd.grad(wa.swin_attention_windows(qkv3, table, 2, 7, mask), [qkv3, table], g)
+    index = torch.from_numpy(wops.relative_position_index(7, 7)).to(dev)
+    want = torch.autograd.grad(
+        wops.window_attention_reference(qkv3, wops.gather_bias(table, index), mask, 2),
+        [qkv3, table], g)
+    x = torch.randn(33, 96, device=dev, generator=gen, requires_grad=True)
+    params = [torch.randn(96, device=dev, generator=gen, requires_grad=True) for _ in range(2)]
+    gy = torch.randn(33, 96, device=dev, generator=gen)
+    got += torch.autograd.grad(ln.layer_norm(x, *params, LN_EPS), [x, *params], gy)
+    want += torch.autograd.grad(ln.layer_norm_reference(x, *params, LN_EPS), [x, *params], gy)
+    gerr = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want))
+    print(f"swin_attention_windows and layer_norm backwards vs plain autograd (f32): max "
+          f"relative diff {gerr:.3e} (tol 1e-5)")
+    if not gerr <= 1e-5:
+        raise AssertionError(f"a recompute backward disagrees with plain autograd: {gerr}")
+
+
+def check_scores_csv(out_dir: str, files, what: str):
+    """scores.csv holds one finite row per image, in input order."""
+    import numpy as np
+
+    with open(os.path.join(out_dir, "scores.csv")) as f:
+        rows = list(csv.reader(f))[1:]
+    scores = np.array([float(r[1]) for r in rows])
+    if [r[0] for r in rows] != files or not np.all(np.isfinite(scores)):
+        raise AssertionError(f"{what} scores.csv does not hold one finite row per image")
+    print(f"scores.csv: {len(rows)} rows, all finite, min {scores.min():.6f} "
+          f"max {scores.max():.6f}")
+    return scores
+
+
+def esvit_main_path(tmp: str) -> dict:
+    """Phase 6: train an NF-20 head on the full-width EsViT Swin-T trunk's
+    features of a synthetic 224-px category with `cli.train_nf` (fused
+    LayerNorm on), score its test folder with `cli.score -a nf -m enc_esvit`,
+    and check the launch counts of both runs and the f32 scores against the
+    CPU."""
+    import glob
+
+    import numpy as np
+    import torch
+    from vit_ad_tpu_torch.cli import score as score_cli
+    from vit_ad_tpu_torch.cli import train_nf as train_cli
+    from vit_ad_tpu_torch.config import DtypePolicy
+    from vit_ad_tpu_torch.data.dataset import default_norm_stats
+    from vit_ad_tpu_torch.data.loader import DataPipeline
+    from vit_ad_tpu_torch.data.synthetic import make_mvtec_category
+    from vit_ad_tpu_torch.pipeline.loading import build_pth_models, score_models
+
+    cat = make_mvtec_category(os.path.join(tmp, "esvit"), "gadget", img_size=224,
+                              n_train=ESVIT_TRAIN, n_test_good=ESVIT_TEST,
+                              n_test_defect=ESVIT_TEST)
+    test_dir = os.path.join(cat, "test")
+    run = os.path.join(tmp, "esvit_run")
+    split = DataPipeline(ESVIT_BATCH, 224, base_path=cat, data_path="train/good")
+    n_batches = lambda n, b: -(-n // b)
+    n_enc = (n_batches(len(split.train_files), ESVIT_BATCH)
+             + n_batches(len(split.valid_files), ESVIT_BATCH)
+             + n_batches(2 * ESVIT_TEST, ESVIT_BATCH))
+
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = train_cli.main(["-m", "esvit", "-d", cat, "-t", "train/good", "-v", "test",
+                         "-e", str(ESVIT_EPOCHS), "-p", str(ESVIT_EPOCHS),
+                         "-b", str(ESVIT_BATCH), "-i", "224", "--device", "cuda",
+                         "--out", run, "--fused-ln"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train = read_launches()
+    # the trunk is frozen and its features cached: the encoder runs once over
+    # the train, validation and test batches; the flow has no kernel
+    expect = {**NO_LAUNCHES, "B5": ESVIT_B5_PER_BATCH * n_enc, "B7": ESVIT_B7_PER_BATCH * n_enc}
+    print(f"cli.train_nf.main -m esvit --fused-ln rc={rc} in {wall:.2f} s ({n_enc} encoder "
+          f"batches of {ESVIT_BATCH}): launches {train}, expected {expect}")
+    if rc != 0 or train != expect:
+        raise AssertionError("the EsViT NF training path did not launch B5 12 times and B7 29 "
+                             "times per encoder batch")
+    with open(os.path.join(run, "history.json")) as f:
+        hist = json.load(f)
+    if not all(math.isfinite(v) for v in hist["train_loss"] + hist["valid_loss"]) or \
+            not all(math.isfinite(v) for v in hist["metrics"].values()) or \
+            hist["epochs_ran"] != ESVIT_EPOCHS:
+        raise AssertionError(f"non-finite losses or metrics: {hist}")
+    if not hist["train_loss"][-1] < hist["train_loss"][0]:
+        raise AssertionError(f"the NF train loss did not fall: {hist['train_loss']}")
+    print(f"train loss {hist['train_loss']}, valid loss {hist['valid_loss']}, "
+          f"metrics {hist['metrics']} (random trunk: information only)")
+    (pth,) = glob.glob(os.path.join(run, "nf_enc_esvit_*.pth"))
+
+    out_dir = os.path.join(tmp, "esvit_scores")
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = score_cli.main(["--pth", pth, "-a", "nf", "-m", "enc_esvit", "-d", test_dir,
+                         "-b", str(ESVIT_SCORE_BATCH), "-o", out_dir, "--fused-ln"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    score = read_launches()
+    nb = n_batches(2 * ESVIT_TEST, ESVIT_SCORE_BATCH)
+    expect = {**NO_LAUNCHES, "B5": ESVIT_B5_PER_BATCH * nb, "B7": ESVIT_B7_PER_BATCH * nb}
+    print(f"cli.score.main -a nf -m enc_esvit --fused-ln rc={rc} in {wall:.2f} s: launches "
+          f"{score}, expected {expect}")
+    if rc != 0 or score != expect:
+        raise AssertionError("EsViT scoring did not launch B5 12 times and B7 29 times per batch")
+    files = score_cli.list_images(test_dir)
+    scores = check_scores_csv(out_dir, files, "EsViT")
+
+    mean, std = default_norm_stats()
+    two = files[:2]
+    got = {}
+    for device in ("cuda", "cpu"):
+        m = build_pth_models(pth, "enc_esvit", "nf", dtypes=DtypePolicy.f32(), device=device,
+                             fused_ln=True)
+        got[device] = score_models(m, DataPipeline(2, 224, files=two), mean, std).image_scores
+    rel = np.abs(got["cuda"] - got["cpu"]) / np.abs(got["cpu"])
+    print(f"EsViT f32 image scores cuda {got['cuda'].tolist()} cpu {got['cpu'].tolist()}: "
+          f"max rel diff {rel.max():.3e} (rtol {SCORE_RTOL_F32:.0e})")
+    if not rel.max() <= SCORE_RTOL_F32:
+        raise AssertionError("CUDA f32 EsViT scores disagree with the CPU path")
+    bf16_rel = np.abs(scores[:2] - got["cpu"]) / np.abs(got["cpu"])
+    print(f"EsViT bf16 card scores vs f32 CPU scores (same 2 images): max rel diff "
+          f"{bf16_rel.max():.3e} (information: bf16 policy drift)")
+    return {"launches": {k: train[k] + score[k] for k in train}, "pth": pth}
+
+
+def sdpa_windows(q, k, v, additive):
+    """The library control of the window attention: one
+    `scaled_dot_product_attention` call on q, k, v [B_, H, N, hd] with the
+    bias and mask as one additive mask in q's dtype: either [B_, H, N, N],
+    expanded for every window beforehand, or [n_w, H, N, N], broadcast by the
+    call over [images, n_w, H, N, hd] views."""
+    import torch.nn.functional as F
+
+    b_, h, n, hd = q.shape
+    if additive.shape[0] != b_:
+        n_w = additive.shape[0]
+        q, k, v = (t.reshape(b_ // n_w, n_w, h, n, hd) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=additive)
+    return out.reshape(b_, h, n, hd).transpose(1, 2).reshape(b_, n, h * hd)
+
+
+def sdpa_ms(q, k, v, additive, torch):
+    """(best ms, the two ms) of the SDPA control with the broadcast and with
+    the expanded additive mask (the expansion is made before the timed call)."""
+    b_, n_w = q.shape[0], additive.shape[0]
+    expanded = additive.repeat(b_ // n_w, 1, 1, 1)
+    both = [median_ms(lambda: sdpa_windows(q, k, v, a), torch) for a in (additive, expanded)]
+    return min(both), both
+
+
+def swin_times(card: str, gen) -> dict:
+    """Phase 7, Swin part: B5 at the four Swin-T stage shapes of a B=128
+    batch, B5a at stage 0, B7 at the four block-norm shapes: kernel vs plain
+    vs the library call (SDPA with an additive mask; `F.layer_norm`), beside
+    the bound. Returns the kernels' JSON numbers (stage 0 for B5 and B7, the
+    heaviest call; every stage in `per_stage`)."""
+    import torch
+    import torch.nn.functional as F
+    from vit_ad_tpu_torch.ops import window_attention as wops
+    from vit_ad_tpu_torch.ops.cuda import layer_norm as ln
+    from vit_ad_tpu_torch.ops.cuda import window_attention as wa
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    out = {"B5": None, "B5a": None, "B7": None}
+    per_stage = []
+    for stage, windows, side, c, heads, n_w in SWIN_STAGES:
+        case = (windows, side, c, heads, windows // n_w if n_w else 0, 0)
+        qkv3, table, mask = window_inputs(case, bf16, gen, dev)
+        n, hd = side * side, c // heads
+        index = torch.from_numpy(wops.relative_position_index(side, side)).to(dev)
+        bias = wops.gather_bias(table, index)
+        q, k, v = wops.split_packed(qkv3, heads)  # [B_, H, N, hd] views of qkv3
+        additive = (bias[None] if mask is None else bias[None] + mask[:, None]).to(bf16)
+        kern = lambda: wa.swin_attention_windows(qkv3, table, heads, side, mask, bias=bias)
+        plain = lambda: wops.window_attention_reference(qkv3, bias, mask, heads)
+        lib = lambda: sdpa_windows(q, k, v, additive)
+        with torch.no_grad():
+            got = kern()
+            err = (got.float() - plain().float()).abs().max().item()
+            lib_err = (got.float() - lib().float()).abs().max().item()
+            kern_ms, plain_ms = alternate(kern, plain, TIMED_RUNS, 3)
+            lib_ms, lib_both = sdpa_ms(q, k, v, additive, torch)
+        if not err <= TOL["bfloat16"]:
+            raise AssertionError(f"B5 disagrees with its plain version at {stage}: {err}")
+        nums = {"max_abs_err": err, "ms": statistics.mean(kern_ms),
+                "plain_ms": statistics.mean(plain_ms), "library_ms": lib_ms,
+                **bound(tensor_bytes(qkv3, got, bias, mask), 4 * windows * heads * n * n * hd)}
+        per_stage.append({"shape": f"{stage} [{windows},{n},{3 * c}] H={heads} "
+                                   f"mask={'none' if mask is None else n_w}", **nums})
+        print(f"[{card}] swin_attention_windows (B5) {per_stage[-1]['shape']} bf16: kernel "
+              f"{kern_ms} ms, plain {plain_ms} ms (order plain, kernel, kernel, plain), SDPA "
+              f"with additive mask (broadcast, expanded) {lib_both} ms, bound "
+              f"{nums['bound_ms']:.4f} ms by "
+              f"{nums['bound_by']}; max|kernel-plain| {err:.3e}, max|kernel-SDPA| {lib_err:.3e}")
+        if out["B5"] is None:  # stage 0, shifted: the heaviest of the 12 launches
+            out["B5"] = nums
+            qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))  # [B_, N, H, hd]
+            kern = lambda: wa.window_attention(qs, ks, vs, table, heads, (side, side), mask)
+            plain = lambda: wops.window_attention_core_reference(qs, ks, vs, bias, mask)
+            with torch.no_grad():
+                got = kern()
+                err = (got.float() - plain().float()).abs().max().item()
+                kern_ms, plain_ms = alternate(kern, plain, TIMED_RUNS, 3)
+                lib_ms, lib_both = sdpa_ms(*(t.transpose(1, 2) for t in (qs, ks, vs)), additive,
+                                           torch)
+            if not err <= TOL["bfloat16"]:
+                raise AssertionError(f"B5a disagrees with its plain version at {stage}: {err}")
+            out["B5a"] = {"max_abs_err": err, "ms": statistics.mean(kern_ms),
+                          "plain_ms": statistics.mean(plain_ms), "library_ms": lib_ms,
+                          **bound(tensor_bytes(qs, ks, vs, got, bias, mask),
+                                  4 * windows * heads * n * n * hd)}
+            print(f"[{card}] window_attention (B5a, split q k v) {per_stage[-1]['shape']} bf16: "
+                  f"kernel {kern_ms} ms (the table gather included), plain {plain_ms} ms, SDPA "
+                  f"{lib_both} ms, bound {out['B5a']['bound_ms']:.4f} ms; "
+                  f"max|kernel-plain| {err:.3e}")
+            del qs, ks, vs
+        del qkv3, q, k, v, got
+    out["B5"]["per_stage"] = per_stage
+
+    ln_stages = []
+    for rows, d in LN_STAGES:
+        x = (1.5 * torch.randn(rows, d, device=dev, generator=gen) + 0.3).to(bf16)
+        scale = 1.0 + 0.2 * torch.randn(d, device=dev, generator=gen)
+        shift = 0.2 * torch.randn(d, device=dev, generator=gen)
+        scale_bf, shift_bf = scale.to(bf16), shift.to(bf16)
+        kern = lambda: ln.layer_norm(x, scale, shift, LN_EPS)
+        plain = lambda: ln.layer_norm_reference(x, scale, shift, LN_EPS)
+        # one library call on the same bf16 rows (scale and bias rounded to bf16
+        # before the timed call), and the port's unfused path around its f32 call
+        lib = lambda: F.layer_norm(x, (d,), scale_bf, shift_bf, LN_EPS)
+        unfused = lambda: F.layer_norm(x.float(), (d,), scale, shift, LN_EPS).to(bf16)
+        with torch.no_grad():
+            got, want = kern(), plain()
+            diff = (got.float() - want.float()).abs()
+            atol, rtol = LN_TOL["bfloat16"]
+            if not bool((diff <= atol + rtol * want.float().abs()).all()):
+                raise AssertionError(f"B7 disagrees with its plain version at [{rows},{d}]")
+            kern_ms, plain_ms = alternate(kern, plain, TIMED_RUNS, 3)
+            lib_ms, unfused_ms = median_ms(lib, torch), median_ms(unfused, torch)
+        nums = {"max_abs_err": diff.max().item(), "ms": statistics.mean(kern_ms),
+                "plain_ms": statistics.mean(plain_ms), "library_ms": lib_ms,
+                **bound(tensor_bytes(x, got, scale, shift), 8 * rows * d, 67e12)}
+        ln_stages.append({"shape": f"[{rows},{d}]", "unfused_ms": unfused_ms, **nums})
+        print(f"[{card}] layer_norm (B7) [{rows},{d}] bf16: kernel {kern_ms} ms, plain "
+              f"{plain_ms} ms (order plain, kernel, kernel, plain), F.layer_norm on the bf16 "
+              f"rows {lib_ms:.4f} ms, F.layer_norm on the f32 cast and back (the unfused path) "
+              f"{unfused_ms:.4f} ms, bound {nums['bound_ms']:.4f} ms by {nums['bound_by']}; "
+              f"max|kernel-plain| {nums['max_abs_err']:.3e}")
+        if out["B7"] is None:
+            out["B7"] = nums
+        del x, got, want
+    out["B7"]["per_stage"] = ln_stages
+    return out
+
+
+def print_device_profile(what: str, fn, card: str, batches: int = 3, top: int = 16) -> None:
+    """Where the device time of `fn` goes: `torch.profiler` over `batches`
+    calls, kernels summed by name, ms per call. Information only: prints
+    "not measured" if the profiler records no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(batches):
+            fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - start) * 1e3 / batches
+    kernels = {}
+    for event in prof.events():
+        if event.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(event, "device_time", None)
+            us = event.cuda_time if us is None else us
+            ms, count = kernels.get(event.name, (0.0, 0))
+            kernels[event.name] = (ms + us / 1e3 / batches, count + 1)
+    busy = sum(ms for ms, _ in kernels.values())
+    if busy <= 0:
+        print(f"[{card}] profile of {what}: not measured (the profiler recorded no device "
+              f"activity)")
+        return
+    print(f"[{card}] profile of {what}: {busy:.3f} ms of kernels per call, {wall_ms:.3f} ms wall "
+          f"under the profiler, {sum(n for _, n in kernels.values()) // batches} launches per "
+          f"call; by kernel (ms per call, launches per call):")
+    for name, (ms, count) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"    {ms:8.3f}  {count // batches:4d}  {name[:110]}")
+
+
+def esvit_times(esvit: dict, images, card: str, gen) -> None:
+    """Phase 7, EsViT part: uint8→scores img/s of Swin-T + NF-20 at B=128
+    bf16 with the fused LayerNorm off and on (order off, on, on, off), the
+    encoder alone likewise, the NF train step on cached [B, 49, 768] tokens
+    (7x7x768 maps), and where the device time of a scoring batch goes."""
+    import torch
+    from vit_ad_tpu_torch.data.dataset import default_norm_stats
+    from vit_ad_tpu_torch.data.loader import preprocess
+    from vit_ad_tpu_torch.pipeline.eval import make_nf_batch_fn
+    from vit_ad_tpu_torch.pipeline.loading import build_pth_models
+    from vit_ad_tpu_torch.pipeline.optimizers import torch_adam
+    from vit_ad_tpu_torch.pipeline.train import masked_nf_loss, train_step
+
+    dev = torch.device("cuda")
+    mean, std = (torch.as_tensor(a, device=dev) for a in default_norm_stats())
+    fns, encs = {}, {}
+    for fused in (False, True):
+        m = build_pth_models(esvit["pth"], "enc_esvit", "nf", device=dev, fused_ln=fused)
+        batch_fn = make_nf_batch_fn(*m.parts, m.hp, mean, std)
+
+        def scores(batch_fn=batch_fn):
+            with torch.inference_mode():
+                return batch_fn(images).amax(dim=(1, 2))
+
+        def encode(enc=m.parts[0]):
+            with torch.inference_mode():
+                return enc(preprocess(images, mean, std)).patch_embedding
+
+        fns[fused], encs[fused] = scores, encode
+        out = scores()
+        if out.shape != (FLAGSHIP_BATCH,) or not torch.isfinite(out).all():
+            raise AssertionError("EsViT batch gave non-finite or misshapen scores")
+    drift = (fns[True]() - fns[False]()).abs().max().item()
+    torch.cuda.reset_peak_memory_stats()
+    for what, pair in (("uint8→scores Swin-T + NF-20", fns), ("uint8→tokens Swin-T alone", encs)):
+        off = [median_ms(pair[False], torch, runs=10)]
+        on = [median_ms(pair[True], torch, runs=10), median_ms(pair[True], torch, runs=10)]
+        off.append(median_ms(pair[False], torch, runs=10))
+        rate = lambda ms: FLAGSHIP_BATCH / statistics.mean(ms) * 1e3
+        print(f"[{card}] EsViT {what} B={FLAGSHIP_BATCH} bf16, batch on the device: fused LN "
+              f"off {off} ms = {rate(off):.1f} img/s, on {on} ms = {rate(on):.1f} img/s "
+              f"(order off, on, on, off)")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"EsViT scores with the fused LN on vs off: max |diff| {drift:.3e} (bf16 roundings); "
+          f"peak memory {peak:.2f} GiB")
+
+    flow = m.parts[1].train()
+    for b in (32, 128):
+        feats = torch.randn(b, 49, 768, device=dev, generator=gen)
+        valid = torch.ones(b, device=dev)
+        opt = torch_adam(flow.parameters(), 1e-3, 1e-5)
+        step = lambda: train_step(masked_nf_loss, flow, opt, feats, valid, None)
+        loss = step()
+        if not torch.isfinite(loss):
+            raise AssertionError(f"NF train step gave a non-finite loss: {loss}")
+        ms = median_ms(step, torch, runs=10)
+        print(f"[{card}] NF-20 train step (flow forward + backward + Adam, no kernel) on cached "
+              f"[{b},7,7,768] maps, f32: {ms:.3f} ms = {b / ms * 1e3:.1f} img/s")
+    # last: the profiler's hooks slow the host down for whatever is timed after it
+    print_device_profile(f"EsViT uint8→scores B={FLAGSHIP_BATCH} bf16, fused LN on", fns[True],
+                         card)
+
+
 def plain_mdn_loss(mdn, feats, valid, generator):
     """`pipeline.train.masked_mdn_loss` through the plain version of the GMM
     kernels (for timing the step against the kernels)."""
@@ -212,17 +720,33 @@ def alternate(kern, plain, runs: int, warmup: int):
 
 def reset_launches() -> None:
     from vit_ad_tpu_torch.ops.cuda import gmm as cgmm
+    from vit_ad_tpu_torch.ops.cuda import layer_norm as ln
     from vit_ad_tpu_torch.ops.cuda import window_attention as wa
 
     wa.launches = cgmm.fwd_launches = cgmm.bwd_params_launches = cgmm.bwd_x_launches = 0
+    wa.window_launches = wa.split_launches = ln.launches = 0
 
 
 def read_launches() -> dict:
     from vit_ad_tpu_torch.ops.cuda import gmm as cgmm
+    from vit_ad_tpu_torch.ops.cuda import layer_norm as ln
     from vit_ad_tpu_torch.ops.cuda import window_attention as wa
 
     return {"B1": wa.launches, "B2": cgmm.fwd_launches, "B3": cgmm.bwd_params_launches,
-            "B4": cgmm.bwd_x_launches}
+            "B4": cgmm.bwd_x_launches, "B5": wa.window_launches, "B5a": wa.split_launches,
+            "B7": ln.launches}
+
+
+def bound(n_bytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate of their type."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def mdn_main_path(tmp: str) -> dict:
@@ -269,8 +793,8 @@ def mdn_main_path(tmp: str) -> dict:
     # frozen trunk: no feature gradient
     chunks = -(-MDN_K // cgmm.backward_chunk(MDN_BATCH * 196, 768, MDN_K,
                                              DtypePolicy().compute_dtype))
-    expect = {"B1": 12 * (n_tr + n_va + n_te), "B2": ep * (n_tr + n_va) + n_te,
-              "B3": ep * n_tr * 2 * chunks, "B4": 0}
+    expect = {**NO_LAUNCHES, "B1": 12 * (n_tr + n_va + n_te),
+              "B2": ep * (n_tr + n_va) + n_te, "B3": ep * n_tr * 2 * chunks}
     print(f"cli.train_mdn.main rc={rc} in {wall:.2f} s ({ep} epochs x {n_tr} train + {n_va} "
           f"valid batches of {MDN_BATCH}, {n_te} test batch; {chunks} backward chunks): "
           f"launches {train}, expected {expect}")
@@ -294,18 +818,12 @@ def mdn_main_path(tmp: str) -> dict:
     wall = time.perf_counter() - t0
     score = read_launches()
     nb = n_batches(2 * MDN_TEST, MDN_SCORE_BATCH)
-    expect = {"B1": 12 * nb, "B2": nb, "B3": 0, "B4": 0}
+    expect = {**NO_LAUNCHES, "B1": 12 * nb, "B2": nb}
     print(f"cli.score.main -a mdn rc={rc} in {wall:.2f} s: launches {score}, expected {expect}")
     if rc != 0 or score != expect:
         raise AssertionError("MDN scoring did not launch B2 once per batch")
     files = score_cli.list_images(test_dir)
-    with open(os.path.join(out_dir, "scores.csv")) as f:
-        rows = list(csv.reader(f))[1:]
-    scores = np.array([float(r[1]) for r in rows])
-    if [r[0] for r in rows] != files or not np.all(np.isfinite(scores)):
-        raise AssertionError("MDN scores.csv does not hold one finite row per image")
-    print(f"scores.csv: {len(rows)} rows, all finite, min {scores.min():.6f} "
-          f"max {scores.max():.6f}")
+    check_scores_csv(out_dir, files, "MDN")
 
     mean, std = default_norm_stats()
     two = files[:2]
@@ -353,12 +871,15 @@ def mdn_times(mdn: dict, images, card: str, gen) -> dict:
             err = (kern() - plain()).abs().max().item()
             kern_ms, plain_ms = alternate(kern, plain, runs, 1)
         tflop = 4 * rows * d * d * k / 1e12
+        # two [rows, D] x [D, D] products per component; x, log_pi, both heads
+        # and their biases read once, ll written once
+        b2 = bound(tensor_bytes(*args) + rows * d * 4, tflop * 1e12)
         print(f"[{card}] gmm forward (B2) B={FLAGSHIP_BATCH} rows={rows} D={d} K={k} bf16: "
               f"kernel {kern_ms} ms ({tflop / statistics.mean(kern_ms) * 1e3:.1f} TFLOP/s), "
-              f"plain {plain_ms} ms (order plain, kernel, kernel, plain); "
-              f"max|kernel-plain| {err:.3e}")
+              f"plain {plain_ms} ms (order plain, kernel, kernel, plain), bound "
+              f"{b2['bound_ms']:.3f} ms by {b2['bound_by']}; max|kernel-plain| {err:.3e}")
         out["B2"] = {"max_abs_err": err, "ms": statistics.mean(kern_ms),
-                     "plain_ms": statistics.mean(plain_ms)}
+                     "plain_ms": statistics.mean(plain_ms), "library_ms": None, **b2}
         del args
 
     m = build_pth_models(mdn["pth"], "enc_deit", "mdn", device=dev)
@@ -413,6 +934,15 @@ def mdn_times(mdn: dict, images, card: str, gen) -> dict:
         grads[version] = bwd_x()
         grads[version + " ms"] = [median_ms(f, torch, runs, 1) for f in (fwd, bwd, bwd_x)]
     errs = [(g - w).abs().max().item() for g, w in zip(grads["kernel"], grads["plain"])]
+    # B3 recomputes mu and pre (two products per component) and contracts x
+    # with dmu and dpre (two more); B4 multiplies dmu and dpre by the heads
+    # (two). Each reads x, g, ll, log_pi and both heads once; B3 writes both
+    # heads' gradients, B4 dx.
+    rows_b, head_bytes = b * 196, tensor_bytes(*params[1:])
+    prod = 2 * rows_b * d * d * MDN_K  # one [rows, D] x [D, D] product per component
+    acts = tensor_bytes(x, c, log_pi) + rows_b * d * 4
+    bounds = {"B3": bound(acts + 2 * head_bytes + tensor_bytes(log_pi), 4 * prod),
+              "B4": bound(acts + head_bytes + tensor_bytes(x), 2 * prod)}
     for key, idx, what in (("B3", 1, "parameter backward"), ("B4", 2, "feature backward")):
         k_ms = grads["kernel ms"][idx] - grads["kernel ms"][idx - 1]
         p_ms = grads["plain ms"][idx] - grads["plain ms"][idx - 1]
@@ -421,12 +951,14 @@ def mdn_times(mdn: dict, images, card: str, gen) -> dict:
         rel = max(errs[i] / grads["plain"][i].abs().max().item() for i in idx_g)
         print(f"[{card}] gmm {what} ({key}) rows={b * 196} D={d} K={MDN_K} bf16, by "
               f"difference of medians: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
-              f"(kernel fwd/+bwd/+dx {grads['kernel ms']}, plain {grads['plain ms']}); "
+              f"(kernel fwd/+bwd/+dx {grads['kernel ms']}, plain {grads['plain ms']}), bound "
+              f"{bounds[key]['bound_ms']:.3f} ms by {bounds[key]['bound_by']}; "
               f"max|kernel-plain| {err:.3e} ({rel:.3e} of max|plain|, tol "
               f"{GRAD_RTOL['bfloat16']:.0e})")
         if not (math.isfinite(rel) and rel <= GRAD_RTOL["bfloat16"]):
             raise AssertionError(f"{key} disagrees with its plain version at B={b}: {rel}")
-        out[key] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
+        out[key] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+                    **bounds[key]}
 
     mean, std = default_norm_stats()
     as_t = lambda a: torch.as_tensor(a, device=dev)
@@ -527,6 +1059,7 @@ def main() -> int:
         check_gmm_forward(*case, gen, dev)
     for case in GMM_BWD_CASES:
         check_gmm_backward(*case, gen, dev)
+    check_swin_kernels(gen, dev)
     torch.cuda.synchronize()
 
     phase("4 main path: DeiT-base + NF-20 scoring through the CLI")
@@ -552,27 +1085,21 @@ def main() -> int:
         out_dir = os.path.join(tmp, "scores")
         argv = ["--pth", nf_pth, "-a", "nf", "-m", "enc_deit", "-E", deit_pth,
                 "-d", img_dir, "-b", str(SMOKE_BATCH), "-o", out_dir]
-        wa.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         rc = score_cli.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        nf_launches = wa.launches
+        nf_launches = read_launches()
         n_batches = -(-N_IMAGES // SMOKE_BATCH)
-        print(f"cli.score.main rc={rc} in {wall:.2f} s (model load included); "
-              f"attention launches {nf_launches}, expected 12 x {n_batches} batches "
-              f"= {12 * n_batches}")
-        if rc != 0 or nf_launches != 12 * n_batches:
+        expect = {**NO_LAUNCHES, "B1": 12 * n_batches}
+        print(f"cli.score.main rc={rc} in {wall:.2f} s (model load included); launches "
+              f"{nf_launches}, expected {expect} (12 attention launches x {n_batches} batches)")
+        if rc != 0 or nf_launches != expect:
             raise AssertionError("main path did not launch the attention kernel "
                                  "once per block per batch")
-        with open(os.path.join(out_dir, "scores.csv")) as f:
-            rows = list(csv.reader(f))[1:]
         files = score_cli.list_images(img_dir)
-        scores = np.array([float(r[1]) for r in rows])
-        if [r[0] for r in rows] != files or not np.all(np.isfinite(scores)):
-            raise AssertionError("scores.csv does not hold one finite row per image")
-        print(f"scores.csv: {len(rows)} rows, all finite, min {scores.min():.6f} "
-              f"max {scores.max():.6f}")
+        scores = check_scores_csv(out_dir, files, "NF")
 
         # the same two images with the f32 policy on the card and on the CPU
         mean, std = default_norm_stats()
@@ -596,7 +1123,10 @@ def main() -> int:
         phase("5 main path: DeiT-base + MDN K=150, train then score through the CLIs")
         mdn = mdn_main_path(tmp)
 
-        phase("6 times (CUDA events, median of %d after warm-up)" % TIMED_RUNS)
+        phase("6 main path: EsViT Swin-T + NF-20, train then score through the CLIs")
+        esvit = esvit_main_path(tmp)
+
+        phase("7 times (CUDA events, median of %d after warm-up)" % TIMED_RUNS)
         qkv = torch.randn(FLAGSHIP_BATCH, 198, 3 * 768, device=dev,
                           generator=gen).to(torch.bfloat16)
         err = (wa.vit_attention_qkv(qkv, 12).float()
@@ -605,13 +1135,21 @@ def main() -> int:
             raise AssertionError(f"kernel disagrees at batch {FLAGSHIP_BATCH}: {err}")
         kern = lambda: wa.vit_attention_qkv(qkv, 12)
         plain = lambda: wa.vit_attention_qkv_reference(qkv, 12)
-        plain_ms = [median_ms(plain, torch)]
-        kern_ms = [median_ms(kern, torch), median_ms(kern, torch)]
-        plain_ms.append(median_ms(plain, torch))
+        # the library control: one SDPA call on [B, H, N, hd] views of the packed qkv
+        q, k, v = qkv.reshape(FLAGSHIP_BATCH, 198, 3, 12, 64).permute(2, 0, 3, 1, 4)
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)
+        kern_ms, plain_ms = alternate(kern, plain, TIMED_RUNS, 3)
+        att_lib_ms = median_ms(sdpa, torch)
+        att_b2b_ms = [back_to_back_ms(f, torch) for f in (kern, sdpa)]
         att_ms, att_plain_ms = statistics.mean(kern_ms), statistics.mean(plain_ms)
+        att_bound = bound(tensor_bytes(qkv) + tensor_bytes(qkv) // 3,
+                          4 * FLAGSHIP_BATCH * 12 * 198 * 198 * 64)
         print(f"[{card}] vit_attention_qkv B={FLAGSHIP_BATCH} N=198 C=768 H=12 bf16: "
               f"kernel {kern_ms} ms, plain {plain_ms} ms (order plain, kernel, kernel, "
-              f"plain); max|kernel-plain| {err:.3e}")
+              f"plain), SDPA {att_lib_ms:.4f} ms, bound {att_bound['bound_ms']:.4f} ms by "
+              f"{att_bound['bound_by']}; back to back (200 launches) kernel "
+              f"{att_b2b_ms[0]:.4f} ms, SDPA {att_b2b_ms[1]:.4f} ms; max|kernel-plain| {err:.3e}")
+        del q, k, v
 
         m = build_pth_models(nf_pth, "enc_deit", "nf", encoder_ckpt=deit_pth, device=dev)
         encoder, flow = m.parts
@@ -636,18 +1174,22 @@ def main() -> int:
               f"batch on the device: {batch_ms:.3f} ms/batch = "
               f"{FLAGSHIP_BATCH / batch_ms * 1e3:.1f} img/s; peak memory {peak:.2f} GiB")
         gmm_times = mdn_times(mdn, images, card, gen)
+        swin = swin_times(card, gen)
+        esvit_times(esvit, images, card, gen)
     torch.cuda.synchronize()
 
-    phase("7 result")
+    phase("8 result")
     kernels = [{
         "name": "vit_attention_qkv",
         "route": "cuda",
         "source": "vit_ad_tpu_torch/csrc/vit_attention_qkv.cu",
         "replaces": "vit_ad_tpu/ops/pallas/window_attention.py:375",
-        "launches": nf_launches,
+        "launches": nf_launches["B1"] + mdn["launches"]["B1"],
         "max_abs_err": err,
         "ms": att_ms,
         "plain_ms": att_plain_ms,
+        **att_bound,
+        "library_ms": att_lib_ms,
     }]
     # launches are kernel launches: B3 counts its terms and weights kernels
     # once per chunk of components. B4 runs only when the features need a
@@ -660,6 +1202,17 @@ def main() -> int:
         kernels.append({"name": kernel, "route": "cuda", "source": "vit_ad_tpu_torch/csrc/gmm.cu",
                         "replaces": replaces, "launches": mdn["launches"][key],
                         **gmm_times[key]})
+    # B5a, the split-input entry, is on no CLI path (the JAX package reaches it
+    # only by an experiment toggle): its check and time are phases 3, 7
+    for key, kernel, source, replaces in (
+            ("B5", "swin_window_attention", "swin_window_attention.cu",
+             "vit_ad_tpu/ops/pallas/window_attention.py:212"),
+            ("B5a", "swin_window_attention_split", "swin_window_attention.cu",
+             "vit_ad_tpu/ops/pallas/window_attention.py:46"),
+            ("B7", "layer_norm", "layer_norm.cu", "vit_ad_tpu/ops/pallas/layer_norm.py:53")):
+        kernels.append({"name": kernel, "route": "cuda",
+                        "source": f"vit_ad_tpu_torch/csrc/{source}", "replaces": replaces,
+                        "launches": esvit["launches"][key], **swin[key]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

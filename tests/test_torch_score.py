@@ -156,8 +156,8 @@ def test_cli_refuses_unported_options_clearly(args, match, capsys):
 
 
 def test_registry_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A6"):
-        registry.get_model("enc_esvit")
+    with pytest.raises(NotImplementedError, match="A7"):
+        registry.get_model("enc_res_net")
     with pytest.raises(NotImplementedError, match="A8"):
         registry.get_model("ae_deit")
     with pytest.raises(KeyError):
@@ -175,7 +175,10 @@ def test_port_imports_no_jax():
         "vit_ad_tpu_torch.pipeline.optimizers, vit_ad_tpu_torch.pipeline.early_stopping, "
         "vit_ad_tpu_torch.pipeline.train, vit_ad_tpu_torch.cli.common, "
         "vit_ad_tpu_torch.cli.train_mdn, vit_ad_tpu_torch.data.files, "
-        "vit_ad_tpu_torch.data.loader, vit_ad_tpu_torch.data.synthetic\n"
+        "vit_ad_tpu_torch.data.loader, vit_ad_tpu_torch.data.synthetic, "
+        "vit_ad_tpu_torch.ops.window_attention, vit_ad_tpu_torch.ops.cuda.window_attention, "
+        "vit_ad_tpu_torch.ops.cuda.layer_norm, vit_ad_tpu_torch.models.layers, "
+        "vit_ad_tpu_torch.models.swin, vit_ad_tpu_torch.cli.train_nf\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'vit_ad_tpu'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"

@@ -1,9 +1,12 @@
-"""The port's MDN training slice against the JAX package: the dataset splits
+"""The port's training slices against the JAX package: the dataset splits
 and padded `DataPipeline` batches, one `train_mdn` step (noise off: the JAX
 and torch random streams differ) with Adam and coupled weight decay, the
 early-stopping epoch loop, a tiny `train_mdn` run that separates good from
-defective images, the JAX evaluator on the port-trained head, and the
-`cli.train_mdn` → `.pth` → `cli.score -a mdn` round trip."""
+defective images, the JAX evaluator on the port-trained head, the
+`cli.train_mdn` → `.pth` → `cli.score -a mdn` round trip; and the NF slice on
+a tiny Swin trunk: `train_nf` against the JAX `train_nf` from the same flow
+init, and the `cli.train_nf` → `.pth` → `cli.score -a nf -m enc_esvit` round
+trip."""
 
 import csv
 import json
@@ -20,33 +23,45 @@ import torch
 from test_torch_data import pil_decode
 from test_torch_score import _tiny_port_encoder
 from test_torch_mdn import jax_mdn_params, port_mdn
+from test_torch_swin import jax_params as jax_swin_params
+from test_torch_swin import jax_swin, port_swin
 from test_torch_vit import D, IMG, jax_encoder
 from vit_ad_tpu.config import DtypePolicy as JaxDtypePolicy
 from vit_ad_tpu.config import HyperParams as JaxHyperParams
 from vit_ad_tpu.data import files as jfiles
 from vit_ad_tpu.data import synthetic as jsynthetic
 from vit_ad_tpu.data.loader import DataPipeline as JaxPipeline
+from vit_ad_tpu.models.flow import NormalizingFlow as JaxFlow
 from vit_ad_tpu.models.mdn import GaussianMDN as JaxMDN
 from vit_ad_tpu.pipeline.early_stopping import run_epochs as jax_run_epochs
 from vit_ad_tpu.pipeline.eval import evaluate_mdn as jax_evaluate_mdn
 from vit_ad_tpu.pipeline.optimizers import torch_adam as jax_torch_adam
+from vit_ad_tpu.pipeline.train import train_nf as jax_train_nf
 from vit_ad_tpu.utils.torch_convert import convert_mdn_head
 from vit_ad_tpu_torch import registry
 from vit_ad_tpu_torch.cli import score as score_cli
 from vit_ad_tpu_torch.cli import train_mdn as train_cli
+from vit_ad_tpu_torch.cli import train_nf as train_nf_cli
 from vit_ad_tpu_torch.config import DtypePolicy, HyperParams
 from vit_ad_tpu_torch.data import files, synthetic
 from vit_ad_tpu_torch.data.dataset import default_norm_stats
 from vit_ad_tpu_torch.data.loader import DataPipeline
 from vit_ad_tpu_torch.pipeline.early_stopping import run_epochs
-from vit_ad_tpu_torch.pipeline.eval import score_mdn
+from vit_ad_tpu_torch.models.flow import NormalizingFlow
+from vit_ad_tpu_torch.pipeline import train as train_module
+from vit_ad_tpu_torch.pipeline.eval import score_mdn, score_nf
 from vit_ad_tpu_torch.pipeline.loading import build_pth_models
 from vit_ad_tpu_torch.pipeline.optimizers import torch_adam
-from vit_ad_tpu_torch.pipeline.train import mdn_train_step, train_mdn
-from vit_ad_tpu_torch.utils.convert import vit_state_dict_from_jax
+from vit_ad_tpu_torch.pipeline.train import mdn_train_step, train_mdn, train_nf
+from vit_ad_tpu_torch.utils.convert import (
+    nf_state_dict_from_jax,
+    swin_state_dict_from_jax,
+    vit_state_dict_from_jax,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K = 4
+SWIN_IMG, NF_STEPS, NF_RATIO = 56, 4, 0.5  # the tiny Swin: 49 tokens of 64 channels
 
 
 @pytest.fixture(scope="module")
@@ -251,14 +266,117 @@ def test_cli_train_then_score_round_trip(category, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("args,match", [
     (["--mesh", "2x1", "--device", "cpu"], "A11"),
-    (["-m", "esvit", "--device", "cpu"], "A6"),
+    (["-m", "res_net", "--device", "cpu"], "A7"),
 ])
 def test_train_cli_refuses_unported_options(args, match):
     with pytest.raises(SystemExit, match=match):
         train_cli.main(args)
 
 
-@pytest.mark.parametrize("module", ["vit_ad_tpu_torch.cli.score", "vit_ad_tpu_torch.cli.train_mdn"])
+@pytest.fixture(scope="module")
+def swin_category(tmp_path_factory):
+    root = tmp_path_factory.mktemp("torch_train_nf")
+    return synthetic.make_mvtec_category(str(root), "widget", img_size=SWIN_IMG, n_train=24,
+                                         n_test_good=5, n_test_defect=5)
+
+
+def test_train_nf_matches_jax_train_nf(swin_category, monkeypatch):
+    """`train_nf` on cached tiny-Swin features against the JAX `train_nf`:
+    the same trunk weights, the same flow init (the JAX trainer's, exported),
+    the same batches. f32, four epochs of Adam at lr 1e-3: the losses (of
+    magnitude ~1e3: a sum over 49 x 64 values) agree to f32 summation order,
+    which the optimizer steps amplify slowly; the rank-based metrics agree
+    but for near-ties."""
+    cat = swin_category
+    enc_params = jax_swin_params(SWIN_IMG, seed=21)
+    jhp = JaxHyperParams(model_name="enc_esvit", architecture="nf", epochs=4, patience=4,
+                         learning_rate=1e-3, weight_decay=1e-5, batch_size=8, img_size=SWIN_IMG,
+                         hidden_ratio=NF_RATIO, flow_steps=NF_STEPS, dtypes=JaxDtypePolicy.f32())
+    pipes = lambda cls, **kw: (
+        cls(batch_size=8, img_size=SWIN_IMG, base_path=cat, data_path="train/good", **kw),
+        cls(batch_size=8, img_size=SWIN_IMG, base_path=cat, data_path="test",
+            validation_mode=True, **kw))
+    want = jax_train_nf(jhp, *pipes(JaxPipeline), encoder=jax_swin(SWIN_IMG, JaxDtypePolicy.f32()),
+                        enc_params=enc_params)
+    # the flow init the JAX trainer drew (train.py:304, :333-335)
+    key = jax.random.split(jax.random.key(jhp.seed))[1]
+    jflow = JaxFlow(num_channels=64, img_size=SWIN_IMG, num_patches=49, hidden_ratio=NF_RATIO,
+                    flow_steps=NF_STEPS, dtypes=JaxDtypePolicy.f32())
+    init = nf_state_dict_from_jax(jflow.init(key, jnp.zeros((1, 7, 7, 64))), 49)
+
+    def flow_with_jax_init(**kw):
+        flow = NormalizingFlow(**kw)
+        flow.load_state_dict(init, strict=True)
+        return flow
+
+    monkeypatch.setattr(train_module, "NormalizingFlow", flow_with_jax_init)
+    enc = port_swin(SWIN_IMG)
+    enc.load_state_dict(swin_state_dict_from_jax(enc_params), strict=True)
+    hp = HyperParams(model_name="enc_esvit", architecture="nf", epochs=4, patience=4,
+                     learning_rate=1e-3, weight_decay=1e-5, batch_size=8, img_size=SWIN_IMG,
+                     hidden_ratio=NF_RATIO, flow_steps=NF_STEPS, dtypes=DtypePolicy.f32())
+    got = train_nf(hp, *pipes(DataPipeline), encoder=enc, device="cpu")
+    assert got.epochs_ran == want.epochs_ran == 4 and got.best_epoch == want.best_epoch
+    for key_ in ("train_loss", "valid_loss"):
+        np.testing.assert_allclose(got.history[key_], want.history[key_], rtol=1e-4,
+                                   err_msg=key_)
+    assert got.history["train_loss"][-1] < got.history["train_loss"][0]
+    np.testing.assert_allclose(got.best_valid_loss, want.best_valid_loss, rtol=1e-4)
+    for key_ in ("image_auroc_score", "pixel_auroc_score", "image_prauc_score",
+                 "pro_score_0.3fp"):
+        np.testing.assert_allclose(got.metrics[key_], want.metrics[key_], rtol=0, atol=1e-3,
+                                   err_msg=key_)
+
+
+def _tiny_port_swin(img_size=SWIN_IMG, dtypes=None, generator=None, fused_ln=None):
+    # the registry entry the CLIs call, pinned to the tiny f32 Swin
+    return port_swin(SWIN_IMG, fused_ln=bool(fused_ln), generator=generator)
+
+
+@pytest.mark.parametrize("fused", [None, "--fused-ln"], ids=["default_ln", "fused_ln"])
+def test_cli_train_nf_then_score_round_trip(swin_category, tmp_path, monkeypatch, fused):
+    monkeypatch.setitem(registry._BUILDERS, "enc_esvit", _tiny_port_swin)
+    flags = [fused] if fused else []
+    out = tmp_path / "run"
+    rc = train_nf_cli.main(["-m", "esvit", "-d", swin_category, "-t", "train/good", "-v", "test",
+                            "-e", "2", "-p", "2", "-b", "8", "-i", str(SWIN_IMG), "-r",
+                            str(NF_RATIO), "-f", str(NF_STEPS), "--device", "cpu",
+                            "--out", str(out), *flags])
+    assert rc == 0
+    hist = json.loads((out / "history.json").read_text())
+    assert len(hist["train_loss"]) == 2 and "image_auroc_score" in hist["metrics"]
+    pths = sorted(out.glob("nf_enc_esvit_*.pth"))
+    assert len(pths) == 1
+    test_dir = os.path.join(swin_category, "test")
+    scored = tmp_path / "scores"
+    rc = score_cli.main(["--pth", str(pths[0]), "-a", "nf", "-m", "enc_esvit", "-d", test_dir,
+                         "-b", "8", "-i", str(SWIN_IMG), "-f", str(NF_STEPS), "--hidden-ratio",
+                         str(NF_RATIO), "-o", str(scored), "--device", "cpu", *flags])
+    assert rc == 0
+    with open(scored / "scores.csv") as f:
+        rows = list(csv.reader(f))[1:]
+    imgs = score_cli.list_images(test_dir)
+    assert [row[0] for row in rows] == imgs
+    m = build_pth_models(str(pths[0]), "enc_esvit", "nf", img_size=SWIN_IMG,
+                         hidden_ratio=NF_RATIO, flow_steps=NF_STEPS, fused_ln=bool(fused))
+    assert m.parts[0].fused_ln == bool(fused)
+    want = score_nf(*m.parts, DataPipeline(8, SWIN_IMG, files=imgs), m.hp, *default_norm_stats())
+    np.testing.assert_allclose([float(row[1]) for row in rows], want.image_scores, rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("cli,args,match", [
+    (train_nf_cli, ["-m", "res_net", "--device", "cpu"], "A7"),
+    (train_nf_cli, ["--mesh", "2x1", "--device", "cpu"], "A11"),
+    (train_nf_cli, ["-m", "deit", "--fused-ln", "--device", "cpu"], "fused"),
+])
+def test_train_nf_cli_refuses_unported_options(cli, args, match):
+    with pytest.raises(SystemExit, match=match):
+        cli.main(args)
+
+
+@pytest.mark.parametrize("module", ["vit_ad_tpu_torch.cli.score", "vit_ad_tpu_torch.cli.train_mdn",
+                                    "vit_ad_tpu_torch.cli.train_nf"])
 def test_clis_without_a_card_name_device_cpu(module, tmp_path):
     """With no card and no --device, each CLI exits non-zero and says to
     give --device cpu: there is no silent fall back to the CPU."""

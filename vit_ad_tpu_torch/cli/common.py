@@ -1,21 +1,27 @@
 """Shared CLI plumbing of the port's trainers (port of
-`vit_ad_tpu/cli/common.py`: `parse_args` :44, `build_pipelines` :137).
+`vit_ad_tpu/cli/common.py`: `parse_args` :44, `build_pipelines` :137), and
+`run_trainer`, the body the trainer CLIs share.
 
 The reference's flag surface (reference startTraining_mdn.py:40):
 
   -m model  -p patience  -e epochs  -a amountData  -l learnRate
   -w weightDecay  -b batchSize  -d dataPath  -t trainPref  -v validPref
-  -i imageSize  -s blockIndex  --centering;  MDN adds -n numGaussians
+  -i imageSize  -s blockIndex  --centering;  MDN adds -n numGaussians,
+  NF adds -r hiddenRatio -f flowSteps
 
 plus the port's `--device` (default cuda; without a card the CLI exits
-unless `--device cpu` is given) and `--out` (the run directory). `--mesh`
-is ROADMAP A11 and exits with a message.
+unless `--device cpu` is given), `--out` (the run directory) and
+`--fused-ln` / `--no-fused-ln` (the trunk's LayerNorms through the one-pass
+kernel or not; default: the model's). `--mesh` is ROADMAP A11 and exits with
+a message.
 """
 
 from __future__ import annotations
 
 import getopt
-from typing import List, Optional, Tuple
+import json
+import os
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -23,9 +29,11 @@ from vit_ad_tpu_torch.config import HyperParams
 from vit_ad_tpu_torch.data.loader import DataPipeline
 
 BTAD_BASE = "data/btad/BTech_Dataset_transformed/01"
+MVTEC_BASE = "data/mvtec_anomaly_detection/hazelnut"
 USAGE = ("usage: -m <modelType> -p <patience> -e <#epochs> -a <amountOfData> -l <learnRate> "
          "-w <weightDecay> -b <batchSize> -d <dataPath> -t <trainPref> -i <imageSize> "
-         "-v <validPref> -s <blockIndex> --centering --device <cuda|cpu> --out <runDir>")
+         "-v <validPref> -s <blockIndex> --centering --device <cuda|cpu> --out <runDir> "
+         "--fused-ln|--no-fused-ln")
 
 
 def derive_dataset_names(data_path: str) -> Tuple[str, str]:
@@ -54,7 +62,8 @@ def parse_args(argv: List[str], hp: HyperParams, data_path: str, train_pref: str
     """Reference-style flags → (hp, data_path, train_pref, test_pref, device,
     out_dir); None when -h printed the usage."""
     opts, _ = getopt.getopt(argv, "hm:p:e:a:l:w:b:s:d:i:v:t:" + extra_short,
-                            ["centering", "mesh=", "device=", "out="])
+                            ["centering", "mesh=", "device=", "out=", "fused-ln",
+                             "no-fused-ln"])
     device, out_dir = "cuda", ""
     for opt, arg in opts:
         if opt == "-h":
@@ -64,6 +73,8 @@ def parse_args(argv: List[str], hp: HyperParams, data_path: str, train_pref: str
             raise SystemExit("--mesh is not ported to vit_ad_tpu_torch yet (ROADMAP A11)")
         if opt == "--centering":
             hp.centering = True
+        elif opt in ("--fused-ln", "--no-fused-ln"):
+            hp.fused_ln = opt == "--fused-ln"
         elif opt == "--device":
             device = arg
         elif opt == "--out":
@@ -94,6 +105,10 @@ def parse_args(argv: List[str], hp: HyperParams, data_path: str, train_pref: str
             hp.num_gaussians = int(arg)
         elif opt == "-s":
             hp.block_index = int(arg)
+        elif opt == "-r":
+            hp.hidden_ratio = float(arg)
+        elif opt == "-f":
+            hp.flow_steps = int(arg)
     hp.base_path = data_path
     hp.train_pref = train_pref
     hp.dataset, hp.data_class = derive_dataset_names(data_path)
@@ -108,3 +123,44 @@ def build_pipelines(hp: HyperParams, data_path: str, train_pref: str, test_pref:
     test = DataPipeline(hp.batch_size, hp.img_size, base_path=data_path, data_path=test_pref,
                         validation_mode=True)
     return data, test
+
+
+def run_trainer(parsed: Tuple[HyperParams, str, str, str, str, str], trainer: Callable,
+                banner: str, run_name: str, pth_name: str) -> int:
+    """What the trainer CLIs do with their parsed flags: build the registry
+    trunk (seed-deterministic init, as in the JAX package's trainers) and the
+    pipelines, train, print the metrics, and write into the run directory
+    (`--out`, default `<log_dir>/<run_name>_<dataset>_<class>`) `history.json`
+    (epoch losses, metrics, best epoch) and the best head's state dict as
+    `<pth_name>_<class>.pth`, which `cli.score --pth` reads back. `banner`
+    and the two names are format strings over the hyper-parameters."""
+    from vit_ad_tpu_torch.config import set_numerics_policy
+    from vit_ad_tpu_torch.pipeline.train import default_encoder
+
+    hp, data_path, train_pref, test_pref, device, out_dir = parsed
+    if not hp.model_name.startswith(("enc_", "ae_")):
+        hp.model_name = f"enc_{hp.model_name}"
+    try:
+        encoder = default_encoder(hp)
+    except (KeyError, NotImplementedError, ValueError) as e:
+        raise SystemExit(f"-m {hp.model_name}: {e}") from None
+    set_numerics_policy()
+    data, test = build_pipelines(hp, data_path, train_pref, test_pref)
+    fields = vars(hp)
+    out_dir = out_dir or os.path.join(
+        hp.log_dir, f"{run_name.format(**fields)}_{hp.dataset}_{hp.data_class}")
+    os.makedirs(out_dir, exist_ok=True)
+    print(f"{banner.format(**fields)}, patience {hp.patience}, epochs {hp.epochs}, "
+          f"lr {hp.learning_rate}, wd {hp.weight_decay}, bs {hp.batch_size}, "
+          f"img {hp.img_size}, data {data_path}/{train_pref}, device {device}", flush=True)
+    result = trainer(hp, data, test, encoder=encoder, device=device,
+                     log=lambda row: print(json.dumps(row), flush=True))
+    print("final metrics:", json.dumps(result.metrics))
+    with open(os.path.join(out_dir, "history.json"), "w") as f:
+        json.dump({**result.history, "metrics": result.metrics,
+                   "epochs_ran": result.epochs_ran, "best_epoch": result.best_epoch,
+                   "best_valid_loss": result.best_valid_loss}, f, indent=1)
+    pth = os.path.join(out_dir, f"{pth_name.format(**fields)}_{hp.data_class}.pth")
+    torch.save({k: v.detach().cpu() for k, v in result.head.state_dict().items()}, pth)
+    print("checkpoint:", pth)
+    return 0

@@ -4,10 +4,15 @@ Port of `python -m vit_ad_tpu.cli.score` (the `--pth` path, NF and MDN
 heads):
 
     python -m vit_ad_tpu_torch.cli.score --pth <head .pth> -a nf|mdn \\
-        -m enc_deit -E <deit .pth> -d /path/to/images [-o out_dir] [-b BATCH]
+        -m enc_deit|enc_vit|enc_esvit -E <trunk .pth> -d /path/to/images \\
+        [-o out_dir] [-b BATCH] [--fused-ln|--no-fused-ln]
 
 MDN files are named `<K>_..._<class>.pth` (K = number of gaussians), as
-`cli.train_mdn` saves them.
+`cli.train_mdn` saves them; `cli.train_nf` saves `nf_<model>_<class>.pth`.
+`-E` is the pretrained trunk the head was trained against: a timm ViT/DeiT
+`.pth`, or the EsViT Swin-T checkpoint for `-m enc_esvit`. `--fused-ln` /
+`--no-fused-ln` send the EsViT trunk's LayerNorms through the one-pass kernel
+or not (default: the model's).
 
 Outputs (under -o, default `<pth stem>_scores`), as the JAX CLI writes them:
   scores.csv      path,image_score — one row per input image, input order
@@ -34,6 +39,7 @@ import numpy as np
 from vit_ad_tpu_torch.cli.common import check_device
 from vit_ad_tpu_torch.config import set_numerics_policy
 from vit_ad_tpu_torch.data.files import IMAGE_EXTENSIONS
+from vit_ad_tpu_torch.registry import FUSED_LN_MODELS
 
 
 def list_images(images_dir: str) -> List[str]:
@@ -59,6 +65,7 @@ def score_pth(
     encoder_ckpt: str = "",
     batch: int = 0,
     device: Optional[str] = None,
+    fused_ln: Optional[bool] = None,
 ) -> dict:
     """Score a folder with a reference-format head `.pth` (plus the pretrained
     trunk `encoder_ckpt`); write scores.csv and summary.json; return the
@@ -70,7 +77,7 @@ def score_pth(
                          "(ROADMAP A7)")
     models = build_pth_models(pths[0], model_name, arch, img_size=img_size,
                               hidden_ratio=hidden_ratio, flow_steps=flow_steps,
-                              encoder_ckpt=encoder_ckpt, device=device)
+                              encoder_ckpt=encoder_ckpt, device=device, fused_ln=fused_ln)
     return _score_with_models(models, pths[0], {"architecture": arch}, images_dir,
                               out_dir or os.path.splitext(pths[0])[0] + "_scores", batch)
 
@@ -135,7 +142,11 @@ def main(argv=None) -> int:
     ap.add_argument("-a", "--arch", default="", help="nf | mdn (recon: ROADMAP A8)")
     ap.add_argument("-m", "--model", default="enc_deit", help="encoder registry key")
     ap.add_argument("-E", "--encoder-ckpt", default="",
-                    help="pretrained trunk (timm .pth) the head was trained against")
+                    help="pretrained trunk the head was trained against (timm ViT/DeiT "
+                         ".pth, or the EsViT Swin-T .pth for -m enc_esvit)")
+    ap.add_argument("--fused-ln", dest="fused_ln", action="store_true", default=None,
+                    help="LayerNorms of the trunk through the one-pass kernel (enc_esvit)")
+    ap.add_argument("--no-fused-ln", dest="fused_ln", action="store_false")
     ap.add_argument("-i", "--img-size", type=int, default=224)
     ap.add_argument("-f", "--flow-steps", type=int, default=20)
     ap.add_argument("--hidden-ratio", type=float, default=0.16)
@@ -156,12 +167,16 @@ def main(argv=None) -> int:
         ap.error("--pth needs -a nf or -a mdn")
     if args.arch not in ("nf", "mdn"):
         ap.error(f"-a {args.arch}: only nf and mdn heads are ported (recon: ROADMAP A8)")
+    if args.fused_ln is not None and args.model not in FUSED_LN_MODELS:
+        ap.error(f"--fused-ln/--no-fused-ln: -m {args.model} has no fused LayerNorm path "
+                 f"(models that have: {', '.join(FUSED_LN_MODELS)})")
     device = check_device(args.device)
     set_numerics_policy()
     summary = score_pth(args.pth, args.arch, args.images, out_dir=args.out or None,
                         model_name=args.model, img_size=args.img_size,
                         hidden_ratio=args.hidden_ratio, flow_steps=args.flow_steps,
-                        encoder_ckpt=args.encoder_ckpt, batch=args.batch, device=device)
+                        encoder_ckpt=args.encoder_ckpt, batch=args.batch, device=device,
+                        fused_ln=args.fused_ln)
     print(json.dumps(summary))
     return 0
 

@@ -1,0 +1,48 @@
+"""Train a normalizing-flow anomaly head on frozen-trunk features on the GPU.
+
+Port of `startTraining_NF.py` (the flag surface of `cli/common.py`, with
+`-r <hiddenRatio> -f <flowSteps>`; defaults: model deit, patience 60, epochs
+500, lr 1e-3, wd 1e-5, batch 32, hidden ratio 0.16, 20 flow steps, 224 px —
+reference startTraining_NF.py:26-39):
+
+    python -m vit_ad_tpu_torch.cli.train_nf -d <category dir> -t train/good \\
+        -v test [-m deit|vit|esvit] [-r 0.16] [-f 20] [-e EPOCHS] [-b BATCH] \\
+        [--device cuda|cpu] [--out RUN_DIR] [--fused-ln|--no-fused-ln]
+
+The trunk is the registry model with its seed-deterministic init, as in the
+JAX package's trainer. Writes into the run directory (default
+runs/nf_<model>_<dataset>_<class>):
+  history.json               epoch losses, metrics, best epoch
+  nf_<model>_<class>.pth     the best head, in the reference's FrEIA layout,
+                             which `cli.score --pth ... -a nf` reads
+`-m res_net` (the multi-stage ResNet heads) is ROADMAP A7; the metric logger
+and wandb are ROADMAP A10.
+"""
+
+from __future__ import annotations
+
+import sys
+
+from vit_ad_tpu_torch.cli.common import MVTEC_BASE, parse_args, run_trainer
+from vit_ad_tpu_torch.config import HyperParams
+
+
+def main(argv=None) -> int:
+    from vit_ad_tpu_torch.pipeline.train import train_nf
+
+    hp = HyperParams(model_name="enc_deit", architecture="nf", patience=60, epochs=500,
+                     learning_rate=1e-3, weight_decay=1e-5, batch_size=32, hidden_ratio=0.16,
+                     flow_steps=20, img_size=224)
+    parsed = parse_args(sys.argv[1:] if argv is None else argv, hp, MVTEC_BASE, "train/good",
+                        "test", extra_short="r:f:",
+                        usage_extra=" -r <hiddenRatio> -f <flowSteps>")
+    if parsed is None:
+        return 0
+    return run_trainer(parsed, train_nf,
+                       banner="Training NF: model {model_name}, hidden_ratio {hidden_ratio}, "
+                              "flow_steps {flow_steps}",
+                       run_name="nf_{model_name}", pth_name="nf_{model_name}")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

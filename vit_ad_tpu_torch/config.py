@@ -82,6 +82,9 @@ class HyperParams:
     hidden_ratio: float = 0.16        # NF  (reference startTraining_NF.py:35)
     flow_steps: int = 20              # NF  (reference startTraining_NF.py:36)
     block_index: int = 0              # transformer feature depth (0 = last)
+    # LayerNorms through the one-pass kernel, for the trunks that have the
+    # path (None: the model's default; the JAX package's VITAD_PALLAS_LN)
+    fused_ln: Optional[bool] = None
     # Loss weights for the SSIM recon variant (reference LearnerRecon.py:278).
     mse_weight: float = 5.0
     ssim_weight: float = 0.5

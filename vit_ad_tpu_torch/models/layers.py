@@ -1,16 +1,20 @@
 """Shared building blocks for the transformer backbones (port of
-`vit_ad_tpu/models/layers.py`: `PatchEmbed` :27, `resolve_gelu_approx` :58)."""
+`vit_ad_tpu/models/layers.py`: `PatchEmbed` :27, `resolve_gelu_approx` :58,
+`LayerNorm` :227), and the cache of compute-dtype weight copies the encoders
+share."""
 
 from __future__ import annotations
 
+import math
 import os
-from typing import Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from vit_ad_tpu_torch.config import DtypePolicy
+from vit_ad_tpu_torch.ops.cuda.layer_norm import layer_norm
 
 
 class PatchEmbed(nn.Module):
@@ -38,3 +42,60 @@ def resolve_gelu_approx(dtypes: DtypePolicy, gelu_tanh: Optional[bool] = None) -
     if gelu_tanh is not None:
         return gelu_tanh
     return dtypes.compute_dtype == torch.bfloat16
+
+
+def trunc_normal_(t: torch.Tensor, std: float, generator: Optional[torch.Generator]) -> None:
+    """N(0, std²) truncated at ±2 std (flax `truncated_normal` semantics)."""
+    nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)
+
+
+def lecun_normal_(t: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]) -> None:
+    """flax `lecun_normal`: N(0, 1/fan_in) truncated at ±2 std, with the
+    variance the truncation removes restored."""
+    trunc_normal_(t, math.sqrt(1.0 / fan_in) / 0.87962566103423978, generator)
+
+
+class LayerNorm(nn.LayerNorm):
+    """`nn.LayerNorm`'s parameters (`weight`, `bias`) with the forward of the
+    JAX package's module: f32 statistics (bf16 variance is too coarse), cast
+    to the compute dtype. By default `F.layer_norm` on the f32 cast; `fused`
+    takes the one-pass kernel `ops/cuda/layer_norm.layer_norm`, which stores
+    in x's dtype (the JAX package's `VITAD_PALLAS_LN=1`, given when the model
+    is built rather than read from the environment)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, dtypes: DtypePolicy = DtypePolicy(),
+                 fused: bool = False) -> None:
+        super().__init__(dim, eps=eps)
+        self.compute_dtype = dtypes.compute_dtype
+        self.fused = fused
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused:
+            y = layer_norm(x, self.weight, self.bias, self.eps)
+        else:
+            y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+        return y.to(self.compute_dtype)
+
+
+class ComputeWeights:
+    """Compute-dtype copies of a module's matmul weights, and whatever else
+    `make(dtype)` derives from the parameters. They are cached and made
+    again only when a parameter changed (storage or in-place version); while
+    gradients flow to the parameters they are made per call. (JAX casts them
+    once per call outside its block scan.)"""
+
+    def __init__(self) -> None:
+        self._key: Optional[tuple] = None
+        self._cast: Optional[Dict[str, Any]] = None
+
+    def get(self, module: nn.Module, dtypes: DtypePolicy,
+            make: Callable[[torch.dtype], Dict[str, Any]]) -> Dict[str, Any]:
+        cd = dtypes.compute_dtype
+        if torch.is_grad_enabled() and any(p.requires_grad for p in module.parameters()):
+            return make(cd)
+        key = tuple((p.data_ptr(), p._version, p.device) for p in module.parameters())
+        if key != self._key:
+            with torch.inference_mode(False), torch.no_grad():
+                self._cast = make(cd)
+            self._key = key
+        return self._cast

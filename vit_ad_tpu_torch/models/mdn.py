@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vit_ad_tpu_torch.config import DtypePolicy
-from vit_ad_tpu_torch.models.vit import _trunc_normal_
+from vit_ad_tpu_torch.models.layers import trunc_normal_
 from vit_ad_tpu_torch.ops import gmm
 from vit_ad_tpu_torch.ops.cuda.gmm import gmm_log_likelihood
 
@@ -42,7 +42,7 @@ class GaussianMDN(nn.Module):
         for lin in (self.pi, self.sigma, self.mu):
             fan_out, fan_in = lin.weight.shape
             std = math.sqrt(2.0 / (fan_in + fan_out)) / 0.87962566103423978
-            _trunc_normal_(lin.weight.data, std, generator)
+            trunc_normal_(lin.weight.data, std, generator)
             nn.init.zeros_(lin.bias)
         nn.init.constant_(self.mu.bias, 0.001)
 

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Iterator, NamedTuple, Protocol
 
 import torch
 
@@ -12,6 +12,24 @@ class EncoderOutput(NamedTuple):
 
     patch_embedding: torch.Tensor
     latent: torch.Tensor
+
+
+class Encoder(Protocol):
+    """What the pipelines need of a frozen trunk (`models/vit.ViTEncoder`,
+    `models/swin.SwinTransformer`): an `nn.Module` that maps preprocessed
+    images [B, H, W, 3] to an `EncoderOutput` and names the shape of its
+    patch tokens."""
+
+    embed_dim: int     # D of patch_embedding [B, P, D]
+    num_patches: int   # P
+
+    def __call__(self, x: torch.Tensor, block_index: int = 0) -> EncoderOutput: ...
+
+    def parameters(self) -> Iterator[torch.nn.Parameter]: ...
+
+    def to(self, *args, **kwargs) -> "Encoder": ...
+
+    def eval(self) -> "Encoder": ...
 
 
 class FlowOutput(NamedTuple):

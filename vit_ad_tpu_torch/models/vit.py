@@ -15,7 +15,6 @@ the weights are made once and reused while the parameters are unchanged
 
 from __future__ import annotations
 
-import math
 from typing import Dict, List, Optional
 
 import torch
@@ -23,16 +22,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from vit_ad_tpu_torch.config import DtypePolicy
-from vit_ad_tpu_torch.models.layers import PatchEmbed, resolve_gelu_approx
+from vit_ad_tpu_torch.models.layers import (
+    ComputeWeights,
+    PatchEmbed,
+    lecun_normal_,
+    resolve_gelu_approx,
+    trunc_normal_,
+)
 from vit_ad_tpu_torch.models.outputs import EncoderOutput
 from vit_ad_tpu_torch.ops.cuda.window_attention import vit_attention_qkv
 
 LN_EPS = 1e-6
-
-
-def _trunc_normal_(t: torch.Tensor, std: float, generator: Optional[torch.Generator]) -> None:
-    """N(0, std²) truncated at ±2 std (flax `truncated_normal` semantics)."""
-    nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)
 
 
 class Attention(nn.Module):
@@ -114,8 +114,7 @@ class ViTEncoder(nn.Module):
             torch.zeros(1, num_prefix_tokens + self.num_patches, embed_dim))
         self.blocks = nn.ModuleList(Block(embed_dim, mlp_ratio) for _ in range(depth))
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
-        self._cast_key: Optional[tuple] = None
-        self._cast: Optional[dict] = None
+        self._compute_weights = ComputeWeights()
         self.reset_parameters(generator)
 
     @property
@@ -127,11 +126,10 @@ class ViTEncoder(nn.Module):
         pos_embed, Glorot uniform for the block Linears, LeCun (truncated)
         normal for the patch conv, zero biases, unit LayerNorms."""
         conv = self.patch_embed.proj
-        fan_in = conv.weight[0].numel()
-        _trunc_normal_(conv.weight, math.sqrt(1.0 / fan_in) / 0.87962566103423978, generator)
+        lecun_normal_(conv.weight, conv.weight[0].numel(), generator)
         nn.init.zeros_(conv.bias)
         for t in self._prefix_params() + [self.pos_embed]:
-            _trunc_normal_(t, 0.02, generator)
+            trunc_normal_(t, 0.02, generator)
         for blk in self.blocks:
             for lin in (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2):
                 nn.init.xavier_uniform_(lin.weight, generator=generator)
@@ -160,17 +158,7 @@ class ViTEncoder(nn.Module):
         dtype. Under a bf16 policy the casts are cached and made again only
         when a parameter changed (storage or in-place version); while
         gradients flow to the parameters they are cast per call."""
-        cd = self.dtypes.compute_dtype
-        if cd == self.dtypes.param_dtype or (
-            torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters())
-        ):
-            return self._cast_weights(cd)
-        key = tuple((p.data_ptr(), p._version, p.device) for p in self.parameters())
-        if key != self._cast_key:
-            with torch.inference_mode(False), torch.no_grad():
-                self._cast = self._cast_weights(cd)
-            self._cast_key = key
-        return self._cast
+        return self._compute_weights.get(self, self.dtypes, self._cast_weights)
 
     def _cast_weights(self, cd: torch.dtype) -> Dict[str, object]:
         w = self._matmul_params()

@@ -1,8 +1,8 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
 Every `*.cu` under `vit_ad_tpu_torch/csrc/` is compiled by `nvcc` for Hopper
-(`sm_90a`), one process per source, all started together, and the objects
-are linked into one shared library with a plain C interface. The library
+(`sm_90a`), one process per source, all started together (the `*.cuh` beside
+them are headers the sources include), and the objects are linked into one shared library with a plain C interface. The library
 lands in `vit_ad_tpu_torch/_build/` (git-ignored) under a name keyed on a hash
 of the sources and flags, so an edited kernel is rebuilt and an unchanged one
 is loaded as it is. Nothing here runs at import: the first wrapper call on a
@@ -102,6 +102,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRY_POINTS = {
     # qkv, out, batch, n, heads, head_dim, is_bf16, scale, device, stream
     "vit_attention_qkv_forward": [_P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+    # q, k, v, out, bias, mask, batch, n, heads, head_dim, row_stride, n_w,
+    # defer_norm, is_bf16, scale, device, stream
+    "swin_window_attention_forward": [_P] * 6 + [_I] * 8 + [ctypes.c_float, _I, _P],
+    # x, scale, bias, out, rows, d, eps, is_bf16, device, stream
+    "layer_norm_forward": [_P] * 4 + [_I, _I, ctypes.c_float, _I, _I, _P],
     # x, log_pi, w_mu, w_sigma, b_mu, b_sigma, ll, rows, d, k, is_bf16,
     # device, stream
     "gmm_forward": [_P] * 7 + [_I] * 5 + [_P],
@@ -116,6 +121,13 @@ ENTRY_POINTS = {
     # is_bf16, device, stream
     "gmm_backward_x": [_P] * 6 + [_I] * 9 + [_P],
 }
+
+
+def device_index(t) -> int:
+    """The CUDA device ordinal of tensor `t` (the entry points select it)."""
+    import torch
+
+    return t.device.index if t.device.index is not None else torch.cuda.current_device()
 
 
 def load_library() -> ctypes.CDLL:

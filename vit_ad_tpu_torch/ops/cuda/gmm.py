@@ -96,10 +96,6 @@ def _buffer(t: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor
     return t.clone() if t.data_ptr() % 16 else t
 
 
-def _device_index(t: torch.Tensor) -> int:
-    return t.device.index if t.device.index is not None else torch.cuda.current_device()
-
-
 def _check(err: int, what: str) -> None:
     if err:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
@@ -109,7 +105,7 @@ class _GmmLogLikelihood(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, log_pi, w_sigma, b_sigma, w_mu, b_mu, matmul_dtype):
         global fwd_launches
-        from vit_ad_tpu_torch.ops.cuda.build import load_library
+        from vit_ad_tpu_torch.ops.cuda.build import device_index, load_library
 
         rows, d, k = check_kernel_shape(x, log_pi, w_sigma, b_sigma, w_mu, b_mu, matmul_dtype)
         lib = load_library()
@@ -122,7 +118,7 @@ class _GmmLogLikelihood(torch.autograd.Function):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _check(lib.gmm_forward(xr.data_ptr(), lpr.data_ptr(), wm.data_ptr(), ws.data_ptr(),
                                bm.data_ptr(), bs.data_ptr(), ll.data_ptr(), rows, d, k, bf16,
-                               _device_index(x), stream), "gmm_forward")
+                               device_index(x), stream), "gmm_forward")
         fwd_launches += 1
         ctx.save_for_backward(xr, lpr, ws, bs, wm, bm, ll)
         ctx.shapes = (x.shape, log_pi.shape, x.dtype)
@@ -132,7 +128,7 @@ class _GmmLogLikelihood(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         global bwd_params_launches, bwd_x_launches
-        from vit_ad_tpu_torch.ops.cuda.build import load_library
+        from vit_ad_tpu_torch.ops.cuda.build import device_index, load_library
 
         xr, lpr, ws, bs, wm, bm, ll = ctx.saved_tensors
         x_shape, lp_shape, x_dtype = ctx.shapes
@@ -140,7 +136,7 @@ class _GmmLogLikelihood(torch.autograd.Function):
         rows, d = xr.shape
         k = lpr.shape[1]
         lib = load_library()
-        dev, stream = _device_index(xr), torch.cuda.current_stream(xr.device).cuda_stream
+        dev, stream = device_index(xr), torch.cuda.current_stream(xr.device).cuda_stream
         bf16 = int(md == torch.bfloat16)
         gr = _buffer(g.reshape(rows, d))
         kc = backward_chunk(rows, d, k, md)

@@ -1,4 +1,5 @@
-"""Packed-qkv multi-head self-attention of the ViT/DeiT blocks.
+"""The attention kernels' wrappers: packed-qkv multi-head self-attention of
+the ViT/DeiT blocks, and (shifted-)window attention of the Swin blocks.
 
 Port of `vit_ad_tpu/ops/pallas/window_attention.py::vit_attention_qkv` (:437),
 whose TPU kernel `_kernel_qkv` (:375) becomes the hand-written Hopper kernel
@@ -11,18 +12,39 @@ cannot. For a CPU tensor it runs the plain PyTorch version
 `_xla_packed_attention` (:427) / `_xla_plain_attention` (:485). Its backward
 recomputes through the plain version, as the JAX custom VJP does (:445-455):
 the TPU kernel had no backward kernel either.
+
+`swin_attention_windows` (packed qkv windows; port of :334, TPU kernel
+`_kernel_win` :212) and `window_attention` (split q, k, v; port of :518, TPU
+kernel `_kernel` :46) launch the two entries of
+`vit_ad_tpu_torch/csrc/swin_window_attention.cu` the same way; their plain
+versions are `ops/window_attention.window_attention_reference` and
+`window_attention_core_reference`. Both backwards recompute through
+`window_attention_core_reference`, the math the JAX custom VJPs differentiate
+(:360-368, :538-549), and reach q, k, v and the bias table.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-# Kernel launches made by `vit_attention_qkv` (a plain count, read by
-# chip_smoke.py to show that the main path went through the kernel).
+from vit_ad_tpu_torch.ops.window_attention import (
+    attention_scale as _scale,
+    gather_bias,
+    relative_position_index,
+    split_packed,
+    window_attention_core_reference,
+    window_attention_reference,
+)
+
+# Kernel launches made by `vit_attention_qkv`, `swin_attention_windows` and
+# `window_attention` (plain counts, read by chip_smoke.py to show that the
+# main path went through each kernel).
 launches = 0
+window_launches = 0
+split_launches = 0
 
 SUPPORTED_HEAD_DIMS = (32, 64)
 MAX_TOKENS = 256
@@ -38,12 +60,6 @@ def _dims(qkv: torch.Tensor, num_heads: int) -> Tuple[int, int, int, int]:
         )
     b, n, c3 = qkv.shape
     return b, n, c3 // 3, c3 // 3 // num_heads
-
-
-def _scale(head_dim: int, dtype: torch.dtype) -> torch.Tensor:
-    """hd^-1/2 in the input dtype: JAX multiplies a bf16 q by the weakly
-    typed Python float, which rounds the scale to bf16 first."""
-    return torch.tensor(head_dim**-0.5, dtype=dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -81,22 +97,24 @@ def check_kernel_shape(qkv: torch.Tensor, num_heads: int) -> Tuple[int, int, int
     return b, n, c, hd
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t  # the kernels read 16 bytes at a time
+
+
 def _launch(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     global launches
-    from vit_ad_tpu_torch.ops.cuda.build import load_library
+    from vit_ad_tpu_torch.ops.cuda.build import device_index, load_library
 
     b, n, c, hd = check_kernel_shape(qkv, num_heads)
     lib = load_library()
-    qkv = qkv.contiguous()
-    if qkv.data_ptr() % 16:  # the kernel reads 16 bytes at a time
-        qkv = qkv.clone()
+    qkv = _aligned(qkv)
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     err = lib.vit_attention_qkv_forward(
         qkv.data_ptr(), out.data_ptr(), b, n, num_heads, hd,
         int(qkv.dtype == torch.bfloat16), _scale_value(hd, qkv.dtype),
-        qkv.device.index if qkv.device.index is not None else torch.cuda.current_device(),
-        stream,
+        device_index(qkv), stream,
     )
     if err:
         raise RuntimeError(f"vit_attention_qkv kernel launch failed: CUDA error {err}")
@@ -135,3 +153,152 @@ def vit_attention_qkv(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     recomputation through the plain version."""
     _dims(qkv, num_heads)
     return _VitAttentionQKV.apply(qkv, num_heads)
+
+
+# ---- Swin window attention ---------------------------------------------------
+
+
+def _check_window_inputs(n: int, heads: int, hd: int, dtype: torch.dtype, bias: torch.Tensor,
+                         mask: Optional[torch.Tensor], b_: int) -> None:
+    """Raise unless the CUDA kernel takes this input."""
+    if dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"window attention kernel takes bf16 or f32, got {dtype}")
+    if hd not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"window attention kernel takes head dim {SUPPORTED_HEAD_DIMS}, "
+                         f"got {hd}")
+    if not 1 <= n <= MAX_TOKENS:
+        raise ValueError(f"window attention kernel takes 1..{MAX_TOKENS} tokens per window, "
+                         f"got {n}")
+    if b_ < 1:
+        raise ValueError("window attention kernel needs at least one window")
+    if tuple(bias.shape) != (heads, n, n):
+        raise ValueError(f"bias must be [H, N, N] = {(heads, n, n)}, got {tuple(bias.shape)}")
+    if mask is not None and (mask.dim() != 3 or tuple(mask.shape[1:]) != (n, n)
+                             or b_ % mask.shape[0]):
+        raise ValueError(f"mask must be [n_w, {n}, {n}] with n_w dividing the {b_} windows, "
+                         f"got {tuple(mask.shape)}")
+
+
+def _launch_windows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, row_stride: int,
+                    b_: int, n: int, heads: int, hd: int, bias: torch.Tensor,
+                    mask: Optional[torch.Tensor], defer_norm: bool) -> torch.Tensor:
+    """One launch of `swin_window_attention_forward`; q, k, v are views whose
+    rows are `row_stride` elements apart."""
+    from vit_ad_tpu_torch.ops.cuda.build import device_index, load_library
+
+    _check_window_inputs(n, heads, hd, q.dtype, bias, mask, b_)
+    bias = bias.to(device=q.device, dtype=torch.float32).contiguous()
+    if mask is not None:
+        mask = mask.to(device=q.device, dtype=torch.float32).contiguous()
+    out = torch.empty((b_, n, heads * hd), dtype=q.dtype, device=q.device)
+    err = load_library().swin_window_attention_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bias.data_ptr(),
+        None if mask is None else mask.data_ptr(), b_, n, heads, hd, row_stride,
+        1 if mask is None else mask.shape[0], int(defer_norm),
+        int(q.dtype == torch.bfloat16), _scale_value(hd, q.dtype), device_index(q),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"window attention kernel launch failed: CUDA error {err}")
+    return out
+
+
+def _windows_forward(qkv3: torch.Tensor, bias: torch.Tensor, mask: Optional[torch.Tensor],
+                     num_heads: int) -> torch.Tensor:
+    global window_launches
+    if qkv3.device.type == "cpu":
+        return window_attention_reference(qkv3, bias, mask, num_heads)
+    if qkv3.device.type != "cuda":
+        raise RuntimeError(f"swin_attention_windows has no path for device {qkv3.device}")
+    b_, n, c, hd = _dims(qkv3, num_heads)
+    qkv3 = _aligned(qkv3)
+    out = _launch_windows(qkv3, qkv3[..., c:], qkv3[..., 2 * c:], 3 * c, b_, n, num_heads, hd,
+                          bias, mask, defer_norm=True)
+    window_launches += 1
+    return out
+
+
+def _split_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+                   mask: Optional[torch.Tensor]) -> torch.Tensor:
+    global split_launches
+    if q.device.type == "cpu":
+        return window_attention_core_reference(q, k, v, bias, mask)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"window_attention has no path for device {q.device}")
+    b_, n, h, hd = q.shape
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    out = _launch_windows(q, k, v, h * hd, b_, n, h, hd, bias, mask, defer_norm=False)
+    split_launches += 1
+    return out
+
+
+def _recompute_grads(q, k, v, bias, mask, grad):
+    """Gradients of `window_attention_core_reference` to q, k, v [B_, N, H, hd]
+    and bias [H, N, N] (None where not needed)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (q, k, v, bias)]
+        out = window_attention_core_reference(*ins, mask)
+        return torch.autograd.grad(out, ins, grad)
+
+
+class _SwinAttentionWindows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv3, bias, mask, num_heads):
+        ctx.save_for_backward(qkv3, bias, mask)
+        ctx.num_heads = num_heads
+        return _windows_forward(qkv3, bias, mask, num_heads)
+
+    @staticmethod
+    def backward(ctx, grad):
+        qkv3, bias, mask = ctx.saved_tensors
+        q, k, v = (t.transpose(1, 2) for t in split_packed(qkv3, ctx.num_heads))
+        dq, dk, dv, dbias = _recompute_grads(q, k, v, bias, mask, grad)
+        dqkv = torch.stack([dq, dk, dv], dim=2).reshape(qkv3.shape)  # [B_, N, 3, H, hd]
+        return dqkv, dbias, None, None
+
+
+class _WindowAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask):
+        ctx.save_for_backward(q, k, v, bias, mask)
+        return _split_forward(q, k, v, bias, mask)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, bias, mask = ctx.saved_tensors
+        return (*_recompute_grads(q, k, v, bias, mask, grad), None)
+
+
+@functools.lru_cache(maxsize=None)
+def _index_on(window_h: int, window_w: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(relative_position_index(window_h, window_w)).to(device)
+
+
+def swin_attention_windows(qkv3: torch.Tensor, bias_table: torch.Tensor, num_heads: int,
+                           window: int, mask: Optional[torch.Tensor] = None,
+                           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable window attention from packed qkv windows [B_, N, 3C]
+    (channel order [3][H][hd], N = window²) → [B_, N, C]: the Hopper kernel on
+    CUDA tensors, the plain version on CPU tensors, backward by recomputation.
+    `bias_table` [(2·window-1)², H] is gathered to [H, N, N] here; a caller
+    whose table is constant passes the gathered `bias` instead and skips the
+    gather. `mask` is [n_w, N, N] (0 / -100) or None."""
+    _dims(qkv3, num_heads)
+    if qkv3.shape[1] != window * window:
+        raise ValueError(f"windows of {window}x{window} hold {window * window} tokens, "
+                         f"got {qkv3.shape[1]}")
+    if bias is None:
+        bias = gather_bias(bias_table, _index_on(window, window, bias_table.device))
+    return _SwinAttentionWindows.apply(qkv3, bias, mask, num_heads)
+
+
+def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias_table: torch.Tensor, num_heads: int, window: Tuple[int, int],
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable window attention from split q, k, v [B_, N, H, hd] →
+    [B_, N, H*hd] (the split-input entry of the same kernel)."""
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape or q.shape[2] != num_heads:
+        raise ValueError(f"expected q, k, v [B_, N, {num_heads}, hd] of one shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    bias = gather_bias(bias_table, _index_on(window[0], window[1], bias_table.device))
+    return _WindowAttention.apply(q, k, v, bias, mask)

@@ -1,8 +1,8 @@
 """Scoring: models → anomaly maps → image scores → metrics (port of
 `vit_ad_tpu/pipeline/eval.py`: `make_mdn_batch_fn` :357, `score_mdn` :446,
-`evaluate_mdn` :482, `make_nf_batch_fn` :371, `score_nf` :500 and the metrics
-half of `_metrics_and_figures` :55; figures are ROADMAP A10, the recon and
-ResNet evaluators A7/A8, `evaluate_nf` A4).
+`evaluate_mdn` :482, `make_nf_batch_fn` :371, `score_nf` :500, `evaluate_nf`
+:532 and the metrics half of `_metrics_and_figures` :55; figures are ROADMAP
+A10, the recon and ResNet evaluators A7/A8).
 
   * MDN — per-patch mean log-likelihood; image score = inverted min patch
     probability, normalized by the max log-likelihood over the whole scored
@@ -23,7 +23,7 @@ from vit_ad_tpu_torch.config import HyperParams
 from vit_ad_tpu_torch.data.loader import Batch, DataPipeline, preprocess
 from vit_ad_tpu_torch.models.flow import NormalizingFlow, patch_tokens_to_map
 from vit_ad_tpu_torch.models.mdn import GaussianMDN
-from vit_ad_tpu_torch.models.vit import ViTEncoder
+from vit_ad_tpu_torch.models.outputs import Encoder
 from vit_ad_tpu_torch.pipeline import metrics as M
 from vit_ad_tpu_torch.scoring import payload_to_scores
 
@@ -49,7 +49,7 @@ def metrics_of(s: ScoreOutput, hp: HyperParams) -> Dict[str, float]:
         hp.fp_threshold)
 
 
-def make_mdn_batch_fn(encoder: ViTEncoder, mdn: GaussianMDN, hp: HyperParams,
+def make_mdn_batch_fn(encoder: Encoder, mdn: GaussianMDN, hp: HyperParams,
                       mean: Optional[torch.Tensor], std: Optional[torch.Tensor]
                       ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Per-batch MDN scorer: uint8 images [B, H, W, 3] on the models' device
@@ -65,7 +65,7 @@ def make_mdn_batch_fn(encoder: ViTEncoder, mdn: GaussianMDN, hp: HyperParams,
     return loglik_map
 
 
-def score_mdn(encoder: ViTEncoder, mdn: GaussianMDN, test_data: DataPipeline,
+def score_mdn(encoder: Encoder, mdn: GaussianMDN, test_data: DataPipeline,
               hp: HyperParams, mean: Optional[np.ndarray] = None,
               std: Optional[np.ndarray] = None) -> ScoreOutput:
     """MDN scoring pipeline on the device the models live on. Scores are
@@ -77,14 +77,14 @@ def score_mdn(encoder: ViTEncoder, mdn: GaussianMDN, test_data: DataPipeline,
     return ScoreOutput(image_scores, pixel_scores, labels, masks)
 
 
-def evaluate_mdn(encoder: ViTEncoder, mdn: GaussianMDN, test_data: DataPipeline,
+def evaluate_mdn(encoder: Encoder, mdn: GaussianMDN, test_data: DataPipeline,
                  hp: HyperParams, mean: Optional[np.ndarray] = None,
                  std: Optional[np.ndarray] = None) -> Dict[str, float]:
     """score_mdn + the reference metric suite."""
     return metrics_of(score_mdn(encoder, mdn, test_data, hp, mean, std), hp)
 
 
-def make_nf_batch_fn(encoder: ViTEncoder, flow: NormalizingFlow, hp: HyperParams,
+def make_nf_batch_fn(encoder: Encoder, flow: NormalizingFlow, hp: HyperParams,
                      mean: Optional[torch.Tensor], std: Optional[torch.Tensor]
                      ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Per-batch NF scorer: uint8 images [B, H, W, 3] on the models' device →
@@ -115,7 +115,7 @@ def _collect(batches: Iterable[Batch], score_fn: Callable[[torch.Tensor], torch.
     return np.concatenate(payloads), np.concatenate(labels), np.concatenate(masks)
 
 
-def score_nf(encoder: ViTEncoder, flow: NormalizingFlow, test_data: DataPipeline,
+def score_nf(encoder: Encoder, flow: NormalizingFlow, test_data: DataPipeline,
              hp: HyperParams, mean: Optional[np.ndarray] = None,
              std: Optional[np.ndarray] = None) -> ScoreOutput:
     """NF scoring pipeline on the device the models live on."""
@@ -125,3 +125,10 @@ def score_nf(encoder: ViTEncoder, flow: NormalizingFlow, test_data: DataPipeline
     maps, labels, masks = _collect(test_data.test_batches(hp.prefetch), anomaly_maps, device)
     image_scores, maps = payload_to_scores("nf", maps, hp.img_size)
     return ScoreOutput(image_scores, maps, labels, masks)
+
+
+def evaluate_nf(encoder: Encoder, flow: NormalizingFlow, test_data: DataPipeline,
+                hp: HyperParams, mean: Optional[np.ndarray] = None,
+                std: Optional[np.ndarray] = None) -> Dict[str, float]:
+    """score_nf + the reference metric suite."""
+    return metrics_of(score_nf(encoder, flow, test_data, hp, mean, std), hp)

@@ -16,11 +16,11 @@ import numpy as np
 import torch
 
 from vit_ad_tpu_torch.data.loader import Batch, preprocess
-from vit_ad_tpu_torch.models.vit import ViTEncoder
+from vit_ad_tpu_torch.models.outputs import Encoder
 from vit_ad_tpu_torch.pipeline.eval import _as_device
 
 
-def make_feature_extractor(encoder: ViTEncoder, block_index: int = 0,
+def make_feature_extractor(encoder: Encoder, block_index: int = 0,
                            mean: Optional[np.ndarray] = None,
                            std: Optional[np.ndarray] = None
                            ) -> Callable[[torch.Tensor], torch.Tensor]:

@@ -12,13 +12,16 @@ import os
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from vit_ad_tpu_torch.config import DtypePolicy, HyperParams
 from vit_ad_tpu_torch.models.flow import NormalizingFlow
 from vit_ad_tpu_torch.models.mdn import GaussianMDN
-from vit_ad_tpu_torch.models.vit import ViTEncoder
+from vit_ad_tpu_torch.models.outputs import Encoder
+from vit_ad_tpu_torch.models.swin import SwinTransformer
 from vit_ad_tpu_torch.registry import get_model
+from vit_ad_tpu_torch.utils.convert import interpolate_rel_pos_table
 
 
 @dataclass
@@ -63,13 +66,39 @@ def load_pth(path: str) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def load_encoder_checkpoint(encoder: ViTEncoder, encoder_ckpt: str) -> ViTEncoder:
-    """Load a timm ViT/DeiT `.pth` into `encoder` strictly: strip a
-    DataParallel `module.` prefix and drop the classifier heads (`head.*`,
-    `head_dist.*`, `pre_logits.*`), as the JAX `convert_vit` (:122) does."""
+def _swin_checkpoint_surgery(encoder: SwinTransformer, sd: Dict[str, torch.Tensor]
+                             ) -> Dict[str, torch.Tensor]:
+    """The EsViT checkpoint surgery of the JAX `convert_swin` (:1118-1192) on
+    a state dict without `module.` prefix and head: drop the lazily cached
+    `attn_mask` buffers, recompute every `relative_position_index` (the
+    encoder's own), and resize a relative-position bias table whose source
+    window differs from the block's effective window (stage 3 at 224 px runs
+    window 7 on a table saved for window 14)."""
+    sd = {k: v for k, v in sd.items() if not k.endswith("attn_mask")}
+    for name, buf in encoder.named_buffers():
+        if name.endswith("relative_position_index"):
+            sd[name] = buf
+    for si, stage in enumerate(encoder.layers):
+        for bj in range(len(stage.blocks)):
+            key = f"layers.{si}.blocks.{bj}.attn.relative_position_bias_table"
+            if key in sd:
+                table = sd[key].float().numpy()
+                src = int(round((table.shape[0] ** 0.5 + 1) / 2))
+                sd[key] = torch.from_numpy(np.ascontiguousarray(
+                    interpolate_rel_pos_table(table, src, stage.window)))
+    return sd
+
+
+def load_encoder_checkpoint(encoder: Encoder, encoder_ckpt: str) -> Encoder:
+    """Load a pretrained trunk `.pth` into `encoder` strictly: a timm ViT/DeiT
+    file, or the EsViT Swin-T checkpoint for a `SwinTransformer`. Strips a
+    DataParallel `module.` prefix and drops the classifier heads (`head.*`,
+    `head_dist.*`, `pre_logits.*`), as the JAX `convert_vit` (:122) and
+    `convert_swin` (:1118) do; the Swin file also gets
+    `_swin_checkpoint_surgery`."""
     if not encoder_ckpt.endswith(".pth"):
         raise SystemExit(
-            f"encoder checkpoint {encoder_ckpt!r}: the port reads timm .pth files; "
+            f"encoder checkpoint {encoder_ckpt!r}: the port reads .pth files; "
             "orbax checkpoint directories need jax (ROADMAP A10)"
         )
     sd = {(k[len("module."):] if k.startswith("module.") else k): v
@@ -79,6 +108,8 @@ def load_encoder_checkpoint(encoder: ViTEncoder, encoder_ckpt: str) -> ViTEncode
     sd = {k: v for k, v in sd.items()
           if not k.startswith(("head.", "head_dist.", "pre_logits."))
           and not k.endswith("num_batches_tracked")}
+    if isinstance(encoder, SwinTransformer):
+        sd = _swin_checkpoint_surgery(encoder, sd)
     encoder.load_state_dict(sd, strict=True)
     return encoder
 
@@ -111,12 +142,14 @@ def build_pth_models(
     encoder_ckpt: str = "",
     dtypes: Optional[DtypePolicy] = None,
     device: Optional[torch.device] = None,
+    fused_ln: Optional[bool] = None,
 ) -> RunModels:
     """Encoder + NF or MDN head from a reference-format head `.pth` (MDN:
     K from the `<K>_..._<class>.pth` filename). `encoder_ckpt` is the
-    pretrained trunk the head was trained against (timm `.pth`); without it
-    the encoder is the seed-random init (warned). The models are moved to
-    `device` (default CPU) in eval mode."""
+    pretrained trunk the head was trained against (a timm or EsViT `.pth`);
+    without it the encoder is the seed-random init (warned). `fused_ln` is
+    `registry.get_model`'s. The models are moved to `device` (default CPU) in
+    eval mode."""
     if arch not in ("nf", "mdn"):
         raise NotImplementedError(
             f"legacy .pth scoring of arch {arch!r} is not ported yet (ROADMAP A8 for "
@@ -125,11 +158,12 @@ def build_pth_models(
     num_gaussians, dataclass = parse_pth_filename(pth_path, arch)
     hp = HyperParams(model_name=model_name, architecture=arch, img_size=img_size,
                      hidden_ratio=hidden_ratio, flow_steps=flow_steps,
-                     num_gaussians=num_gaussians or 150, data_class=dataclass)
+                     num_gaussians=num_gaussians or 150, data_class=dataclass,
+                     fused_ln=fused_ln)
     if dtypes is not None:
         hp.dtypes = dtypes
     encoder = get_model(hp.model_name, hp.img_size, hp.dtypes,
-                        generator=torch.Generator().manual_seed(hp.seed))
+                        generator=torch.Generator().manual_seed(hp.seed), fused_ln=fused_ln)
     if encoder_ckpt:
         load_encoder_checkpoint(encoder, encoder_ckpt)
     else:

@@ -1,11 +1,12 @@
-"""Head training loops (port of `vit_ad_tpu/pipeline/train.py`; this slice
-carries `train_mdn` :113; `train_nf` is ROADMAP A4, the ResNet and recon
-trainers A7/A8).
+"""Head training loops (port of `vit_ad_tpu/pipeline/train.py`: `train_mdn`
+:113 and `train_nf` :286; the ResNet and recon trainers are ROADMAP A7/A8).
 
 The trunk is frozen: its features are extracted once and the head trains on
 them, cached on the device, with torch-semantics Adam, early stopping on the
 validation loss and a final metric evaluation (reference
-src/pipeline/LearnerMDN.py:97-240).
+src/pipeline/LearnerMDN.py:97-240, LearnerNF.py:91-235). The JAX package's
+scan-of-batches epochs amortize TPU dispatch and are not ported: an epoch is
+a Python loop over the staged batches.
 """
 
 from __future__ import annotations
@@ -19,8 +20,9 @@ import torch
 from vit_ad_tpu_torch.config import HyperParams, MeshConfig
 from vit_ad_tpu_torch.data.dataset import default_norm_stats
 from vit_ad_tpu_torch.data.loader import DataPipeline
+from vit_ad_tpu_torch.models.flow import NormalizingFlow, patch_tokens_to_map
 from vit_ad_tpu_torch.models.mdn import GaussianMDN
-from vit_ad_tpu_torch.models.vit import ViTEncoder
+from vit_ad_tpu_torch.models.outputs import Encoder
 from vit_ad_tpu_torch.pipeline.early_stopping import run_epochs
 from vit_ad_tpu_torch.pipeline.features import (
     extract_features,
@@ -29,6 +31,10 @@ from vit_ad_tpu_torch.pipeline.features import (
 )
 from vit_ad_tpu_torch.pipeline.optimizers import torch_adam
 from vit_ad_tpu_torch.registry import get_model
+
+# loss(head, feats [B, P, D], valid [B], generator | None) → scalar
+HeadLoss = Callable[[torch.nn.Module, torch.Tensor, torch.Tensor, Optional[torch.Generator]],
+                    torch.Tensor]
 
 
 @dataclasses.dataclass
@@ -42,10 +48,10 @@ class TrainResult:
     best_valid_loss: float
 
 
-def default_encoder(hp: HyperParams) -> ViTEncoder:
+def default_encoder(hp: HyperParams) -> Encoder:
     """The registry trunk with its seed-deterministic init (on the CPU)."""
     return get_model(hp.model_name, hp.img_size, hp.dtypes,
-                     generator=torch.Generator().manual_seed(hp.seed))
+                     generator=torch.Generator().manual_seed(hp.seed), fused_ln=hp.fused_ln)
 
 
 def _weighted_mean(losses: List[torch.Tensor], weights: List[float]) -> float:
@@ -56,23 +62,42 @@ def _weighted_mean(losses: List[torch.Tensor], weights: List[float]) -> float:
     return float(np.average(vals, weights=weights))
 
 
+def _masked_mean(per_example: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Mean over the valid rows of a padded batch."""
+    return torch.sum(per_example * valid) / torch.clamp(torch.sum(valid), min=1.0)
+
+
 def masked_mdn_loss(mdn: GaussianMDN, feats: torch.Tensor, valid: torch.Tensor,
                     generator: Optional[torch.Generator]) -> torch.Tensor:
     """Mean NLL over the valid rows of a padded batch (JAX `masked_loss`
     :171-176); Gumbel noise from `generator` (None: the noiseless eval
     loss)."""
-    per_example = -torch.mean(mdn.log_likelihood(feats, generator), dim=(1, 2))
-    return torch.sum(per_example * valid) / torch.clamp(torch.sum(valid), min=1.0)
+    return _masked_mean(-torch.mean(mdn.log_likelihood(feats, generator), dim=(1, 2)), valid)
+
+
+def masked_nf_loss(flow: NormalizingFlow, feats: torch.Tensor, valid: torch.Tensor,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Mean over the valid rows of ½ Σ z² - logdet of the flow on the
+    [B, √P, √P, D] map of the cached tokens (JAX `masked_loss` :341-345).
+    The flow draws no noise; `generator` is the trainers' common argument."""
+    z, logdet = flow.transform(patch_tokens_to_map(feats))
+    return _masked_mean(0.5 * torch.sum(z * z, dim=(1, 2, 3)) - logdet, valid)
+
+
+def train_step(loss_fn: HeadLoss, head: torch.nn.Module, opt: torch.optim.Optimizer,
+               feats: torch.Tensor, valid: torch.Tensor,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+    """One optimizer step on one padded batch; returns the (detached) loss."""
+    opt.zero_grad(set_to_none=True)
+    loss = loss_fn(head, feats, valid, generator)
+    loss.backward()
+    opt.step()
+    return loss.detach()
 
 
 def mdn_train_step(mdn: GaussianMDN, opt: torch.optim.Optimizer, feats: torch.Tensor,
                    valid: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """One optimizer step on one padded batch; returns the (detached) loss."""
-    opt.zero_grad(set_to_none=True)
-    loss = masked_mdn_loss(mdn, feats, valid, generator)
-    loss.backward()
-    opt.step()
-    return loss.detach()
+    return train_step(masked_mdn_loss, mdn, opt, feats, valid, generator)
 
 
 def _check_unported(hp: HyperParams) -> None:
@@ -87,18 +112,16 @@ def _check_unported(hp: HyperParams) -> None:
                                   "port always caches the frozen trunk's features")
 
 
-def train_mdn(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPipeline] = None,
-              encoder: Optional[ViTEncoder] = None, device: Optional[str] = None,
-              log: Optional[Callable[[Dict[str, Any]], None]] = None) -> TrainResult:
-    """Train the GMM/MDN head on frozen-trunk features.
-
-    `encoder` defaults to the registry trunk with its seeded init; it and
-    the head live on `device` (default: the encoder's device, else the CPU).
-    Each training step draws fresh Gumbel noise from one generator seeded
-    with `hp.seed`; the validation loss is noiseless. The head ends with the
-    weights of its best validation epoch, and is evaluated on `test_data`."""
-    from vit_ad_tpu_torch.pipeline.eval import evaluate_mdn
-
+def _train_head(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPipeline],
+                encoder: Optional[Encoder], device: Optional[str],
+                log: Optional[Callable[[Dict[str, Any]], None]],
+                make_head: Callable[[torch.Tensor], torch.nn.Module], loss_fn: HeadLoss,
+                noisy: bool, evaluate: Callable[..., Dict[str, float]]) -> TrainResult:
+    """The frozen-trunk trainer both heads share: cache the features, build
+    the head from them (`make_head(feats_train)`, on the CPU), train with
+    `loss_fn` (noise from one generator seeded with `hp.seed` when `noisy`;
+    the validation loss is always noiseless), keep the best validation epoch,
+    evaluate on `test_data`."""
     _check_unported(hp)
     if encoder is None:
         encoder = default_encoder(hp)
@@ -112,17 +135,16 @@ def train_mdn(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPipel
     feats_train = extract_features(extractor, data.train_batches(hp.prefetch), device)
     feats_valid = extract_features(extractor, data.valid_batches(hp.prefetch), device)
 
-    mdn = GaussianMDN(feats_train.shape[-1], hp.num_gaussians, dtypes=hp.dtypes,
-                      generator=torch.Generator().manual_seed(hp.seed)).to(device)
-    opt = torch_adam(mdn.parameters(), hp.learning_rate, hp.weight_decay)
-    noise = torch.Generator(device=device).manual_seed(hp.seed)
+    head = make_head(feats_train).to(device)
+    opt = torch_adam(head.parameters(), hp.learning_rate, hp.weight_decay)
+    noise = torch.Generator(device=device).manual_seed(hp.seed) if noisy else None
     train_batches = stage_feature_batches(feats_train, hp.batch_size)
     valid_batches = stage_feature_batches(feats_valid, hp.batch_size)
 
     def train_epoch(epoch: int):
         losses, weights = [], []
         for feats, valid, w in train_batches():
-            losses.append(mdn_train_step(mdn, opt, feats, valid, noise))
+            losses.append(train_step(loss_fn, head, opt, feats, valid, noise))
             weights.append(w)
         return _weighted_mean(losses, weights), float(sum(weights))
 
@@ -130,18 +152,54 @@ def train_mdn(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPipel
         losses, weights = [], []
         with torch.no_grad():
             for feats, valid, w in valid_batches():
-                losses.append(masked_mdn_loss(mdn, feats, valid, None))
+                losses.append(loss_fn(head, feats, valid, None))
                 weights.append(w)
         return _weighted_mean(losses, weights)
 
-    history, epochs_ran, stopper = run_epochs(hp, train_epoch, valid_epoch, mdn.state_dict,
+    history, epochs_ran, stopper = run_epochs(hp, train_epoch, valid_epoch, head.state_dict,
                                               log)
     if stopper.best_params is not None:
-        mdn.load_state_dict(stopper.best_params)
+        head.load_state_dict(stopper.best_params)
     metrics: Dict[str, float] = {}
     if test_data is not None:
-        metrics = evaluate_mdn(encoder, mdn, test_data, hp, mean, std)
+        metrics = evaluate(encoder, head, test_data, hp, mean, std)
     return TrainResult(
-        head=mdn, encoder=encoder, history=history, metrics=metrics, epochs_ran=epochs_ran,
+        head=head, encoder=encoder, history=history, metrics=metrics, epochs_ran=epochs_ran,
         best_epoch=stopper.best_epoch,
         best_valid_loss=float("nan") if stopper.best_loss is None else stopper.best_loss)
+
+
+def train_mdn(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPipeline] = None,
+              encoder: Optional[Encoder] = None, device: Optional[str] = None,
+              log: Optional[Callable[[Dict[str, Any]], None]] = None) -> TrainResult:
+    """Train the GMM/MDN head on frozen-trunk features.
+
+    `encoder` defaults to the registry trunk with its seeded init; it and
+    the head live on `device` (default: the encoder's device, else the CPU).
+    Each training step draws fresh Gumbel noise from one generator seeded
+    with `hp.seed`; the validation loss is noiseless. The head ends with the
+    weights of its best validation epoch, and is evaluated on `test_data`."""
+    from vit_ad_tpu_torch.pipeline.eval import evaluate_mdn
+
+    make = lambda feats: GaussianMDN(feats.shape[-1], hp.num_gaussians, dtypes=hp.dtypes,
+                                     generator=torch.Generator().manual_seed(hp.seed))
+    return _train_head(hp, data, test_data, encoder, device, log, make, masked_mdn_loss, True,
+                       evaluate_mdn)
+
+
+def train_nf(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPipeline] = None,
+             encoder: Optional[Encoder] = None, device: Optional[str] = None,
+             log: Optional[Callable[[Dict[str, Any]], None]] = None) -> TrainResult:
+    """Train the normalizing-flow head on frozen-trunk features (reference
+    LearnerNF.train_with_transformer): one flow sized (D, √P x √P), Adam on
+    the flow's parameters only, the NLL ½ Σ z² - logdet, early stopping (always
+    active, as in the JAX package), best-epoch weights, final NF metrics.
+    Arguments as `train_mdn`; the flow's init is seeded with `hp.seed`."""
+    from vit_ad_tpu_torch.pipeline.eval import evaluate_nf
+
+    make = lambda feats: NormalizingFlow(
+        num_channels=feats.shape[-1], img_size=hp.img_size, num_patches=feats.shape[1],
+        hidden_ratio=hp.hidden_ratio, flow_steps=hp.flow_steps,
+        generator=torch.Generator().manual_seed(hp.seed))
+    return _train_head(hp, data, test_data, encoder, device, log, make, masked_nf_loss, False,
+                       evaluate_nf)

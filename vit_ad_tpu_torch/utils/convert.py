@@ -1,11 +1,13 @@
 """Carry JAX-trained weights into the port.
 
-`vit_state_dict_from_jax`, `nf_state_dict_from_jax` and
-`mdn_state_dict_from_jax` take the JAX package's params as nested dicts of
-numpy arrays (the caller does jax → numpy) and return the port's state
-dicts, in the timm, FrEIA and reference-MDN layouts that
-`vit_ad_tpu/utils/torch_convert.export_vit` (:607), `export_nf_head` (:518)
-and `export_mdn_head` (:497) emit. numpy only: no jax, no `vit_ad_tpu`.
+`vit_state_dict_from_jax`, `swin_state_dict_from_jax`,
+`nf_state_dict_from_jax` and `mdn_state_dict_from_jax` take the JAX package's
+params as nested dicts of numpy arrays (the caller does jax → numpy) and
+return the port's state dicts, in the timm, EsViT, FrEIA and reference-MDN
+layouts that `vit_ad_tpu/utils/torch_convert.export_vit` (:607), `export_swin`
+(:803), `export_nf_head` (:518) and `export_mdn_head` (:497) emit.
+`interpolate_rel_pos_table` is the port's copy of the bias-table resize of
+`torch_convert.py` (:1099). numpy and scipy only: no jax, no `vit_ad_tpu`.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ _VIT_BLOCK_KEYS = {  # timm key → (JAX stacked leaf, transpose)
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))  # a writable copy
 
 
 def _hwio_to_oihw(kernel) -> np.ndarray:
@@ -65,6 +67,66 @@ def vit_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor
     sd["norm.weight"] = _t(p["norm_scale"])
     sd["norm.bias"] = _t(p["norm_bias"])
     return sd
+
+
+_SWIN_BLOCK_KEYS = {  # EsViT key → (JAX stacked leaf, transpose)
+    **_VIT_BLOCK_KEYS,
+    "attn.relative_position_bias_table": ("bias_table", False),
+}
+
+
+def swin_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Scan-stacked JAX `SwinTransformer` params → the port's `SwinTransformer`
+    state dict (vendored EsViT keys), the inverse stacking of `export_swin`:
+    `a_*` leaves are a stage's even (unshifted) blocks, `b_*` its odd
+    (shifted) ones, kernels transposed. Accepts the tree with or without the
+    `params` and `esvit` wrappers. `relative_position_index` is recomputed
+    from each table's window."""
+    from vit_ad_tpu_torch.ops.window_attention import relative_position_index
+
+    p = _unwrap(params)
+    p = p["esvit"] if "esvit" in p else p
+    ln = lambda tree: tree["LayerNorm_0"] if "LayerNorm_0" in tree else tree
+    sd = {"patch_embed.proj.weight": _t(_hwio_to_oihw(p["patch_embed"]["kernel"])),
+          "patch_embed.proj.bias": _t(p["patch_embed"]["bias"])}
+    for key, tree in (("patch_embed.norm", p["patch_norm"]), ("norm", p["norm"])):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = _t(ln(tree)["scale"]), _t(ln(tree)["bias"])
+    si = 0
+    while f"layer{si}" in p:
+        stage = p[f"layer{si}"]
+        for tag, parity in (("a", 0), ("b", 1)):
+            for j in range(int(np.asarray(stage["a_norm1_scale"]).shape[0])):
+                pre = f"layers.{si}.blocks.{2 * j + parity}"
+                for key, (leaf, transpose) in _SWIN_BLOCK_KEYS.items():
+                    a = np.asarray(stage[f"{tag}_{leaf}"][j], np.float32)
+                    sd[f"{pre}.{key}"] = _t(a.T if transpose else a)
+                table = sd[f"{pre}.attn.relative_position_bias_table"]
+                window = int(round((table.shape[0] ** 0.5 + 1) / 2))
+                sd[f"{pre}.attn.relative_position_index"] = torch.from_numpy(
+                    relative_position_index(window, window).copy())
+        if f"layer{si}_downsample" in p:
+            dp = p[f"layer{si}_downsample"]
+            pre = f"layers.{si}.downsample"
+            sd[f"{pre}.norm.weight"] = _t(ln(dp["norm"])["scale"])
+            sd[f"{pre}.norm.bias"] = _t(ln(dp["norm"])["bias"])
+            sd[f"{pre}.reduction.weight"] = _t(np.asarray(dp["reduction"]["kernel"], np.float32).T)
+        si += 1
+    return sd
+
+
+def interpolate_rel_pos_table(table: np.ndarray, src_window: int, dst_window: int) -> np.ndarray:
+    """Bicubic-resize a relative-position bias table [(2Ws-1)², H] to another
+    window size on its 2-D grid (`scipy.ndimage.zoom`, order 3)."""
+    if src_window == dst_window:
+        return table
+    import scipy.ndimage
+
+    s, d = 2 * src_window - 1, 2 * dst_window - 1
+    heads = table.shape[1]
+    out = scipy.ndimage.zoom(table.reshape(s, s, heads), (d / s, d / s, 1.0), order=3)
+    if out.shape != (d, d, heads):
+        raise ValueError(f"resized bias table has shape {out.shape}, expected {(d, d, heads)}")
+    return out.reshape(d * d, heads).astype(table.dtype)
 
 
 def nf_state_dict_from_jax(params: Mapping[str, Any], num_patches: int,
