@@ -3,35 +3,49 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths at full width, bf16 compute, through the
-port's CLIs, after building and checking the hand-written kernels: on a
-DeiT-base/16 trunk the flagship serving path (score a folder with an NF-20
-head) and the MDN path (train a K=150 GMM head on cached features, save it,
-score a folder with it); on the EsViT Swin-T trunk the NF path (train an NF-20
-head on cached Swin features, save it, score a folder with it). Phases:
+Drives the port's main paths at full width, bf16 compute, through the port's
+CLIs, after building and checking the hand-written kernels: on a DeiT-base/16
+trunk the flagship serving path (score a folder with an NF-20 head), the same
+with the blocks' MLP tail through the fused kernel, and the MDN path (train a
+K=150 GMM head on cached features, save it, score a folder with it); on the
+EsViT Swin-T trunk the NF path (train an NF-20 head on cached Swin features,
+save it, score a folder with it); on the ResNet-50 trunk the multi-stage MDN
+path (train two K=100 GMM heads jointly with the stage LayerNorms, save them,
+score a folder with them). Phases:
 
   1. device   card name and power limit (nvidia-smi)
   2. build    compile the kernels from vit_ad_tpu_torch/csrc (nvcc, sm_90a)
   3. kernels  each kernel against its plain PyTorch version on the card:
               ViT attention (B1), GMM forward (B2), its parameter and feature
               backwards (B3, B4), Swin window attention from packed and from
-              split inputs (B5, B5a), one-pass LayerNorm (B7)
+              split inputs (B5, B5a), one-pass LayerNorm (B7), fused MLP
+              half-block (B6)
   4. NF path  40 synthetic 224-px PNGs scored by `cli.score.main` with seeded
               random full-width weights; launch counts; CUDA-vs-CPU f32 scores
-  5. MDN path a synthetic category: `cli.train_mdn.main` (K=150, a few
+  5. fused    the same folder and weights with `--fused-mlp`: B6 12 times per
+              encoder batch; bf16 scores against phase 4's; the f32 policy
+              (erf GELU) launches none and keeps its scores
+  6. MDN path a synthetic category: `cli.train_mdn.main` (K=150, a few
               epochs), then `cli.score.main -a mdn` on its .pth; launch
               counts per step and batch; CUDA-vs-CPU f32 scores
-  6. EsViT    a synthetic category: `cli.train_nf.main -m esvit --fused-ln`
+  7. EsViT    a synthetic category: `cli.train_nf.main -m esvit --fused-ln`
               (a few epochs), then `cli.score.main -a nf -m enc_esvit` on its
               .pth; B5 and B7 launch counts per encoder batch; CUDA-vs-CPU
               f32 scores
-  7. times    kernels vs plain vs the one PyTorch call that computes the same
+  8. ResNet   a synthetic category: `cli.train_mdn.main -m res_net` (K=100, a
+              few joint steps), then `cli.score.main -a mdn` on the two head
+              files and the encoder file it wrote; B2, B3 and B4 launch counts
+              per step for both heads (B4 never while scoring); the loss
+              falls, only the read stage norms move; CUDA-vs-CPU f32 scores
+              at K=4
+  9. times    kernels vs plain vs the one PyTorch call that computes the same
               function, where there is one, each beside its bound (B3 and B4
-              also checked at 64 x 196 rows); DeiT NF and MDN and EsViT NF
-              uint8→scores img/s at batch 128 (EsViT with the fused LayerNorm
-              on and off); the MDN and NF train steps; where the device time
-              of an EsViT batch goes (torch.profiler)
-  8. result   a kernels JSON line, the nvidia-smi line, and last the
+              also checked at 64 x 196 rows and at the ResNet heads' shapes);
+              DeiT NF (fused MLP off and on), MDN, EsViT NF (fused LayerNorm
+              off and on) and ResNet MDN uint8→scores img/s at batch 128; the
+              MDN, NF and joint ResNet MDN (K=100, 150) train steps; where the
+              device time of an EsViT batch goes (torch.profiler)
+ 10. result   a kernels JSON line, the nvidia-smi line, and last the
               {"ok": true, "device": ...} line
 
 Every phase raises on failure, so the script exits non-zero and prints no
@@ -81,13 +95,17 @@ GMM_FWD_CASES = [  # (rows, D, K, dtype): the DeiT shape, the tiled widths, K=1
     (200, 1024, 8, "bfloat16"), (200, 1024, 8, "float32"),
     (200, 2048, 4, "bfloat16"), (200, 2048, 4, "float32"),
     (392, 768, 1, "bfloat16"), (392, 768, 1, "float32"),
+    # the ResNet-50 heads on a 16-image step: stage 2 (196 tokens), stage 3 (49)
+    (3136, 1024, 100, "bfloat16"), (784, 2048, 100, "bfloat16"),
 ]
 # backward: one chunk of components at 392 and 200 rows; the train step's
 # 16 x 196 rows take 2 chunks under bf16 and 3 under f32 (ops/cuda/gmm.py
 # `backward_chunk`), which run k0 > 0 and carry the dx sum across chunks
 GMM_BWD_CASES = [(392, 768, 150, "bfloat16"), (392, 768, 150, "float32"),
                  (200, 1024, 8, "bfloat16"), (200, 2048, 4, "float32"),
-                 (3136, 768, 150, "bfloat16"), (3136, 768, 150, "float32")]
+                 (3136, 768, 150, "bfloat16"), (3136, 768, 150, "float32"),
+                 # the ResNet-50 heads' train step: 2 chunks at D=1024, 1 at D=2048
+                 (3136, 1024, 100, "bfloat16"), (784, 2048, 100, "bfloat16")]
 # the MDN main path: K=150 (startTraining_mdn.py:33) on DeiT-base, D=768
 MDN_K, MDN_TRAIN, MDN_TEST, MDN_EPOCHS, MDN_BATCH, MDN_SCORE_BATCH = 150, 32, 4, 3, 16, 4
 MDN_TIMED_RUNS = 3
@@ -96,7 +114,17 @@ ESVIT_TRAIN, ESVIT_TEST, ESVIT_EPOCHS, ESVIT_BATCH, ESVIT_SCORE_BATCH = 32, 4, 3
 # kernel launches of one EsViT encoder batch: 12 window attentions; with the
 # fused LayerNorm 24 block norms, the patch norm, 3 merge norms, the final norm
 ESVIT_B5_PER_BATCH, ESVIT_B7_PER_BATCH = 12, 24 + 1 + 3 + 1
-NO_LAUNCHES = {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B5": 0, "B5a": 0, "B7": 0}
+NO_LAUNCHES = {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B5": 0, "B5a": 0, "B6": 0, "B7": 0}
+# the ResNet-50 multi-stage MDN main path: heads on stage maps 2 and 3 (D=1024
+# on 14x14 tokens, D=2048 on 7x7), K=100 and K=150 (the reference's two
+# settings; the CLI run uses 100), a few joint steps at batch 16
+RESNET_K, RESNET_TRAIN, RESNET_TEST, RESNET_EPOCHS, RESNET_BATCH = 100, 32, 4, 3, 16
+RESNET_SCORE_BATCH, RESNET_TIMED_KS, RESNET_CPU_K = 4, (100, 150), 4
+RESNET_HEADS = ((1024, 196), (2048, 49))  # (D, tokens per image) of stages 2, 3
+# bf16 image scores with the fused MLP on vs off, relative: the two tails
+# round the hidden activations and the residual at other points (f32 vs bf16)
+# through 12 blocks; the bf16 policy itself drifts ~1e-2 from f32
+FUSED_MLP_SCORE_RTOL = 2e-2
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): HBM3 bytes/s
 # and bf16 tensor-core FLOP/s, the rates of every kernel's bound
 HBM_BYTES_PER_S, PEAK_BF16_FLOPS = 3.35e12, 989e12
@@ -129,6 +157,17 @@ LN_TOL = {"bfloat16": (1e-3, 2.0**-7), "float32": (1e-5, 1e-5)}
 LN_CASES = [(4099, 96), (2051, 192), (1027, 384), (515, 768), (259, 1536), (1027, 100),
             (515, 1000)]
 LN_EPS = 1e-5
+# Fused MLP half-block (B6) vs plain, max abs difference relative to the
+# largest plain entry. bf16: kernel and plain round the same three tensors to
+# bf16 from f32 sums taken in other orders (2e-2 is ~2.5 bf16 ulps of the
+# largest entry); f32: summation order and tanhf only.
+MLP_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+MLP_EPS = 1e-6
+# (rows, D, H): the DeiT-base MLP of a B=128 batch (128 x 198 rows, a whole
+# number of the kernel's 32-row tiles), a B=127 batch (ragged last tile), one
+# tile exactly, fewer rows than a tile, and two other widths the gate admits
+MLP_CASES = [(25344, 768, 3072), (25146, 768, 3072), (32, 768, 3072), (5, 768, 3072),
+             (1000, 384, 1536), (200, 1024, 4096)]
 
 
 def phase(name: str) -> None:
@@ -320,6 +359,68 @@ def check_layer_norm(rows: int, d: int, dt: str, gen, dev) -> float:
     return diff.max().item()
 
 
+def mlp_inputs(rows: int, d: int, hidden: int, dtype, gen, dev):
+    """Seeded inputs of the fused MLP half-block: x [rows, D] with a mean and
+    a spread the LayerNorm has to remove, a norm affine away from (1, 0), and
+    fc1/fc2 in the nn.Linear layouts at the scale of a trained ViT block (the
+    hidden pre-activations have std ~1, the MLP output std ~0.5)."""
+    import torch
+
+    r = lambda *shape: torch.randn(*shape, device=dev, generator=gen)
+    x = (1.5 * r(rows, d) + 0.3).to(dtype)
+    return [x, 1.0 + 0.2 * r(d), 0.2 * r(d), (r(hidden, d) / math.sqrt(d)).to(dtype),
+            0.1 * r(hidden), (r(d, hidden) / math.sqrt(hidden)).to(dtype), 0.1 * r(d)]
+
+
+def check_mlp_block(rows: int, d: int, hidden: int, dt: str, gen, dev) -> float:
+    """B6 against its plain version; returns max |diff|. The tolerance is
+    relative to the largest plain entry: under bf16 both round the LayerNorm
+    output, the GELU output and the result to bf16, and an f32 sum that
+    differs in its last bits can flip any of those roundings."""
+    import torch
+    from vit_ad_tpu_torch.ops import mlp as mops
+    from vit_ad_tpu_torch.ops.cuda import mlp as cmlp
+
+    args = mlp_inputs(rows, d, hidden, getattr(torch, dt), gen, dev)
+    before = cmlp.launches
+    with torch.no_grad():
+        out = cmlp.mlp_block(*args, MLP_EPS)
+        ref = mops.mlp_block_reference(*args, MLP_EPS)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    print(f"mlp_block (B6) rows={rows} D={d} H={hidden} {dt}: max|kernel-plain| {err:.3e} = "
+          f"{err / scale:.3e} of max|plain| {scale:.2f} (tol {MLP_TOL[dt]:.0e}), launches "
+          f"+{cmlp.launches - before}")
+    if not (math.isfinite(err) and err <= MLP_TOL[dt] * scale) or out.dtype != args[0].dtype \
+            or out.shape != args[0].shape or cmlp.launches != before + 1:
+        raise AssertionError(f"mlp_block kernel disagrees with its plain version: {err}")
+    return err
+
+
+def check_mlp_kernel(gen, dev) -> None:
+    """Phase 3, B6: the fused MLP half-block at the DeiT-base shape of a B=128
+    batch and its neighbours, in bf16 and f32, and its recompute backward
+    against plain autograd."""
+    import torch
+    from vit_ad_tpu_torch.ops import mlp as mops
+    from vit_ad_tpu_torch.ops.cuda import mlp as cmlp
+
+    for dt in ("bfloat16", "float32"):
+        for rows, d, hidden in MLP_CASES:
+            check_mlp_block(rows, d, hidden, dt, gen, dev)
+    args = [t.requires_grad_(True) for t in mlp_inputs(45, 128, 256, torch.float32, gen, dev)]
+    gy = torch.randn(45, 128, device=dev, generator=gen)
+    got = torch.autograd.grad(cmlp.mlp_block(*args, MLP_EPS), args, gy)
+    want = torch.autograd.grad(mops.mlp_block_reference(*args, MLP_EPS), args, gy)
+    gerr = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want))
+    print(f"mlp_block backward vs plain autograd (f32, rows=45 D=128 H=256): max relative "
+          f"diff {gerr:.3e} (tol 1e-5)")
+    if not gerr <= 1e-5:
+        raise AssertionError(f"mlp_block's recompute backward disagrees with plain autograd: "
+                             f"{gerr}")
+
+
 def check_swin_kernels(gen, dev) -> None:
     """Phase 3, the Swin slice: B5 at every stage shape and a padded
     geometry, B5a at two of them, B7 at the block and merge widths, each in
@@ -375,7 +476,7 @@ def check_scores_csv(out_dir: str, files, what: str):
 
 
 def esvit_main_path(tmp: str) -> dict:
-    """Phase 6: train an NF-20 head on the full-width EsViT Swin-T trunk's
+    """Phase 7: train an NF-20 head on the full-width EsViT Swin-T trunk's
     features of a synthetic 224-px category with `cli.train_nf` (fused
     LayerNorm on), score its test folder with `cli.score -a nf -m enc_esvit`,
     and check the launch counts of both runs and the f32 scores against the
@@ -493,7 +594,7 @@ def sdpa_ms(q, k, v, additive, torch):
 
 
 def swin_times(card: str, gen) -> dict:
-    """Phase 7, Swin part: B5 at the four Swin-T stage shapes of a B=128
+    """Phase 9, Swin part: B5 at the four Swin-T stage shapes of a B=128
     batch, B5a at stage 0, B7 at the four block-norm shapes: kernel vs plain
     vs the library call (SDPA with an additive mask; `F.layer_norm`), beside
     the bound. Returns the kernels' JSON numbers (stage 0 for B5 and B7, the
@@ -632,50 +733,21 @@ def print_device_profile(what: str, fn, card: str, batches: int = 3, top: int = 
 
 
 def esvit_times(esvit: dict, images, card: str, gen) -> None:
-    """Phase 7, EsViT part: uint8→scores img/s of Swin-T + NF-20 at B=128
+    """Phase 9, EsViT part: uint8→scores img/s of Swin-T + NF-20 at B=128
     bf16 with the fused LayerNorm off and on (order off, on, on, off), the
     encoder alone likewise, the NF train step on cached [B, 49, 768] tokens
     (7x7x768 maps), and where the device time of a scoring batch goes."""
     import torch
-    from vit_ad_tpu_torch.data.dataset import default_norm_stats
-    from vit_ad_tpu_torch.data.loader import preprocess
-    from vit_ad_tpu_torch.pipeline.eval import make_nf_batch_fn
     from vit_ad_tpu_torch.pipeline.loading import build_pth_models
     from vit_ad_tpu_torch.pipeline.optimizers import torch_adam
     from vit_ad_tpu_torch.pipeline.train import masked_nf_loss, train_step
 
     dev = torch.device("cuda")
-    mean, std = (torch.as_tensor(a, device=dev) for a in default_norm_stats())
-    fns, encs = {}, {}
-    for fused in (False, True):
-        m = build_pth_models(esvit["pth"], "enc_esvit", "nf", device=dev, fused_ln=fused)
-        batch_fn = make_nf_batch_fn(*m.parts, m.hp, mean, std)
-
-        def scores(batch_fn=batch_fn):
-            with torch.inference_mode():
-                return batch_fn(images).amax(dim=(1, 2))
-
-        def encode(enc=m.parts[0]):
-            with torch.inference_mode():
-                return enc(preprocess(images, mean, std)).patch_embedding
-
-        fns[fused], encs[fused] = scores, encode
-        out = scores()
-        if out.shape != (FLAGSHIP_BATCH,) or not torch.isfinite(out).all():
-            raise AssertionError("EsViT batch gave non-finite or misshapen scores")
-    drift = (fns[True]() - fns[False]()).abs().max().item()
     torch.cuda.reset_peak_memory_stats()
-    for what, pair in (("uint8→scores Swin-T + NF-20", fns), ("uint8→tokens Swin-T alone", encs)):
-        off = [median_ms(pair[False], torch, runs=10)]
-        on = [median_ms(pair[True], torch, runs=10), median_ms(pair[True], torch, runs=10)]
-        off.append(median_ms(pair[False], torch, runs=10))
-        rate = lambda ms: FLAGSHIP_BATCH / statistics.mean(ms) * 1e3
-        print(f"[{card}] EsViT {what} B={FLAGSHIP_BATCH} bf16, batch on the device: fused LN "
-              f"off {off} ms = {rate(off):.1f} img/s, on {on} ms = {rate(on):.1f} img/s "
-              f"(order off, on, on, off)")
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"EsViT scores with the fused LN on vs off: max |diff| {drift:.3e} (bf16 roundings); "
-          f"peak memory {peak:.2f} GiB")
+    fns, m = flag_ab("EsViT", "Swin-T", "fused LN", images, card,
+                     lambda fused: build_pth_models(esvit["pth"], "enc_esvit", "nf", device=dev,
+                                                    fused_ln=fused))
+    print(f"EsViT peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     flow = m.parts[1].train()
     for b in (32, 128):
@@ -721,20 +793,22 @@ def alternate(kern, plain, runs: int, warmup: int):
 def reset_launches() -> None:
     from vit_ad_tpu_torch.ops.cuda import gmm as cgmm
     from vit_ad_tpu_torch.ops.cuda import layer_norm as ln
+    from vit_ad_tpu_torch.ops.cuda import mlp as cmlp
     from vit_ad_tpu_torch.ops.cuda import window_attention as wa
 
     wa.launches = cgmm.fwd_launches = cgmm.bwd_params_launches = cgmm.bwd_x_launches = 0
-    wa.window_launches = wa.split_launches = ln.launches = 0
+    wa.window_launches = wa.split_launches = ln.launches = cmlp.launches = 0
 
 
 def read_launches() -> dict:
     from vit_ad_tpu_torch.ops.cuda import gmm as cgmm
     from vit_ad_tpu_torch.ops.cuda import layer_norm as ln
+    from vit_ad_tpu_torch.ops.cuda import mlp as cmlp
     from vit_ad_tpu_torch.ops.cuda import window_attention as wa
 
     return {"B1": wa.launches, "B2": cgmm.fwd_launches, "B3": cgmm.bwd_params_launches,
             "B4": cgmm.bwd_x_launches, "B5": wa.window_launches, "B5a": wa.split_launches,
-            "B7": ln.launches}
+            "B6": cmlp.launches, "B7": ln.launches}
 
 
 def bound(n_bytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
@@ -750,7 +824,7 @@ def tensor_bytes(*tensors) -> int:
 
 
 def mdn_main_path(tmp: str) -> dict:
-    """Phase 5: train a K=150 MDN head on a synthetic 224-px category with
+    """Phase 6: train a K=150 MDN head on a synthetic 224-px category with
     `cli.train_mdn`, score its test folder with `cli.score -a mdn`, and check
     the launch counts of both runs and the f32 scores against the CPU."""
     import glob
@@ -844,8 +918,82 @@ def mdn_main_path(tmp: str) -> dict:
     return {"launches": launches, "pth": pth}
 
 
+def gmm_split_times(rows: int, d: int, k: int, head, card: str, gen, runs: int) -> dict:
+    """B2, B3 and B4 alone on `rows` features of width `d` with the weights of
+    `head` (a GaussianMDN of K=`k`), bf16: the forward, and B3 and B4 by
+    difference of the medians of forward, forward + backward and forward +
+    backward with dx, kernel and plain. Returns the kernels' JSON numbers;
+    raises if B3 or B4 disagrees with its plain version here (B2 is held to
+    its tolerance at these shapes in phase 3)."""
+    import torch
+    from vit_ad_tpu_torch.ops.cuda import gmm as cgmm
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    x = torch.randn(1, rows, d, device=dev, generator=gen)
+    log_pi = torch.log(torch.softmax(torch.randn(1, rows, k, device=dev, generator=gen),
+                                     -1) + 1e-15).requires_grad_(True)
+    c = torch.randn(1, rows, d, device=dev, generator=gen)
+    params = [log_pi, head.sigma.weight, head.sigma.bias, head.mu.weight, head.mu.bias]
+    xg = x.clone().requires_grad_(True)
+    grads = {}
+    for version, fn in (("kernel", cgmm.gmm_log_likelihood),
+                        ("plain", cgmm.gmm_log_likelihood_reference)):
+        ll = lambda xx: fn(xx, log_pi, head.sigma.weight, head.sigma.bias, head.mu.weight,
+                           head.mu.bias, matmul_dtype=bf16)
+
+        def fwd():
+            with torch.no_grad():
+                return ll(x)
+
+        bwd = lambda: torch.autograd.grad((ll(x) * c).sum(), params)
+        bwd_x = lambda: torch.autograd.grad((ll(xg) * c).sum(), params + [xg])
+        grads[version + " ll"] = fwd()
+        grads[version] = bwd_x()
+        grads[version + " ms"] = [median_ms(f, torch, runs, 1) for f in (fwd, bwd, bwd_x)]
+    ll_diff = (grads["kernel ll"] - grads["plain ll"]).abs()
+    errs = [(g - w).abs().max().item() for g, w in zip(grads["kernel"], grads["plain"])]
+    # B2 computes mu and pre (two [rows, D] x [D, D] products per component);
+    # B3 recomputes them and contracts x with dmu and dpre (two more); B4
+    # multiplies dmu and dpre by the heads (two). Each reads x, log_pi and
+    # both heads once (B3 and B4 also g and ll); B2 writes ll, B3 both heads'
+    # gradients, B4 dx.
+    head_bytes = tensor_bytes(*params[1:])
+    prod = 2 * rows * d * d * k  # one [rows, D] x [D, D] product per component
+    acts = tensor_bytes(x, c, log_pi) + rows * d * 4
+    bounds = {"B2": bound(tensor_bytes(x, log_pi) + head_bytes + rows * d * 4, 2 * prod),
+              "B3": bound(acts + 2 * head_bytes + tensor_bytes(log_pi), 4 * prod),
+              "B4": bound(acts + head_bytes + tensor_bytes(x), 2 * prod)}
+    k_fwd, p_fwd = grads["kernel ms"][0], grads["plain ms"][0]
+    print(f"[{card}] gmm forward (B2) rows={rows} D={d} K={k} bf16: kernel {k_fwd:.3f} ms "
+          f"({2 * prod / k_fwd / 1e9:.1f} TFLOP/s), plain {p_fwd:.3f} ms, bound "
+          f"{bounds['B2']['bound_ms']:.3f} ms by {bounds['B2']['bound_by']}; max|kernel-plain| "
+          f"{ll_diff.max().item():.3e}")
+    out = {"B2": {"max_abs_err": ll_diff.max().item(), "ms": k_fwd, "plain_ms": p_fwd,
+                  "library_ms": None, **bounds["B2"]}}
+    for key, idx, what in (("B3", 1, "parameter backward"), ("B4", 2, "feature backward")):
+        k_ms = grads["kernel ms"][idx] - grads["kernel ms"][idx - 1]
+        p_ms = grads["plain ms"][idx] - grads["plain ms"][idx - 1]
+        idx_g = range(5) if key == "B3" else [5]
+        err = max(errs[i] for i in idx_g)
+        rel = max(errs[i] / grads["plain"][i].abs().max().item() for i in idx_g)
+        print(f"[{card}] gmm {what} ({key}) rows={rows} D={d} K={k} bf16, by "
+              f"difference of medians: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
+              f"(kernel fwd/+bwd/+dx {grads['kernel ms']}, plain {grads['plain ms']}), bound "
+              f"{bounds[key]['bound_ms']:.3f} ms by {bounds[key]['bound_by']}; "
+              f"max|kernel-plain| {err:.3e} ({rel:.3e} of max|plain|, tol "
+              f"{GRAD_RTOL['bfloat16']:.0e})")
+        if not (math.isfinite(rel) and rel <= GRAD_RTOL["bfloat16"]):
+            raise AssertionError(f"{key} disagrees with its plain version at rows={rows} "
+                                 f"D={d}: {rel}")
+        out[key] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+                    **bounds[key]}
+    for v in out.values():
+        v["shape"] = f"rows={rows} D={d} K={k}"
+    return out
+
+
 def mdn_times(mdn: dict, images, card: str, gen) -> dict:
-    """Phase 6, MDN part: B2 at batch 128, the train step (B2 + B3) at 32
+    """Phase 9, MDN part: B2 at batch 128, the train step (B2 + B3) at 32
     and 64 with its peak memory, B3 and B4 alone by difference, MDN
     uint8→scores img/s. Returns the kernels' JSON numbers; raises if B3 or
     B4 disagrees with the plain version at B=64 (6 chunks of components)."""
@@ -879,7 +1027,8 @@ def mdn_times(mdn: dict, images, card: str, gen) -> dict:
               f"plain {plain_ms} ms (order plain, kernel, kernel, plain), bound "
               f"{b2['bound_ms']:.3f} ms by {b2['bound_by']}; max|kernel-plain| {err:.3e}")
         out["B2"] = {"max_abs_err": err, "ms": statistics.mean(kern_ms),
-                     "plain_ms": statistics.mean(plain_ms), "library_ms": None, **b2}
+                     "plain_ms": statistics.mean(plain_ms), "library_ms": None, **b2,
+                     "shape": f"rows={rows} D={d} K={k}"}
         del args
 
     m = build_pth_models(mdn["pth"], "enc_deit", "mdn", device=dev)
@@ -910,55 +1059,9 @@ def mdn_times(mdn: dict, images, card: str, gen) -> dict:
               f"plain {plain_ms} ms = {b / statistics.mean(plain_ms) * 1e3:.1f} img/s; peak "
               f"memory kernel {peaks[0]:.2f} GiB, plain {peaks[1]:.2f} GiB")
 
-    # B3 and B4 alone, by difference of forward, forward + backward and
-    # forward + backward with dx, at B=64 (6.4 TFLOP per product set)
-    b = 64
-    x = torch.randn(1, b * 196, d, device=dev, generator=gen)
-    log_pi = torch.log(torch.softmax(torch.randn(1, b * 196, MDN_K, device=dev, generator=gen),
-                                     -1) + 1e-15).requires_grad_(True)
-    c = torch.randn(1, b * 196, d, device=dev, generator=gen)
-    params = [log_pi, head.sigma.weight, head.sigma.bias, head.mu.weight, head.mu.bias]
-    xg = x.clone().requires_grad_(True)
-    grads = {}
-    for version, fn in (("kernel", cgmm.gmm_log_likelihood),
-                        ("plain", cgmm.gmm_log_likelihood_reference)):
-        ll = lambda xx: fn(xx, log_pi, head.sigma.weight, head.sigma.bias, head.mu.weight,
-                           head.mu.bias, matmul_dtype=bf16)
-
-        def fwd():
-            with torch.no_grad():
-                return ll(x)
-
-        bwd = lambda: torch.autograd.grad((ll(x) * c).sum(), params)
-        bwd_x = lambda: torch.autograd.grad((ll(xg) * c).sum(), params + [xg])
-        grads[version] = bwd_x()
-        grads[version + " ms"] = [median_ms(f, torch, runs, 1) for f in (fwd, bwd, bwd_x)]
-    errs = [(g - w).abs().max().item() for g, w in zip(grads["kernel"], grads["plain"])]
-    # B3 recomputes mu and pre (two products per component) and contracts x
-    # with dmu and dpre (two more); B4 multiplies dmu and dpre by the heads
-    # (two). Each reads x, g, ll, log_pi and both heads once; B3 writes both
-    # heads' gradients, B4 dx.
-    rows_b, head_bytes = b * 196, tensor_bytes(*params[1:])
-    prod = 2 * rows_b * d * d * MDN_K  # one [rows, D] x [D, D] product per component
-    acts = tensor_bytes(x, c, log_pi) + rows_b * d * 4
-    bounds = {"B3": bound(acts + 2 * head_bytes + tensor_bytes(log_pi), 4 * prod),
-              "B4": bound(acts + head_bytes + tensor_bytes(x), 2 * prod)}
-    for key, idx, what in (("B3", 1, "parameter backward"), ("B4", 2, "feature backward")):
-        k_ms = grads["kernel ms"][idx] - grads["kernel ms"][idx - 1]
-        p_ms = grads["plain ms"][idx] - grads["plain ms"][idx - 1]
-        idx_g = range(5) if key == "B3" else [5]
-        err = max(errs[i] for i in idx_g)
-        rel = max(errs[i] / grads["plain"][i].abs().max().item() for i in idx_g)
-        print(f"[{card}] gmm {what} ({key}) rows={b * 196} D={d} K={MDN_K} bf16, by "
-              f"difference of medians: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
-              f"(kernel fwd/+bwd/+dx {grads['kernel ms']}, plain {grads['plain ms']}), bound "
-              f"{bounds[key]['bound_ms']:.3f} ms by {bounds[key]['bound_by']}; "
-              f"max|kernel-plain| {err:.3e} ({rel:.3e} of max|plain|, tol "
-              f"{GRAD_RTOL['bfloat16']:.0e})")
-        if not (math.isfinite(rel) and rel <= GRAD_RTOL["bfloat16"]):
-            raise AssertionError(f"{key} disagrees with its plain version at B={b}: {rel}")
-        out[key] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": None,
-                    **bounds[key]}
+    # B3 and B4 alone at B=64 (6.4 TFLOP per product set)
+    split = gmm_split_times(64 * 196, d, MDN_K, head, card, gen, runs)
+    out["B3"], out["B4"] = split["B3"], split["B4"]
 
     mean, std = default_norm_stats()
     as_t = lambda a: torch.as_tensor(a, device=dev)
@@ -987,6 +1090,398 @@ def mdn_times(mdn: dict, images, card: str, gen) -> dict:
         print(f"[{card}] MDN {what}: DeiT-base + MDN K={MDN_K} B={FLAGSHIP_BATCH} bf16: "
               f"{ms:.3f} ms/batch = {FLAGSHIP_BATCH / ms * 1e3:.1f} img/s")
     return out
+
+
+def fused_mlp_main_path(tmp: str, nf_pth: str, deit_pth: str, img_dir: str, files,
+                        off_scores, f32_cuda_scores) -> dict:
+    """Phase 5: the phase-4 folder and weights scored again by `cli.score
+    --fused-mlp`: B6 once per block per batch beside B1; bf16 scores against
+    the flag-off scores of phase 4; under the f32 policy (erf GELU) the flag
+    launches nothing and leaves the scores as they were."""
+    import numpy as np
+    import torch
+    from vit_ad_tpu_torch.cli import score as score_cli
+    from vit_ad_tpu_torch.config import DtypePolicy
+    from vit_ad_tpu_torch.data.dataset import default_norm_stats
+    from vit_ad_tpu_torch.data.loader import DataPipeline
+    from vit_ad_tpu_torch.pipeline.loading import build_pth_models, score_models
+
+    out_dir = os.path.join(tmp, "scores_fused_mlp")
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = score_cli.main(["--pth", nf_pth, "-a", "nf", "-m", "enc_deit", "-E", deit_pth,
+                         "-d", img_dir, "-b", str(SMOKE_BATCH), "-o", out_dir, "--fused-mlp"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n_batches = -(-N_IMAGES // SMOKE_BATCH)
+    expect = {**NO_LAUNCHES, "B1": 12 * n_batches, "B6": 12 * n_batches}
+    print(f"cli.score.main --fused-mlp rc={rc} in {wall:.2f} s; launches {launches}, expected "
+          f"{expect} (12 attention and 12 MLP launches x {n_batches} batches)")
+    if rc != 0 or launches != expect:
+        raise AssertionError("the fused-MLP path did not launch the MLP kernel once per block "
+                             "per batch")
+    scores = check_scores_csv(out_dir, files, "NF, fused MLP")
+    rel = np.abs(scores - off_scores) / np.abs(off_scores)
+    print(f"bf16 image scores, fused MLP on vs off ({len(scores)} images): max rel diff "
+          f"{rel.max():.3e} (rtol {FUSED_MLP_SCORE_RTOL:.0e}: other rounding points of the "
+          f"hidden activations and the residual)")
+    if not rel.max() <= FUSED_MLP_SCORE_RTOL:
+        raise AssertionError("bf16 scores with the fused MLP are off the unfused ones")
+
+    reset_launches()
+    m = build_pth_models(nf_pth, "enc_deit", "nf", encoder_ckpt=deit_pth,
+                         dtypes=DtypePolicy.f32(), device="cuda", fused_mlp=True)
+    mean, std = default_norm_stats()
+    got = score_models(m, DataPipeline(2, 224, files=files[:2]), mean, std).image_scores
+    f32_launches = read_launches()
+    print(f"f32 policy with the flag on (erf GELU: the gate is off): launches {f32_launches}, "
+          f"scores {got.tolist()} vs flag off {f32_cuda_scores.tolist()}")
+    if f32_launches != {**NO_LAUNCHES, "B1": 12} or not np.array_equal(got, f32_cuda_scores):
+        raise AssertionError("the f32 policy took the fused MLP or its scores moved")
+    return {"launches": launches}
+
+
+def resnet_main_path(tmp: str) -> dict:
+    """Phase 8: train the two stage heads (K=100) and the stage LayerNorms on
+    a full-width ResNet-50 with `cli.train_mdn -m res_net` on a synthetic
+    224-px category, score its test folder with `cli.score` on the files it
+    wrote; launch counts per step and batch (B4 on every step, never while
+    scoring), the loss, which parameters moved, and f32 scores against the
+    CPU at K=4."""
+    import glob
+
+    import numpy as np
+    import torch
+    from vit_ad_tpu_torch.cli import score as score_cli
+    from vit_ad_tpu_torch.cli import train_mdn as train_cli
+    from vit_ad_tpu_torch.config import DtypePolicy, HyperParams
+    from vit_ad_tpu_torch.data.dataset import default_norm_stats
+    from vit_ad_tpu_torch.data.loader import DataPipeline
+    from vit_ad_tpu_torch.data.synthetic import make_mvtec_category
+    from vit_ad_tpu_torch.models.mdn import GaussianMDN
+    from vit_ad_tpu_torch.ops.cuda import gmm as cgmm
+    from vit_ad_tpu_torch.pipeline.loading import build_pth_resnet_mdn_models, score_models
+    from vit_ad_tpu_torch.pipeline.train import default_encoder
+
+    cat = make_mvtec_category(os.path.join(tmp, "resnet"), "bracket", img_size=224,
+                              n_train=RESNET_TRAIN, n_test_good=RESNET_TEST,
+                              n_test_defect=RESNET_TEST)
+    test_dir = os.path.join(cat, "test")
+    run = os.path.join(tmp, "resnet_run")
+    split = DataPipeline(RESNET_BATCH, 224, base_path=cat, data_path="train/good")
+    n_batches = lambda n, b: -(-n // b)
+    n_tr = n_batches(len(split.train_files), RESNET_BATCH)
+    n_va = n_batches(len(split.valid_files), RESNET_BATCH)
+    n_te = n_batches(2 * RESNET_TEST, RESNET_BATCH)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = train_cli.main(["-m", "res_net", "-d", cat, "-t", "train/good", "-v", "test",
+                         "-n", str(RESNET_K), "-e", str(RESNET_EPOCHS),
+                         "-p", str(RESNET_EPOCHS), "-b", str(RESNET_BATCH), "-i", "224",
+                         "--device", "cuda", "--out", run])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train = read_launches()
+    with open(os.path.join(run, "history.json")) as f:
+        hist = json.load(f)
+    ep = hist["epochs_ran"]
+    # every joint step (padded batches: RESNET_BATCH x tokens rows per head):
+    # one forward per head, and per chunk of components B3's two kernels and
+    # B4's one, since the stage norms need the features' gradient; the
+    # noiseless validation loss and the evaluation: forwards only
+    chunks = [-(-RESNET_K // cgmm.backward_chunk(RESNET_BATCH * tokens, d, RESNET_K,
+                                                 DtypePolicy().compute_dtype))
+              for d, tokens in RESNET_HEADS]
+    steps = ep * n_tr
+    expect = {**NO_LAUNCHES, "B2": 2 * (ep * (n_tr + n_va) + n_te),
+              "B3": steps * 2 * sum(chunks), "B4": steps * sum(chunks)}
+    print(f"cli.train_mdn.main -m res_net rc={rc} in {wall:.2f} s ({ep} epochs x {n_tr} train + "
+          f"{n_va} valid batches of {RESNET_BATCH}, {n_te} test batch; backward chunks "
+          f"{chunks} at D=1024, 2048): launches {train}, expected {expect}")
+    if rc != 0 or train != expect or ep != RESNET_EPOCHS:
+        raise AssertionError("the ResNet MDN training path did not launch B2, B3 and B4 for "
+                             "both heads on every step")
+    if not all(math.isfinite(v) for v in hist["train_loss"] + hist["valid_loss"]) or \
+            not all(math.isfinite(v) for v in hist["metrics"].values()):
+        raise AssertionError(f"non-finite losses or metrics: {hist}")
+    if not hist["train_loss"][-1] < hist["train_loss"][0]:
+        raise AssertionError(f"the joint train loss did not fall: {hist['train_loss']}")
+    print(f"train loss {hist['train_loss']}, valid loss {hist['valid_loss']}, "
+          f"metrics {hist['metrics']} (random trunk: information only)")
+
+    pths = sorted(glob.glob(os.path.join(run, f"{RESNET_K}_gaussians_enc_res_net_stage*.pth")))
+    (enc_pth,) = glob.glob(os.path.join(run, "ResNetEncoder_*.pth"))
+    if len(pths) != 2:
+        raise AssertionError(f"expected one head file per stage, got {pths}")
+    # the trunk is frozen: bit-identical to the seeded init the CLI started
+    # from; the stage norms the heads read have trained, the others have not
+    hp = HyperParams(model_name="enc_res_net", img_size=224)
+    init = default_encoder(hp).state_dict()
+    after = torch.load(enc_pth, map_location="cpu", weights_only=True)
+    moved = sorted(k for k, v in init.items() if not torch.equal(v, after[k]))
+    want_moved = sorted(f"norms.{i}.{leaf}" for i in (2, 3) for leaf in ("weight", "bias"))
+    print(f"encoder file: {len(after)} tensors, changed by training: {moved}")
+    if sorted(after) != sorted(init) or moved != want_moved:
+        raise AssertionError(f"training moved {moved}, expected exactly {want_moved}")
+    del init, after
+
+    out_dir = os.path.join(tmp, "resnet_scores")
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = score_cli.main(["--pth", *pths, "-a", "mdn", "-E", enc_pth, "-d", test_dir,
+                         "-b", str(RESNET_SCORE_BATCH), "-o", out_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    score = read_launches()
+    expect = {**NO_LAUNCHES, "B2": 2 * n_batches(2 * RESNET_TEST, RESNET_SCORE_BATCH)}
+    print(f"cli.score.main -a mdn, two stage heads, rc={rc} in {wall:.2f} s: launches {score}, "
+          f"expected {expect}")
+    if rc != 0 or score != expect:
+        raise AssertionError("ResNet MDN scoring did not launch B2 once per head per batch "
+                             "(and B3, B4 never)")
+    files = score_cli.list_images(test_dir)
+    scores = check_scores_csv(out_dir, files, "ResNet MDN")
+    if not (np.all(scores >= 0) and np.all(scores <= 1)):
+        raise AssertionError("ResNet MDN image scores lie outside [0, 1]")
+
+    # f32 on the card against the CPU with seeded K=4 heads (K=100 heads take
+    # the CPU minutes per batch) on the trained encoder
+    small = []
+    for (d, _), stage in zip(RESNET_HEADS, (2, 3)):
+        path = os.path.join(tmp, f"{RESNET_CPU_K}_gaussians_enc_res_net_stage{stage}_bracket.pth")
+        torch.save(GaussianMDN(d, RESNET_CPU_K,
+                               generator=torch.Generator().manual_seed(stage)).state_dict(), path)
+        small.append(path)
+    mean, std = default_norm_stats()
+    got = {}
+    for device in ("cuda", "cpu"):
+        m = build_pth_resnet_mdn_models(small, encoder_ckpt=enc_pth, dtypes=DtypePolicy.f32(),
+                                        device=device)
+        got[device] = score_models(m, DataPipeline(4, 224, files=files[:4]), mean, std)
+    rel = np.abs(got["cuda"].image_scores - got["cpu"].image_scores) \
+        / np.abs(got["cpu"].image_scores)
+    map_diff = np.abs(got["cuda"].pixel_scores - got["cpu"].pixel_scores).max()
+    print(f"ResNet MDN f32 image scores (K={RESNET_CPU_K}) cuda "
+          f"{got['cuda'].image_scores.tolist()} cpu {got['cpu'].image_scores.tolist()}: max rel "
+          f"diff {rel.max():.3e} (rtol {SCORE_RTOL_F32:.0e}); anomaly maps in [0, 1]: max abs "
+          f"diff {map_diff:.3e}")
+    if not rel.max() <= SCORE_RTOL_F32:
+        raise AssertionError("CUDA f32 ResNet MDN scores disagree with the CPU path")
+    return {"launches": {k: train[k] + score[k] for k in train}, "pths": pths,
+            "encoder": enc_pth}
+
+
+def mlp_times(card: str, gen) -> dict:
+    """Phase 9, B6: the fused MLP half-block at the DeiT-base shape of a B=128
+    batch, bf16: kernel vs plain (order plain, kernel, kernel, plain) vs the
+    stock tail of `models/vit._block_apply` (LayerNorm on the f32 cast, two
+    `F.linear`, `F.gelu`, add: the library's path for the same function),
+    beside the bound. Returns the kernel's JSON numbers."""
+    import torch
+    import torch.nn.functional as F
+    from vit_ad_tpu_torch.ops import mlp as mops
+    from vit_ad_tpu_torch.ops.cuda import mlp as cmlp
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    rows, d, hidden = MLP_CASES[0]
+    args = mlp_inputs(rows, d, hidden, bf16, gen, dev)
+    x, nw, nb, w1, b1, w2, b2 = args
+    b1c, b2c = b1.to(bf16), b2.to(bf16)  # the stock tail's cached compute-dtype biases
+    kern = lambda: cmlp.mlp_block(*args, MLP_EPS)
+    plain = lambda: mops.mlp_block_reference(*args, MLP_EPS)
+
+    def stock():
+        y = F.layer_norm(x.float(), (d,), nw, nb, MLP_EPS).to(bf16)
+        h = F.gelu(F.linear(y, w1, b1c), approximate="tanh")
+        return x + F.linear(h, w2, b2c)
+
+    with torch.no_grad():
+        got, want = kern(), plain()
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        stock_err = (got.float() - stock().float()).abs().max().item()
+        if not err <= MLP_TOL["bfloat16"] * scale:
+            raise AssertionError(f"B6 disagrees with its plain version at [{rows},{d}]: {err}")
+        kern_ms, plain_ms = alternate(kern, plain, TIMED_RUNS, 3)
+        stock_ms = median_ms(stock, torch)
+    flops = 4 * rows * d * hidden
+    nums = {"max_abs_err": err, "ms": statistics.mean(kern_ms),
+            "plain_ms": statistics.mean(plain_ms), "library_ms": stock_ms,
+            **bound(tensor_bytes(*args) + tensor_bytes(x), flops)}
+    print(f"[{card}] mlp_block (B6) [{rows},{d}] H={hidden} bf16: kernel {kern_ms} ms "
+          f"({flops / nums['ms'] / 1e9:.1f} TFLOP/s), plain {plain_ms} ms (order plain, kernel, "
+          f"kernel, plain), stock tail (F.layer_norm on the f32 cast, F.linear, F.gelu, "
+          f"F.linear, add) {stock_ms:.4f} ms, bound {nums['bound_ms']:.4f} ms by "
+          f"{nums['bound_by']}; max|kernel-plain| {err:.3e} of max|plain| {scale:.2f}, "
+          f"max|kernel-stock| {stock_err:.3e}")
+    return nums
+
+
+def flag_ab(name: str, trunk: str, flag: str, images, card: str, build):
+    """uint8→scores img/s of `trunk` + NF-20 at B=128 bf16 with a kernel flag
+    off and on (`build(flag value)` gives the RunModels; order off, on, on,
+    off), the encoder alone likewise, and how far the scores move. Returns
+    ({flag value: the scoring function}, the flag-on RunModels)."""
+    import torch
+    from vit_ad_tpu_torch.data.dataset import default_norm_stats
+    from vit_ad_tpu_torch.data.loader import preprocess
+    from vit_ad_tpu_torch.pipeline.eval import make_nf_batch_fn
+
+    mean, std = (torch.as_tensor(a, device=images.device) for a in default_norm_stats())
+    fns, encs = {}, {}
+    for on in (False, True):
+        m = build(on)
+        batch_fn = make_nf_batch_fn(*m.parts, m.hp, mean, std)
+
+        def scores(batch_fn=batch_fn):
+            with torch.inference_mode():
+                return batch_fn(images).amax(dim=(1, 2))
+
+        def encode(enc=m.parts[0]):
+            with torch.inference_mode():
+                return enc(preprocess(images, mean, std)).patch_embedding
+
+        fns[on], encs[on] = scores, encode
+        out = scores()
+        if out.shape != (FLAGSHIP_BATCH,) or not torch.isfinite(out).all():
+            raise AssertionError(f"{name} batch gave non-finite or misshapen scores")
+    s_on, s_off = fns[True](), fns[False]()
+    drift = ((s_on - s_off).abs() / s_off.abs()).max().item()
+    for what, pair in ((f"uint8→scores {trunk} + NF-20", fns),
+                       (f"uint8→tokens {trunk} alone", encs)):
+        off = [median_ms(pair[False], torch, runs=10)]
+        on = [median_ms(pair[True], torch, runs=10), median_ms(pair[True], torch, runs=10)]
+        off.append(median_ms(pair[False], torch, runs=10))
+        rate = lambda ms: FLAGSHIP_BATCH / statistics.mean(ms) * 1e3
+        print(f"[{card}] {name} {what} B={FLAGSHIP_BATCH} bf16, batch on the device: {flag} "
+              f"off {off} ms = {rate(off):.1f} img/s, on {on} ms = {rate(on):.1f} img/s "
+              f"(order off, on, on, off)")
+    print(f"{name} scores with the {flag} on vs off, B={FLAGSHIP_BATCH}: max rel diff "
+          f"{drift:.3e} (bf16 roundings)")
+    return fns, m
+
+
+def fused_mlp_ab(nf_pth: str, deit_pth: str, images, card: str) -> None:
+    """Phase 9: DeiT-base + NF-20 uint8→scores img/s at B=128 bf16 with the
+    fused MLP off and on, and the encoder alone; B6 runs 12 times per batch
+    with the flag on, never with it off."""
+    import torch
+    from vit_ad_tpu_torch.ops.cuda import mlp as cmlp
+    from vit_ad_tpu_torch.pipeline.loading import build_pth_models
+
+    fns, _ = flag_ab("DeiT", "DeiT-base", "fused MLP", images, card,
+                     lambda fused: build_pth_models(nf_pth, "enc_deit", "nf",
+                                                    encoder_ckpt=deit_pth,
+                                                    device=torch.device("cuda"),
+                                                    fused_mlp=fused))
+    for fused, want in ((False, 0), (True, 12)):
+        before = cmlp.launches
+        fns[fused]()
+        if cmlp.launches - before != want:
+            raise AssertionError(f"fused_mlp={fused}: {cmlp.launches - before} B6 launches per "
+                                 f"batch, expected {want}")
+
+
+def resnet_times(resnet: dict, images, card: str, gen) -> dict:
+    """Phase 9, ResNet part: the joint train step (frozen trunk forward, two
+    heads' B2 + B3 + B4, stage norms, Adam) at batch 16 with K=100 and K=150:
+    ms, img/s, peak memory; B2, B3, B4 alone at the step's two head shapes
+    (K=100); the trunk alone; multi-stage MDN scoring img/s at B=128 with the
+    trained K=100 heads. Returns the per-shape JSON numbers of B2-B4."""
+    import numpy as np
+    import torch
+    from vit_ad_tpu_torch.config import HyperParams
+    from vit_ad_tpu_torch.data.dataset import default_norm_stats
+    from vit_ad_tpu_torch.data.loader import preprocess
+    from vit_ad_tpu_torch.models.mdn import GaussianMDN
+    from vit_ad_tpu_torch.pipeline.eval import make_mdn_resnet_batch_fn
+    from vit_ad_tpu_torch.pipeline.loading import build_pth_resnet_mdn_models
+    from vit_ad_tpu_torch.pipeline.optimizers import torch_adam
+    from vit_ad_tpu_torch.pipeline.train import default_encoder, mdn_resnet_train_step
+    from vit_ad_tpu_torch.scoring import payload_to_scores
+
+    dev = torch.device("cuda")
+    mean, std = (torch.as_tensor(a, device=dev) for a in default_norm_stats())
+    hp = HyperParams(model_name="enc_res_net", img_size=224)
+    batch = images[:RESNET_BATCH]
+    valid = torch.ones(RESNET_BATCH, device=dev)
+    per_shape = []
+    for k in RESNET_TIMED_KS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        encoder = default_encoder(hp).to(dev)
+        with torch.device(dev):
+            init = torch.Generator(device=dev).manual_seed(hp.seed)
+            heads = torch.nn.ModuleList(GaussianMDN(d, k, generator=init)
+                                        for d, _ in RESNET_HEADS)
+        opt = torch_adam(list(heads.parameters()) + list(encoder.norms.parameters()),
+                         7e-4, 7e-4)
+        noise = torch.Generator(device=dev).manual_seed(0)
+        step = lambda: mdn_resnet_train_step(encoder, heads, opt, batch, valid, noise, mean, std)
+        before = read_launches()
+        loss = step()
+        after = read_launches()
+        if not torch.isfinite(loss) or not after["B4"] > before["B4"]:
+            raise AssertionError(f"ResNet MDN train step: loss {loss}, B4 launches "
+                                 f"{after['B4'] - before['B4']}")
+        ms = median_ms(step, torch, runs=5, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        weights = sum(p.numel() * 4 for p in heads.parameters()) / 2**30
+        print(f"[{card}] ResNet-50 + MDN joint train step (trunk forward, B2 + B3 + B4 on "
+              f"D=1024 x {RESNET_BATCH * 196} rows and D=2048 x {RESNET_BATCH * 49} rows, "
+              f"stage norms, Adam) B={RESNET_BATCH} K={k} bf16: {ms:.3f} ms = "
+              f"{RESNET_BATCH / ms * 1e3:.1f} img/s; peak memory {peak:.2f} GiB (head weights "
+              f"{weights:.2f} GiB f32), launches per step "
+              f"{ {key: after[key] - before[key] for key in ('B2', 'B3', 'B4')} }")
+        if k == RESNET_K:
+            for (d, tokens), head in zip(RESNET_HEADS, heads):
+                opt.zero_grad(set_to_none=True)
+                per_shape.append(gmm_split_times(RESNET_BATCH * tokens, d, k, head, card, gen,
+                                                 MDN_TIMED_RUNS))
+
+            def trunk():
+                with torch.inference_mode():
+                    return encoder.stage_features(preprocess(batch, mean, std), (2, 3))
+
+            trunk_ms = median_ms(trunk, torch, runs=10)
+            print(f"[{card}] ResNet-50 trunk + stage norms 2, 3 alone, B={RESNET_BATCH} bf16 "
+                  f"(cuDNN convolutions, no kernel of the port): {trunk_ms:.3f} ms")
+        del opt, heads, encoder, step
+    torch.cuda.empty_cache()
+
+    m = build_pth_resnet_mdn_models(resnet["pths"], encoder_ckpt=resnet["encoder"], device=dev)
+    fn = make_mdn_resnet_batch_fn(*m.parts, m.hp, mean, std)
+
+    def stage_lls():
+        with torch.inference_mode():
+            return fn(images)
+
+    lls = stage_lls()
+    if [tuple(t.shape) for t in lls] != [(FLAGSHIP_BATCH, t) for _, t in RESNET_HEADS] or \
+            not all(torch.isfinite(t).all() for t in lls):
+        raise AssertionError("ResNet MDN scoring batch gave non-finite or misshapen output")
+    torch.cuda.reset_peak_memory_stats()
+    ms = median_ms(stage_lls, torch, runs=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{card}] ResNet-50 + MDN uint8→per-stage patch log-likelihoods, K={RESNET_K} "
+          f"B={FLAGSHIP_BATCH} bf16, batch on the device: {ms:.3f} ms/batch = "
+          f"{FLAGSHIP_BATCH / ms * 1e3:.1f} img/s; peak memory {peak:.2f} GiB")
+
+    def scores():
+        # the host score tail of score_mdn_resnet, per batch: normalization by
+        # the batch's max, 224-px maps averaged over the stages, max
+        return payload_to_scores(
+            "mdn_resnet", tuple(t.float().cpu().numpy() for t in stage_lls()), 224)[0]
+
+    s = scores()
+    if s.shape != (FLAGSHIP_BATCH,) or not np.all(np.isfinite(s)):
+        raise AssertionError("ResNet MDN score tail gave non-finite or misshapen scores")
+    ms = median_ms(scores, torch, runs=5, warmup=1)
+    print(f"[{card}] ResNet-50 + MDN uint8→scores, device part + host score tail, K={RESNET_K} "
+          f"B={FLAGSHIP_BATCH} bf16: {ms:.3f} ms/batch = {FLAGSHIP_BATCH / ms * 1e3:.1f} img/s")
+    return {key: [shape[key] for shape in per_shape] for key in ("B2", "B3", "B4")}
 
 
 def main() -> int:
@@ -1060,6 +1555,7 @@ def main() -> int:
     for case in GMM_BWD_CASES:
         check_gmm_backward(*case, gen, dev)
     check_swin_kernels(gen, dev)
+    check_mlp_kernel(gen, dev)
     torch.cuda.synchronize()
 
     phase("4 main path: DeiT-base + NF-20 scoring through the CLI")
@@ -1120,13 +1616,21 @@ def main() -> int:
         print(f"bf16 card scores vs f32 CPU scores (same 2 images): max rel diff "
               f"{bf16_rel.max():.3e} (information: bf16 policy drift)")
 
-        phase("5 main path: DeiT-base + MDN K=150, train then score through the CLIs")
+        phase("5 main path: DeiT-base + NF-20 scoring with the fused MLP (--fused-mlp)")
+        fused = fused_mlp_main_path(tmp, nf_pth, deit_pth, img_dir, files, scores,
+                                    f32_scores["cuda"])
+
+        phase("6 main path: DeiT-base + MDN K=150, train then score through the CLIs")
         mdn = mdn_main_path(tmp)
 
-        phase("6 main path: EsViT Swin-T + NF-20, train then score through the CLIs")
+        phase("7 main path: EsViT Swin-T + NF-20, train then score through the CLIs")
         esvit = esvit_main_path(tmp)
 
-        phase("7 times (CUDA events, median of %d after warm-up)" % TIMED_RUNS)
+        phase("8 main path: ResNet-50 + two stage MDN heads K=100, train then score through "
+              "the CLIs")
+        resnet = resnet_main_path(tmp)
+
+        phase("9 times (CUDA events, median of %d after warm-up)" % TIMED_RUNS)
         qkv = torch.randn(FLAGSHIP_BATCH, 198, 3 * 768, device=dev,
                           generator=gen).to(torch.bfloat16)
         err = (wa.vit_attention_qkv(qkv, 12).float()
@@ -1173,18 +1677,21 @@ def main() -> int:
         print(f"[{card}] flagship uint8→scores DeiT-base+NF-20 B={FLAGSHIP_BATCH} bf16, "
               f"batch on the device: {batch_ms:.3f} ms/batch = "
               f"{FLAGSHIP_BATCH / batch_ms * 1e3:.1f} img/s; peak memory {peak:.2f} GiB")
+        fused_mlp_ab(nf_pth, deit_pth, images, card)
+        mlp = mlp_times(card, gen)
         gmm_times = mdn_times(mdn, images, card, gen)
+        wide = resnet_times(resnet, images, card, gen)
         swin = swin_times(card, gen)
         esvit_times(esvit, images, card, gen)
     torch.cuda.synchronize()
 
-    phase("8 result")
+    phase("10 result")
     kernels = [{
         "name": "vit_attention_qkv",
         "route": "cuda",
         "source": "vit_ad_tpu_torch/csrc/vit_attention_qkv.cu",
         "replaces": "vit_ad_tpu/ops/pallas/window_attention.py:375",
-        "launches": nf_launches["B1"] + mdn["launches"]["B1"],
+        "launches": nf_launches["B1"] + fused["launches"]["B1"] + mdn["launches"]["B1"],
         "max_abs_err": err,
         "ms": att_ms,
         "plain_ms": att_plain_ms,
@@ -1193,15 +1700,21 @@ def main() -> int:
     }]
     # launches are kernel launches: B3 counts its terms and weights kernels
     # once per chunk of components. B4 runs only when the features need a
-    # gradient: never on the frozen-trunk MDN path, so its main-path count is
-    # 0 (its check and time are phases 3, 6)
+    # gradient: never on the frozen-trunk DeiT path, on every step of the
+    # ResNet path, whose stage norms train. The numbers are those of the DeiT
+    # head's shape (B2 at B=128, B3 at B=64) and, for B4, of its main path's
+    # heaviest shape (the stage-2 head of a 16-image step); `per_shape` has
+    # the other shapes
     for key, kernel, replaces in (
             ("B2", "gmm_forward", "vit_ad_tpu/ops/pallas/gmm.py:39"),
             ("B3", "gmm_backward_params", "vit_ad_tpu/ops/pallas/gmm_train.py:88"),
             ("B4", "gmm_backward_x", "vit_ad_tpu/ops/pallas/gmm_train.py:175")):
+        shapes = [gmm_times[key]] + wide[key]
+        main = wide[key][0] if key == "B4" else gmm_times[key]
         kernels.append({"name": kernel, "route": "cuda", "source": "vit_ad_tpu_torch/csrc/gmm.cu",
-                        "replaces": replaces, "launches": mdn["launches"][key],
-                        **gmm_times[key]})
+                        "replaces": replaces,
+                        "launches": mdn["launches"][key] + resnet["launches"][key],
+                        **main, "per_shape": shapes})
     # B5a, the split-input entry, is on no CLI path (the JAX package reaches it
     # only by an experiment toggle): its check and time are phases 3, 7
     for key, kernel, source, replaces in (
@@ -1213,6 +1726,10 @@ def main() -> int:
         kernels.append({"name": kernel, "route": "cuda",
                         "source": f"vit_ad_tpu_torch/csrc/{source}", "replaces": replaces,
                         "launches": esvit["launches"][key], **swin[key]})
+    kernels.append({"name": "mlp_block", "route": "cuda",
+                    "source": "vit_ad_tpu_torch/csrc/mlp_block.cu",
+                    "replaces": "vit_ad_tpu/ops/pallas/mlp.py:44",
+                    "launches": fused["launches"]["B6"], **mlp})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

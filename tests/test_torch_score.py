@@ -156,8 +156,11 @@ def test_cli_refuses_unported_options_clearly(args, match, capsys):
 
 
 def test_registry_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A7"):
-        registry.get_model("enc_res_net")
+    with pytest.raises(NotImplementedError, match="A9"):
+        registry.get_model("enc_nest")
+    assert type(registry.get_model("enc_res_net", 32)).__name__ == "ResNetEncoder"
+    with pytest.raises(ValueError, match="fused MLP"):
+        registry.get_model("enc_esvit", fused_mlp=True)
     with pytest.raises(NotImplementedError, match="A8"):
         registry.get_model("ae_deit")
     with pytest.raises(KeyError):
@@ -178,7 +181,9 @@ def test_port_imports_no_jax():
         "vit_ad_tpu_torch.data.loader, vit_ad_tpu_torch.data.synthetic, "
         "vit_ad_tpu_torch.ops.window_attention, vit_ad_tpu_torch.ops.cuda.window_attention, "
         "vit_ad_tpu_torch.ops.cuda.layer_norm, vit_ad_tpu_torch.models.layers, "
-        "vit_ad_tpu_torch.models.swin, vit_ad_tpu_torch.cli.train_nf\n"
+        "vit_ad_tpu_torch.models.swin, vit_ad_tpu_torch.cli.train_nf, "
+        "vit_ad_tpu_torch.ops.mlp, vit_ad_tpu_torch.ops.cuda.mlp, "
+        "vit_ad_tpu_torch.models.vit, vit_ad_tpu_torch.models.resnet, chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'vit_ad_tpu'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"

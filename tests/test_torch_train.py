@@ -266,7 +266,7 @@ def test_cli_train_then_score_round_trip(category, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("args,match", [
     (["--mesh", "2x1", "--device", "cpu"], "A11"),
-    (["-m", "res_net", "--device", "cpu"], "A7"),
+    (["-m", "nest", "--device", "cpu"], "A9"),
 ])
 def test_train_cli_refuses_unported_options(args, match):
     with pytest.raises(SystemExit, match=match):
@@ -366,7 +366,7 @@ def test_cli_train_nf_then_score_round_trip(swin_category, tmp_path, monkeypatch
 
 
 @pytest.mark.parametrize("cli,args,match", [
-    (train_nf_cli, ["-m", "res_net", "--device", "cpu"], "A7"),
+    (train_nf_cli, ["-m", "res_net", "--device", "cpu"], "A7b"),
     (train_nf_cli, ["--mesh", "2x1", "--device", "cpu"], "A11"),
     (train_nf_cli, ["-m", "deit", "--fused-ln", "--device", "cpu"], "fused"),
 ])

@@ -12,8 +12,9 @@ The reference's flag surface (reference startTraining_mdn.py:40):
 plus the port's `--device` (default cuda; without a card the CLI exits
 unless `--device cpu` is given), `--out` (the run directory) and
 `--fused-ln` / `--no-fused-ln` (the trunk's LayerNorms through the one-pass
-kernel or not; default: the model's). `--mesh` is ROADMAP A11 and exits with
-a message.
+kernel or not) and `--fused-mlp` / `--no-fused-mlp` (the ViT/DeiT blocks' MLP
+tail through the fused kernel or not; default of both: the model's). `--mesh`
+is ROADMAP A11 and exits with a message.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from __future__ import annotations
 import getopt
 import json
 import os
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -33,7 +34,7 @@ MVTEC_BASE = "data/mvtec_anomaly_detection/hazelnut"
 USAGE = ("usage: -m <modelType> -p <patience> -e <#epochs> -a <amountOfData> -l <learnRate> "
          "-w <weightDecay> -b <batchSize> -d <dataPath> -t <trainPref> -i <imageSize> "
          "-v <validPref> -s <blockIndex> --centering --device <cuda|cpu> --out <runDir> "
-         "--fused-ln|--no-fused-ln")
+         "--fused-ln|--no-fused-ln --fused-mlp|--no-fused-mlp")
 
 
 def derive_dataset_names(data_path: str) -> Tuple[str, str]:
@@ -63,7 +64,7 @@ def parse_args(argv: List[str], hp: HyperParams, data_path: str, train_pref: str
     out_dir); None when -h printed the usage."""
     opts, _ = getopt.getopt(argv, "hm:p:e:a:l:w:b:s:d:i:v:t:" + extra_short,
                             ["centering", "mesh=", "device=", "out=", "fused-ln",
-                             "no-fused-ln"])
+                             "no-fused-ln", "fused-mlp", "no-fused-mlp"])
     device, out_dir = "cuda", ""
     for opt, arg in opts:
         if opt == "-h":
@@ -75,6 +76,8 @@ def parse_args(argv: List[str], hp: HyperParams, data_path: str, train_pref: str
             hp.centering = True
         elif opt in ("--fused-ln", "--no-fused-ln"):
             hp.fused_ln = opt == "--fused-ln"
+        elif opt in ("--fused-mlp", "--no-fused-mlp"):
+            hp.fused_mlp = opt == "--fused-mlp"
         elif opt == "--device":
             device = arg
         elif opt == "--out":
@@ -125,14 +128,39 @@ def build_pipelines(hp: HyperParams, data_path: str, train_pref: str, test_pref:
     return data, test
 
 
+def _cpu_state(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().cpu() for k, v in module.state_dict().items()}
+
+
+def head_checkpoints(result, hp: HyperParams, pth_name: str) -> Dict[str, Dict]:
+    """File name → state dict of a frozen-trunk run: the best head."""
+    return {f"{pth_name}_{hp.data_class}.pth": _cpu_state(result.head)}
+
+
+def resnet_mdn_checkpoints(result, hp: HyperParams, pth_name: str) -> Dict[str, Dict]:
+    """File name → state dict of a ResNet multi-stage MDN run: one file per
+    stage head (`<pth_name>_stage<i>_<class>.pth`; `cli.score --pth` takes the
+    two in stage order) and the encoder with its trained stage norms and the
+    trunk's BatchNorm statistics (`ResNetEncoder_<class>.pth`, the `-E` of
+    `cli.score`)."""
+    from vit_ad_tpu_torch.pipeline.train import RESNET_MDN_STAGES
+
+    out = {f"{pth_name}_stage{i}_{hp.data_class}.pth": _cpu_state(head)
+           for i, head in zip(RESNET_MDN_STAGES, result.head)}
+    out[f"ResNetEncoder_{hp.data_class}.pth"] = _cpu_state(result.encoder)
+    return out
+
+
 def run_trainer(parsed: Tuple[HyperParams, str, str, str, str, str], trainer: Callable,
-                banner: str, run_name: str, pth_name: str) -> int:
+                banner: str, run_name: str, pth_name: str,
+                checkpoints: Callable = head_checkpoints) -> int:
     """What the trainer CLIs do with their parsed flags: build the registry
     trunk (seed-deterministic init, as in the JAX package's trainers) and the
     pipelines, train, print the metrics, and write into the run directory
     (`--out`, default `<log_dir>/<run_name>_<dataset>_<class>`) `history.json`
-    (epoch losses, metrics, best epoch) and the best head's state dict as
-    `<pth_name>_<class>.pth`, which `cli.score --pth` reads back. `banner`
+    (epoch losses, metrics, best epoch) and the files of
+    `checkpoints(result, hp, pth_name)`: by default the best head's state dict
+    as `<pth_name>_<class>.pth`, which `cli.score --pth` reads back. `banner`
     and the two names are format strings over the hyper-parameters."""
     from vit_ad_tpu_torch.config import set_numerics_policy
     from vit_ad_tpu_torch.pipeline.train import default_encoder
@@ -160,7 +188,7 @@ def run_trainer(parsed: Tuple[HyperParams, str, str, str, str, str], trainer: Ca
         json.dump({**result.history, "metrics": result.metrics,
                    "epochs_ran": result.epochs_ran, "best_epoch": result.best_epoch,
                    "best_valid_loss": result.best_valid_loss}, f, indent=1)
-    pth = os.path.join(out_dir, f"{pth_name.format(**fields)}_{hp.data_class}.pth")
-    torch.save({k: v.detach().cpu() for k, v in result.head.state_dict().items()}, pth)
-    print("checkpoint:", pth)
+    for name, state in checkpoints(result, hp, pth_name.format(**fields)).items():
+        torch.save(state, os.path.join(out_dir, name))
+        print("checkpoint:", os.path.join(out_dir, name))
     return 0

@@ -5,14 +5,21 @@ heads):
 
     python -m vit_ad_tpu_torch.cli.score --pth <head .pth> -a nf|mdn \\
         -m enc_deit|enc_vit|enc_esvit -E <trunk .pth> -d /path/to/images \\
-        [-o out_dir] [-b BATCH] [--fused-ln|--no-fused-ln]
+        [-o out_dir] [-b BATCH] [--fused-ln|--no-fused-ln] [--fused-mlp|--no-fused-mlp]
+    python -m vit_ad_tpu_torch.cli.score --pth <stage-2 head .pth> <stage-3 head .pth> \\
+        -a mdn -E <ResNet encoder .pth> -d /path/to/images
 
 MDN files are named `<K>_..._<class>.pth` (K = number of gaussians), as
 `cli.train_mdn` saves them; `cli.train_nf` saves `nf_<model>_<class>.pth`.
+Two `.pth` files are the reference's ResNet-MDN convention: one head per
+ResNet-50 stage map (2, then 3), as `cli.train_mdn -m res_net` saves them.
 `-E` is the pretrained trunk the head was trained against: a timm ViT/DeiT
-`.pth`, or the EsViT Swin-T checkpoint for `-m enc_esvit`. `--fused-ln` /
-`--no-fused-ln` send the EsViT trunk's LayerNorms through the one-pass kernel
-or not (default: the model's).
+`.pth`, the EsViT Swin-T checkpoint for `-m enc_esvit`, or for the ResNet
+heads the encoder file their training run wrote (or ImageNet ResNet-50
+weights). `--fused-ln` / `--no-fused-ln` send the EsViT trunk's LayerNorms
+through the one-pass kernel or not, `--fused-mlp` / `--no-fused-mlp` the
+ViT/DeiT blocks' MLP tail through the fused kernel or not (default of both:
+the model's).
 
 Outputs (under -o, default `<pth stem>_scores`), as the JAX CLI writes them:
   scores.csv      path,image_score — one row per input image, input order
@@ -39,7 +46,7 @@ import numpy as np
 from vit_ad_tpu_torch.cli.common import check_device
 from vit_ad_tpu_torch.config import set_numerics_policy
 from vit_ad_tpu_torch.data.files import IMAGE_EXTENSIONS
-from vit_ad_tpu_torch.registry import FUSED_LN_MODELS
+from vit_ad_tpu_torch.registry import FUSED_LN_MODELS, FUSED_MLP_MODELS
 
 
 def list_images(images_dir: str) -> List[str]:
@@ -66,18 +73,26 @@ def score_pth(
     batch: int = 0,
     device: Optional[str] = None,
     fused_ln: Optional[bool] = None,
+    fused_mlp: Optional[bool] = None,
 ) -> dict:
     """Score a folder with a reference-format head `.pth` (plus the pretrained
-    trunk `encoder_ckpt`); write scores.csv and summary.json; return the
-    summary."""
-    from vit_ad_tpu_torch.pipeline.loading import build_pth_models
+    trunk `encoder_ckpt`), or with the two stage-head files of the ResNet-MDN
+    convention; write scores.csv and summary.json; return the summary."""
+    from vit_ad_tpu_torch.pipeline.loading import build_pth_models, build_pth_resnet_mdn_models
 
-    if len(pths) != 1:
-        raise SystemExit("two .pth files = the ResNet-MDN convention, not ported yet "
-                         "(ROADMAP A7)")
-    models = build_pth_models(pths[0], model_name, arch, img_size=img_size,
-                              hidden_ratio=hidden_ratio, flow_steps=flow_steps,
-                              encoder_ckpt=encoder_ckpt, device=device, fused_ln=fused_ln)
+    if len(pths) == 2:
+        if arch != "mdn":
+            raise SystemExit("two .pth files = the ResNet-MDN convention; use -a mdn")
+        models = build_pth_resnet_mdn_models(pths, img_size=img_size,
+                                             encoder_ckpt=encoder_ckpt, device=device)
+    elif len(pths) == 1:
+        models = build_pth_models(pths[0], model_name, arch, img_size=img_size,
+                                  hidden_ratio=hidden_ratio, flow_steps=flow_steps,
+                                  encoder_ckpt=encoder_ckpt, device=device, fused_ln=fused_ln,
+                                  fused_mlp=fused_mlp)
+    else:
+        raise SystemExit(f"--pth takes one head file, or the two stage-head files of the "
+                         f"ResNet-MDN convention; got {len(pths)}")
     return _score_with_models(models, pths[0], {"architecture": arch}, images_dir,
                               out_dir or os.path.splitext(pths[0])[0] + "_scores", batch)
 
@@ -147,6 +162,9 @@ def main(argv=None) -> int:
     ap.add_argument("--fused-ln", dest="fused_ln", action="store_true", default=None,
                     help="LayerNorms of the trunk through the one-pass kernel (enc_esvit)")
     ap.add_argument("--no-fused-ln", dest="fused_ln", action="store_false")
+    ap.add_argument("--fused-mlp", dest="fused_mlp", action="store_true", default=None,
+                    help="the blocks' MLP tail through the fused kernel (enc_deit, enc_vit)")
+    ap.add_argument("--no-fused-mlp", dest="fused_mlp", action="store_false")
     ap.add_argument("-i", "--img-size", type=int, default=224)
     ap.add_argument("-f", "--flow-steps", type=int, default=20)
     ap.add_argument("--hidden-ratio", type=float, default=0.16)
@@ -170,13 +188,17 @@ def main(argv=None) -> int:
     if args.fused_ln is not None and args.model not in FUSED_LN_MODELS:
         ap.error(f"--fused-ln/--no-fused-ln: -m {args.model} has no fused LayerNorm path "
                  f"(models that have: {', '.join(FUSED_LN_MODELS)})")
+    if args.fused_mlp is not None and (args.model not in FUSED_MLP_MODELS
+                                       or len(args.pth) != 1):
+        ap.error(f"--fused-mlp/--no-fused-mlp: only -m {' or '.join(FUSED_MLP_MODELS)} has a "
+                 "fused MLP path")
     device = check_device(args.device)
     set_numerics_policy()
     summary = score_pth(args.pth, args.arch, args.images, out_dir=args.out or None,
                         model_name=args.model, img_size=args.img_size,
                         hidden_ratio=args.hidden_ratio, flow_steps=args.flow_steps,
                         encoder_ckpt=args.encoder_ckpt, batch=args.batch, device=device,
-                        fused_ln=args.fused_ln)
+                        fused_ln=args.fused_ln, fused_mlp=args.fused_mlp)
     print(json.dumps(summary))
     return 0
 

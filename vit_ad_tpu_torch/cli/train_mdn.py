@@ -1,12 +1,13 @@
-"""Train an MDN/GMM anomaly head on frozen-trunk features on the GPU.
+"""Train an MDN/GMM anomaly head on the GPU: on frozen-trunk features, or
+(`-m res_net`) two stage heads jointly with the ResNet-50's stage LayerNorms.
 
 Port of `startTraining_mdn.py` (the flag surface of `cli/common.py`, with
 `-n <numGaussians>`; defaults: model deit, patience 100, epochs 1000, lr 7e-4,
 wd 7e-4, batch 64, K 150, 224 px — reference startTraining_mdn.py:26-38):
 
     python -m vit_ad_tpu_torch.cli.train_mdn -d <category dir> -t train/good \\
-        -v test [-m deit] [-n 150] [-e EPOCHS] [-b BATCH] [--device cuda|cpu] \\
-        [--out RUN_DIR]
+        -v test [-m deit|vit|esvit|res_net] [-n 150] [-e EPOCHS] [-b BATCH] \\
+        [--device cuda|cpu] [--out RUN_DIR] [--fused-mlp|--no-fused-mlp]
 
 The trunk is the registry model with its seed-deterministic init, as in the
 JAX package's trainer. Writes into the run directory (default
@@ -15,6 +16,12 @@ runs/mdn_<model>_<K>g_<dataset>_<class>):
   <K>_gaussians_<model>_<class>.pth  the best head, in the reference
                                      GaussianMixtureDensityNetwork layout,
                                      which `cli.score --pth ... -a mdn` reads
+With `-m res_net` (reference startTraining_mdn.py:134-147, the JAX CLI's
+dispatch to `train_mdn_resnet`) the run directory holds instead
+  <K>_gaussians_enc_res_net_stage2_<class>.pth, ..._stage3_<class>.pth
+                                     the heads on stage maps 2 and 3
+  ResNetEncoder_<class>.pth          the encoder with its trained stage norms
+which `cli.score --pth <stage2> <stage3> -a mdn -E <encoder>` reads.
 The metric logger and wandb are ROADMAP A10; k-means init is ROADMAP A5.
 """
 
@@ -22,12 +29,18 @@ from __future__ import annotations
 
 import sys
 
-from vit_ad_tpu_torch.cli.common import BTAD_BASE, parse_args, run_trainer
+from vit_ad_tpu_torch.cli.common import (
+    BTAD_BASE,
+    head_checkpoints,
+    parse_args,
+    resnet_mdn_checkpoints,
+    run_trainer,
+)
 from vit_ad_tpu_torch.config import HyperParams
 
 
 def main(argv=None) -> int:
-    from vit_ad_tpu_torch.pipeline.train import train_mdn
+    from vit_ad_tpu_torch.pipeline.train import train_mdn, train_mdn_resnet
 
     hp = HyperParams(model_name="enc_deit", architecture="mdn", patience=100, epochs=1000,
                      learning_rate=7e-4, weight_decay=7e-4, batch_size=64, num_gaussians=150,
@@ -36,10 +49,12 @@ def main(argv=None) -> int:
                         "test", extra_short="n:", usage_extra=" -n <numGaussians>")
     if parsed is None:
         return 0
-    return run_trainer(parsed, train_mdn,
+    resnet = "res_net" in parsed[0].model_name
+    return run_trainer(parsed, train_mdn_resnet if resnet else train_mdn,
                        banner="Training MDN: model {model_name}, K {num_gaussians}",
                        run_name="mdn_{model_name}_{num_gaussians}g",
-                       pth_name="{num_gaussians}_gaussians_{model_name}")
+                       pth_name="{num_gaussians}_gaussians_{model_name}",
+                       checkpoints=resnet_mdn_checkpoints if resnet else head_checkpoints)
 
 
 if __name__ == "__main__":

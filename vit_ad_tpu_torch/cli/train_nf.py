@@ -7,7 +7,8 @@ reference startTraining_NF.py:26-39):
 
     python -m vit_ad_tpu_torch.cli.train_nf -d <category dir> -t train/good \\
         -v test [-m deit|vit|esvit] [-r 0.16] [-f 20] [-e EPOCHS] [-b BATCH] \\
-        [--device cuda|cpu] [--out RUN_DIR] [--fused-ln|--no-fused-ln]
+        [--device cuda|cpu] [--out RUN_DIR] [--fused-ln|--no-fused-ln] \\
+        [--fused-mlp|--no-fused-mlp]
 
 The trunk is the registry model with its seed-deterministic init, as in the
 JAX package's trainer. Writes into the run directory (default
@@ -15,8 +16,8 @@ runs/nf_<model>_<dataset>_<class>):
   history.json               epoch losses, metrics, best epoch
   nf_<model>_<class>.pth     the best head, in the reference's FrEIA layout,
                              which `cli.score --pth ... -a nf` reads
-`-m res_net` (the multi-stage ResNet heads) is ROADMAP A7; the metric logger
-and wandb are ROADMAP A10.
+`-m res_net` (NF heads on the ResNet stage maps, `train_nf_resnet`) is ROADMAP
+A7b and exits with a message; the metric logger and wandb are ROADMAP A10.
 """
 
 from __future__ import annotations
@@ -38,6 +39,10 @@ def main(argv=None) -> int:
                         usage_extra=" -r <hiddenRatio> -f <flowSteps>")
     if parsed is None:
         return 0
+    if "res_net" in parsed[0].model_name:
+        raise SystemExit(f"-m {parsed[0].model_name}: NF heads on the ResNet stage maps "
+                         "(train_nf_resnet) are not ported to vit_ad_tpu_torch yet (ROADMAP "
+                         "A7b); cli.train_mdn -m res_net trains the MDN heads")
     return run_trainer(parsed, train_nf,
                        banner="Training NF: model {model_name}, hidden_ratio {hidden_ratio}, "
                               "flow_steps {flow_steps}",

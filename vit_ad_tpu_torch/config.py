@@ -85,6 +85,9 @@ class HyperParams:
     # LayerNorms through the one-pass kernel, for the trunks that have the
     # path (None: the model's default; the JAX package's VITAD_PALLAS_LN)
     fused_ln: Optional[bool] = None
+    # the ViT/DeiT blocks' MLP tail through the fused kernel (None: the
+    # model's default; the JAX package's VITAD_PALLAS_MLP)
+    fused_mlp: Optional[bool] = None
     # Loss weights for the SSIM recon variant (reference LearnerRecon.py:278).
     mse_weight: float = 5.0
     ssim_weight: float = 0.5

@@ -1,13 +1,13 @@
-"""Shared building blocks for the transformer backbones (port of
+"""Shared building blocks for the backbones (port of
 `vit_ad_tpu/models/layers.py`: `PatchEmbed` :27, `resolve_gelu_approx` :58,
-`LayerNorm` :227), and the cache of compute-dtype weight copies the encoders
-share."""
+the inference half of `FusedBatchNorm` :149, `LayerNorm` :227), and the cache
+of compute-dtype weight copies the encoders share."""
 
 from __future__ import annotations
 
 import math
 import os
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -75,6 +75,36 @@ class LayerNorm(nn.LayerNorm):
         else:
             y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
         return y.to(self.compute_dtype)
+
+
+class FusedBatchNorm(nn.BatchNorm2d):
+    """Inference BatchNorm over NCHW maps that stays in the compute dtype
+    (JAX `FusedBatchNorm` :149, its `use_running_average` path): per channel
+    `mul = rsqrt(var + eps) * weight` in f32 from the f32 running statistics,
+    cast once, then `(x - mean) * mul + bias` on the map in x's dtype, in that
+    op order. Parameters and buffers are `nn.BatchNorm2d`'s, so torchvision
+    state dicts load. The port never trains a trunk that has one: the training
+    half is not ported and a module in training mode raises."""
+
+    def __init__(self, channels: int, eps: float = 1e-5) -> None:
+        super().__init__(channels, eps=eps)
+
+    def folded(self, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(mean, mul, bias) as [1, C, 1, 1] tensors of `dtype`."""
+        mul = torch.rsqrt(self.running_var.float() + self.eps) * self.weight.float()
+        return tuple(t.to(dtype).view(1, -1, 1, 1)
+                     for t in (self.running_mean, mul, self.bias))
+
+    def forward(self, x: torch.Tensor,
+                folded: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """`folded`: a cached `self.folded(x.dtype)`."""
+        if self.training:
+            raise NotImplementedError(
+                "FusedBatchNorm: only the inference path is ported (the trunks that use it "
+                "are frozen); call .eval() on the model")
+        mean, mul, bias = self.folded(x.dtype) if folded is None else folded
+        return (x - mean) * mul + bias
 
 
 class ComputeWeights:

@@ -8,9 +8,12 @@ so exported JAX weights and upstream timm checkpoints load with strict=True.
 Cast points follow `_block_apply` (:70-149): the residual stream is in the
 compute dtype, LayerNorm statistics run in f32 (eps 1e-6), the matmul weights
 run in the compute dtype and attention is the packed-qkv kernel
-(`ops/cuda/window_attention.vit_attention_qkv`). The compute-dtype copies of
-the weights are made once and reused while the parameters are unchanged
-(JAX casts them once per call outside its block scan, :255-258).
+(`ops/cuda/window_attention.vit_attention_qkv`). With `fused_mlp` the MLP
+tail of a block is the fused kernel `ops/cuda/mlp.mlp_block` (JAX :117-128,
+there behind `VITAD_PALLAS_MLP=1`), taken only under tanh GELU and where
+`use_fused_mlp` admits the widths. The compute-dtype copies of the weights are
+made once and reused while the parameters are unchanged (JAX casts them once
+per call outside its block scan, :255-258).
 """
 
 from __future__ import annotations
@@ -30,9 +33,13 @@ from vit_ad_tpu_torch.models.layers import (
     trunc_normal_,
 )
 from vit_ad_tpu_torch.models.outputs import EncoderOutput
+from vit_ad_tpu_torch.ops.cuda.mlp import mlp_block, use_fused_mlp
 from vit_ad_tpu_torch.ops.cuda.window_attention import vit_attention_qkv
 
 LN_EPS = 1e-6
+# The MLP tail through the fused kernel: off, as in the JAX package (opt-in
+# there); PERF.md has the H100 reading that keeps it off.
+FUSED_MLP_DEFAULT = False
 
 
 class Attention(nn.Module):
@@ -61,14 +68,20 @@ class Block(nn.Module):
 
 
 def _block_apply(x: torch.Tensor, blk: Block, w: Dict[str, torch.Tensor], num_heads: int,
-                 cd: torch.dtype, gelu_approx: bool) -> torch.Tensor:
+                 cd: torch.dtype, gelu_approx: bool, fused_mlp: bool = False) -> torch.Tensor:
     """One pre-LN transformer block (JAX `_block_apply` :70). `w` holds the
-    block's matmul weights in the compute dtype."""
+    block's matmul weights in the compute dtype. `fused_mlp` sends the MLP
+    tail through `mlp_block` when the GELU is the tanh one and the kernel
+    takes the widths."""
     d = x.shape[-1]
     y = F.layer_norm(x.float(), (d,), blk.norm1.weight, blk.norm1.bias, LN_EPS).to(cd)
     qkv = F.linear(y, w["qkv_w"], w["qkv_b"])  # [B, N, 3D] packed
     out = vit_attention_qkv(qkv, num_heads).to(cd)
     x = x + F.linear(out, w["proj_w"], w["proj_b"])
+    if fused_mlp and gelu_approx and use_fused_mlp(d, w["fc1_w"].shape[0]):
+        # f32 norm affine and biases, compute-dtype weights, as the JAX call
+        return mlp_block(x, blk.norm2.weight, blk.norm2.bias, w["fc1_w"], blk.mlp.fc1.bias,
+                         w["fc2_w"], blk.mlp.fc2.bias, LN_EPS)
     y = F.layer_norm(x.float(), (d,), blk.norm2.weight, blk.norm2.bias, LN_EPS).to(cd)
     h = F.gelu(F.linear(y, w["fc1_w"], w["fc1_b"]),
                approximate="tanh" if gelu_approx else "none")
@@ -93,6 +106,7 @@ class ViTEncoder(nn.Module):
         dtypes: DtypePolicy = DtypePolicy(),
         gelu_tanh: Optional[bool] = None,
         generator: Optional[torch.Generator] = None,
+        fused_mlp: Optional[bool] = None,
     ) -> None:
         super().__init__()
         if num_prefix_tokens not in (1, 2):
@@ -106,6 +120,7 @@ class ViTEncoder(nn.Module):
         self.num_prefix_tokens = num_prefix_tokens
         self.dtypes = dtypes
         self.gelu_tanh = gelu_tanh
+        self.fused_mlp = FUSED_MLP_DEFAULT if fused_mlp is None else bool(fused_mlp)
         self.patch_embed = PatchEmbed(patch_size, embed_dim)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         if num_prefix_tokens == 2:
@@ -180,25 +195,31 @@ class ViTEncoder(nn.Module):
             # FastFlow truncation: final norm after every block
             # (reference TransformerEncoder.py:159-163)
             for blk, bw in zip(self.blocks[: block_index + 1], w["blocks"][: block_index + 1]):
-                tokens = _block_apply(tokens, blk, bw, self.num_heads, cd, gelu_approx)
+                tokens = _block_apply(tokens, blk, bw, self.num_heads, cd, gelu_approx,
+                                      self.fused_mlp)
                 tokens = self._final_norm(tokens)
         else:
             for blk, bw in zip(self.blocks, w["blocks"]):
-                tokens = _block_apply(tokens, blk, bw, self.num_heads, cd, gelu_approx)
+                tokens = _block_apply(tokens, blk, bw, self.num_heads, cd, gelu_approx,
+                                      self.fused_mlp)
             tokens = self._final_norm(tokens)
         return EncoderOutput(patch_embedding=tokens[:, self.num_prefix_tokens:, :],
                              latent=tokens[:, 0, :])
 
 
 def deit_base_distilled_patch16(img_size: int = 224, dtypes: DtypePolicy = DtypePolicy(),
-                                generator: Optional[torch.Generator] = None) -> ViTEncoder:
+                                generator: Optional[torch.Generator] = None,
+                                fused_mlp: Optional[bool] = None) -> ViTEncoder:
     """DeiT-base distilled /16 — reference EncoderDeit (TransformerEncoder.py:116)."""
     return ViTEncoder(img_size=img_size, patch_size=16, embed_dim=768, depth=12,
-                      num_heads=12, num_prefix_tokens=2, dtypes=dtypes, generator=generator)
+                      num_heads=12, num_prefix_tokens=2, dtypes=dtypes, generator=generator,
+                      fused_mlp=fused_mlp)
 
 
 def vit_base_patch16(img_size: int = 224, dtypes: DtypePolicy = DtypePolicy(),
-                     generator: Optional[torch.Generator] = None) -> ViTEncoder:
+                     generator: Optional[torch.Generator] = None,
+                     fused_mlp: Optional[bool] = None) -> ViTEncoder:
     """ViT-base /16 — reference EncoderVit (TransformerEncoder.py:176)."""
     return ViTEncoder(img_size=img_size, patch_size=16, embed_dim=768, depth=12,
-                      num_heads=12, num_prefix_tokens=1, dtypes=dtypes, generator=generator)
+                      num_heads=12, num_prefix_tokens=1, dtypes=dtypes, generator=generator,
+                      fused_mlp=fused_mlp)

@@ -107,6 +107,9 @@ ENTRY_POINTS = {
     "swin_window_attention_forward": [_P] * 6 + [_I] * 8 + [ctypes.c_float, _I, _P],
     # x, scale, bias, out, rows, d, eps, is_bf16, device, stream
     "layer_norm_forward": [_P] * 4 + [_I, _I, ctypes.c_float, _I, _I, _P],
+    # x, norm_scale, norm_bias, w1, b1, w2, b2, out, rows, d, hidden, eps,
+    # is_bf16, device, stream
+    "mlp_block_forward": [_P] * 8 + [_I] * 3 + [ctypes.c_float, _I, _I, _P],
     # x, log_pi, w_mu, w_sigma, b_mu, b_sigma, ll, rows, d, k, is_bf16,
     # device, stream
     "gmm_forward": [_P] * 7 + [_I] * 5 + [_P],
@@ -128,6 +131,13 @@ def device_index(t) -> int:
     import torch
 
     return t.device.index if t.device.index is not None else torch.cuda.current_device()
+
+
+def aligned_buffer(t, dtype):
+    """Tensor `t` as a contiguous, 16-byte aligned buffer of `dtype` (no copy
+    when it is one already): what every entry point takes."""
+    t = t.to(dtype).contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def load_library() -> ctypes.CDLL:

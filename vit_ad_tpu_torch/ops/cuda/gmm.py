@@ -90,12 +90,6 @@ def backward_chunk(rows: int, d: int, k: int, matmul_dtype: torch.dtype) -> int:
     return max(1, min(k, SCRATCH_BYTES // (2 * rows * d * matmul_dtype.itemsize)))
 
 
-def _buffer(t: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """`t` as a contiguous, 16-byte aligned buffer of `dtype`."""
-    t = t.to(dtype).contiguous()
-    return t.clone() if t.data_ptr() % 16 else t
-
-
 def _check(err: int, what: str) -> None:
     if err:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
@@ -105,14 +99,15 @@ class _GmmLogLikelihood(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, log_pi, w_sigma, b_sigma, w_mu, b_mu, matmul_dtype):
         global fwd_launches
-        from vit_ad_tpu_torch.ops.cuda.build import device_index, load_library
+        from vit_ad_tpu_torch.ops.cuda.build import aligned_buffer, device_index, load_library
 
         rows, d, k = check_kernel_shape(x, log_pi, w_sigma, b_sigma, w_mu, b_mu, matmul_dtype)
         lib = load_library()
-        xr = _buffer(x.reshape(rows, d))
-        lpr = _buffer(log_pi.reshape(rows, k))
-        ws, wm = _buffer(w_sigma, matmul_dtype), _buffer(w_mu, matmul_dtype)
-        bs, bm = _buffer(b_sigma), _buffer(b_mu)
+        f32 = torch.float32
+        xr = aligned_buffer(x.reshape(rows, d), f32)
+        lpr = aligned_buffer(log_pi.reshape(rows, k), f32)
+        ws, wm = aligned_buffer(w_sigma, matmul_dtype), aligned_buffer(w_mu, matmul_dtype)
+        bs, bm = aligned_buffer(b_sigma, f32), aligned_buffer(b_mu, f32)
         ll = torch.empty((rows, d), dtype=torch.float32, device=x.device)
         bf16 = int(matmul_dtype == torch.bfloat16)
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -128,7 +123,7 @@ class _GmmLogLikelihood(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         global bwd_params_launches, bwd_x_launches
-        from vit_ad_tpu_torch.ops.cuda.build import device_index, load_library
+        from vit_ad_tpu_torch.ops.cuda.build import aligned_buffer, device_index, load_library
 
         xr, lpr, ws, bs, wm, bm, ll = ctx.saved_tensors
         x_shape, lp_shape, x_dtype = ctx.shapes
@@ -138,7 +133,7 @@ class _GmmLogLikelihood(torch.autograd.Function):
         lib = load_library()
         dev, stream = device_index(xr), torch.cuda.current_stream(xr.device).cuda_stream
         bf16 = int(md == torch.bfloat16)
-        gr = _buffer(g.reshape(rows, d))
+        gr = aligned_buffer(g.reshape(rows, d), torch.float32)
         kc = backward_chunk(rows, d, k, md)
         f32 = dict(dtype=torch.float32, device=xr.device)
         dmu = torch.empty((kc, rows, d), dtype=md, device=xr.device)

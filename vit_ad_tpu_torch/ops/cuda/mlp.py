@@ -1,0 +1,108 @@
+"""Fused pre-LN MLP half-block of a ViT block: x + fc2(gelu_tanh(fc1(LN(x)))).
+
+Port of `vit_ad_tpu/ops/pallas/mlp.py::mlp_block` (:136), whose TPU kernel
+`_kernel` (:44) becomes the hand-written Hopper kernel
+`vit_ad_tpu_torch/csrc/mlp_block.cu` (see its header for what bounds it on the
+H100 and what the design does about it).
+
+`mlp_block` launches that kernel for a CUDA tensor, and raises where it
+cannot. For a CPU tensor it runs the plain PyTorch version
+`ops/mlp.mlp_block_reference`. Its backward recomputes through the plain
+version, as the JAX custom VJP recomputes through its XLA expression
+(:152-154): the TPU kernel had no backward kernel either. `use_fused_mlp` is
+the shape half of the JAX gate `use_pallas_mlp` (:160); the opt-in half is the
+encoder's `fused_mlp` argument.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vit_ad_tpu_torch.ops.mlp import mlp_block_reference
+
+# Kernel launches made by `mlp_block` (a plain count, read by chip_smoke.py to
+# show that the main path went through the kernel).
+launches = 0
+
+# The [32, D] f32 output accumulator of a block lives in registers: D/8 a thread
+MAX_DIM = 1024
+_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def use_fused_mlp(d: int, hidden: int) -> bool:
+    """Whether the kernel takes a block of width `d` with `hidden` hidden
+    units: both multiples of 128 (the JAX gate's rule) and d ≤ 1024."""
+    return 0 < d <= MAX_DIM and hidden > 0 and d % 128 == 0 and hidden % 128 == 0
+
+
+def check_kernel_shape(x, norm_w, norm_b, w1, b1, w2, b2) -> tuple:
+    """Raise unless the CUDA kernel takes these inputs; return (D, H)."""
+    if x.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"mlp_block kernel takes bf16 or f32, got {x.dtype}")
+    d = x.shape[-1] if x.dim() else 0
+    hidden = w1.shape[0] if w1.dim() == 2 else 0
+    if not use_fused_mlp(d, hidden) or x.numel() == 0:
+        raise ValueError(f"mlp_block kernel takes [..., D] with D and H multiples of 128, "
+                         f"D <= {MAX_DIM} and at least one row, got x {tuple(x.shape)} and "
+                         f"fc1.weight {tuple(w1.shape)}")
+    for name, t, shape in (("norm_w", norm_w, (d,)), ("norm_b", norm_b, (d,)),
+                           ("w1", w1, (hidden, d)), ("b1", b1, (hidden,)),
+                           ("w2", w2, (d, hidden)), ("b2", b2, (d,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape} (nn.Linear layouts), got {tuple(t.shape)}")
+        if t.device != x.device:
+            raise ValueError(f"mlp_block inputs lie on {x.device} and {t.device}")
+    for name, w in (("w1", w1), ("w2", w2)):
+        if w.dtype != x.dtype:
+            raise TypeError(f"{name} must have x's dtype {x.dtype}, got {w.dtype}")
+    return d, hidden
+
+
+def _launch(x, norm_w, norm_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
+    global launches
+    from vit_ad_tpu_torch.ops.cuda.build import aligned_buffer, device_index, load_library
+
+    d, hidden = check_kernel_shape(x, norm_w, norm_b, w1, b1, w2, b2)
+    xb, w1b, w2b = (aligned_buffer(t, x.dtype) for t in (x, w1, w2))
+    nw, nb, b1b, b2b = (aligned_buffer(t, torch.float32) for t in (norm_w, norm_b, b1, b2))
+    out = torch.empty_like(xb)
+    err = load_library().mlp_block_forward(
+        xb.data_ptr(), nw.data_ptr(), nb.data_ptr(), w1b.data_ptr(), b1b.data_ptr(),
+        w2b.data_ptr(), b2b.data_ptr(), out.data_ptr(), x.numel() // d, d, hidden, float(eps),
+        int(x.dtype == torch.bfloat16), device_index(x),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"mlp_block kernel launch failed: CUDA error {err}")
+    launches += 1
+    return out.view(x.shape)
+
+
+class _MlpBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, norm_w, norm_b, w1, b1, w2, b2, eps):
+        ctx.save_for_backward(x, norm_w, norm_b, w1, b1, w2, b2)
+        ctx.eps = eps
+        if x.device.type == "cuda":
+            return _launch(x, norm_w, norm_b, w1, b1, w2, b2, eps)
+        if x.device.type == "cpu":
+            return mlp_block_reference(x, norm_w, norm_b, w1, b1, w2, b2, eps)
+        raise RuntimeError(f"mlp_block has no path for device {x.device}")
+
+    @staticmethod
+    def backward(ctx, grad):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            out = mlp_block_reference(*ins, ctx.eps)
+            return (*torch.autograd.grad(out, ins, grad), None)
+
+
+def mlp_block(x: torch.Tensor, norm_w: torch.Tensor, norm_b: torch.Tensor, w1: torch.Tensor,
+              b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+              eps: float = 1e-6) -> torch.Tensor:
+    """Differentiable x + fc2(gelu_tanh(fc1(LN(x)))) in x's dtype. x [..., D];
+    norm_w, norm_b [D] and the biases b1 [H], b2 [D] are taken in f32; w1
+    [H, D] and w2 [D, H] are fc1.weight and fc2.weight in x's dtype. The
+    Hopper kernel on CUDA tensors, the plain version on CPU tensors, backward
+    by recomputation through the plain version."""
+    return _MlpBlock.apply(x, norm_w, norm_b, w1, b1, w2, b2, eps)

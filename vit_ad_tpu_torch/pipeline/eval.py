@@ -1,8 +1,9 @@
 """Scoring: models → anomaly maps → image scores → metrics (port of
 `vit_ad_tpu/pipeline/eval.py`: `make_mdn_batch_fn` :357, `score_mdn` :446,
 `evaluate_mdn` :482, `make_nf_batch_fn` :371, `score_nf` :500, `evaluate_nf`
-:532 and the metrics half of `_metrics_and_figures` :55; figures are ROADMAP
-A10, the recon and ResNet evaluators A7/A8).
+:532, `make_mdn_resnet_batch_fn` :401, `score_mdn_resnet` :608,
+`evaluate_mdn_resnet` :651 and the metrics half of `_metrics_and_figures` :55;
+figures are ROADMAP A10, the recon evaluators A8, the NF-ResNet ones A7b).
 
   * MDN — per-patch mean log-likelihood; image score = inverted min patch
     probability, normalized by the max log-likelihood over the whole scored
@@ -10,11 +11,14 @@ A10, the recon and ResNet evaluators A7/A8).
     fix; `scoring.payload_to_scores("mdn")`).
   * NF — anomaly map from the flow forward; image score = max over the map
     (reference ValidatorNF.py:137-142).
+  * MDN over ResNet stages — one head per stage map; per-stage probability
+    maps upsampled, inverted and averaged; image score = max
+    (`scoring.payload_to_scores("mdn_resnet")`).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -24,6 +28,7 @@ from vit_ad_tpu_torch.data.loader import Batch, DataPipeline, preprocess
 from vit_ad_tpu_torch.models.flow import NormalizingFlow, patch_tokens_to_map
 from vit_ad_tpu_torch.models.mdn import GaussianMDN
 from vit_ad_tpu_torch.models.outputs import Encoder
+from vit_ad_tpu_torch.models.resnet import ResNetEncoder
 from vit_ad_tpu_torch.pipeline import metrics as M
 from vit_ad_tpu_torch.scoring import payload_to_scores
 
@@ -98,21 +103,26 @@ def make_nf_batch_fn(encoder: Encoder, flow: NormalizingFlow, hp: HyperParams,
     return anomaly_maps
 
 
-def _collect(batches: Iterable[Batch], score_fn: Callable[[torch.Tensor], torch.Tensor],
-             device: torch.device) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+def _collect(batches: Iterable[Batch],
+             score_fn: Callable[[torch.Tensor], Union[torch.Tensor, Tuple[torch.Tensor, ...]]],
+             device: torch.device):
     """Score every batch; return (payloads, labels, masks) with the padded
-    rows trimmed."""
+    rows trimmed. A `score_fn` that returns a tuple (one output per stage)
+    gives a tuple of concatenated payloads."""
     payloads, labels, masks = [], [], []
+    per_stage = False
     for batch in batches:
         n = int(batch.valid.sum())
         with torch.inference_mode():
             out = score_fn(torch.from_numpy(batch.images).to(device))
-            payloads.append(out[:n].float().cpu().numpy())
+            per_stage = isinstance(out, tuple)
+            payloads.append([o[:n].float().cpu().numpy() for o in (out if per_stage else (out,))])
         labels.append(batch.labels[:n])
         masks.append(batch.masks[:n])
     if not payloads:
         raise ValueError("no batches to score")
-    return np.concatenate(payloads), np.concatenate(labels), np.concatenate(masks)
+    cat = tuple(np.concatenate(stage) for stage in zip(*payloads))
+    return cat if per_stage else cat[0], np.concatenate(labels), np.concatenate(masks)
 
 
 def score_nf(encoder: Encoder, flow: NormalizingFlow, test_data: DataPipeline,
@@ -132,3 +142,55 @@ def evaluate_nf(encoder: Encoder, flow: NormalizingFlow, test_data: DataPipeline
                 std: Optional[np.ndarray] = None) -> Dict[str, float]:
     """score_nf + the reference metric suite."""
     return metrics_of(score_nf(encoder, flow, test_data, hp, mean, std), hp)
+
+
+def resnet_stage_tokens(encoder: ResNetEncoder, images_u8: torch.Tensor,
+                        mean: Optional[torch.Tensor], std: Optional[torch.Tensor],
+                        stages: Sequence[int]) -> List[torch.Tensor]:
+    """uint8 images → the LayerNorm'd maps of `stages` as tokens [B, h*w, C]
+    (the trunk without gradient, the stage norms with)."""
+    x = preprocess(images_u8, mean, std)
+    return [m.flatten(1, 2) for m in encoder.stage_features(x, stages)]
+
+
+def make_mdn_resnet_batch_fn(encoder: ResNetEncoder, mdns: Sequence[GaussianMDN],
+                             hp: HyperParams, mean: Optional[torch.Tensor],
+                             std: Optional[torch.Tensor], stages: Sequence[int] = (2, 3)
+                             ) -> Callable[[torch.Tensor], Tuple[torch.Tensor, ...]]:
+    """Per-batch multi-stage MDN scorer: uint8 images [B, H, W, 3] on the
+    models' device → one [B, h*w] per-patch mean log-likelihood per stage (the
+    device half of `score_mdn_resnet`); the GMM kernel (B2) once per stage on
+    the card."""
+
+    def stage_logliks(images_u8: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        tokens = resnet_stage_tokens(encoder, images_u8, mean, std, stages)
+        return tuple(torch.mean(mdn.log_likelihood(feats), dim=2)
+                     for feats, mdn in zip(tokens, mdns))
+
+    return stage_logliks
+
+
+def score_mdn_resnet(encoder: ResNetEncoder, mdns: Sequence[GaussianMDN],
+                     test_data: DataPipeline, hp: HyperParams,
+                     mean: Optional[np.ndarray] = None, std: Optional[np.ndarray] = None,
+                     stages: Sequence[int] = (2, 3)) -> ScoreOutput:
+    """Multi-stage MDN scoring (reference ValidatorMdn.valid_loop_resnet):
+    per-stage probability maps are upsampled (align_corners=True), inverted
+    to anomaly and averaged. As in the JAX package, and unlike the reference:
+    probabilities are normalized by the max over the whole scored set, not
+    per batch, and the image score is the max over the averaged anomaly map
+    (the reference takes min-then-reinvert, a double inversion)."""
+    device = next(encoder.parameters()).device
+    fn = make_mdn_resnet_batch_fn(encoder, mdns, hp, _as_device(mean, device),
+                                  _as_device(std, device), stages)
+    stage_lls, labels, masks = _collect(test_data.test_batches(hp.prefetch), fn, device)
+    image_scores, pixel_scores = payload_to_scores("mdn_resnet", stage_lls, hp.img_size)
+    return ScoreOutput(image_scores, pixel_scores, labels, masks)
+
+
+def evaluate_mdn_resnet(encoder: ResNetEncoder, mdns: Sequence[GaussianMDN],
+                        test_data: DataPipeline, hp: HyperParams,
+                        mean: Optional[np.ndarray] = None, std: Optional[np.ndarray] = None,
+                        stages: Sequence[int] = (2, 3)) -> Dict[str, float]:
+    """score_mdn_resnet + the reference metric suite."""
+    return metrics_of(score_mdn_resnet(encoder, mdns, test_data, hp, mean, std, stages), hp)

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +19,7 @@ from vit_ad_tpu_torch.config import DtypePolicy, HyperParams
 from vit_ad_tpu_torch.models.flow import NormalizingFlow
 from vit_ad_tpu_torch.models.mdn import GaussianMDN
 from vit_ad_tpu_torch.models.outputs import Encoder
+from vit_ad_tpu_torch.models.resnet import STAGE_CHANNELS, ResNetEncoder
 from vit_ad_tpu_torch.models.swin import SwinTransformer
 from vit_ad_tpu_torch.registry import get_model
 from vit_ad_tpu_torch.utils.convert import interpolate_rel_pos_table
@@ -29,7 +30,7 @@ class RunModels:
     """Live models for one head. `parts` is the positional model prefix the
     matching `pipeline.eval.score_*` function takes."""
 
-    kind: str  # 'nf' | 'mdn' in the ported slices
+    kind: str  # 'nf' | 'mdn' | 'mdn_resnet' in the ported slices
     hp: HyperParams
     parts: Tuple[Any, ...]
 
@@ -89,12 +90,31 @@ def _swin_checkpoint_surgery(encoder: SwinTransformer, sd: Dict[str, torch.Tenso
     return sd
 
 
+def _resnet_encoder_state(encoder: ResNetEncoder, sd: Dict[str, torch.Tensor]
+                          ) -> Dict[str, torch.Tensor]:
+    """A full `ResNetEncoder` state dict from either layout the JAX
+    `convert_resnet_encoder` (:1379) and `convert_resnet50` (:159) read: the
+    reference encoder's (`res_net.*` and, where saved, `norms.{i}.*`) or a
+    bare torchvision ResNet-50. Entries a file does not hold (the stage norms
+    of an ImageNet file, the unread classifier) keep the encoder's own."""
+    if not any(k.startswith("res_net.") for k in sd):
+        sd = {f"res_net.{k}": v for k, v in sd.items()}
+    own = encoder.state_dict()
+    unknown = sorted(set(sd) - set(own))
+    if unknown:
+        raise KeyError(f"unexpected keys in a ResNet encoder checkpoint: {unknown[:8]}")
+    optional = {k: v for k, v in own.items()
+                if k.startswith(("norms.", "res_net.fc.")) or k.endswith("num_batches_tracked")}
+    return {**optional, **sd}
+
+
 def load_encoder_checkpoint(encoder: Encoder, encoder_ckpt: str) -> Encoder:
     """Load a pretrained trunk `.pth` into `encoder` strictly: a timm ViT/DeiT
-    file, or the EsViT Swin-T checkpoint for a `SwinTransformer`. Strips a
-    DataParallel `module.` prefix and drops the classifier heads (`head.*`,
-    `head_dist.*`, `pre_logits.*`), as the JAX `convert_vit` (:122) and
-    `convert_swin` (:1118) do; the Swin file also gets
+    file, the EsViT Swin-T checkpoint for a `SwinTransformer`, or for a
+    `ResNetEncoder` a torchvision ResNet-50 or a reference-layout encoder
+    file. Strips a DataParallel `module.` prefix and drops the classifier
+    heads (`head.*`, `head_dist.*`, `pre_logits.*`), as the JAX `convert_vit`
+    (:122) and `convert_swin` (:1118) do; the Swin file also gets
     `_swin_checkpoint_surgery`."""
     if not encoder_ckpt.endswith(".pth"):
         raise SystemExit(
@@ -103,6 +123,9 @@ def load_encoder_checkpoint(encoder: Encoder, encoder_ckpt: str) -> Encoder:
         )
     sd = {(k[len("module."):] if k.startswith("module.") else k): v
           for k, v in load_pth(encoder_ckpt).items()}
+    if isinstance(encoder, ResNetEncoder):
+        encoder.load_state_dict(_resnet_encoder_state(encoder, sd), strict=True)
+        return encoder
     if "distillation_token" in sd:
         sd["dist_token"] = sd.pop("distillation_token")
     sd = {k: v for k, v in sd.items()
@@ -143,13 +166,14 @@ def build_pth_models(
     dtypes: Optional[DtypePolicy] = None,
     device: Optional[torch.device] = None,
     fused_ln: Optional[bool] = None,
+    fused_mlp: Optional[bool] = None,
 ) -> RunModels:
     """Encoder + NF or MDN head from a reference-format head `.pth` (MDN:
     K from the `<K>_..._<class>.pth` filename). `encoder_ckpt` is the
     pretrained trunk the head was trained against (a timm or EsViT `.pth`);
-    without it the encoder is the seed-random init (warned). `fused_ln` is
-    `registry.get_model`'s. The models are moved to `device` (default CPU) in
-    eval mode."""
+    without it the encoder is the seed-random init (warned). `fused_ln` and
+    `fused_mlp` are `registry.get_model`'s. The models are moved to `device`
+    (default CPU) in eval mode."""
     if arch not in ("nf", "mdn"):
         raise NotImplementedError(
             f"legacy .pth scoring of arch {arch!r} is not ported yet (ROADMAP A8 for "
@@ -159,11 +183,12 @@ def build_pth_models(
     hp = HyperParams(model_name=model_name, architecture=arch, img_size=img_size,
                      hidden_ratio=hidden_ratio, flow_steps=flow_steps,
                      num_gaussians=num_gaussians or 150, data_class=dataclass,
-                     fused_ln=fused_ln)
+                     fused_ln=fused_ln, fused_mlp=fused_mlp)
     if dtypes is not None:
         hp.dtypes = dtypes
     encoder = get_model(hp.model_name, hp.img_size, hp.dtypes,
-                        generator=torch.Generator().manual_seed(hp.seed), fused_ln=fused_ln)
+                        generator=torch.Generator().manual_seed(hp.seed), fused_ln=fused_ln,
+                        fused_mlp=fused_mlp)
     if encoder_ckpt:
         load_encoder_checkpoint(encoder, encoder_ckpt)
     else:
@@ -183,11 +208,54 @@ def build_pth_models(
                      parts=(encoder.to(device).eval(), head.to(device).eval()))
 
 
+def build_pth_resnet_mdn_models(
+    pth_stages: Sequence[str],
+    img_size: int = 224,
+    encoder_ckpt: str = "",
+    dtypes: Optional[DtypePolicy] = None,
+    device: Optional[torch.device] = None,
+) -> RunModels:
+    """ResNet-50 encoder + the two stage MDN heads from the reference's
+    two-file convention (JAX `build_pth_resnet_mdn_models` :370): one head
+    `.pth` per stage, positionally stages 2 and 3 (D = 1024, 2048), K and the
+    data class from the first filename. `encoder_ckpt` is the trunk the heads
+    were trained against: the encoder file `cli.train_mdn -m res_net` writes
+    (trained stage norms included) or ImageNet ResNet-50 weights; without it
+    the trunk is the seed-random init (warned). The heads are built without
+    an init of their own (on the meta device) and take the files' tensors."""
+    stages = (2, 3)
+    if len(pth_stages) != len(stages):
+        raise ValueError(f"the ResNet-MDN convention is one .pth per stage {stages}, got "
+                         f"{len(pth_stages)} files")
+    num_gaussians, dataclass = parse_pth_filename(pth_stages[0], "mdn")
+    hp = HyperParams(model_name="enc_res_net", architecture="mdn", img_size=img_size,
+                     num_gaussians=num_gaussians or 150, data_class=dataclass)
+    if dtypes is not None:
+        hp.dtypes = dtypes
+    encoder = ResNetEncoder(hp.img_size, hp.dtypes,
+                            generator=torch.Generator().manual_seed(hp.seed))
+    if encoder_ckpt:
+        load_encoder_checkpoint(encoder, encoder_ckpt)
+    else:
+        print("build_pth_resnet_mdn_models: no encoder checkpoint given (-E) — evaluating "
+              "against a random resnet50 trunk; the reference's GMM heads were trained on "
+              "ImageNet-pretrained features")
+    heads = []
+    for i, pth in zip(stages, pth_stages):
+        with torch.device("meta"):
+            head = GaussianMDN(STAGE_CHANNELS[i], hp.num_gaussians, dtypes=hp.dtypes)
+        head.load_state_dict(load_pth(pth), strict=True, assign=True)
+        heads.append(head)
+    heads = torch.nn.ModuleList(heads).requires_grad_(False)
+    return RunModels(kind="mdn_resnet", hp=hp,
+                     parts=(encoder.to(device).eval(), heads.to(device).eval()))
+
+
 def score_models(m: RunModels, test_data, mean=None, std=None):
     """Label-free scoring dispatch: RunModels → pipeline.eval.ScoreOutput."""
-    from vit_ad_tpu_torch.pipeline.eval import score_mdn, score_nf
+    from vit_ad_tpu_torch.pipeline.eval import score_mdn, score_mdn_resnet, score_nf
 
-    score = {"nf": score_nf, "mdn": score_mdn}.get(m.kind)
+    score = {"nf": score_nf, "mdn": score_mdn, "mdn_resnet": score_mdn_resnet}.get(m.kind)
     if score is None:
         raise NotImplementedError(f"scoring kind {m.kind!r} is not ported yet")
     return score(*m.parts, test_data, m.hp, mean, std)

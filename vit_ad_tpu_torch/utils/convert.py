@@ -1,11 +1,13 @@
 """Carry JAX-trained weights into the port.
 
 `vit_state_dict_from_jax`, `swin_state_dict_from_jax`,
-`nf_state_dict_from_jax` and `mdn_state_dict_from_jax` take the JAX package's
-params as nested dicts of numpy arrays (the caller does jax → numpy) and
-return the port's state dicts, in the timm, EsViT, FrEIA and reference-MDN
-layouts that `vit_ad_tpu/utils/torch_convert.export_vit` (:607), `export_swin`
-(:803), `export_nf_head` (:518) and `export_mdn_head` (:497) emit.
+`resnet_state_dict_from_jax`, `nf_state_dict_from_jax` and
+`mdn_state_dict_from_jax` take the JAX package's params as nested dicts of
+numpy arrays (the caller does jax → numpy) and return the port's state dicts,
+in the timm, EsViT, reference-ResNetEncoder, FrEIA and reference-MDN layouts
+that `vit_ad_tpu/utils/torch_convert.export_vit` (:607), `export_swin` (:803),
+`export_resnet_encoder` (:977), `export_nf_head` (:518) and `export_mdn_head`
+(:497) emit.
 `interpolate_rel_pos_table` is the port's copy of the bias-table resize of
 `torch_convert.py` (:1099). numpy and scipy only: no jax, no `vit_ad_tpu`.
 """
@@ -111,6 +113,53 @@ def swin_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
             sd[f"{pre}.norm.bias"] = _t(ln(dp["norm"])["bias"])
             sd[f"{pre}.reduction.weight"] = _t(np.asarray(dp["reduction"]["kernel"], np.float32).T)
         si += 1
+    return sd
+
+
+def resnet_state_dict_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any]
+                               ) -> Dict[str, torch.Tensor]:
+    """JAX `ResNetEncoder` params (`trunk` + `norm{i}_scale/bias` [H, W, C])
+    and batch_stats (`trunk`) → the port's `ResNetEncoder` state dict: the
+    torchvision ResNet-50 layout under `res_net.` (HWIO kernels → OIHW, the
+    five BatchNorm entries with `num_batches_tracked` 0, the classifier `fc`
+    zeroed: nothing reads it) and the stage LayerNorms under `norms.{i}` as
+    [C, H, W]. The port's copy of `export_resnet50` (:946) and
+    `export_resnet_encoder`; every tensor is a copy."""
+    p = _unwrap(params)
+    stats = batch_stats["batch_stats"] if "batch_stats" in batch_stats else batch_stats
+    tp, ts = p["trunk"], stats["trunk"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def bn(bp, bs, name: str) -> None:
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = _t(bp["scale"]), _t(bp["bias"])
+        sd[f"{name}.running_mean"], sd[f"{name}.running_var"] = _t(bs["mean"]), _t(bs["var"])
+        sd[f"{name}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+
+    sd["res_net.conv1.weight"] = _t(_hwio_to_oihw(tp["conv1"]["kernel"]))
+    bn(tp["bn1"], ts["bn1"], "res_net.bn1")
+    li = 1
+    while f"layer{li}_0" in tp:
+        bi = 0
+        while f"layer{li}_{bi}" in tp:
+            bp, bs = tp[f"layer{li}_{bi}"], ts[f"layer{li}_{bi}"]
+            dst = f"res_net.layer{li}.{bi}"
+            for ci in (1, 2, 3):
+                sd[f"{dst}.conv{ci}.weight"] = _t(_hwio_to_oihw(bp[f"conv{ci}"]["kernel"]))
+                bn(bp[f"bn{ci}"], bs[f"bn{ci}"], f"{dst}.bn{ci}")
+            if "downsample_conv" in bp:
+                sd[f"{dst}.downsample.0.weight"] = _t(
+                    _hwio_to_oihw(bp["downsample_conv"]["kernel"]))
+                bn(bp["downsample_bn"], bs["downsample_bn"], f"{dst}.downsample.1")
+            bi += 1
+        li += 1
+    sd["res_net.fc.weight"] = torch.zeros(1000, 2048)
+    sd["res_net.fc.bias"] = torch.zeros(1000)
+    i = 0
+    while f"norm{i}_scale" in p:
+        for key, leaf in (("weight", "scale"), ("bias", "bias")):
+            sd[f"norms.{i}.{key}"] = _t(np.transpose(
+                np.asarray(p[f"norm{i}_{leaf}"], np.float32), (2, 0, 1)))
+        i += 1
     return sd
 
 
