@@ -118,6 +118,52 @@ def test_build_is_keyed_on_the_sources():
     assert path == build.library_path()
     assert [f.name for f in build.source_files()] == [
         "gmm.cu", "layer_norm.cu", "mlp_block.cu", "swin_window_attention.cu",
-        "vit_attention_qkv.cu", "attention_common.cuh"]
+        "vit_attention_qkv.cu", "attention_common.cuh", "hopper_mma.cuh",
+        "launch_common.cuh", "layer_norm_common.cuh"]
     assert set(build.ENTRY_POINTS) >= {"vit_attention_qkv_forward", "layer_norm_forward",
-                                       "swin_window_attention_forward", "mlp_block_forward"}
+                                       "swin_window_attention_forward", "mlp_block_forward",
+                                       "mlp_gemm_forward"}
+
+
+# Every edge the card-side check drives through the kernels (chip_smoke.py
+# KERNEL_CASES): one token, one 16-key tile exactly and one token more, a Swin
+# window's 49, 196, both sides of the one-pass kernel's cap and of the token
+# limit, at both head dims. Tolerances as stated there and in the JAX tests:
+# f32 1e-5 (summation order at up to 256 keys), bf16 2e-2.
+EDGE_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+EDGE_TOKENS = (1, 16, 17, 49, 196, 208, 255, 256)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,h", [(32, 3), (64, 2)])
+@pytest.mark.parametrize("n", EDGE_TOKENS)
+def test_plain_version_matches_jax_at_the_kernel_edges(n, hd, h, dt):
+    xj, xt = _inputs(2, n, h, hd, dt, seed=n)
+    got = wa.vit_attention_qkv_reference(xt, h).float().numpy()
+    assert got.shape == (2, n, h * hd)
+    want = np.asarray(jax_vit_attention_qkv(xj, h).astype(jnp.float32))
+    pallas = np.asarray(_call_qkv(xj, h, interpret=True).astype(jnp.float32))
+    np.testing.assert_allclose(got, want, rtol=0, atol=EDGE_TOL[dt])
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=EDGE_TOL[dt])
+
+
+@pytest.mark.parametrize("n,dtype,want", [
+    (1, torch.bfloat16, "one_pass"), (16, torch.bfloat16, "one_pass"),
+    (198, torch.bfloat16, "one_pass"), (208, torch.bfloat16, "one_pass"),
+    (209, torch.bfloat16, "two_pass"), (256, torch.bfloat16, "two_pass"),
+    (1, torch.float32, "fma"), (198, torch.float32, "fma"), (256, torch.float32, "fma"),
+    (0, torch.bfloat16, ""), (257, torch.bfloat16, ""), (257, torch.float32, ""),
+    (198, torch.float16, ""),
+])
+def test_attention_route_truth_table(n, dtype, want):
+    """Which kernel of csrc/vit_attention_qkv.cu a CUDA tensor would take; the
+    wrapper raises exactly where the route is empty."""
+    assert wa.attention_route(n, dtype) == want
+    if n > 0:
+        qkv = torch.zeros(1, n, 3 * 128, dtype=dtype)
+        if want:
+            wa.check_kernel_shape(qkv, 2)
+        else:
+            with pytest.raises((TypeError, ValueError)):
+                wa.check_kernel_shape(qkv, 2)
+    assert wa.ONE_PASS_MAX_TOKENS == 208 and wa.one_pass_launches == 0

@@ -103,6 +103,71 @@ def test_gate_truth_table(d, hidden, want):
     assert cmlp.use_fused_mlp(d, hidden) is want
 
 
+@pytest.mark.parametrize("d,hidden,dtype,want", [
+    (768, 3072, torch.bfloat16, "wgmma"), (384, 1536, torch.bfloat16, "wgmma"),
+    (128, 512, torch.bfloat16, "wgmma"), (1024, 4096, torch.bfloat16, "wgmma"),
+    (768, 3072, torch.float32, "fma"), (1024, 4096, torch.float32, "fma"),
+    (128, 128, torch.float32, "fma"),
+    (96, 384, torch.bfloat16, ""), (768, 3000, torch.bfloat16, ""),
+    (1152, 4608, torch.bfloat16, ""), (768, 3072, torch.float16, ""),
+    (768, 3072, torch.float64, ""), (0, 0, torch.float32, ""),
+])
+def test_route_truth_table(d, hidden, dtype, want):
+    """Which kernels a CUDA tensor would take: every bf16 width the gate admits
+    goes to the LayerNorm + wgmma products, f32 to the fused FMA kernel; the
+    wrapper raises exactly where the route is empty."""
+    assert cmlp.mlp_route(d, hidden, dtype) == want
+    assert bool(want) == (cmlp.use_fused_mlp(d, hidden) and dtype in (torch.bfloat16,
+                                                                      torch.float32))
+    if d > 0:
+        z = lambda *s: torch.zeros(*s)
+        args = [torch.zeros(3, d, dtype=dtype), z(d), z(d), torch.zeros(hidden, d, dtype=dtype),
+                z(hidden), torch.zeros(d, hidden, dtype=dtype), z(d)]
+        if want:
+            assert cmlp.check_kernel_shape(*args) == (d, hidden)
+        else:
+            with pytest.raises((TypeError, ValueError)):
+                cmlp.check_kernel_shape(*args)
+
+
+@pytest.mark.parametrize("rows", [5, 128, 129])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_three_steps_compose_to_the_plain_version(rows, dt):
+    """The contract the bf16 route's three kernels are built to: k0 is the
+    LayerNorm kernel's function at eps 1e-6 (its plain version, rounded to the
+    dtype), k1 rounds gelu_tanh(y.W1^T + b1) once, k2 rounds
+    f32(x) + (hidden.W2^T + b2) once; composed, they are `mlp_block_reference`
+    bit for bit, in f32 and in bf16."""
+    from vit_ad_tpu_torch.ops.cuda.layer_norm import layer_norm_reference
+
+    dtype = getattr(torch, dt)
+    x, nw, nb, w1, b1, w2, b2 = _port_args(*_inputs(1, rows, 128, 256, seed=3), dtype)
+    x = x[0]
+    y = layer_norm_reference(x, nw, nb, 1e-6)
+    assert y.dtype == dtype
+    # the LayerNorm step inside the plain version is the same expression
+    xf = x.float()
+    centred = xf - xf.mean(dim=-1, keepdim=True)
+    var = centred.square().mean(dim=-1, keepdim=True)
+    inside = ((centred * torch.rsqrt(var + 1e-6)) * nw + nb).to(dtype)
+    assert torch.equal(y, inside)
+    hidden = mops.gelu_tanh(y.float() @ w1.float().t() + b1).to(dtype)
+    out = (x.float() + (hidden.float() @ w2.float().t() + b2)).to(dtype)
+    want = mops.mlp_block_reference(x, nw, nb, w1, b1, w2, b2, 1e-6)
+    assert torch.equal(out, want)
+    assert torch.equal(cmlp.mlp_block(x, nw, nb, w1, b1, w2, b2, 1e-6), want)
+
+
+def test_gemm_step_is_a_card_side_entry():
+    """`gemm_step` (one product of the bf16 route alone, for the card-side
+    checks) takes bf16 CUDA matrices only and counts no launch."""
+    a, w = torch.zeros(4, 128, dtype=torch.bfloat16), torch.zeros(256, 128, dtype=torch.bfloat16)
+    before = cmlp.launches, cmlp.wgmma_launches
+    with pytest.raises(ValueError, match="bf16 CUDA matrices"):
+        cmlp.gemm_step(a, w, torch.zeros(256), cmlp.EPILOGUE_GELU)
+    assert (cmlp.launches, cmlp.wgmma_launches) == before
+
+
 @pytest.mark.parametrize("shape,w1_shape,dtype,err,match", [
     ((4, 96), (384, 96), torch.float32, ValueError, "multiples of 128"),
     ((4, 128), (500, 128), torch.float32, ValueError, "multiples of 128"),
@@ -153,8 +218,9 @@ def test_fused_encoder_matches_unfused_and_jax_bf16(wide_params, monkeypatch):
     real = cmlp.mlp_block
     monkeypatch.setattr("vit_ad_tpu_torch.models.vit.mlp_block",
                         lambda *a: calls.append(a[0].shape) or real(*a))
-    assert FUSED_MLP_DEFAULT is False
-    encoders = [_encoder(wide_params, DtypePolicy()),
+    assert FUSED_MLP_DEFAULT is True
+    assert _encoder(wide_params, DtypePolicy()).fused_mlp
+    encoders = [_encoder(wide_params, DtypePolicy(), fused_mlp=False),
                 _encoder(wide_params, DtypePolicy(), fused_mlp=True)]
     with torch.inference_mode():
         unfused = encoders[0](torch.from_numpy(x)).patch_embedding
@@ -179,10 +245,12 @@ def test_fused_path_is_taken_only_under_tanh_gelu(wide_params, monkeypatch, kw, 
     real = cmlp.mlp_block
     monkeypatch.setattr("vit_ad_tpu_torch.models.vit.mlp_block",
                         lambda *a: calls.append(1) or real(*a))
-    plain_kw = {k: v for k, v in kw.items() if k != "fused_mlp"}
-    encoders = [_encoder(wide_params, dtypes, **kw), _encoder(wide_params, dtypes, **plain_kw)]
+    stock_kw = {**kw, "fused_mlp": False}  # the stock tail, whatever the default
+    encoders = [_encoder(wide_params, dtypes, **kw), _encoder(wide_params, dtypes, **stock_kw)]
     with torch.inference_mode():
-        got, want = (enc(x).patch_embedding for enc in encoders)
+        got = encoders[0](x).patch_embedding
+        assert len(calls) == n_calls
+        want = encoders[1](x).patch_embedding
     assert len(calls) == n_calls
     # in f32 the fused and the stock tail are the same math
     np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), rtol=0,

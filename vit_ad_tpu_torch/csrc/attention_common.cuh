@@ -4,10 +4,8 @@
 //
 // Both compute, per (batch entry, head), softmax(q*scale k^T [+ bias + mask]) v
 // for N <= 256 tokens with the head's K and V rows staged once in shared
-// memory, f32 scores and softmax, and a two-pass softmax (pass 1: row max and
-// row sum; pass 2: recompute the scores, exponentiate, round, PV) so that the
-// probabilities are rounded to the input dtype exactly where the TPU kernels
-// round them:
+// memory, f32 scores and softmax, and the probabilities rounded to the input
+// dtype exactly where the TPU kernels round them:
 //
 //   kDefer = false  the NORMALISED probabilities exp(s - m) / l are rounded
 //                   before PV (vit_ad_tpu/ops/pallas/window_attention.py
@@ -19,9 +17,29 @@
 // bf16 runs on the tensor cores (mma.sync m16n8k16, f32 accumulate): a warp
 // owns 16 query rows. f32 runs on the CUDA cores (FMA): a thread owns one row.
 // N fits no MMA tile (198, 196, 49): keys are padded with zero rows in shared
-// memory up to a multiple of 64 and their scores set to -inf; a finite bias or
-// mask added to -inf leaves it -inf, so the order of the two does not matter,
-// and no bias or mask element past N is ever read.
+// memory and their scores set to -inf; a finite bias or mask added to -inf
+// leaves it -inf, so the order of the two does not matter, and no bias or mask
+// element past N is ever read.
+//
+// Two bf16 forms live here. `attend_tile` is the first one: a two-pass softmax
+// over chunks of 64 keys (pass 1: row max and row sum; pass 2: the scores
+// again, exponentiate, round, PV), its B fragments read from shared memory by
+// 32-bit loads (K) and by four 16-bit loads and two packs per MMA (V, which is
+// needed transposed). Counted per warp and chunk that is 96 MMAs behind 256
+// shared-memory load instructions: the loads, not the MMAs or the memory,
+// set its pace. It serves the window kernels and the ViT kernel above 208
+// tokens. The building blocks of the second form are below it (`cp_async_16`,
+// `ldmatrix_x4`, `ldmatrix_x4_trans`, `exp2_approx`, `scale_bf16x2`): staging
+// by cp.async so that loads overlap, and matrix-fragment loads that fill the
+// B operands of two MMAs (four 8x8 tiles) with one instruction, transposing V
+// on the way. vit_attention_qkv.cu builds its one-pass kernel from them.
+// Both kernels are bound by bytes (the ViT one 46 us at B=128, N=198, the Swin
+// one 93 us at stage 0: qkv read once, the output written once). Measured on an
+// NVIDIA H100 80GB HBM3 at 700 W: the ViT attention took 0.265 ms a call
+// (0.201 back to back) through `attend_tile` and takes 0.165 ms (0.111) through
+// the one-pass kernel; the Swin attention, still on `attend_tile`, 1.28 ms
+// (1.23 back to back) at stage 0. Giving `attend_tile` the same loads is the
+// window kernels' redesign.
 
 #pragma once
 
@@ -54,10 +72,8 @@ inline size_t bf16_smem_bytes(int n, int head_dim) {
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat16 l = __float2bfloat16_rn(lo);
-  const __nv_bfloat16 h = __float2bfloat16_rn(hi);
-  return static_cast<uint32_t>(__bfloat16_as_ushort(l)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(h)) << 16);
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // one cvt.rn.bf16x2.f32
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 __device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
@@ -285,6 +301,61 @@ __device__ __forceinline__ void store_tile(uint16_t* out, size_t c, int ra, int 
     if (rb < n)
       *reinterpret_cast<uint32_t*>(out + rb * c + col) = pack_bf16(o[dn][2], o[dn][3]);
   }
+}
+
+// ---- bf16: cp.async staging and matrix-fragment loads -----------------------
+
+__device__ __forceinline__ uint32_t shared_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from device memory to shared memory without passing through
+// registers; both addresses 16-byte aligned. Completion by commit / wait.
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most kPending committed groups of this thread are in flight
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Four 8x8 bf16 tiles from shared memory: lanes 8 i .. 8 i + 7 give the
+// 16-byte aligned addresses of the rows of tile i, and every lane (g = lane /
+// 4, t = lane % 4) receives r[i] = tile i [g][2t .. 2t + 1]: the layout of an
+// mma.sync A fragment, and of a B fragment when the tile's rows run along n.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// The same with every tile transposed: r[i] = tile i [2t .. 2t + 1][g], a B
+// fragment when the tile's rows run along k (V [key][d] for PV).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// 2^x by the special-function unit (2 ulp; results below 2^-126 flush to 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two packed bf16 values times `scale` in f32, rounded back to bf16: q*scale
+// as `load_q_fragments` rounds it.
+__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t v, float scale) {
+  return pack_bf16(__uint_as_float(v << 16) * scale, __uint_as_float(v & 0xffff0000u) * scale);
 }
 
 // ---- f32: FMA path ----------------------------------------------------------

@@ -8,8 +8,8 @@ so exported JAX weights and upstream timm checkpoints load with strict=True.
 Cast points follow `_block_apply` (:70-149): the residual stream is in the
 compute dtype, LayerNorm statistics run in f32 (eps 1e-6), the matmul weights
 run in the compute dtype and attention is the packed-qkv kernel
-(`ops/cuda/window_attention.vit_attention_qkv`). With `fused_mlp` the MLP
-tail of a block is the fused kernel `ops/cuda/mlp.mlp_block` (JAX :117-128,
+(`ops/cuda/window_attention.vit_attention_qkv`). With `fused_mlp` (the default)
+the MLP tail of a block is the kernel `ops/cuda/mlp.mlp_block` (JAX :117-128,
 there behind `VITAD_PALLAS_MLP=1`), taken only under tanh GELU and where
 `use_fused_mlp` admits the widths. The compute-dtype copies of the weights are
 made once and reused while the parameters are unchanged (JAX casts them once
@@ -37,9 +37,11 @@ from vit_ad_tpu_torch.ops.cuda.mlp import mlp_block, use_fused_mlp
 from vit_ad_tpu_torch.ops.cuda.window_attention import vit_attention_qkv
 
 LN_EPS = 1e-6
-# The MLP tail through the fused kernel: off, as in the JAX package (opt-in
-# there); PERF.md has the H100 reading that keeps it off.
-FUSED_MLP_DEFAULT = False
+# The MLP tail through the MLP kernel (`ops/cuda/mlp.mlp_block`): on. On the
+# H100 it is faster than the stock tail and faster end to end (PERF.md has the
+# off/on/on/off reading); the JAX package keeps it opt-in. `fused_mlp=False` /
+# `--no-fused-mlp` takes the stock tail.
+FUSED_MLP_DEFAULT = True
 
 
 class Attention(nn.Module):

@@ -107,9 +107,11 @@ ENTRY_POINTS = {
     "swin_window_attention_forward": [_P] * 6 + [_I] * 8 + [ctypes.c_float, _I, _P],
     # x, scale, bias, out, rows, d, eps, is_bf16, device, stream
     "layer_norm_forward": [_P] * 4 + [_I, _I, ctypes.c_float, _I, _I, _P],
-    # x, norm_scale, norm_bias, w1, b1, w2, b2, out, rows, d, hidden, eps,
-    # is_bf16, device, stream
-    "mlp_block_forward": [_P] * 8 + [_I] * 3 + [ctypes.c_float, _I, _I, _P],
+    # x, norm_scale, norm_bias, w1, b1, w2, b2, out, y, hid, rows, d, hidden,
+    # eps, is_bf16, device, stream
+    "mlp_block_forward": [_P] * 10 + [_I] * 3 + [ctypes.c_float, _I, _I, _P],
+    # a, b, bias, resid, out, m, n, k, epilogue, device, stream
+    "mlp_gemm_forward": [_P] * 5 + [_I] * 5 + [_P],
     # x, log_pi, w_mu, w_sigma, b_mu, b_sigma, ll, rows, d, k, is_bf16,
     # device, stream
     "gmm_forward": [_P] * 7 + [_I] * 5 + [_P],

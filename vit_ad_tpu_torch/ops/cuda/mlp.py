@@ -6,7 +6,10 @@ Port of `vit_ad_tpu/ops/pallas/mlp.py::mlp_block` (:136), whose TPU kernel
 H100 and what the design does about it).
 
 `mlp_block` launches that kernel for a CUDA tensor, and raises where it
-cannot. For a CPU tensor it runs the plain PyTorch version
+cannot: under bf16 three kernels behind one entry point (the one-pass
+LayerNorm, then the two products on `wgmma` behind TMA with the GELU and the
+residual in their epilogues, `mlp_route` = "wgmma"), under f32 one fused FMA
+kernel ("fma"). For a CPU tensor it runs the plain PyTorch version
 `ops/mlp.mlp_block_reference`. Its backward recomputes through the plain
 version, as the JAX custom VJP recomputes through its XLA expression
 (:152-154): the TPU kernel had no backward kernel either. `use_fused_mlp` is
@@ -16,6 +19,8 @@ encoder's `fused_mlp` argument.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from vit_ad_tpu_torch.ops.mlp import mlp_block_reference
@@ -23,9 +28,15 @@ from vit_ad_tpu_torch.ops.mlp import mlp_block_reference
 # Kernel launches made by `mlp_block` (a plain count, read by chip_smoke.py to
 # show that the main path went through the kernel).
 launches = 0
+# Of those, the calls that took the bf16 route (LayerNorm kernel + two wgmma
+# products); the rest took the f32 kernel.
+wgmma_launches = 0
 
-# The [32, D] f32 output accumulator of a block lives in registers: D/8 a thread
+# The f32 kernel keeps a block's [32, D] output accumulator in registers: D/8
+# a thread
 MAX_DIM = 1024
+# Epilogues of `gemm_step` (the C side's numbering)
+EPILOGUE_GELU, EPILOGUE_RESIDUAL = 0, 1
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -33,6 +44,15 @@ def use_fused_mlp(d: int, hidden: int) -> bool:
     """Whether the kernel takes a block of width `d` with `hidden` hidden
     units: both multiples of 128 (the JAX gate's rule) and d ≤ 1024."""
     return 0 < d <= MAX_DIM and hidden > 0 and d % 128 == 0 and hidden % 128 == 0
+
+
+def mlp_route(d: int, hidden: int, dtype: torch.dtype) -> str:
+    """Which kernels `mlp_block` launches for a CUDA tensor of this width and
+    dtype: "wgmma" (bf16: every width the gate admits), "fma" (f32), or ""
+    where it raises."""
+    if not use_fused_mlp(d, hidden) or dtype not in _KERNEL_DTYPES:
+        return ""
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
 
 
 def check_kernel_shape(x, norm_w, norm_b, w1, b1, w2, b2) -> tuple:
@@ -59,23 +79,58 @@ def check_kernel_shape(x, norm_w, norm_b, w1, b1, w2, b2) -> tuple:
 
 
 def _launch(x, norm_w, norm_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
-    global launches
+    global launches, wgmma_launches
     from vit_ad_tpu_torch.ops.cuda.build import aligned_buffer, device_index, load_library
 
     d, hidden = check_kernel_shape(x, norm_w, norm_b, w1, b1, w2, b2)
+    wgmma = mlp_route(d, hidden, x.dtype) == "wgmma"
+    rows = x.numel() // d
     xb, w1b, w2b = (aligned_buffer(t, x.dtype) for t in (x, w1, w2))
     nw, nb, b1b, b2b = (aligned_buffer(t, torch.float32) for t in (norm_w, norm_b, b1, b2))
     out = torch.empty_like(xb)
+    # scratch of the bf16 route: the LayerNorm output and the hidden activations
+    y = torch.empty_like(xb) if wgmma else None
+    hid = torch.empty((rows, hidden), dtype=x.dtype, device=x.device) if wgmma else None
     err = load_library().mlp_block_forward(
         xb.data_ptr(), nw.data_ptr(), nb.data_ptr(), w1b.data_ptr(), b1b.data_ptr(),
-        w2b.data_ptr(), b2b.data_ptr(), out.data_ptr(), x.numel() // d, d, hidden, float(eps),
-        int(x.dtype == torch.bfloat16), device_index(x),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        w2b.data_ptr(), b2b.data_ptr(), out.data_ptr(), y.data_ptr() if wgmma else None,
+        hid.data_ptr() if wgmma else None, rows, d, hidden, float(eps), int(wgmma),
+        device_index(x), torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err:
-        raise RuntimeError(f"mlp_block kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"mlp_block kernel launch failed: error {err} (a CUDA runtime code, "
+                           f"or a tensor-map code of csrc/mlp_block.cu)")
     launches += 1
+    wgmma_launches += int(wgmma)
     return out.view(x.shape)
+
+
+def gemm_step(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epilogue: int,
+              resid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One product of the bf16 route alone, for the card-side checks and
+    timings: bf16(gelu_tanh(a . w^T + bias)) with `EPILOGUE_GELU`, or
+    bf16(f32(resid) + (a . w^T + bias)) with `EPILOGUE_RESIDUAL`. a [M, K], w
+    [N, K] and resid [M, N] are contiguous bf16 CUDA tensors, bias f32 [N].
+    Counts no launch."""
+    from vit_ad_tpu_torch.ops.cuda.build import aligned_buffer, device_index, load_library
+
+    if a.device.type != "cuda" or a.dtype != torch.bfloat16 or w.dtype != torch.bfloat16 \
+            or a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[1]:
+        raise ValueError(f"gemm_step takes bf16 CUDA matrices a [M, K] and w [N, K], got "
+                         f"{a.dtype} {tuple(a.shape)} on {a.device} and {w.dtype} {tuple(w.shape)}")
+    a, w = aligned_buffer(a, a.dtype), aligned_buffer(w, a.dtype)
+    bias = aligned_buffer(bias, torch.float32)
+    if resid is not None:
+        resid = aligned_buffer(resid, a.dtype)
+    out = torch.empty((a.shape[0], w.shape[0]), dtype=a.dtype, device=a.device)
+    err = load_library().mlp_gemm_forward(
+        a.data_ptr(), w.data_ptr(), bias.data_ptr(), None if resid is None else resid.data_ptr(),
+        out.data_ptr(), a.shape[0], w.shape[0], a.shape[1], epilogue, device_index(a),
+        torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"mlp gemm kernel launch failed: error {err}")
+    return out
 
 
 class _MlpBlock(torch.autograd.Function):

@@ -4,7 +4,8 @@ the ViT/DeiT blocks, and (shifted-)window attention of the Swin blocks.
 Port of `vit_ad_tpu/ops/pallas/window_attention.py::vit_attention_qkv` (:437),
 whose TPU kernel `_kernel_qkv` (:375) becomes the hand-written Hopper kernel
 `vit_ad_tpu_torch/csrc/vit_attention_qkv.cu` (see its header for what bounds
-it on the H100 and what the design does about it).
+it on the H100 and what the design does about it; `attention_route` says
+which of its kernels a shape takes).
 
 `vit_attention_qkv` launches that kernel for a CUDA tensor, and raises where it
 cannot. For a CPU tensor it runs the plain PyTorch version
@@ -45,10 +46,27 @@ from vit_ad_tpu_torch.ops.window_attention import (
 launches = 0
 window_launches = 0
 split_launches = 0
+# Of `launches`, the calls that took the one-pass bf16 kernel (`attention_route`).
+one_pass_launches = 0
 
 SUPPORTED_HEAD_DIMS = (32, 64)
 MAX_TOKENS = 256
+# Up to here a warp of the bf16 ViT kernel holds its 16 x N scores in registers
+# (26 key tiles of 8); `kOnePassMaxTokens` of csrc/vit_attention_qkv.cu.
+ONE_PASS_MAX_TOKENS = 208
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def attention_route(n: int, dtype: torch.dtype) -> str:
+    """Which kernel of csrc/vit_attention_qkv.cu `vit_attention_qkv` launches
+    for N tokens of `dtype` on a CUDA tensor: "one_pass" (bf16, scores in
+    registers, one QK^T), "two_pass" (bf16 above 208 tokens), "fma" (f32), or
+    "" where it raises."""
+    if dtype not in _KERNEL_DTYPES or not 1 <= n <= MAX_TOKENS:
+        return ""
+    if dtype == torch.float32:
+        return "fma"
+    return "one_pass" if n <= ONE_PASS_MAX_TOKENS else "two_pass"
 
 
 def _dims(qkv: torch.Tensor, num_heads: int) -> Tuple[int, int, int, int]:
@@ -103,7 +121,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    global launches
+    global launches, one_pass_launches
     from vit_ad_tpu_torch.ops.cuda.build import device_index, load_library
 
     b, n, c, hd = check_kernel_shape(qkv, num_heads)
@@ -119,6 +137,7 @@ def _launch(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     if err:
         raise RuntimeError(f"vit_attention_qkv kernel launch failed: CUDA error {err}")
     launches += 1
+    one_pass_launches += int(attention_route(n, qkv.dtype) == "one_pass")
     return out
 
 
