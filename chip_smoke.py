@@ -22,14 +22,12 @@ score a folder with them). Phases:
               split inputs (B5, B5a), one-pass LayerNorm (B7), fused MLP
               half-block (B6)
   4. NF path  40 synthetic 224-px PNGs scored by `cli.score.main` with seeded
-              random full-width weights; launch counts (B1 and, with the
+              random full-width weights; launch counts (B1 and, by the
               default `models/vit.FUSED_MLP_DEFAULT`, B6 12 times per encoder
               batch each); CUDA-vs-CPU f32 scores
-  5. MLP flag the same folder and weights with the other value of the flag
-              (`--no-fused-mlp`, or `--fused-mlp` were the default off): B6
-              12 times per encoder batch with it on, never with it off; bf16
-              scores against phase 4's; the f32 policy (erf GELU) launches
-              none with the flag on and keeps its scores
+  5. MLP flag the same folder and weights with `--no-fused-mlp` (the stock
+              tail): B6 never; bf16 scores against phase 4's; the f32 policy
+              (erf GELU) launches none with the flag on and keeps its scores
   6. MDN path a synthetic category: `cli.train_mdn.main` (K=150, a few
               epochs), then `cli.score.main -a mdn` on its .pth; launch
               counts per step and batch; CUDA-vs-CPU f32 scores
@@ -179,13 +177,13 @@ MLP_EPS = 1e-6
 # number of the kernels' 128- and 32-row tiles), a B=127 batch (ragged last
 # tile), one f32 tile exactly, fewer rows than a tile, two other widths the gate
 # admits (D=384: the 192-wide output tiles end exactly; D=1024: the last one is
-# cut at 64), and one row less than, exactly and one row more than a bf16 tile
+# cut at 64), one row less than, exactly and one row more than a bf16 tile, and
+# the row counts the CLI paths of phases 4 to 6 give the kernel: batches of 16
+# and 8 images (the NF folder's whole and last batch) and of 4 (MDN scoring)
 MLP_CASES = [(25344, 768, 3072), (25146, 768, 3072), (32, 768, 3072), (5, 768, 3072),
              (1000, 384, 1536), (200, 1024, 4096), (127, 768, 3072), (128, 768, 3072),
-             (129, 768, 3072)]
-# what the first forms of the two redesigned kernels read at the flagship
-# shapes (NVIDIA H100 80GB HBM3, 700 W; PERF.md), kept beside the new readings
-EARLIER_MS = {"mlp_block": 2.820, "vit_attention_qkv": 0.265}
+             (129, 768, 3072), (16 * 198, 768, 3072), (8 * 198, 768, 3072),
+             (4 * 198, 768, 3072)]
 
 
 def phase(name: str) -> None:
@@ -815,14 +813,6 @@ def alternate(kern, plain, runs: int, warmup: int):
     return kern_ms, plain_ms
 
 
-def deit_b6_per_batch() -> int:
-    """B6 launches of one DeiT/ViT encoder batch under the bf16 policy with the
-    default of the fused-MLP flag: one per block, or none."""
-    from vit_ad_tpu_torch.models import vit
-
-    return 12 if vit.FUSED_MLP_DEFAULT else 0
-
-
 def reset_launches() -> None:
     from vit_ad_tpu_torch.ops.cuda import gmm as cgmm
     from vit_ad_tpu_torch.ops.cuda import layer_norm as ln
@@ -902,7 +892,7 @@ def mdn_main_path(tmp: str) -> dict:
     chunks = -(-MDN_K // cgmm.backward_chunk(MDN_BATCH * 196, 768, MDN_K,
                                              DtypePolicy().compute_dtype))
     expect = {**NO_LAUNCHES, "B1": 12 * (n_tr + n_va + n_te),
-              "B6": deit_b6_per_batch() * (n_tr + n_va + n_te),
+              "B6": 12 * (n_tr + n_va + n_te),
               "B2": ep * (n_tr + n_va) + n_te, "B3": ep * n_tr * 2 * chunks}
     print(f"cli.train_mdn.main rc={rc} in {wall:.2f} s ({ep} epochs x {n_tr} train + {n_va} "
           f"valid batches of {MDN_BATCH}, {n_te} test batch; {chunks} backward chunks): "
@@ -927,7 +917,7 @@ def mdn_main_path(tmp: str) -> dict:
     wall = time.perf_counter() - t0
     score = read_launches()
     nb = n_batches(2 * MDN_TEST, MDN_SCORE_BATCH)
-    expect = {**NO_LAUNCHES, "B1": 12 * nb, "B6": deit_b6_per_batch() * nb, "B2": nb}
+    expect = {**NO_LAUNCHES, "B1": 12 * nb, "B6": 12 * nb, "B2": nb}
     print(f"cli.score.main -a mdn rc={rc} in {wall:.2f} s: launches {score}, expected {expect}")
     if rc != 0 or score != expect:
         raise AssertionError("MDN scoring did not launch B2 once per batch")
@@ -1130,23 +1120,19 @@ def mdn_times(mdn: dict, images, card: str, gen) -> dict:
 def fused_mlp_main_path(tmp: str, nf_pth: str, deit_pth: str, img_dir: str, files,
                         default_scores, f32_cuda_scores) -> dict:
     """Phase 5: the phase-4 folder and weights scored again by `cli.score`
-    with the other value of the fused-MLP flag than the default: with the flag
-    on, B6 once per block per batch beside B1, each through the wgmma route;
-    with it off, never. bf16 scores against phase 4's; under the f32 policy
-    (erf GELU) the flag on launches nothing and leaves the scores as they
-    were."""
+    with `--no-fused-mlp`: B1 once per block per batch, B6 never. bf16 scores
+    against phase 4's; under the f32 policy (erf GELU) the flag on launches
+    nothing and leaves the scores as they were."""
     import numpy as np
     import torch
     from vit_ad_tpu_torch.cli import score as score_cli
     from vit_ad_tpu_torch.config import DtypePolicy
     from vit_ad_tpu_torch.data.dataset import default_norm_stats
     from vit_ad_tpu_torch.data.loader import DataPipeline
-    from vit_ad_tpu_torch.models import vit
     from vit_ad_tpu_torch.ops.cuda import mlp as cmlp
     from vit_ad_tpu_torch.pipeline.loading import build_pth_models, score_models
 
-    fused = not vit.FUSED_MLP_DEFAULT
-    flag = "--fused-mlp" if fused else "--no-fused-mlp"
+    flag = "--no-fused-mlp"
     out_dir = os.path.join(tmp, "scores_other_mlp_flag")
     reset_launches()
     t0 = time.perf_counter()
@@ -1156,12 +1142,13 @@ def fused_mlp_main_path(tmp: str, nf_pth: str, deit_pth: str, img_dir: str, file
     wall = time.perf_counter() - t0
     launches = read_launches()
     n_batches = -(-N_IMAGES // SMOKE_BATCH)
-    expect = {**NO_LAUNCHES, "B1": 12 * n_batches, "B6": 12 * n_batches * fused}
+    expect = {**NO_LAUNCHES, "B1": 12 * n_batches}
     print(f"cli.score.main {flag} rc={rc} in {wall:.2f} s; launches {launches}, expected "
-          f"{expect} (12 attention and {12 * fused} MLP launches x {n_batches} batches); wgmma "
+          f"{expect} (12 attention and no MLP launches x {n_batches} batches); wgmma "
           f"route {cmlp.wgmma_launches}")
-    if rc != 0 or launches != expect or cmlp.wgmma_launches != expect["B6"]:
-        raise AssertionError(f"the {flag} path did not launch the MLP kernel as expected")
+    if rc != 0 or launches != expect or cmlp.wgmma_launches != 0:
+        raise AssertionError(f"the {flag} path launched the MLP kernel, or not the attention "
+                             f"kernel once per block per batch")
     scores = check_scores_csv(out_dir, files, f"NF, {flag}")
     rel = np.abs(scores - default_scores) / np.abs(default_scores)
     print(f"bf16 image scores, {flag} vs the default ({len(scores)} images): max rel diff "
@@ -1359,11 +1346,10 @@ def mlp_times(card: str, gen) -> dict:
     nums = {"max_abs_err": err, "ms": statistics.mean(kern_ms),
             "plain_ms": statistics.mean(plain_ms), "library_ms": stock_ms,
             **bound(tensor_bytes(*args) + tensor_bytes(x), flops),
-            "earlier_ms": EARLIER_MS["mlp_block"],
             "design": "LayerNorm kernel + two persistent wgmma GEMMs behind TMA (128x192 tiles, "
                       "4-stage ring, GELU / residual epilogues stored by TMA)"}
     print(f"[{card}] mlp_block (B6) [{rows},{d}] H={hidden} bf16: kernel {kern_ms} ms "
-          f"({flops / nums['ms'] / 1e9:.1f} TFLOP/s; its first form {nums['earlier_ms']} ms), "
+          f"({flops / nums['ms'] / 1e9:.1f} TFLOP/s), "
           f"plain {plain_ms} ms (order plain, kernel, kernel, plain), stock tail (F.layer_norm on "
           f"the f32 cast, F.linear, F.gelu, F.linear, add) {stock_ms:.4f} ms, bound "
           f"{nums['bound_ms']:.4f} ms by {nums['bound_by']}; back to back (50 calls) kernel "
@@ -1585,7 +1571,6 @@ def main() -> int:
     from vit_ad_tpu_torch.config import DtypePolicy, set_numerics_policy
     from vit_ad_tpu_torch.data.dataset import default_norm_stats
     from vit_ad_tpu_torch.data.loader import DataPipeline
-    from vit_ad_tpu_torch.models import vit
     from vit_ad_tpu_torch.models.flow import NormalizingFlow
     from vit_ad_tpu_torch.ops.cuda import build
     from vit_ad_tpu_torch.ops.cuda import mlp as cmlp
@@ -1680,16 +1665,16 @@ def main() -> int:
         wall = time.perf_counter() - t0
         nf_launches = read_launches()
         n_batches = -(-N_IMAGES // SMOKE_BATCH)
-        expect = {**NO_LAUNCHES, "B1": 12 * n_batches, "B6": deit_b6_per_batch() * n_batches}
+        expect = {**NO_LAUNCHES, "B1": 12 * n_batches, "B6": 12 * n_batches}
         print(f"cli.score.main rc={rc} in {wall:.2f} s (model load included); launches "
-              f"{nf_launches}, expected {expect} (12 attention and {deit_b6_per_batch()} MLP "
+              f"{nf_launches}, expected {expect} (12 attention and 12 MLP "
               f"launches x {n_batches} batches); one-pass attention {wa.one_pass_launches}, "
               f"wgmma MLP route {cmlp.wgmma_launches}")
         if rc != 0 or nf_launches != expect or wa.one_pass_launches != expect["B1"] \
                 or cmlp.wgmma_launches != expect["B6"]:
-            raise AssertionError("main path did not launch the attention kernel (and, by "
-                                 "default, the MLP kernel) once per block per batch, each "
-                                 "through its redesigned route")
+            raise AssertionError("main path did not launch the attention kernel and the MLP "
+                                 "kernel once per block per batch, each through its "
+                                 "redesigned route")
         files = score_cli.list_images(img_dir)
         scores = check_scores_csv(out_dir, files, "NF")
 
@@ -1712,7 +1697,7 @@ def main() -> int:
         print(f"bf16 card scores vs f32 CPU scores (same 2 images): max rel diff "
               f"{bf16_rel.max():.3e} (information: bf16 policy drift)")
 
-        phase("5 main path: DeiT-base + NF-20 scoring with the other value of the fused-MLP flag")
+        phase("5 main path: DeiT-base + NF-20 scoring with the stock MLP tail (--no-fused-mlp)")
         fused = fused_mlp_main_path(tmp, nf_pth, deit_pth, img_dir, files, scores,
                                     f32_scores["cuda"])
 
@@ -1745,8 +1730,7 @@ def main() -> int:
         att_bound = bound(tensor_bytes(qkv) + tensor_bytes(qkv) // 3,
                           4 * FLAGSHIP_BATCH * 12 * 198 * 198 * 64)
         print(f"[{card}] vit_attention_qkv B={FLAGSHIP_BATCH} N=198 C=768 H=12 bf16: "
-              f"kernel {kern_ms} ms (its first form {EARLIER_MS['vit_attention_qkv']} ms, 0.201 "
-              f"back to back), plain {plain_ms} ms (order plain, kernel, kernel, "
+              f"kernel {kern_ms} ms, plain {plain_ms} ms (order plain, kernel, kernel, "
               f"plain), SDPA {att_lib_ms:.4f} ms, bound {att_bound['bound_ms']:.4f} ms by "
               f"{att_bound['bound_by']}; back to back (200 launches) kernel "
               f"{att_b2b_ms[0]:.4f} ms, SDPA {att_b2b_ms[1]:.4f} ms; max|kernel-plain| {err:.3e}")
@@ -1781,9 +1765,8 @@ def main() -> int:
         swin = swin_times(card, gen)
         esvit_times(esvit, images, card, gen)
         # last: the profiler's hooks slow the host down for whatever is timed after it
-        print_device_profile(f"DeiT NF uint8→scores B={FLAGSHIP_BATCH} bf16, fused MLP "
-                             f"{'on' if vit.FUSED_MLP_DEFAULT else 'off'} (the default)",
-                             deit_fns[vit.FUSED_MLP_DEFAULT], card, top=20)
+        print_device_profile(f"DeiT NF uint8→scores B={FLAGSHIP_BATCH} bf16, fused MLP on "
+                             f"(the default)", deit_fns[True], card, top=20)
     torch.cuda.synchronize()
 
     phase("10 result")
@@ -1798,7 +1781,6 @@ def main() -> int:
         "plain_ms": att_plain_ms,
         **att_bound,
         "library_ms": att_lib_ms,
-        "earlier_ms": EARLIER_MS["vit_attention_qkv"],
         "design": "one score pass with the 16 x N scores in registers, ldmatrix fragments, "
                   "cp.async staging, keys padded to 16 (two-pass kernel above 208 tokens)",
     }]

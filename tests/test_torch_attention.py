@@ -167,3 +167,22 @@ def test_attention_route_truth_table(n, dtype, want):
             with pytest.raises((TypeError, ValueError)):
                 wa.check_kernel_shape(qkv, 2)
     assert wa.ONE_PASS_MAX_TOKENS == 208 and wa.one_pass_launches == 0
+
+
+def test_route_counter_reads_the_entry_points_report():
+    """`one_pass_launches` counts what `vit_attention_qkv_forward` reports
+    through its `route` out-parameter, not what `attention_route` predicts: the
+    wrapper's names for the reported codes and its one-pass cap are those of the
+    C source, and the entry point's last argument is that out-parameter."""
+    import ctypes
+    import re
+
+    src = (build.CSRC_DIR / "vit_attention_qkv.cu").read_text()
+    codes = dict(re.findall(r"kRoute(\w+) = (\d)", src))
+    assert {int(v): k for k, v in codes.items()} == {1: "OnePass", 2: "TwoPass", 3: "Fma"}
+    assert wa.ROUTE_NAMES == {1: "one_pass", 2: "two_pass", 3: "fma"}
+    assert int(re.search(r"kOnePassMaxTokens = (\d+)", src).group(1)) == wa.ONE_PASS_MAX_TOKENS
+    assert int(re.search(r"kMaxTokens = (\d+)", (build.CSRC_DIR / "attention_common.cuh")
+                         .read_text()).group(1)) == wa.MAX_TOKENS
+    assert build.ENTRY_POINTS["vit_attention_qkv_forward"][-1] is ctypes.POINTER(ctypes.c_int)
+    assert src.count("*route = kRoute") == 3

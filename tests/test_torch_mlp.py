@@ -158,6 +158,23 @@ def test_three_steps_compose_to_the_plain_version(rows, dt):
     assert torch.equal(cmlp.mlp_block(x, nw, nb, w1, b1, w2, b2, 1e-6), want)
 
 
+def test_route_counter_reads_the_entry_points_report():
+    """`wgmma_launches` counts what `mlp_block_forward` reports through its
+    `route` out-parameter, not what `mlp_route` predicts: the wrapper's names
+    for the reported codes are those of the C source, and the entry point's last
+    argument is that out-parameter."""
+    import ctypes
+    import re
+
+    from vit_ad_tpu_torch.ops.cuda import build
+
+    src = (build.CSRC_DIR / "mlp_block.cu").read_text()
+    codes = dict(re.findall(r"kRoute(\w+) = (\d)", src))
+    assert {int(v): k.lower() for k, v in codes.items()} == cmlp.ROUTE_NAMES
+    assert build.ENTRY_POINTS["mlp_block_forward"][-1] is ctypes.POINTER(ctypes.c_int)
+    assert src.count("*route = kRoute") == 2
+
+
 def test_gemm_step_is_a_card_side_entry():
     """`gemm_step` (one product of the bf16 route alone, for the card-side
     checks) takes bf16 CUDA matrices only and counts no launch."""

@@ -36,8 +36,8 @@
 // Both kernels are bound by bytes (the ViT one 46 us at B=128, N=198, the Swin
 // one 93 us at stage 0: qkv read once, the output written once). Measured on an
 // NVIDIA H100 80GB HBM3 at 700 W: the ViT attention took 0.265 ms a call
-// (0.201 back to back) through `attend_tile` and takes 0.165 ms (0.111) through
-// the one-pass kernel; the Swin attention, still on `attend_tile`, 1.28 ms
+// (0.201 back to back) through `attend_tile` and takes 0.15 to 0.18 ms (0.111)
+// through the one-pass kernel; the Swin attention, still on `attend_tile`, 1.28 ms
 // (1.23 back to back) at stage 0. Giving `attend_tile` the same loads is the
 // window kernels' redesign.
 

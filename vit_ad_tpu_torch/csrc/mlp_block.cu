@@ -60,10 +60,14 @@
 // stored 4 bytes a thread straight from the accumulators spent more time
 // storing than multiplying (0.79 ms for the half-block, against 0.20 ms with
 // the stores switched off).
-// Measured on an NVIDIA H100 80GB HBM3 at 700 W at the shape above: 0.499 ms
-// a call by CUDA events (0.443 ms back to back: k0 0.056, k1 0.223 = 536
-// TFLOP/s, k2 0.168 = 711 TFLOP/s), 1.8x the bound, against 0.669 ms (0.690)
-// for the stock tail and 2.820 ms for the first version; PERF.md has the run.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W at the shape above, over the
+// whole runs of chip_smoke.py that PERF.md lists: 0.44 to 0.45 ms a call back
+// to back (k0 0.054 to 0.056, k1 0.22 to 0.24 = 506 to 538 TFLOP/s, k2 0.17 =
+// 697 to 712 TFLOP/s), 1.9x the bound, against 0.68 to 0.70 ms for the stock
+// tail; by CUDA events around single calls 0.49 to 0.60 ms against 0.67 to
+// 0.69 (the host's share of a call moves from run to run) and 2.820 ms for the
+// first version.
+// So the aim of 0.60 ms is met back to back and only just by events.
 // What holds it now: k1's GELU runs on the special-function unit (two
 // operations an element) while the tensor cores wait, and k0 reads at 1.4 of
 // the card's 3.35 TB/s.
@@ -588,6 +592,9 @@ int dispatch_f32(int d, const float* x, const float* norm_scale, const float* no
 #undef VITAD_MLP_CASE
 }
 
+// What mlp_block_forward reports as the kernels it launched.
+constexpr int kRouteWgmma = 1, kRouteFma = 2;
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes. x and out are contiguous [rows, d]
@@ -596,14 +603,19 @@ int dispatch_f32(int d, const float* x, const float* norm_scale, const float* no
 // [d], b1 f32 [hidden]. d is a multiple of 128 up to 1024, hidden a multiple of
 // 128. Under bf16, y [rows, d] and hid [rows, hidden] are bf16 scratch buffers
 // of the caller (unused under f32) and the three kernels k0, k1, k2 of the
-// header are launched in turn; under f32 the one fused kernel. Launches on
+// header are launched in turn; under f32 the one fused kernel. The branch that
+// launches writes which it was to the host int `route` (1 the three bf16
+// kernels with the products on wgmma, 2 the fused FMA kernel; 0 unless every
+// launch went through). Launches on
 // `stream` without synchronising and returns 0, or the first launch's
 // cudaGetLastError(), or a tensor-map error (2001: libcuda has no
 // cuTensorMapEncodeTiled; 3000 + CUresult: it refused the map).
 extern "C" int mlp_block_forward(const void* x, const void* norm_scale, const void* norm_bias,
                                  const void* w1, const void* b1, const void* w2, const void* b2,
                                  void* out, void* y, void* hid, int rows, int d, int hidden,
-                                 float eps, int is_bf16, int device, void* stream) {
+                                 float eps, int is_bf16, int device, void* stream, int* route) {
+  if (route == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  *route = 0;
   if (rows < 1 || d < 128 || d > kMaxDim || d % 128 != 0 || hidden < kChunk ||
       hidden % kChunk != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -614,16 +626,22 @@ extern "C" int mlp_block_forward(const void* x, const void* norm_scale, const vo
   const float* nb = static_cast<const float*>(norm_bias);
   const float* fb1 = static_cast<const float*>(b1);
   const float* fb2 = static_cast<const float*>(b2);
-  if (!is_bf16)
-    return dispatch_f32(d, static_cast<const float*>(x), ns, nb, static_cast<const float*>(w1),
-                        fb1, static_cast<const float*>(w2), fb2, static_cast<float*>(out), rows,
-                        hidden, eps, device, st);
+  if (!is_bf16) {
+    const int rc =
+        dispatch_f32(d, static_cast<const float*>(x), ns, nb, static_cast<const float*>(w1), fb1,
+                     static_cast<const float*>(w2), fb2, static_cast<float*>(out), rows, hidden,
+                     eps, device, st);
+    if (rc == 0) *route = kRouteFma;
+    return rc;
+  }
   if (y == nullptr || hid == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   int rc = vitad_layer_norm::run(x, ns, nb, y, rows, d, eps, true, st);
   if (rc != 0) return rc;
   rc = gemm::run(gemm::kEpilogueGelu, y, w1, fb1, nullptr, hid, rows, hidden, d, device, st);
   if (rc != 0) return rc;
-  return gemm::run(gemm::kEpilogueResidual, hid, w2, fb2, x, out, rows, d, hidden, device, st);
+  rc = gemm::run(gemm::kEpilogueResidual, hid, w2, fb2, x, out, rows, d, hidden, device, st);
+  if (rc == 0) *route = kRouteWgmma;
+  return rc;
 }
 
 // One product of the bf16 half-block alone (what k1 and k2 run), for checks

@@ -50,9 +50,11 @@
 // memory with 64-row tiles and reads a quarter of that. The alternative that
 // keeps two passes and gives a warp 32 rows was not built: it keeps the second
 // QK^T pass.
-// Measured on an NVIDIA H100 80GB HBM3 at 700 W at the flagship shape: 0.165
-// ms a call by CUDA events, 0.111 ms back to back (SDPA, a wgmma kernel of the
-// library: 0.124 / 0.086), 2.4x the bound; PERF.md has the run.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W at the flagship shape, over
+// the whole runs of chip_smoke.py that PERF.md lists: 0.111 to 0.112 ms a call
+// back to back, 2.4x the bound (SDPA, a wgmma kernel of the library: 0.086);
+// by CUDA events around single calls 0.15 to 0.18 ms (SDPA 0.10 to 0.12), the host's
+// share of a call moving from run to run.
 //
 // The f32 path (the f32 numerics policy, off the flagship path) is plain FMA:
 // the tensor cores have no f32 product that keeps full f32 precision.
@@ -355,17 +357,24 @@ int launch(void (*kernel)(const T*, T*, int, int, int, float), dim3 grid, int th
   return static_cast<int>(cudaGetLastError());
 }
 
+// What the entry point reports as the kernel it launched.
+constexpr int kRouteOnePass = 1, kRouteTwoPass = 2, kRouteFma = 3;
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes. qkv [batch, n, 3*heads*head_dim] and
 // out [batch, n, heads*head_dim] are contiguous, 16-byte aligned device
 // buffers of bf16 (is_bf16 != 0) or f32. `scale` is hd^-1/2 already rounded to
 // the input dtype. bf16 with n <= 208 takes the one-pass kernel, bf16 above it
-// the two-pass kernel, f32 the FMA kernel. Launches on `stream` without
-// synchronising and returns cudaGetLastError() (0 on success).
+// the two-pass kernel, f32 the FMA kernel; the branch that launches writes
+// which it was to the host int `route` (1 one-pass, 2 two-pass, 3 FMA; 0 if
+// nothing was launched). Launches on `stream` without synchronising and returns
+// cudaGetLastError() (0 on success).
 extern "C" int vit_attention_qkv_forward(const void* qkv, void* out, int batch, int n,
                                          int heads, int head_dim, int is_bf16, float scale,
-                                         int device, void* stream) {
+                                         int device, void* stream, int* route) {
+  if (route == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  *route = 0;
   if (batch < 1 || n < 1 || n > kMaxTokens || heads < 1 || heads > 65535 ||
       (head_dim != 32 && head_dim != 64))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -376,21 +385,29 @@ extern "C" int vit_attention_qkv_forward(const void* qkv, void* out, int batch, 
   if (is_bf16 && n <= kOnePassMaxTokens) {
     const int q_blocks = one_pass_q_blocks(n);
     const dim3 grid(batch * q_blocks, heads);
-    return launch<uint16_t>(
+    const int rc = launch<uint16_t>(
         head_dim == 64 ? attention_one_pass_kernel<64> : attention_one_pass_kernel<32>, grid,
         one_pass_warps(n) * 32, one_pass_smem_bytes(n, head_dim), device, st, qkv, out, n, heads,
         q_blocks, scale);
+    if (rc == 0) *route = kRouteOnePass;
+    return rc;
   }
   if (is_bf16) {
     const int q_tiles = (n + kQTile - 1) / kQTile;
     const dim3 grid(batch * q_tiles, heads);
     const size_t smem = bf16_smem_bytes(n, head_dim);
-    return launch<uint16_t>(head_dim == 64 ? attention_bf16_kernel<64> : attention_bf16_kernel<32>,
-                            grid, kThreads, smem, device, st, qkv, out, n, heads, q_tiles, scale);
+    const int rc =
+        launch<uint16_t>(head_dim == 64 ? attention_bf16_kernel<64> : attention_bf16_kernel<32>,
+                         grid, kThreads, smem, device, st, qkv, out, n, heads, q_tiles, scale);
+    if (rc == 0) *route = kRouteTwoPass;
+    return rc;
   }
   const int q_tiles = (n + kF32Threads - 1) / kF32Threads;
   const dim3 grid(batch * q_tiles, heads);
   const size_t smem = f32_smem_bytes(n, head_dim);
-  return launch<float>(head_dim == 64 ? attention_f32_kernel<64> : attention_f32_kernel<32>, grid,
-                       kF32Threads, smem, device, st, qkv, out, n, heads, q_tiles, scale);
+  const int rc =
+      launch<float>(head_dim == 64 ? attention_f32_kernel<64> : attention_f32_kernel<32>, grid,
+                    kF32Threads, smem, device, st, qkv, out, n, heads, q_tiles, scale);
+  if (rc == 0) *route = kRouteFma;
+  return rc;
 }

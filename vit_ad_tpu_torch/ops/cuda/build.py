@@ -98,18 +98,19 @@ def build() -> Path:
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_ROUTE = ctypes.POINTER(ctypes.c_int)  # out: which kernel the entry point launched
 # Every entry point's argument types; each returns a CUDA error code (int).
 ENTRY_POINTS = {
-    # qkv, out, batch, n, heads, head_dim, is_bf16, scale, device, stream
-    "vit_attention_qkv_forward": [_P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+    # qkv, out, batch, n, heads, head_dim, is_bf16, scale, device, stream, route
+    "vit_attention_qkv_forward": [_P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P, _ROUTE],
     # q, k, v, out, bias, mask, batch, n, heads, head_dim, row_stride, n_w,
     # defer_norm, is_bf16, scale, device, stream
     "swin_window_attention_forward": [_P] * 6 + [_I] * 8 + [ctypes.c_float, _I, _P],
     # x, scale, bias, out, rows, d, eps, is_bf16, device, stream
     "layer_norm_forward": [_P] * 4 + [_I, _I, ctypes.c_float, _I, _I, _P],
     # x, norm_scale, norm_bias, w1, b1, w2, b2, out, y, hid, rows, d, hidden,
-    # eps, is_bf16, device, stream
-    "mlp_block_forward": [_P] * 10 + [_I] * 3 + [ctypes.c_float, _I, _I, _P],
+    # eps, is_bf16, device, stream, route
+    "mlp_block_forward": [_P] * 10 + [_I] * 3 + [ctypes.c_float, _I, _I, _P, _ROUTE],
     # a, b, bias, resid, out, m, n, k, epilogue, device, stream
     "mlp_gemm_forward": [_P] * 5 + [_I] * 5 + [_P],
     # x, log_pi, w_mu, w_sigma, b_mu, b_sigma, ll, rows, d, k, is_bf16,

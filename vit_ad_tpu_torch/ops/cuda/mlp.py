@@ -19,6 +19,7 @@ encoder's `fused_mlp` argument.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -28,9 +29,11 @@ from vit_ad_tpu_torch.ops.mlp import mlp_block_reference
 # Kernel launches made by `mlp_block` (a plain count, read by chip_smoke.py to
 # show that the main path went through the kernel).
 launches = 0
-# Of those, the calls that took the bf16 route (LayerNorm kernel + two wgmma
-# products); the rest took the f32 kernel.
+# Of those, the calls for which the C entry point reported the bf16 route
+# (LayerNorm kernel + two wgmma products); the rest took the f32 kernel.
 wgmma_launches = 0
+# `mlp_route`'s names for what `mlp_block_forward` reports as launched
+ROUTE_NAMES = {1: "wgmma", 2: "fma"}
 
 # The f32 kernel keeps a block's [32, D] output accumulator in registers: D/8
 # a thread
@@ -91,17 +94,18 @@ def _launch(x, norm_w, norm_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
     # scratch of the bf16 route: the LayerNorm output and the hidden activations
     y = torch.empty_like(xb) if wgmma else None
     hid = torch.empty((rows, hidden), dtype=x.dtype, device=x.device) if wgmma else None
+    took = ctypes.c_int(0)
     err = load_library().mlp_block_forward(
         xb.data_ptr(), nw.data_ptr(), nb.data_ptr(), w1b.data_ptr(), b1b.data_ptr(),
         w2b.data_ptr(), b2b.data_ptr(), out.data_ptr(), y.data_ptr() if wgmma else None,
         hid.data_ptr() if wgmma else None, rows, d, hidden, float(eps), int(wgmma),
-        device_index(x), torch.cuda.current_stream(x.device).cuda_stream,
+        device_index(x), torch.cuda.current_stream(x.device).cuda_stream, ctypes.byref(took),
     )
     if err:
         raise RuntimeError(f"mlp_block kernel launch failed: error {err} (a CUDA runtime code, "
                            f"or a tensor-map code of csrc/mlp_block.cu)")
     launches += 1
-    wgmma_launches += int(wgmma)
+    wgmma_launches += int(ROUTE_NAMES[took.value] == "wgmma")
     return out.view(x.shape)
 
 

@@ -26,6 +26,7 @@ versions are `ops/window_attention.window_attention_reference` and
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional, Tuple
 
@@ -46,8 +47,11 @@ from vit_ad_tpu_torch.ops.window_attention import (
 launches = 0
 window_launches = 0
 split_launches = 0
-# Of `launches`, the calls that took the one-pass bf16 kernel (`attention_route`).
+# Of `launches`, the calls for which the C entry point reported the one-pass
+# bf16 kernel.
 one_pass_launches = 0
+# `attention_route`'s names for what `vit_attention_qkv_forward` reports as launched
+ROUTE_NAMES = {1: "one_pass", 2: "two_pass", 3: "fma"}
 
 SUPPORTED_HEAD_DIMS = (32, 64)
 MAX_TOKENS = 256
@@ -129,15 +133,16 @@ def _launch(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     qkv = _aligned(qkv)
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    took = ctypes.c_int(0)
     err = lib.vit_attention_qkv_forward(
         qkv.data_ptr(), out.data_ptr(), b, n, num_heads, hd,
         int(qkv.dtype == torch.bfloat16), _scale_value(hd, qkv.dtype),
-        device_index(qkv), stream,
+        device_index(qkv), stream, ctypes.byref(took),
     )
     if err:
         raise RuntimeError(f"vit_attention_qkv kernel launch failed: CUDA error {err}")
     launches += 1
-    one_pass_launches += int(attention_route(n, qkv.dtype) == "one_pass")
+    one_pass_launches += int(ROUTE_NAMES[took.value] == "one_pass")
     return out
 
 
