@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`vit_ad_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --against <another checkout>   # kernels A/B, `against`
 
 Drives the port's main paths at full width, bf16 compute, through the port's
 CLIs, after building and checking the hand-written kernels: on a DeiT-base/16
@@ -19,8 +20,9 @@ score a folder with them). Phases:
   3. kernels  each kernel against its plain PyTorch version on the card:
               ViT attention (B1), GMM forward (B2), its parameter and feature
               backwards (B3, B4), Swin window attention from packed and from
-              split inputs (B5, B5a), one-pass LayerNorm (B7), fused MLP
-              half-block (B6)
+              split inputs (B5, B5a; also at the edges of its three forms,
+              `WINDOW_EDGES`, each asserting the route the C entry reported),
+              one-pass LayerNorm (B7), fused MLP half-block (B6)
   4. NF path  40 synthetic 224-px PNGs scored by `cli.score.main` with seeded
               random full-width weights; launch counts (B1 and, by the
               default `models/vit.FUSED_MLP_DEFAULT`, B6 12 times per encoder
@@ -33,8 +35,8 @@ score a folder with them). Phases:
               counts per step and batch; CUDA-vs-CPU f32 scores
   7. EsViT    a synthetic category: `cli.train_nf.main -m esvit --fused-ln`
               (a few epochs), then `cli.score.main -a nf -m enc_esvit` on its
-              .pth; B5 and B7 launch counts per encoder batch; CUDA-vs-CPU
-              f32 scores
+              .pth; B5 (all through the one-pass kernel) and B7 launch counts
+              per encoder batch; CUDA-vs-CPU f32 scores
   8. ResNet   a synthetic category: `cli.train_mdn.main -m res_net` (K=100, a
               few joint steps), then `cli.score.main -a mdn` on the two head
               files and the encoder file it wrote; B2, B3 and B4 launch counts
@@ -42,7 +44,9 @@ score a folder with them). Phases:
               falls, only the read stage norms move; CUDA-vs-CPU f32 scores
               at K=4
   9. times    kernels vs plain vs the one PyTorch call that computes the same
-              function, where there is one, each beside its bound (B3 and B4
+              function, where there is one, each beside its bound, by events
+              and, for the attention kernels, back to back (B5a alone with
+              its bias gathered, beside its public entry; B3 and B4
               also checked at 64 x 196 rows and at the ResNet heads' shapes;
               B6 also step by step: LayerNorm, each product alone); DeiT NF (fused MLP off and on, with the
               peak memory of each), MDN, EsViT NF (fused LayerNorm
@@ -156,6 +160,15 @@ WINDOW_CASES = [
     (8, 14, 96, 3, 2, 28),                            # padded geometry, 4 windows per image
 ]
 SPLIT_CASES = [(32, 14, 96, 3, 2, 0), (4, 7, 768, 24, 0, 0)]
+# Window attention at the edges of its kernels' forms, (window height, width,
+# split entry): the packed entry at square windows whose N falls on both sides
+# of the narrow one-pass form's 64 tokens (1, 16, 36, 49, 64 | 81, 121, 196) and
+# of the one-pass cap (208 | 225, 256: the two-pass form), the split entry at 208
+# and 209 tokens; each at hd 32 (3 heads) and 64 (2 heads), with and without a
+# mask, 9 windows (3 images of 3 mask rows: an odd number of images, so the
+# last block of the one-pass forms, which pair images, has an empty slot)
+WINDOW_EDGES = [(s, s, False) for s in (1, 4, 6, 7, 8, 9, 11, 14, 15, 16)] + \
+    [(13, 16, True), (11, 19, True)]
 # LayerNorm (B7) vs plain: |kernel - plain| <= atol + rtol |plain|. Both
 # compute in f32 and round once; under bf16 a last-bit f32 difference can flip
 # that rounding, one bf16 ulp (2^-8 relative, 2^-7 allowed); f32: summation
@@ -333,6 +346,7 @@ def check_window_attention(case, dt: str, gen, dev, split: bool = False) -> floa
     index = torch.from_numpy(wops.relative_position_index(side, side)).to(dev)
     bias = wops.gather_bias(table, index)
     before = (wa.window_launches, wa.split_launches)
+    before_one_pass = wa.window_one_pass_launches + wa.split_one_pass_launches
     if split:
         q, k, v = (t.contiguous() for t in
                    qkv3.reshape(windows, side * side, 3, heads, c // heads).unbind(2))
@@ -341,16 +355,63 @@ def check_window_attention(case, dt: str, gen, dev, split: bool = False) -> floa
     else:
         out = wa.swin_attention_windows(qkv3, table, heads, side, mask)
         ref = wops.window_attention_reference(qkv3, bias, mask, heads)
+    return report_window_check(out, ref, before, before_one_pass, split, dt,
+                               f"windows={windows} N={side * side} C={c} H={heads} "
+                               f"mask={'none' if mask is None else tuple(mask.shape)}")
+
+
+def report_window_check(out, ref, before, before_one_pass, split: bool, dt: str,
+                        what: str) -> float:
+    """Print and assert one window-attention check: the kernel agrees with its
+    plain version, launched once through the entry it was called by, and the
+    C entry reported the route `window_attention_route` expects (the one-pass
+    counter moved exactly for "one_pass"). Returns max |diff|."""
+    import torch
+    from vit_ad_tpu_torch.ops.cuda import window_attention as wa
+
     torch.cuda.synchronize()
     launched = (wa.window_launches - before[0], wa.split_launches - before[1])
+    one_pass = wa.window_one_pass_launches + wa.split_one_pass_launches - before_one_pass
+    want_route = wa.window_attention_route(out.shape[1], out.dtype)
     err = (out.float() - ref.float()).abs().max().item()
     name = "window_attention (B5a, split)" if split else "swin_attention_windows (B5)"
-    print(f"{name} windows={windows} N={side * side} C={c} H={heads} "
-          f"mask={'none' if mask is None else tuple(mask.shape)} {dt}: max|kernel-plain| "
-          f"{err:.3e} (tol {TOL[dt]:.0e}), launches +{launched}")
-    if not (math.isfinite(err) and err <= TOL[dt]) or launched != ((0, 1) if split else (1, 0)):
-        raise AssertionError(f"{name} disagrees with its plain version: {err}")
+    print(f"{name} {what} {dt}: max|kernel-plain| {err:.3e} (tol {TOL[dt]:.0e}), launches "
+          f"+{launched}, route {wa.last_window_route} (expected {want_route})")
+    if not (math.isfinite(err) and err <= TOL[dt]) or launched != ((0, 1) if split else (1, 0)) \
+            or wa.last_window_route != want_route or one_pass != int(want_route == "one_pass"):
+        raise AssertionError(f"{name} {what} {dt}: disagrees with its plain version ({err}) or "
+                             f"took route {wa.last_window_route}, expected {want_route}")
     return err
+
+
+def check_window_edge(wh: int, ww: int, split: bool, hd: int, masked: bool, dt: str, gen,
+                      dev) -> float:
+    """B5 (square windows) or B5a at one `WINDOW_EDGES` geometry against its
+    plain version, with a random 0 / -100 mask over 3 mask rows or none."""
+    import torch
+    from vit_ad_tpu_torch.ops import window_attention as wops
+    from vit_ad_tpu_torch.ops.cuda import window_attention as wa
+
+    windows, heads = 9, 3 if hd == 32 else 2
+    n, c = wh * ww, heads * hd
+    qkv3 = torch.randn(windows, n, 3 * c, device=dev, generator=gen).to(getattr(torch, dt))
+    table = 0.5 * torch.randn((2 * wh - 1) * (2 * ww - 1), heads, device=dev, generator=gen)
+    bias = wops.gather_bias(table, torch.from_numpy(wops.relative_position_index(wh, ww)).to(dev))
+    mask = None
+    if masked:
+        mask = -100.0 * (torch.rand(3, n, n, device=dev, generator=gen) < 0.3).float()
+    before = (wa.window_launches, wa.split_launches)
+    before_one_pass = wa.window_one_pass_launches + wa.split_one_pass_launches
+    if split:
+        q, k, v = (t.contiguous() for t in qkv3.reshape(windows, n, 3, heads, hd).unbind(2))
+        out = wa.window_attention(q, k, v, table, heads, (wh, ww), mask)
+        ref = wops.window_attention_core_reference(q, k, v, bias, mask)
+    else:
+        out = wa.swin_attention_windows(qkv3, table, heads, wh, mask)
+        ref = wops.window_attention_reference(qkv3, bias, mask, heads)
+    return report_window_check(out, ref, before, before_one_pass, split, dt,
+                               f"edge window {wh}x{ww} N={n} hd={hd} H={heads} "
+                               f"mask={'random 0/-100 x 3' if masked else 'none'}")
 
 
 def check_layer_norm(rows: int, d: int, dt: str, gen, dev) -> float:
@@ -456,6 +517,10 @@ def check_swin_kernels(gen, dev) -> None:
             check_window_attention(case, dt, gen, dev)
         for case in SPLIT_CASES:
             check_window_attention(case, dt, gen, dev, split=True)
+        for wh, ww, split in WINDOW_EDGES:
+            for hd in (32, 64):
+                for masked in (False, True):
+                    check_window_edge(wh, ww, split, hd, masked, dt, gen, dev)
         for rows, d in LN_CASES:
             check_layer_norm(rows, d, dt, gen, dev)
     # backwards recompute through the plain versions, so the gradients must
@@ -512,6 +577,7 @@ def esvit_main_path(tmp: str) -> dict:
     from vit_ad_tpu_torch.data.dataset import default_norm_stats
     from vit_ad_tpu_torch.data.loader import DataPipeline
     from vit_ad_tpu_torch.data.synthetic import make_mvtec_category
+    from vit_ad_tpu_torch.ops.cuda import window_attention as wa
     from vit_ad_tpu_torch.pipeline.loading import build_pth_models, score_models
 
     cat = make_mvtec_category(os.path.join(tmp, "esvit"), "gadget", img_size=224,
@@ -538,10 +604,11 @@ def esvit_main_path(tmp: str) -> dict:
     # the train, validation and test batches; the flow has no kernel
     expect = {**NO_LAUNCHES, "B5": ESVIT_B5_PER_BATCH * n_enc, "B7": ESVIT_B7_PER_BATCH * n_enc}
     print(f"cli.train_nf.main -m esvit --fused-ln rc={rc} in {wall:.2f} s ({n_enc} encoder "
-          f"batches of {ESVIT_BATCH}): launches {train}, expected {expect}")
-    if rc != 0 or train != expect:
-        raise AssertionError("the EsViT NF training path did not launch B5 12 times and B7 29 "
-                             "times per encoder batch")
+          f"batches of {ESVIT_BATCH}): launches {train}, expected {expect}; B5 through the "
+          f"one-pass kernel {wa.window_one_pass_launches}")
+    if rc != 0 or train != expect or wa.window_one_pass_launches != expect["B5"]:
+        raise AssertionError("the EsViT NF training path did not launch B5 12 times, all "
+                             "through the one-pass kernel, and B7 29 times per encoder batch")
     with open(os.path.join(run, "history.json")) as f:
         hist = json.load(f)
     if not all(math.isfinite(v) for v in hist["train_loss"] + hist["valid_loss"]) or \
@@ -565,9 +632,11 @@ def esvit_main_path(tmp: str) -> dict:
     nb = n_batches(2 * ESVIT_TEST, ESVIT_SCORE_BATCH)
     expect = {**NO_LAUNCHES, "B5": ESVIT_B5_PER_BATCH * nb, "B7": ESVIT_B7_PER_BATCH * nb}
     print(f"cli.score.main -a nf -m enc_esvit --fused-ln rc={rc} in {wall:.2f} s: launches "
-          f"{score}, expected {expect}")
-    if rc != 0 or score != expect:
-        raise AssertionError("EsViT scoring did not launch B5 12 times and B7 29 times per batch")
+          f"{score}, expected {expect}; B5 through the one-pass kernel "
+          f"{wa.window_one_pass_launches}")
+    if rc != 0 or score != expect or wa.window_one_pass_launches != expect["B5"]:
+        raise AssertionError("EsViT scoring did not launch B5 12 times, all through the "
+                             "one-pass kernel, and B7 29 times per batch")
     files = score_cli.list_images(test_dir)
     scores = check_scores_csv(out_dir, files, "EsViT")
 
@@ -606,12 +675,14 @@ def sdpa_windows(q, k, v, additive):
 
 
 def sdpa_ms(q, k, v, additive, torch):
-    """(best ms, the two ms) of the SDPA control with the broadcast and with
-    the expanded additive mask (the expansion is made before the timed call)."""
+    """(best ms by events, the two ms by events, best ms back to back) of the
+    SDPA control with the broadcast and with the expanded additive mask (the
+    expansion is made before the timed calls)."""
     b_, n_w = q.shape[0], additive.shape[0]
     expanded = additive.repeat(b_ // n_w, 1, 1, 1)
-    both = [median_ms(lambda: sdpa_windows(q, k, v, a), torch) for a in (additive, expanded)]
-    return min(both), both
+    calls = [lambda a=a: sdpa_windows(q, k, v, a) for a in (additive, expanded)]
+    both = [median_ms(call, torch) for call in calls]
+    return min(both), both, min(back_to_back_ms(call, torch) for call in calls)
 
 
 def swin_times(card: str, gen) -> dict:
@@ -645,42 +716,53 @@ def swin_times(card: str, gen) -> dict:
             err = (got.float() - plain().float()).abs().max().item()
             lib_err = (got.float() - lib().float()).abs().max().item()
             kern_ms, plain_ms = alternate(kern, plain, TIMED_RUNS, 3)
-            lib_ms, lib_both = sdpa_ms(q, k, v, additive, torch)
+            lib_ms, lib_both, lib_b2b = sdpa_ms(q, k, v, additive, torch)
             kern_b2b = back_to_back_ms(kern, torch)
         if not err <= TOL["bfloat16"]:
             raise AssertionError(f"B5 disagrees with its plain version at {stage}: {err}")
         nums = {"max_abs_err": err, "ms": statistics.mean(kern_ms),
                 "plain_ms": statistics.mean(plain_ms), "library_ms": lib_ms,
+                "back_to_back_ms": kern_b2b, "library_back_to_back_ms": lib_b2b,
                 **bound(tensor_bytes(qkv3, got, bias, mask), 4 * windows * heads * n * n * hd)}
         per_stage.append({"shape": f"{stage} [{windows},{n},{3 * c}] H={heads} "
                                    f"mask={'none' if mask is None else n_w}", **nums})
         print(f"[{card}] swin_attention_windows (B5) {per_stage[-1]['shape']} bf16: kernel "
               f"{kern_ms} ms ({kern_b2b:.4f} ms back to back, 200 launches), plain {plain_ms} ms "
-              f"(order plain, kernel, kernel, plain), SDPA "
-              f"with additive mask (broadcast, expanded) {lib_both} ms, bound "
-              f"{nums['bound_ms']:.4f} ms by "
-              f"{nums['bound_by']}; max|kernel-plain| {err:.3e}, max|kernel-SDPA| {lib_err:.3e}")
+              f"(order plain, kernel, kernel, plain), SDPA with additive mask (broadcast, "
+              f"expanded) {lib_both} ms ({lib_b2b:.4f} ms back to back), bound "
+              f"{nums['bound_ms']:.4f} ms by {nums['bound_by']}; max|kernel-plain| {err:.3e}, "
+              f"max|kernel-SDPA| {lib_err:.3e}")
         if out["B5"] is None:  # stage 0, shifted: the heaviest of the 12 launches
             out["B5"] = nums
             qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))  # [B_, N, H, hd]
-            kern = lambda: wa.window_attention(qs, ks, vs, table, heads, (side, side), mask)
+            # the kernel alone (the bias gathered beforehand, as for SDPA), and
+            # the public entry, which gathers the table on every call
+            kern = lambda: wa.split_window_attention(qs, ks, vs, bias, mask)
+            entry = lambda: wa.window_attention(qs, ks, vs, table, heads, (side, side), mask)
             plain = lambda: wops.window_attention_core_reference(qs, ks, vs, bias, mask)
             with torch.no_grad():
                 got = kern()
                 err = (got.float() - plain().float()).abs().max().item()
+                if not torch.equal(entry(), got):
+                    raise AssertionError("B5a's public entry and its kernel alone disagree")
                 kern_ms, plain_ms = alternate(kern, plain, TIMED_RUNS, 3)
-                lib_ms, lib_both = sdpa_ms(*(t.transpose(1, 2) for t in (qs, ks, vs)), additive,
-                                           torch)
+                entry_ms = median_ms(entry, torch)
+                kern_b2b = back_to_back_ms(kern, torch)
+                lib_ms, lib_both, lib_b2b = sdpa_ms(*(t.transpose(1, 2) for t in (qs, ks, vs)),
+                                                    additive, torch)
             if not err <= TOL["bfloat16"]:
                 raise AssertionError(f"B5a disagrees with its plain version at {stage}: {err}")
             out["B5a"] = {"max_abs_err": err, "ms": statistics.mean(kern_ms),
                           "plain_ms": statistics.mean(plain_ms), "library_ms": lib_ms,
+                          "back_to_back_ms": kern_b2b, "library_back_to_back_ms": lib_b2b,
+                          "entry_ms": entry_ms,
                           **bound(tensor_bytes(qs, ks, vs, got, bias, mask),
                                   4 * windows * heads * n * n * hd)}
             print(f"[{card}] window_attention (B5a, split q k v) {per_stage[-1]['shape']} bf16: "
-                  f"kernel {kern_ms} ms (the table gather included), plain {plain_ms} ms, SDPA "
-                  f"{lib_both} ms, bound {out['B5a']['bound_ms']:.4f} ms; "
-                  f"max|kernel-plain| {err:.3e}")
+                  f"kernel alone {kern_ms} ms ({kern_b2b:.4f} ms back to back), the public entry "
+                  f"with its table gather {entry_ms:.4f} ms, plain {plain_ms} ms, SDPA "
+                  f"{lib_both} ms ({lib_b2b:.4f} ms back to back), bound "
+                  f"{out['B5a']['bound_ms']:.4f} ms; max|kernel-plain| {err:.3e}")
             del qs, ks, vs
         del qkv3, q, k, v, got
     out["B5"]["per_stage"] = per_stage
@@ -822,6 +904,7 @@ def reset_launches() -> None:
     wa.launches = cgmm.fwd_launches = cgmm.bwd_params_launches = cgmm.bwd_x_launches = 0
     wa.window_launches = wa.split_launches = ln.launches = cmlp.launches = 0
     wa.one_pass_launches = cmlp.wgmma_launches = 0
+    wa.window_one_pass_launches = wa.split_one_pass_launches = 0
 
 
 def read_launches() -> dict:
@@ -1557,6 +1640,126 @@ def resnet_times(resnet: dict, images, card: str, gen) -> dict:
     return {key: [shape[key] for shape in per_shape] for key in ("B2", "B3", "B4")}
 
 
+def against(parent: str) -> int:
+    """`python3 chip_smoke.py --against <checkout>`: every kernel entry point of
+    the checkout at <checkout> (built from its csrc by its own
+    ops/cuda/build.py) against this checkout's, called raw on the same inputs,
+    back to back (200 launches), in turns parent, change, change, parent: B5 at
+    the four Swin-T stage shapes of a B=128 batch and at stage 0 without the
+    mask, B5a at stage 0, B1 at DeiT-base B=128, B6 at [25344,768] H=3072, B7
+    at the widest and narrowest block norm of Swin-T. Prints ms per call and
+    the change's largest difference from the parent's output."""
+    import ctypes
+    import importlib.util
+
+    import torch
+    from vit_ad_tpu_torch.ops import window_attention as wops
+    from vit_ad_tpu_torch.ops.cuda import build
+    from vit_ad_tpu_torch.ops.cuda import window_attention as wa
+
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke.py --against: torch.cuda.is_available() is False")
+    card = card_line()
+    print(card, flush=True)
+    spec = importlib.util.spec_from_file_location(
+        "parent_build", os.path.join(parent, "vit_ad_tpu_torch", "ops", "cuda", "build.py"))
+    parent_build = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(parent_build)
+    libs = {}
+    for who, mod in (("parent", parent_build), ("change", build)):
+        t0 = time.perf_counter()
+        lib = ctypes.CDLL(str(mod.build()))
+        for entry, argtypes in mod.ENTRY_POINTS.items():
+            getattr(lib, entry).argtypes = argtypes
+            getattr(lib, entry).restype = ctypes.c_int
+        libs[who] = (lib, mod.ENTRY_POINTS)
+        print(f"{who}: built and loaded {mod.library_path().name} in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    route = ctypes.c_int(0)
+    ptr = lambda t: None if t is None else t.data_ptr()
+
+    def call(who: str, entry: str, args: list, out):
+        lib, entries = libs[who]
+        takes_route = entries[entry][-1] is ctypes.POINTER(ctypes.c_int)
+        fn = getattr(lib, entry)
+
+        def run():
+            err = fn(*args, stream, *((ctypes.byref(route),) if takes_route else ()))
+            if err:
+                raise RuntimeError(f"{who} {entry} failed: error {err}")
+            return out
+        return run
+
+    # (name, entry, its arguments but the stream and the route, the output);
+    # `hold` keeps every tensor whose pointer an argument list holds alive
+    cases, hold = [], []
+    for stage, windows, side, c, heads, n_w in SWIN_STAGES:
+        case = (windows, side, c, heads, windows // n_w if n_w else 0, 0)
+        qkv3, table, mask = window_inputs(case, bf16, gen, dev)
+        n, hd = side * side, c // heads
+        bias = wops.gather_bias(table, torch.from_numpy(
+            wops.relative_position_index(side, side)).to(dev)).contiguous()
+        scale = wa._scale_value(hd, bf16)
+        hold += [qkv3, bias, mask]
+        for m in ((mask, None) if mask is not None else (None,)):
+            out = torch.empty(windows, n, c, dtype=bf16, device=dev)
+            cases.append((f"B5 {stage} [{windows},{n},{3 * c}] H={heads} "
+                          f"mask={'shift' if m is not None else 'none'}",
+                          "swin_window_attention_forward",
+                          [qkv3.data_ptr(), qkv3[..., c:].data_ptr(), qkv3[..., 2 * c:].data_ptr(),
+                           out.data_ptr(), bias.data_ptr(), ptr(m), windows, n, heads, hd, 3 * c,
+                           1 if m is None else m.shape[0], 1, 1, scale, 0], out))
+        if stage == "stage 0":
+            split = [t.contiguous() for t in qkv3.reshape(windows, n, 3, c).unbind(2)]
+            hold += split
+            out = torch.empty(windows, n, c, dtype=bf16, device=dev)
+            cases.append((f"B5a {stage} split [{windows},{n},{c}] x 3 H={heads} mask=shift",
+                          "swin_window_attention_forward",
+                          [*(t.data_ptr() for t in split), out.data_ptr(), bias.data_ptr(),
+                           mask.data_ptr(), windows, n, heads, hd, c, mask.shape[0], 0, 1, scale,
+                           0], out))
+    qkv = torch.randn(FLAGSHIP_BATCH, 198, 3 * 768, device=dev, generator=gen).to(bf16)
+    out = torch.empty(FLAGSHIP_BATCH, 198, 768, dtype=bf16, device=dev)
+    hold.append(qkv)
+    cases.append(("B1 [128,198,2304] H=12", "vit_attention_qkv_forward",
+                  [qkv.data_ptr(), out.data_ptr(), FLAGSHIP_BATCH, 198, 12, 64, 1,
+                   wa._scale_value(64, bf16), 0], out))
+    rows, d, hidden = MLP_CASES[0]
+    mlp = mlp_inputs(rows, d, hidden, bf16, gen, dev)  # x, norm w/b, w1, b1, w2, b2
+    out, y = torch.empty_like(mlp[0]), torch.empty_like(mlp[0])
+    hid = torch.empty(rows, hidden, dtype=bf16, device=dev)
+    hold += [*mlp, y, hid]
+    cases.append((f"B6 [{rows},{d}] H={hidden}", "mlp_block_forward",
+                  [*(t.data_ptr() for t in mlp), out.data_ptr(), y.data_ptr(), hid.data_ptr(),
+                   rows, d, hidden, MLP_EPS, 1, 0], out))
+    for rows, d in (LN_STAGES[0], LN_STAGES[-1]):
+        x = torch.randn(rows, d, device=dev, generator=gen).to(bf16)
+        scale, shift = (torch.randn(d, device=dev, generator=gen) for _ in range(2))
+        out = torch.empty_like(x)
+        hold += [x, scale, shift]
+        cases.append((f"B7 [{rows},{d}]", "layer_norm_forward",
+                      [x.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(), rows, d,
+                       LN_EPS, 1, 0], out))
+
+    for name, entry, args, out in cases:
+        fns = {who: call(who, entry, args, out) for who in libs}
+        with torch.no_grad():
+            want = fns["parent"]().clone()
+            diff = (fns["change"]().float() - want.float()).abs().max().item()
+            times = {"parent": [], "change": []}
+            for who in ("parent", "change", "change", "parent"):
+                times[who].append(back_to_back_ms(fns[who], torch))
+        print(f"[{card}] {name} bf16, back to back (200 launches), parent {times['parent']} ms, "
+              f"change {times['change']} ms (order parent, change, change, parent): change / "
+              f"parent {statistics.mean(times['change']) / statistics.mean(times['parent']):.4f}; "
+              f"max|change-parent| {diff:.3e}", flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1825,4 +2028,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--against":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(against(sys.argv[2]))
     sys.exit(main())

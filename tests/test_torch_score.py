@@ -2,13 +2,17 @@
 synthetic MVTec category, JAX `pipeline.eval.score_nf` with tiny models and
 the port's `score_nf` with the converted weights agree on image scores and
 maps; the port's `cli.score.main` writes the same scores.csv from
-`export_vit` / `export_nf_head` .pth files. Plus the port's import hygiene and
-chip_smoke.py's refusal to run without a GPU."""
+`export_vit` / `export_nf_head` .pth files; heads trained with `--centering`
+or `-s` by the port's trainer CLI are scored as they were trained (the
+`config.json` of the run). Plus the port's import hygiene and chip_smoke.py's
+refusal to run without a GPU."""
 
 import csv
+import json
 import os
 import subprocess
 import sys
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +22,7 @@ import torch
 
 from test_torch_data import pil_decode
 from test_torch_vit import D, DEPTH, HEADS, IMG, PATCH, jax_encoder, jax_params, jitter
+from vit_ad_tpu.cli.common import parse_args as jax_parse_args
 from vit_ad_tpu.config import DtypePolicy as JaxDtypePolicy
 from vit_ad_tpu.config import HyperParams as JaxHyperParams
 from vit_ad_tpu.data.loader import DataPipeline as JaxPipeline
@@ -28,12 +33,15 @@ from vit_ad_tpu.scoring import payload_to_scores as jax_payload_to_scores
 from vit_ad_tpu.utils.torch_convert import export_nf_head, export_vit
 from vit_ad_tpu_torch import registry
 from vit_ad_tpu_torch.cli import score as score_cli
+from vit_ad_tpu_torch.cli import train_nf as train_nf_cli
+from vit_ad_tpu_torch.cli.common import RUN_CONFIG_KEYS, parse_args
 from vit_ad_tpu_torch.config import DtypePolicy, HyperParams
 from vit_ad_tpu_torch.data.dataset import default_norm_stats
 from vit_ad_tpu_torch.data.loader import DataPipeline
 from vit_ad_tpu_torch.models.flow import NormalizingFlow
 from vit_ad_tpu_torch.models.vit import ViTEncoder
 from vit_ad_tpu_torch.pipeline.eval import score_nf
+from vit_ad_tpu_torch.pipeline.loading import build_pth_models
 from vit_ad_tpu_torch.scoring import payload_to_scores
 from vit_ad_tpu_torch.utils.convert import nf_state_dict_from_jax, vit_state_dict_from_jax
 
@@ -117,6 +125,111 @@ def test_cli_scores_csv_matches_jax_row_by_row(slice_run, tmp_path, monkeypatch)
     np.testing.assert_allclose([float(row[1]) for row in rows[1:]],
                                r["want"].image_scores, rtol=0, atol=ATOL)
     assert (out / "summary.json").exists()
+
+
+@pytest.fixture(scope="module")
+def trained_runs(tmp_path_factory):
+    """Two NF-2 heads trained by `cli.train_nf` on the tiny DeiT of a
+    synthetic category: one with `--centering`, one with `-s 1` (features
+    after the first of the two blocks, through the final norm)."""
+    mp = pytest.MonkeyPatch()
+    mp.setitem(registry._BUILDERS, "enc_deit", _tiny_port_encoder)
+    root = tmp_path_factory.mktemp("torch_score_runs")
+    cat = make_mvtec_category(str(root), "widget", img_size=IMG, n_train=10, n_test_good=2,
+                              n_test_defect=2)
+    runs = {"train_dir": os.path.join(cat, "train", "good"),
+            "test_dir": os.path.join(cat, "test")}
+    for name, flags in (("centering", ["--centering"]), ("block", ["-s", "1"])):
+        out = root / name
+        rc = train_nf_cli.main(["-m", "deit", "-d", cat, "-t", "train/good", "-v", "test",
+                                "-e", "1", "-p", "1", "-b", str(BATCH), "-i", str(IMG),
+                                "-r", str(RATIO), "-f", str(STEPS), "--device", "cpu",
+                                "--out", str(out), *flags])
+        assert rc == 0
+        (runs[name],) = (str(p) for p in out.glob("nf_enc_deit_*.pth"))
+    yield runs
+    mp.undo()
+
+
+def _score_cli(pth, test_dir, out, *extra):
+    """scores.csv of `cli.score` on the tiny DeiT NF head `pth`, in input order."""
+    rc = score_cli.main(["--pth", pth, "-a", "nf", "-m", "enc_deit", "-d", test_dir,
+                         "-b", str(BATCH), "-i", str(IMG), "-f", str(STEPS), "--hidden-ratio",
+                         str(RATIO), "-o", str(out), "--device", "cpu", *extra])
+    assert rc == 0
+    with open(out / "scores.csv") as f:
+        rows = list(csv.reader(f))[1:]
+    assert [row[0] for row in rows] == score_cli.list_images(test_dir)
+    return np.array([float(row[1]) for row in rows])
+
+
+def _score_nf(pth, test_dir, mean, std, block_index=0):
+    m = build_pth_models(pth, "enc_deit", "nf", img_size=IMG, hidden_ratio=RATIO,
+                         flow_steps=STEPS, block_index=block_index)
+    files = score_cli.list_images(test_dir)
+    return score_nf(*m.parts, DataPipeline(BATCH, IMG, files=files), m.hp, mean,
+                    std).image_scores
+
+
+@pytest.mark.parametrize("run,centering,block_index", [("centering", True, 0),
+                                                       ("block", False, 1)])
+def test_trainer_records_the_run_config(trained_runs, run, centering, block_index):
+    """`config.json` beside the head holds what scoring needs."""
+    with open(os.path.join(os.path.dirname(trained_runs[run]), "config.json")) as f:
+        cfg = json.load(f)
+    assert tuple(cfg) == RUN_CONFIG_KEYS
+    assert cfg["centering"] is centering and cfg["block_index"] == block_index
+    assert (cfg["model_name"], cfg["architecture"], cfg["img_size"], cfg["flow_steps"]) == \
+        ("enc_deit", "nf", IMG, STEPS)
+
+
+def test_centering_run_needs_the_train_data(trained_runs, tmp_path, capsys):
+    with pytest.raises(SystemExit, match="--train-data <the training image dir>"):
+        _score_cli(trained_runs["centering"], trained_runs["test_dir"], tmp_path / "out")
+
+
+def test_centering_run_is_scored_with_the_train_data_statistics(trained_runs, tmp_path):
+    """With `--train-data` the scores are those of the mean and std that
+    `DataPipeline.compute_mean_std` gives for that folder, not ImageNet's."""
+    r = trained_runs
+    got = _score_cli(r["centering"], r["test_dir"], tmp_path / "out", "--train-data",
+                     r["train_dir"])
+    pipe = DataPipeline(BATCH, IMG, files=score_cli.list_images(r["train_dir"]))
+    pipe.train_files = pipe.test_files
+    mean, std = pipe.compute_mean_std()
+    np.testing.assert_allclose(got, _score_nf(r["centering"], r["test_dir"], mean, std),
+                               rtol=0, atol=1e-6)
+    imagenet = _score_nf(r["centering"], r["test_dir"], *default_norm_stats())
+    assert np.abs(got - imagenet).max() > 1e-4
+
+
+def test_block_index_run_is_scored_at_its_depth(trained_runs, tmp_path):
+    """A head trained with `-s 1` is scored on the features of that depth,
+    which differ from the full depth's."""
+    r = trained_runs
+    got = _score_cli(r["block"], r["test_dir"], tmp_path / "out")
+    stats = default_norm_stats()
+    np.testing.assert_allclose(got, _score_nf(r["block"], r["test_dir"], *stats, block_index=1),
+                               rtol=0, atol=1e-6)
+    assert np.abs(got - _score_nf(r["block"], r["test_dir"], *stats)).max() > 1e-4
+
+
+@pytest.mark.parametrize("model,warns", [("enc_esvit", True), ("esvit", True),
+                                         ("res_net", True), ("deit", False), ("enc_vit", False)])
+def test_block_index_outside_the_vit_family_warns_as_jax_does(model, warns):
+    """`-s` has an effect on enc_deit / enc_vit only; elsewhere the trainer
+    CLIs warn with the JAX CLI's text (JAX `cli/common.parse_args`)."""
+    def messages(parse, hp, argv):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            parse(argv, hp, "data/x", "train/good", "test")
+        return [str(w.message) for w in caught if "-s 3 has no effect" in str(w.message)]
+
+    got = messages(parse_args, HyperParams(), ["-m", model, "-s", "3", "--device", "cpu"])
+    assert bool(got) == warns
+    if warns:  # the JAX CLI takes registry keys only
+        key = model if model.startswith("enc_") else f"enc_{model}"
+        assert got == messages(jax_parse_args, JaxHyperParams(), ["-m", key, "-s", "3"])
 
 
 @pytest.mark.parametrize("kind,ref_max", [("nf", None), ("recon", None), ("mdn", None),

@@ -4,7 +4,12 @@ versions) against the JAX package: the partition helpers exactly, the packed
 entry against the Pallas kernel `_call_win` run in interpret mode and against
 `_xla_attention_windows`, the split entry against
 `window_attention_core_pallas` in interpret mode, and the gradients against
-the JAX custom VJP. Inputs are seeded numpy arrays handed to both."""
+the JAX custom VJP; which kernel a CUDA tensor would take, and that the
+wrapper's routes are those of the C source. Inputs are seeded numpy arrays
+handed to both."""
+
+import ctypes
+import re
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +20,7 @@ import torch
 from vit_ad_tpu.ops import window_attention as jwa
 from vit_ad_tpu.ops.pallas import window_attention as jpallas
 from vit_ad_tpu_torch.ops import window_attention as wa
+from vit_ad_tpu_torch.ops.cuda import build
 from vit_ad_tpu_torch.ops.cuda import window_attention as cwa
 
 # f32: the same math, sums over hd and N in other orders; outputs are convex
@@ -200,3 +206,77 @@ def test_wrappers_refuse_misshapen_inputs(bad):
             cwa._check_window_inputs(16, 2, 8, torch.float32, torch.zeros(2, 16, 15), m, 8)
         else:
             cwa._check_window_inputs(16, 2, 8, torch.float32, torch.zeros(2, 16, 16), m[:3], 8)
+
+
+@pytest.mark.parametrize("n,dtype,want", [
+    *[(n, torch.bfloat16, "one_pass") for n in (1, 49, 64, 196, 208)],
+    *[(n, torch.bfloat16, "two_pass") for n in (209, 225, 256)],
+    *[(n, torch.float32, "fma") for n in (1, 49, 196, 256)],
+    (0, torch.bfloat16, ""), (257, torch.bfloat16, ""), (257, torch.float32, ""),
+    (196, torch.float16, ""),
+])
+def test_window_attention_route_truth_table(n, dtype, want):
+    """Which kernel of csrc/swin_window_attention.cu a CUDA tensor would take;
+    the wrapper raises exactly where the route is empty."""
+    assert cwa.window_attention_route(n, dtype) == want
+    if n > 0:
+        bias = torch.zeros(2, n, n)
+        if want:
+            cwa._check_window_inputs(n, 2, 32, dtype, bias, None, 4)
+        else:
+            with pytest.raises((TypeError, ValueError)):
+                cwa._check_window_inputs(n, 2, 32, dtype, bias, None, 4)
+    assert cwa.window_one_pass_launches == cwa.split_one_pass_launches == 0
+
+
+def test_window_route_counters_read_the_entry_points_report():
+    """`window_one_pass_launches` and `split_one_pass_launches` count what
+    `swin_window_attention_forward` reports through its `route` out-parameter:
+    the wrapper's names for the reported codes and its one-pass cap are those of
+    the C source, every launching branch reports, and the entry point's last
+    argument is that out-parameter."""
+    src = (build.CSRC_DIR / "swin_window_attention.cu").read_text()
+    codes = dict(re.findall(r"kRoute(\w+) = (\d)", src))
+    assert {int(v): k for k, v in codes.items()} == {1: "OnePass", 2: "TwoPass", 3: "Fma"}
+    assert cwa.ROUTE_NAMES == {1: "one_pass", 2: "two_pass", 3: "fma"}
+    assert int(re.search(r"kOnePassMaxTokens = (\d+)", src).group(1)) == cwa.ONE_PASS_MAX_TOKENS
+    assert build.ENTRY_POINTS["swin_window_attention_forward"][-1] is \
+        ctypes.POINTER(ctypes.c_int)
+    assert src.count("*route = kRoute") == 3
+
+
+# The kernel's edge shapes, two windows each, hd = 32 (3 heads): N = 49 (the
+# narrow one-pass form) and 196 (the wide one) under a shift mask, N = 225 (the
+# two-pass form) unmasked: (map height, width, window, shift)
+EDGE_GEOMETRIES = [(7, 14, 7, 3), (14, 28, 14, 7), (15, 30, 15, 0)]
+
+
+@pytest.mark.parametrize("hp,wp,window,shift", EDGE_GEOMETRIES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_versions_match_pallas_at_the_kernel_edges(hp, wp, window, shift, dtype):
+    """Both plain versions (the packed `swin_attention_windows` and the split
+    `window_attention` on CPU tensors) against the TPU kernels `_call_win` and
+    `window_attention_core_pallas` in interpret mode."""
+    qkv3, table, mask = _case(8, hp, wp, window, shift, heads=3, hd=32, images=1)
+    heads, hd = 3, 32
+    b_, n, _ = qkv3.shape
+    assert b_ == 2
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jmask = None if mask is None else jnp.asarray(mask)
+    n_w = 1 if mask is None else mask.shape[0]
+    atol = ATOL_F32 if dtype == "float32" else ATOL_BF16
+    want = jpallas._call_win(jnp.asarray(qkv3).astype(jdt), _jax_bias(table, window, heads),
+                             jmask, heads, n_w, interpret=True)
+    got = cwa.swin_attention_windows(_t(qkv3, tdt), _t(table), heads, window, _t(mask))
+    assert got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               rtol=0, atol=atol)
+    q, k, v = (np.ascontiguousarray(a) for a in
+               np.moveaxis(qkv3.reshape(b_, n, 3, heads, hd), 2, 0))
+    want = jpallas.window_attention_core_pallas(
+        *(jnp.asarray(a).astype(jdt) for a in (q, k, v)), jnp.asarray(table), heads,
+        (window, window), jmask, interpret=True)
+    got = cwa.window_attention(_t(q, tdt), _t(k, tdt), _t(v, tdt), _t(table), heads,
+                               (window, window), _t(mask))
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               rtol=0, atol=atol)

@@ -10,7 +10,8 @@ The reference's flag surface (reference startTraining_mdn.py:40):
   NF adds -r hiddenRatio -f flowSteps
 
 plus the port's `--device` (default cuda; without a card the CLI exits
-unless `--device cpu` is given), `--out` (the run directory) and
+unless `--device cpu` is given), `--out` (the run directory; `run_trainer`
+writes `config.json` there beside the weights, `RUN_CONFIG_KEYS`) and
 `--fused-ln` / `--no-fused-ln` (the trunk's LayerNorms through the one-pass
 kernel or not) and `--fused-mlp` / `--no-fused-mlp` (the ViT/DeiT blocks' MLP
 tail through the fused kernel or not; default of both: the model's). `--mesh`
@@ -22,6 +23,7 @@ from __future__ import annotations
 import getopt
 import json
 import os
+import warnings
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -29,6 +31,11 @@ import torch
 from vit_ad_tpu_torch.config import HyperParams
 from vit_ad_tpu_torch.data.loader import DataPipeline
 
+# the hyper-parameters `run_trainer` records in the run directory's
+# config.json, beside the weights, for `cli.score --pth` to read back
+RUN_CONFIG = "config.json"
+RUN_CONFIG_KEYS = ("model_name", "architecture", "img_size", "centering", "block_index",
+                   "hidden_ratio", "flow_steps", "num_gaussians", "fused_ln", "fused_mlp")
 BTAD_BASE = "data/btad/BTech_Dataset_transformed/01"
 MVTEC_BASE = "data/mvtec_anomaly_detection/hazelnut"
 USAGE = ("usage: -m <modelType> -p <patience> -e <#epochs> -a <amountOfData> -l <learnRate> "
@@ -112,6 +119,19 @@ def parse_args(argv: List[str], hp: HyperParams, data_path: str, train_pref: str
             hp.hidden_ratio = float(arg)
         elif opt == "-f":
             hp.flow_steps = int(arg)
+    if not hp.model_name.startswith(("enc_", "ae_")):  # -m deit means the registry's enc_deit
+        hp.model_name = f"enc_{hp.model_name}"
+    if hp.block_index and hp.model_name not in ("enc_deit", "enc_vit"):
+        # only the ViT family extracts features at a truncated depth (the
+        # reference's BLOCK_INDEX_DEIT trick, reference
+        # src/pipeline/LearnerNF.py:18); the others ignore block_index
+        warnings.warn(
+            f"-s {hp.block_index} has no effect on {hp.model_name!r}: block "
+            "truncation is implemented for enc_deit/enc_vit only (parity "
+            "with the reference's DeiT-only BLOCK_INDEX trick); the full-"
+            "depth features will be used",
+            stacklevel=2,
+        )
     hp.base_path = data_path
     hp.train_pref = train_pref
     hp.dataset, hp.data_class = derive_dataset_names(data_path)
@@ -158,16 +178,16 @@ def run_trainer(parsed: Tuple[HyperParams, str, str, str, str, str], trainer: Ca
     trunk (seed-deterministic init, as in the JAX package's trainers) and the
     pipelines, train, print the metrics, and write into the run directory
     (`--out`, default `<log_dir>/<run_name>_<dataset>_<class>`) `history.json`
-    (epoch losses, metrics, best epoch) and the files of
-    `checkpoints(result, hp, pth_name)`: by default the best head's state dict
-    as `<pth_name>_<class>.pth`, which `cli.score --pth` reads back. `banner`
-    and the two names are format strings over the hyper-parameters."""
+    (epoch losses, metrics, best epoch), `config.json` (the hyper-parameters
+    of `RUN_CONFIG_KEYS`, which `cli.score --pth` reads back: the centering and
+    the feature depth) and the files of `checkpoints(result, hp, pth_name)`: by
+    default the best head's state dict as `<pth_name>_<class>.pth`, which
+    `cli.score --pth` reads back. `banner` and the two names are format strings
+    over the hyper-parameters."""
     from vit_ad_tpu_torch.config import set_numerics_policy
     from vit_ad_tpu_torch.pipeline.train import default_encoder
 
     hp, data_path, train_pref, test_pref, device, out_dir = parsed
-    if not hp.model_name.startswith(("enc_", "ae_")):
-        hp.model_name = f"enc_{hp.model_name}"
     try:
         encoder = default_encoder(hp)
     except (KeyError, NotImplementedError, ValueError) as e:
@@ -188,6 +208,8 @@ def run_trainer(parsed: Tuple[HyperParams, str, str, str, str, str], trainer: Ca
         json.dump({**result.history, "metrics": result.metrics,
                    "epochs_ran": result.epochs_ran, "best_epoch": result.best_epoch,
                    "best_valid_loss": result.best_valid_loss}, f, indent=1)
+    with open(os.path.join(out_dir, RUN_CONFIG), "w") as f:
+        json.dump({key: fields[key] for key in RUN_CONFIG_KEYS}, f, indent=1)
     for name, state in checkpoints(result, hp, pth_name.format(**fields)).items():
         torch.save(state, os.path.join(out_dir, name))
         print("checkpoint:", os.path.join(out_dir, name))

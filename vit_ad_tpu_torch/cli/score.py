@@ -21,6 +21,14 @@ through the one-pass kernel or not, `--fused-mlp` / `--no-fused-mlp` the
 ViT/DeiT blocks' MLP tail through the fused kernel or not (default of both:
 the model's).
 
+A head trained by the port's trainers has `config.json` beside its `.pth`
+(`cli/common.RUN_CONFIG_KEYS`); scoring reads it back when it sits beside the
+first `.pth`: the head is scored on features of the recorded depth
+(`block_index`, `-s` of the trainer), and a run trained with `--centering` is
+standardized with the mean and std of `--train-data` (the training image
+dir), as the JAX CLI does for its run directories. Without `config.json` the
+features are full depth and the statistics ImageNet's.
+
 Outputs (under -o, default `<pth stem>_scores`), as the JAX CLI writes them:
   scores.csv      path,image_score — one row per input image, input order
   summary.json    n_images, score stats, run config echo
@@ -43,7 +51,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from vit_ad_tpu_torch.cli.common import check_device
+from vit_ad_tpu_torch.cli.common import RUN_CONFIG, check_device
 from vit_ad_tpu_torch.config import set_numerics_policy
 from vit_ad_tpu_torch.data.files import IMAGE_EXTENSIONS
 from vit_ad_tpu_torch.registry import FUSED_LN_MODELS, FUSED_MLP_MODELS
@@ -60,6 +68,39 @@ def list_images(images_dir: str) -> List[str]:
     return sorted(out)
 
 
+def run_config(pth: str) -> dict:
+    """The `config.json` a trainer wrote beside `pth`, or {} where there is
+    none (a reference `.pth`)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(pth)), RUN_CONFIG)
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        return json.load(f)
+
+
+def norm_stats_for(centering: bool, train_data: str, img_size: int, batch_size: int):
+    """Match training-time standardization (JAX `cli/score._norm_stats_for`):
+    a `--centering` run is standardized with the mean and std of the images
+    under `train_data` (`DataPipeline.compute_mean_std`); everything else with
+    the ImageNet statistics the trainers use."""
+    from vit_ad_tpu_torch.data.dataset import default_norm_stats
+    from vit_ad_tpu_torch.data.loader import DataPipeline
+
+    if centering:
+        if not train_data:
+            raise SystemExit(
+                "this run trained with --centering (per-dataset mean/std); "
+                "pass --train-data <the training image dir> so scoring "
+                "standardizes the same way"
+            )
+        pipe = DataPipeline(batch_size=batch_size, img_size=img_size,
+                            files=list_images(train_data))
+        # compute_mean_std streams train_files; files= fills test_files
+        pipe.train_files = pipe.test_files
+        return pipe.compute_mean_std()
+    return default_norm_stats()
+
+
 def score_pth(
     pths: List[str],
     arch: str,
@@ -74,12 +115,16 @@ def score_pth(
     device: Optional[str] = None,
     fused_ln: Optional[bool] = None,
     fused_mlp: Optional[bool] = None,
+    train_data: str = "",
 ) -> dict:
     """Score a folder with a reference-format head `.pth` (plus the pretrained
     trunk `encoder_ckpt`), or with the two stage-head files of the ResNet-MDN
-    convention; write scores.csv and summary.json; return the summary."""
+    convention; write scores.csv and summary.json; return the summary. The
+    feature depth and the centering come from the `config.json` beside the
+    first `.pth` (`run_config`); `train_data` is read by centering runs."""
     from vit_ad_tpu_torch.pipeline.loading import build_pth_models, build_pth_resnet_mdn_models
 
+    cfg = run_config(pths[0])
     if len(pths) == 2:
         if arch != "mdn":
             raise SystemExit("two .pth files = the ResNet-MDN convention; use -a mdn")
@@ -89,17 +134,21 @@ def score_pth(
         models = build_pth_models(pths[0], model_name, arch, img_size=img_size,
                                   hidden_ratio=hidden_ratio, flow_steps=flow_steps,
                                   encoder_ckpt=encoder_ckpt, device=device, fused_ln=fused_ln,
-                                  fused_mlp=fused_mlp)
+                                  fused_mlp=fused_mlp, block_index=cfg.get("block_index", 0))
     else:
         raise SystemExit(f"--pth takes one head file, or the two stage-head files of the "
                          f"ResNet-MDN convention; got {len(pths)}")
+    hp = models.hp
+    if batch:
+        hp.batch_size = batch
+    mean, std = norm_stats_for(cfg.get("centering", False), train_data, hp.img_size,
+                               hp.batch_size)
     return _score_with_models(models, pths[0], {"architecture": arch}, images_dir,
-                              out_dir or os.path.splitext(pths[0])[0] + "_scores", batch)
+                              out_dir or os.path.splitext(pths[0])[0] + "_scores", mean, std)
 
 
 def _score_with_models(models, source: str, cfg: dict, images_dir: str, out_dir: str,
-                       batch: int) -> dict:
-    from vit_ad_tpu_torch.data.dataset import default_norm_stats
+                       mean, std) -> dict:
     from vit_ad_tpu_torch.data.loader import DataPipeline
     from vit_ad_tpu_torch.pipeline.loading import score_models
 
@@ -107,9 +156,6 @@ def _score_with_models(models, source: str, cfg: dict, images_dir: str, out_dir:
     if not files:
         raise SystemExit(f"no images found under {images_dir!r}")
     hp = models.hp
-    if batch:
-        hp.batch_size = batch
-    mean, std = default_norm_stats()
     pipe = DataPipeline(batch_size=hp.batch_size, img_size=hp.img_size, files=files)
     s = score_models(models, pipe, mean, std)
 
@@ -149,7 +195,8 @@ def main(argv=None) -> int:
     ap.add_argument("--heatmaps", type=int, default=0, help="not ported (ROADMAP A10)")
     ap.add_argument("-b", "--batch", type=int, default=0, help="scoring batch size")
     ap.add_argument("--train-data", default="",
-                    help="training image dir (only --centering runs read it)")
+                    help="training image dir (only --centering runs read it: their "
+                         "config.json says so)")
     ap.add_argument("--mesh", default="", help="not ported (ROADMAP A11)")
     ap.add_argument("--watch", type=float, default=0.0, metavar="SECS",
                     help="not ported (ROADMAP A10)")
@@ -198,7 +245,8 @@ def main(argv=None) -> int:
                         model_name=args.model, img_size=args.img_size,
                         hidden_ratio=args.hidden_ratio, flow_steps=args.flow_steps,
                         encoder_ckpt=args.encoder_ckpt, batch=args.batch, device=device,
-                        fused_ln=args.fused_ln, fused_mlp=args.fused_mlp)
+                        fused_ln=args.fused_ln, fused_mlp=args.fused_mlp,
+                        train_data=args.train_data)
     print(json.dumps(summary))
     return 0
 

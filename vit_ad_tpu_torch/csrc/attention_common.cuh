@@ -21,25 +21,30 @@
 // leaves it -inf, so the order of the two does not matter, and no bias or mask
 // element past N is ever read.
 //
-// Two bf16 forms live here. `attend_tile` is the first one: a two-pass softmax
-// over chunks of 64 keys (pass 1: row max and row sum; pass 2: the scores
-// again, exponentiate, round, PV), its B fragments read from shared memory by
-// 32-bit loads (K) and by four 16-bit loads and two packs per MMA (V, which is
-// needed transposed). Counted per warp and chunk that is 96 MMAs behind 256
-// shared-memory load instructions: the loads, not the MMAs or the memory,
-// set its pace. It serves the window kernels and the ViT kernel above 208
-// tokens. The building blocks of the second form are below it (`cp_async_16`,
-// `ldmatrix_x4`, `ldmatrix_x4_trans`, `exp2_approx`, `scale_bf16x2`): staging
-// by cp.async so that loads overlap, and matrix-fragment loads that fill the
-// B operands of two MMAs (four 8x8 tiles) with one instruction, transposing V
-// on the way. vit_attention_qkv.cu builds its one-pass kernel from them.
+// Two bf16 forms are built from this header. `attend_tile` is the first one: a
+// two-pass softmax over chunks of 64 keys (pass 1: row max and row sum; pass
+// 2: the scores again, exponentiate, round, PV), its B fragments read from
+// shared memory by 32-bit loads (K) and by four 16-bit loads and two packs per
+// MMA (V, which is needed transposed). Counted per warp and chunk that is 96
+// MMAs behind 256 shared-memory load instructions: the loads, not the MMAs or
+// the memory, set its pace. It serves only what the one-pass form cannot
+// hold: the ViT kernel and the window kernels above 208 tokens (windows of
+// 15^2 and 16^2). The one-pass form keeps a warp's 16 x N f32 scores in
+// registers over one QK^T pass (N <= 208: 26 key tiles of 8, 104 registers a
+// thread), from the building blocks below `attend_tile` (`cp_async_16`,
+// `ldmatrix_x4`, `ldmatrix_x4_trans`, `exp2_approx`, `scale_bf16x2`):
+// staging by cp.async so that loads overlap, and matrix-fragment loads that
+// fill the B operands of two MMAs (four 8x8 tiles) with one instruction,
+// transposing V on the way. Each source holds its one-pass kernel:
+// vit_attention_qkv.cu `attention_one_pass_kernel` (no bias) and
+// swin_window_attention.cu `window_one_pass` (bias and mask added to the
+// register scores; blocks that pair windows sharing a head and a mask row).
 // Both kernels are bound by bytes (the ViT one 46 us at B=128, N=198, the Swin
-// one 93 us at stage 0: qkv read once, the output written once). Measured on an
-// NVIDIA H100 80GB HBM3 at 700 W: the ViT attention took 0.265 ms a call
-// (0.201 back to back) through `attend_tile` and takes 0.15 to 0.18 ms (0.111)
-// through the one-pass kernel; the Swin attention, still on `attend_tile`, 1.28 ms
-// (1.23 back to back) at stage 0. Giving `attend_tile` the same loads is the
-// window kernels' redesign.
+// one 93 us at stage 0: qkv read once, the output written once). Measured on
+// an NVIDIA H100 80GB HBM3 at 700 W, back to back (PERF.md section 6 has the
+// runs): the ViT attention 0.201 ms a call through `attend_tile`, 0.110 through
+// the one-pass kernel; the Swin attention at stage 0 (shift mask) 1.23 ms
+// through `attend_tile`, 0.686 through the one-pass kernel.
 
 #pragma once
 

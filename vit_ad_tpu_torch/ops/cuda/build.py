@@ -104,8 +104,8 @@ ENTRY_POINTS = {
     # qkv, out, batch, n, heads, head_dim, is_bf16, scale, device, stream, route
     "vit_attention_qkv_forward": [_P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P, _ROUTE],
     # q, k, v, out, bias, mask, batch, n, heads, head_dim, row_stride, n_w,
-    # defer_norm, is_bf16, scale, device, stream
-    "swin_window_attention_forward": [_P] * 6 + [_I] * 8 + [ctypes.c_float, _I, _P],
+    # defer_norm, is_bf16, scale, device, stream, route
+    "swin_window_attention_forward": [_P] * 6 + [_I] * 8 + [ctypes.c_float, _I, _P, _ROUTE],
     # x, scale, bias, out, rows, d, eps, is_bf16, device, stream
     "layer_norm_forward": [_P] * 4 + [_I, _I, ctypes.c_float, _I, _I, _P],
     # x, norm_scale, norm_bias, w1, b1, w2, b2, out, y, hid, rows, d, hidden,

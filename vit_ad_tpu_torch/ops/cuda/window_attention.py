@@ -16,8 +16,10 @@ the TPU kernel had no backward kernel either.
 
 `swin_attention_windows` (packed qkv windows; port of :334, TPU kernel
 `_kernel_win` :212) and `window_attention` (split q, k, v; port of :518, TPU
-kernel `_kernel` :46) launch the two entries of
-`vit_ad_tpu_torch/csrc/swin_window_attention.cu` the same way; their plain
+kernel `_kernel` :46) launch the one entry of
+`vit_ad_tpu_torch/csrc/swin_window_attention.cu` the same way (with the two
+rounding points; `window_attention_route` says which of its kernels a shape
+takes); their plain
 versions are `ops/window_attention.window_attention_reference` and
 `window_attention_core_reference`. Both backwards recompute through
 `window_attention_core_reference`, the math the JAX custom VJPs differentiate
@@ -47,16 +49,22 @@ from vit_ad_tpu_torch.ops.window_attention import (
 launches = 0
 window_launches = 0
 split_launches = 0
-# Of `launches`, the calls for which the C entry point reported the one-pass
-# bf16 kernel.
+# Of `launches`, `window_launches` and `split_launches`, the calls for which
+# the C entry point reported the one-pass bf16 kernel.
 one_pass_launches = 0
-# `attention_route`'s names for what `vit_attention_qkv_forward` reports as launched
+window_one_pass_launches = 0
+split_one_pass_launches = 0
+# the route `swin_window_attention_forward` reported for the last window launch
+last_window_route = ""
+# `attention_route`'s and `window_attention_route`'s names for what
+# `vit_attention_qkv_forward` and `swin_window_attention_forward` report as launched
 ROUTE_NAMES = {1: "one_pass", 2: "two_pass", 3: "fma"}
 
 SUPPORTED_HEAD_DIMS = (32, 64)
 MAX_TOKENS = 256
-# Up to here a warp of the bf16 ViT kernel holds its 16 x N scores in registers
-# (26 key tiles of 8); `kOnePassMaxTokens` of csrc/vit_attention_qkv.cu.
+# Up to here a warp of the bf16 ViT and window kernels holds its 16 x N scores
+# in registers (26 key tiles of 8); `kOnePassMaxTokens` of
+# csrc/vit_attention_qkv.cu and of csrc/swin_window_attention.cu.
 ONE_PASS_MAX_TOKENS = 208
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -71,6 +79,14 @@ def attention_route(n: int, dtype: torch.dtype) -> str:
     if dtype == torch.float32:
         return "fma"
     return "one_pass" if n <= ONE_PASS_MAX_TOKENS else "two_pass"
+
+
+def window_attention_route(n: int, dtype: torch.dtype) -> str:
+    """Which kernel of csrc/swin_window_attention.cu `swin_attention_windows`
+    and `window_attention` launch for windows of N tokens of `dtype` on a CUDA
+    tensor: "one_pass" (bf16 up to 208 tokens), "two_pass" (bf16 above), "fma"
+    (f32), or "" where they raise. The same routes as `attention_route`."""
+    return attention_route(n, dtype)
 
 
 def _dims(qkv: torch.Tensor, num_heads: int) -> Tuple[int, int, int, int]:
@@ -205,9 +221,11 @@ def _check_window_inputs(n: int, heads: int, hd: int, dtype: torch.dtype, bias: 
 
 def _launch_windows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, row_stride: int,
                     b_: int, n: int, heads: int, hd: int, bias: torch.Tensor,
-                    mask: Optional[torch.Tensor], defer_norm: bool) -> torch.Tensor:
+                    mask: Optional[torch.Tensor], defer_norm: bool) -> Tuple[torch.Tensor, str]:
     """One launch of `swin_window_attention_forward`; q, k, v are views whose
-    rows are `row_stride` elements apart."""
+    rows are `row_stride` elements apart. Returns the output and the route the
+    entry point reported as launched."""
+    global last_window_route
     from vit_ad_tpu_torch.ops.cuda.build import device_index, load_library
 
     _check_window_inputs(n, heads, hd, q.dtype, bias, mask, b_)
@@ -215,44 +233,51 @@ def _launch_windows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, row_strid
     if mask is not None:
         mask = mask.to(device=q.device, dtype=torch.float32).contiguous()
     out = torch.empty((b_, n, heads * hd), dtype=q.dtype, device=q.device)
+    took = ctypes.c_int(0)
     err = load_library().swin_window_attention_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bias.data_ptr(),
         None if mask is None else mask.data_ptr(), b_, n, heads, hd, row_stride,
         1 if mask is None else mask.shape[0], int(defer_norm),
         int(q.dtype == torch.bfloat16), _scale_value(hd, q.dtype), device_index(q),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        torch.cuda.current_stream(q.device).cuda_stream, ctypes.byref(took),
     )
     if err:
         raise RuntimeError(f"window attention kernel launch failed: CUDA error {err}")
-    return out
+    last_window_route = ROUTE_NAMES[took.value]
+    return out, last_window_route
 
 
 def _windows_forward(qkv3: torch.Tensor, bias: torch.Tensor, mask: Optional[torch.Tensor],
                      num_heads: int) -> torch.Tensor:
-    global window_launches
+    global window_launches, window_one_pass_launches
     if qkv3.device.type == "cpu":
         return window_attention_reference(qkv3, bias, mask, num_heads)
     if qkv3.device.type != "cuda":
         raise RuntimeError(f"swin_attention_windows has no path for device {qkv3.device}")
     b_, n, c, hd = _dims(qkv3, num_heads)
     qkv3 = _aligned(qkv3)
-    out = _launch_windows(qkv3, qkv3[..., c:], qkv3[..., 2 * c:], 3 * c, b_, n, num_heads, hd,
-                          bias, mask, defer_norm=True)
+    out, route = _launch_windows(qkv3, qkv3[..., c:], qkv3[..., 2 * c:], 3 * c, b_, n,
+                                 num_heads, hd, bias, mask, defer_norm=True)
     window_launches += 1
+    window_one_pass_launches += int(route == "one_pass")
     return out
 
 
-def _split_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
-                   mask: Optional[torch.Tensor]) -> torch.Tensor:
-    global split_launches
+def split_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The forward of `window_attention` with the bias already gathered: q, k, v
+    [B_, N, H, hd], bias [H, N, N] f32, mask [n_w, N, N] or None → [B_, N, H*hd].
+    The kernel on CUDA tensors, the plain version on CPU tensors; no gradient."""
+    global split_launches, split_one_pass_launches
     if q.device.type == "cpu":
         return window_attention_core_reference(q, k, v, bias, mask)
     if q.device.type != "cuda":
         raise RuntimeError(f"window_attention has no path for device {q.device}")
     b_, n, h, hd = q.shape
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    out = _launch_windows(q, k, v, h * hd, b_, n, h, hd, bias, mask, defer_norm=False)
+    out, route = _launch_windows(q, k, v, h * hd, b_, n, h, hd, bias, mask, defer_norm=False)
     split_launches += 1
+    split_one_pass_launches += int(route == "one_pass")
     return out
 
 
@@ -285,7 +310,7 @@ class _WindowAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, mask):
         ctx.save_for_backward(q, k, v, bias, mask)
-        return _split_forward(q, k, v, bias, mask)
+        return split_window_attention(q, k, v, bias, mask)
 
     @staticmethod
     def backward(ctx, grad):

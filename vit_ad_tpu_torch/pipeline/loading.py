@@ -167,13 +167,15 @@ def build_pth_models(
     device: Optional[torch.device] = None,
     fused_ln: Optional[bool] = None,
     fused_mlp: Optional[bool] = None,
+    block_index: int = 0,
 ) -> RunModels:
     """Encoder + NF or MDN head from a reference-format head `.pth` (MDN:
     K from the `<K>_..._<class>.pth` filename). `encoder_ckpt` is the
     pretrained trunk the head was trained against (a timm or EsViT `.pth`);
     without it the encoder is the seed-random init (warned). `fused_ln` and
-    `fused_mlp` are `registry.get_model`'s. The models are moved to `device`
-    (default CPU) in eval mode."""
+    `fused_mlp` are `registry.get_model`'s; `block_index` is the feature depth
+    the head was trained on (`HyperParams.block_index`, 0 = the last block).
+    The models are moved to `device` (default CPU) in eval mode."""
     if arch not in ("nf", "mdn"):
         raise NotImplementedError(
             f"legacy .pth scoring of arch {arch!r} is not ported yet (ROADMAP A8 for "
@@ -183,7 +185,7 @@ def build_pth_models(
     hp = HyperParams(model_name=model_name, architecture=arch, img_size=img_size,
                      hidden_ratio=hidden_ratio, flow_steps=flow_steps,
                      num_gaussians=num_gaussians or 150, data_class=dataclass,
-                     fused_ln=fused_ln, fused_mlp=fused_mlp)
+                     fused_ln=fused_ln, fused_mlp=fused_mlp, block_index=block_index)
     if dtypes is not None:
         hp.dtypes = dtypes
     encoder = get_model(hp.model_name, hp.img_size, hp.dtypes,
