@@ -18,21 +18,25 @@ score a folder with them). Phases:
   1. device   card name and power limit (nvidia-smi)
   2. build    compile the kernels from vit_ad_tpu_torch/csrc (nvcc, sm_90a)
   3. kernels  each kernel against its plain PyTorch version on the card:
-              ViT attention (B1), GMM forward (B2), its parameter and feature
-              backwards (B3, B4), Swin window attention from packed and from
-              split inputs (B5, B5a; also at the edges of its three forms,
-              `WINDOW_EDGES`, each asserting the route the C entry reported),
-              one-pass LayerNorm (B7), fused MLP half-block (B6)
+              ViT attention (B1), GMM forward (B2; also at the edges of its
+              bf16 kernel, `GMM_FWD_EDGES`, each asserting the route the C
+              entry reported), its parameter and feature backwards (B3, B4),
+              Swin window attention from packed and from split inputs (B5,
+              B5a; also at the edges of its three forms, `WINDOW_EDGES`),
+              one-pass LayerNorm (B7, each case asserting its route), fused
+              MLP half-block (B6)
   4. NF path  40 synthetic 224-px PNGs scored by `cli.score.main` with seeded
               random full-width weights; launch counts (B1 and, by the
               default `models/vit.FUSED_MLP_DEFAULT`, B6 12 times per encoder
-              batch each); CUDA-vs-CPU f32 scores
+              batch each, B7 13: the blocks' first norm and the final norm);
+              CUDA-vs-CPU f32 scores
   5. MLP flag the same folder and weights with `--no-fused-mlp` (the stock
               tail): B6 never; bf16 scores against phase 4's; the f32 policy
               (erf GELU) launches none with the flag on and keeps its scores
   6. MDN path a synthetic category: `cli.train_mdn.main` (K=150, a few
               epochs), then `cli.score.main -a mdn` on its .pth; launch
-              counts per step and batch; CUDA-vs-CPU f32 scores
+              counts per step and batch (every B2 launch through its bf16
+              wgmma kernel); CUDA-vs-CPU f32 scores
   7. EsViT    a synthetic category: `cli.train_nf.main -m esvit --fused-ln`
               (a few epochs), then `cli.score.main -a nf -m enc_esvit` on its
               .pth; B5 (all through the one-pass kernel) and B7 launch counts
@@ -45,11 +49,12 @@ score a folder with them). Phases:
               at K=4
   9. times    kernels vs plain vs the one PyTorch call that computes the same
               function, where there is one, each beside its bound, by events
-              and, for the attention kernels, back to back (B5a alone with
-              its bias gathered, beside its public entry; B3 and B4
-              also checked at 64 x 196 rows and at the ResNet heads' shapes;
-              B6 also step by step: LayerNorm, each product alone); DeiT NF (fused MLP off and on, with the
-              peak memory of each), MDN, EsViT NF (fused LayerNorm
+              and, for the attention kernels and B7, back to back (B5a alone
+              with its bias gathered, beside its public entry; B3 and B4 also
+              checked at 64 x 196 rows and at the ResNet heads' shapes; B6
+              also step by step: LayerNorm, each product alone); DeiT NF
+              (fused MLP off and on, with the peak memory of each; the ViT
+              norms on B7 and on the f32 cast), MDN, EsViT NF (fused LayerNorm
               off and on) and ResNet MDN uint8→scores img/s at batch 128; the
               MDN, NF and joint ResNet MDN (K=100, 150) train steps; where the
               device time of a DeiT NF and of an EsViT batch goes
@@ -112,6 +117,17 @@ GMM_FWD_CASES = [  # (rows, D, K, dtype): the DeiT shape, the tiled widths, K=1
     # the ResNet-50 heads on a 16-image step: stage 2 (196 tokens), stage 3 (49)
     (3136, 1024, 100, "bfloat16"), (784, 2048, 100, "bfloat16"),
 ]
+# B2 at the edges of its bf16 kernel, (rows, D, K): 64-row blocks filled by
+# one row, one row short of a block, one over one and two blocks; widths of one
+# and two 64-feature halves (D = 64, 192: the last block of an odd number of
+# halves has one consumer warpgroup) and 128; K = 1, 2 and 151; the widest
+# width whose x rows stay in shared memory (1024) and the narrowest streamed
+# one (1088); and, under f32, the first kernel at the same edges
+GMM_FWD_EDGES = [(1, 768, 2, "bfloat16"), (63, 768, 2, "bfloat16"), (65, 768, 2, "bfloat16"),
+                 (129, 768, 2, "bfloat16"), (100, 64, 1, "bfloat16"), (100, 64, 151, "bfloat16"),
+                 (100, 128, 2, "bfloat16"), (100, 192, 151, "bfloat16"),
+                 (333, 1024, 3, "bfloat16"), (333, 1088, 3, "bfloat16"),
+                 (65, 64, 151, "float32"), (129, 192, 2, "float32")]
 # backward: one chunk of components at 392 and 200 rows; the train step's
 # 16 x 196 rows take 2 chunks under bf16 and 3 under f32 (ops/cuda/gmm.py
 # `backward_chunk`), which run k0 > 0 and carry the dx sum across chunks
@@ -128,6 +144,9 @@ ESVIT_TRAIN, ESVIT_TEST, ESVIT_EPOCHS, ESVIT_BATCH, ESVIT_SCORE_BATCH = 32, 4, 3
 # kernel launches of one EsViT encoder batch: 12 window attentions; with the
 # fused LayerNorm 24 block norms, the patch norm, 3 merge norms, the final norm
 ESVIT_B5_PER_BATCH, ESVIT_B7_PER_BATCH = 12, 24 + 1 + 3 + 1
+# B7 launches of one DeiT-base encoder batch: the 12 blocks' first norm and the
+# final norm (the second norm is B6's LayerNorm step, or the stock tail's)
+DEIT_B7_PER_BATCH = 12 + 1
 NO_LAUNCHES = {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B5": 0, "B5a": 0, "B6": 0, "B7": 0}
 # the ResNet-50 multi-stage MDN main path: heads on stage maps 2 and 3 (D=1024
 # on 14x14 tokens, D=2048 on 7x7), K=100 and K=150 (the reference's two
@@ -176,9 +195,14 @@ WINDOW_EDGES = [(s, s, False) for s in (1, 4, 6, 7, 8, 9, 11, 14, 15, 16)] + \
 LN_TOL = {"bfloat16": (1e-3, 2.0**-7), "float32": (1e-5, 1e-5)}
 # (rows, D): the Swin-T block widths and the widest merge norm at rows that
 # fill no block of 4, and two widths that are no multiple of 32 lanes x 8
-# (100 is no multiple of 8 either: the kernel's scalar vectors)
+# (100 is no multiple of 8 either: the kernel's scalar vectors); for the bf16
+# rows kernel (D = 8 LPR NV, 32 / LPR rows a warp), one row, row counts that
+# fill no warp's group of rows at D = 96, 192 and 384 (8, 4 and 2 rows a
+# warp), and row counts past what the card holds at once, so that the warps
+# stride over the rows more than once (B6's LayerNorm step at [25344, 768])
 LN_CASES = [(4099, 96), (2051, 192), (1027, 384), (515, 768), (259, 1536), (1027, 100),
-            (515, 1000)]
+            (515, 1000), (1, 384), (1, 768), (4101, 96), (2053, 192), (1025, 384),
+            (50001, 384), (25344, 768), (6273, 2048)]
 LN_EPS = 1e-5
 # Fused MLP half-block (B6) vs plain, max abs difference relative to the
 # largest plain entry. bf16: kernel and plain round the same three tensors to
@@ -266,7 +290,8 @@ def check_gmm_forward(rows: int, d: int, k: int, dt: str, gen, dev) -> float:
 
     dtype = getattr(torch, dt)
     args = gmm_inputs(rows, d, k, gen, dev)
-    before = cgmm.fwd_launches
+    before, before_wgmma = cgmm.fwd_launches, cgmm.fwd_wgmma_launches
+    want_route = cgmm.forward_route(d, dtype)
     with torch.no_grad():
         got = cgmm.gmm_log_likelihood(*args, matmul_dtype=dtype)
         want = cgmm.gmm_log_likelihood_reference(*args, matmul_dtype=dtype)
@@ -274,11 +299,16 @@ def check_gmm_forward(rows: int, d: int, k: int, dt: str, gen, dev) -> float:
     diff = (got - want).abs()
     err = diff.max().item()
     ok = bool(torch.isfinite(got).all()) and bool((diff <= LL_ATOL + LL_RTOL * want.abs()).all())
+    took_wgmma = cgmm.fwd_wgmma_launches - before_wgmma
     print(f"gmm forward (B2) rows={rows} D={d} K={k} {dt}: max|kernel-plain| {err:.3e} "
           f"(tol {LL_ATOL:.0e} + {LL_RTOL:.0e}|plain|), |plain| <= {want.abs().max().item():.2f}, "
-          f"launches +{cgmm.fwd_launches - before}")
+          f"launches +{cgmm.fwd_launches - before}, route {cgmm.last_fwd_route} (expected "
+          f"{want_route}, wgmma +{took_wgmma})")
     if not ok or cgmm.fwd_launches != before + 1:
         raise AssertionError(f"GMM forward kernel disagrees with its plain version: {err}")
+    if cgmm.last_fwd_route != want_route or took_wgmma != int(dt == "bfloat16"):
+        raise AssertionError(f"GMM forward took route {cgmm.last_fwd_route} at D={d} {dt}, "
+                             f"expected {want_route}")
     return err
 
 
@@ -422,17 +452,22 @@ def check_layer_norm(rows: int, d: int, dt: str, gen, dev) -> float:
     x = (1.5 * torch.randn(rows, d, device=dev, generator=gen) + 0.3).to(getattr(torch, dt))
     scale = 1.0 + 0.2 * torch.randn(d, device=dev, generator=gen)
     bias = 0.2 * torch.randn(d, device=dev, generator=gen)
-    before = ln.launches
+    before, before_rows = ln.launches, ln.rows_launches
+    route = ln.layer_norm_route(d, x.dtype)
     out = ln.layer_norm(x, scale, bias, LN_EPS)
     ref = ln.layer_norm_reference(x, scale, bias, LN_EPS)
     torch.cuda.synchronize()
     diff = (out.float() - ref.float()).abs()
     atol, rtol = LN_TOL[dt]
     ok = bool(torch.isfinite(out).all()) and bool((diff <= atol + rtol * ref.float().abs()).all())
+    took_rows = ln.rows_launches - before_rows
     print(f"layer_norm (B7) rows={rows} D={d} {dt}: max|kernel-plain| {diff.max().item():.3e} "
-          f"(tol {atol:.0e} + {rtol:.1e}|plain|), launches +{ln.launches - before}")
+          f"(tol {atol:.0e} + {rtol:.1e}|plain|), launches +{ln.launches - before}, route "
+          f"{route} (rows kernel +{took_rows})")
     if not ok or out.dtype != x.dtype or ln.launches != before + 1:
         raise AssertionError("layer_norm kernel disagrees with its plain version")
+    if took_rows != int(route == "rows"):
+        raise AssertionError(f"layer_norm at D={d} {dt} did not report route {route}")
     return diff.max().item()
 
 
@@ -577,6 +612,7 @@ def esvit_main_path(tmp: str) -> dict:
     from vit_ad_tpu_torch.data.dataset import default_norm_stats
     from vit_ad_tpu_torch.data.loader import DataPipeline
     from vit_ad_tpu_torch.data.synthetic import make_mvtec_category
+    from vit_ad_tpu_torch.ops.cuda import layer_norm as ln
     from vit_ad_tpu_torch.ops.cuda import window_attention as wa
     from vit_ad_tpu_torch.pipeline.loading import build_pth_models, score_models
 
@@ -605,10 +641,13 @@ def esvit_main_path(tmp: str) -> dict:
     expect = {**NO_LAUNCHES, "B5": ESVIT_B5_PER_BATCH * n_enc, "B7": ESVIT_B7_PER_BATCH * n_enc}
     print(f"cli.train_nf.main -m esvit --fused-ln rc={rc} in {wall:.2f} s ({n_enc} encoder "
           f"batches of {ESVIT_BATCH}): launches {train}, expected {expect}; B5 through the "
-          f"one-pass kernel {wa.window_one_pass_launches}")
-    if rc != 0 or train != expect or wa.window_one_pass_launches != expect["B5"]:
+          f"one-pass kernel {wa.window_one_pass_launches}, B7 through the rows kernel "
+          f"{ln.rows_launches}")
+    if rc != 0 or train != expect or wa.window_one_pass_launches != expect["B5"] or \
+            ln.rows_launches != expect["B7"]:
         raise AssertionError("the EsViT NF training path did not launch B5 12 times, all "
-                             "through the one-pass kernel, and B7 29 times per encoder batch")
+                             "through the one-pass kernel, and B7 29 times per encoder batch, "
+                             "all through the rows kernel")
     with open(os.path.join(run, "history.json")) as f:
         hist = json.load(f)
     if not all(math.isfinite(v) for v in hist["train_loss"] + hist["valid_loss"]) or \
@@ -633,10 +672,12 @@ def esvit_main_path(tmp: str) -> dict:
     expect = {**NO_LAUNCHES, "B5": ESVIT_B5_PER_BATCH * nb, "B7": ESVIT_B7_PER_BATCH * nb}
     print(f"cli.score.main -a nf -m enc_esvit --fused-ln rc={rc} in {wall:.2f} s: launches "
           f"{score}, expected {expect}; B5 through the one-pass kernel "
-          f"{wa.window_one_pass_launches}")
-    if rc != 0 or score != expect or wa.window_one_pass_launches != expect["B5"]:
+          f"{wa.window_one_pass_launches}, B7 through the rows kernel {ln.rows_launches}")
+    if rc != 0 or score != expect or wa.window_one_pass_launches != expect["B5"] or \
+            ln.rows_launches != expect["B7"]:
         raise AssertionError("EsViT scoring did not launch B5 12 times, all through the "
-                             "one-pass kernel, and B7 29 times per batch")
+                             "one-pass kernel, and B7 29 times per batch, all through the rows "
+                             "kernel")
     files = score_cli.list_images(test_dir)
     scores = check_scores_csv(out_dir, files, "EsViT")
 
@@ -687,14 +728,13 @@ def sdpa_ms(q, k, v, additive, torch):
 
 def swin_times(card: str, gen) -> dict:
     """Phase 9, Swin part: B5 at the four Swin-T stage shapes of a B=128
-    batch, B5a at stage 0, B7 at the four block-norm shapes: kernel vs plain
-    vs the library call (SDPA with an additive mask; `F.layer_norm`), beside
-    the bound. Returns the kernels' JSON numbers (stage 0 for B5 and B7, the
-    heaviest call; every stage in `per_stage`)."""
+    batch, B5a at stage 0, B7 at the four block-norm shapes and B6's
+    LayerNorm step (`layer_norm_times`): kernel vs plain vs the library call
+    (SDPA with an additive mask; `F.layer_norm`), beside the bound. Returns
+    the kernels' JSON numbers (stage 0 for B5 and B7, the heaviest call;
+    every stage in `per_stage`)."""
     import torch
-    import torch.nn.functional as F
     from vit_ad_tpu_torch.ops import window_attention as wops
-    from vit_ad_tpu_torch.ops.cuda import layer_norm as ln
     from vit_ad_tpu_torch.ops.cuda import window_attention as wa
 
     dev, bf16 = torch.device("cuda"), torch.bfloat16
@@ -767,8 +807,25 @@ def swin_times(card: str, gen) -> dict:
         del qkv3, q, k, v, got
     out["B5"]["per_stage"] = per_stage
 
-    ln_stages = []
-    for rows, d in LN_STAGES:
+    out["B7"] = layer_norm_times(card, gen)
+    return out
+
+
+def layer_norm_times(card: str, gen) -> dict:
+    """Phase 9, B7 at `LN_PATH_SHAPES` (the four Swin-T block norms of a B=128
+    batch and B6's LayerNorm step), bf16: kernel vs plain by events (order
+    plain, kernel, kernel, plain), and kernel, `F.layer_norm` on the same bf16
+    rows and the unfused path (`F.layer_norm` on the f32 cast and back: the
+    DeiT blocks' norm before this port's kernel took it) by events and back to
+    back, beside the bound. Returns the JSON numbers of [401408,96] (the
+    heaviest call), every shape in `per_stage`."""
+    import torch
+    import torch.nn.functional as F
+    from vit_ad_tpu_torch.ops.cuda import layer_norm as ln
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    per_shape = []
+    for rows, d in LN_PATH_SHAPES:
         x = (1.5 * torch.randn(rows, d, device=dev, generator=gen) + 0.3).to(bf16)
         scale = 1.0 + 0.2 * torch.randn(d, device=dev, generator=gen)
         shift = 0.2 * torch.randn(d, device=dev, generator=gen)
@@ -776,7 +833,7 @@ def swin_times(card: str, gen) -> dict:
         kern = lambda: ln.layer_norm(x, scale, shift, LN_EPS)
         plain = lambda: ln.layer_norm_reference(x, scale, shift, LN_EPS)
         # one library call on the same bf16 rows (scale and bias rounded to bf16
-        # before the timed call), and the port's unfused path around its f32 call
+        # before the timed calls), and the unfused path around its f32 call
         lib = lambda: F.layer_norm(x, (d,), scale_bf, shift_bf, LN_EPS)
         unfused = lambda: F.layer_norm(x.float(), (d,), scale, shift, LN_EPS).to(bf16)
         with torch.no_grad():
@@ -787,20 +844,24 @@ def swin_times(card: str, gen) -> dict:
                 raise AssertionError(f"B7 disagrees with its plain version at [{rows},{d}]")
             kern_ms, plain_ms = alternate(kern, plain, TIMED_RUNS, 3)
             lib_ms, unfused_ms = median_ms(lib, torch), median_ms(unfused, torch)
+            b2b = {name: back_to_back_ms(fn, torch)
+                   for name, fn in (("kernel", kern), ("library", lib), ("unfused", unfused))}
         nums = {"max_abs_err": diff.max().item(), "ms": statistics.mean(kern_ms),
                 "plain_ms": statistics.mean(plain_ms), "library_ms": lib_ms,
+                "back_to_back_ms": b2b["kernel"], "library_back_to_back_ms": b2b["library"],
                 **bound(tensor_bytes(x, got, scale, shift), 8 * rows * d, 67e12)}
-        ln_stages.append({"shape": f"[{rows},{d}]", "unfused_ms": unfused_ms, **nums})
-        print(f"[{card}] layer_norm (B7) [{rows},{d}] bf16: kernel {kern_ms} ms, plain "
-              f"{plain_ms} ms (order plain, kernel, kernel, plain), F.layer_norm on the bf16 "
-              f"rows {lib_ms:.4f} ms, F.layer_norm on the f32 cast and back (the unfused path) "
-              f"{unfused_ms:.4f} ms, bound {nums['bound_ms']:.4f} ms by {nums['bound_by']}; "
+        per_shape.append({"shape": f"[{rows},{d}]", "unfused_ms": unfused_ms,
+                          "unfused_back_to_back_ms": b2b["unfused"], **nums})
+        print(f"[{card}] layer_norm (B7) [{rows},{d}] bf16, route {ln.layer_norm_route(d, bf16)}: "
+              f"kernel {kern_ms} ms, plain {plain_ms} ms (order plain, kernel, kernel, plain), "
+              f"F.layer_norm on the bf16 rows {lib_ms:.4f} ms, F.layer_norm on the f32 cast and "
+              f"back (the unfused path) {unfused_ms:.4f} ms; back to back (200 calls) kernel "
+              f"{b2b['kernel']:.4f} ms, F.layer_norm {b2b['library']:.4f} ms, unfused "
+              f"{b2b['unfused']:.4f} ms; bound {nums['bound_ms']:.4f} ms by {nums['bound_by']} "
+              f"(kernel back to back at {nums['bound_ms'] / b2b['kernel']:.3f} of it); "
               f"max|kernel-plain| {nums['max_abs_err']:.3e}")
-        if out["B7"] is None:
-            out["B7"] = nums
         del x, got, want
-    out["B7"]["per_stage"] = ln_stages
-    return out
+    return {**per_shape[0], "per_stage": per_shape}
 
 
 def print_device_profile(what: str, fn, card: str, batches: int = 3, top: int = 16) -> None:
@@ -903,6 +964,7 @@ def reset_launches() -> None:
 
     wa.launches = cgmm.fwd_launches = cgmm.bwd_params_launches = cgmm.bwd_x_launches = 0
     wa.window_launches = wa.split_launches = ln.launches = cmlp.launches = 0
+    cgmm.fwd_wgmma_launches = ln.rows_launches = 0
     wa.one_pass_launches = cmlp.wgmma_launches = 0
     wa.window_one_pass_launches = wa.split_one_pass_launches = 0
 
@@ -975,14 +1037,15 @@ def mdn_main_path(tmp: str) -> dict:
     chunks = -(-MDN_K // cgmm.backward_chunk(MDN_BATCH * 196, 768, MDN_K,
                                              DtypePolicy().compute_dtype))
     expect = {**NO_LAUNCHES, "B1": 12 * (n_tr + n_va + n_te),
-              "B6": 12 * (n_tr + n_va + n_te),
+              "B6": 12 * (n_tr + n_va + n_te), "B7": DEIT_B7_PER_BATCH * (n_tr + n_va + n_te),
               "B2": ep * (n_tr + n_va) + n_te, "B3": ep * n_tr * 2 * chunks}
     print(f"cli.train_mdn.main rc={rc} in {wall:.2f} s ({ep} epochs x {n_tr} train + {n_va} "
           f"valid batches of {MDN_BATCH}, {n_te} test batch; {chunks} backward chunks): "
-          f"launches {train}, expected {expect}")
-    if rc != 0 or train != expect:
-        raise AssertionError("the MDN training path did not launch B2 and B3 on every step "
-                             "(and B4 on none)")
+          f"launches {train}, expected {expect}; B2 through the wgmma kernel "
+          f"{cgmm.fwd_wgmma_launches}")
+    if rc != 0 or train != expect or cgmm.fwd_wgmma_launches != expect["B2"]:
+        raise AssertionError("the MDN training path did not launch B2 (each through the wgmma "
+                             "kernel) and B3 on every step (and B4 on none)")
     metrics = hist["metrics"]
     if not all(math.isfinite(v) for v in hist["train_loss"] + hist["valid_loss"]) or \
             not all(math.isfinite(v) for v in metrics.values()):
@@ -1000,10 +1063,12 @@ def mdn_main_path(tmp: str) -> dict:
     wall = time.perf_counter() - t0
     score = read_launches()
     nb = n_batches(2 * MDN_TEST, MDN_SCORE_BATCH)
-    expect = {**NO_LAUNCHES, "B1": 12 * nb, "B6": 12 * nb, "B2": nb}
-    print(f"cli.score.main -a mdn rc={rc} in {wall:.2f} s: launches {score}, expected {expect}")
-    if rc != 0 or score != expect:
-        raise AssertionError("MDN scoring did not launch B2 once per batch")
+    expect = {**NO_LAUNCHES, "B1": 12 * nb, "B6": 12 * nb, "B2": nb, "B7": DEIT_B7_PER_BATCH * nb}
+    print(f"cli.score.main -a mdn rc={rc} in {wall:.2f} s: launches {score}, expected {expect}; "
+          f"B2 through the wgmma kernel {cgmm.fwd_wgmma_launches}")
+    if rc != 0 or score != expect or cgmm.fwd_wgmma_launches != expect["B2"]:
+        raise AssertionError("MDN scoring did not launch B2 once per batch, through the wgmma "
+                             "kernel")
     files = score_cli.list_images(test_dir)
     check_scores_csv(out_dir, files, "MDN")
 
@@ -1072,10 +1137,11 @@ def gmm_split_times(rows: int, d: int, k: int, head, card: str, gen, runs: int) 
               "B3": bound(acts + 2 * head_bytes + tensor_bytes(log_pi), 4 * prod),
               "B4": bound(acts + head_bytes + tensor_bytes(x), 2 * prod)}
     k_fwd, p_fwd = grads["kernel ms"][0], grads["plain ms"][0]
-    print(f"[{card}] gmm forward (B2) rows={rows} D={d} K={k} bf16: kernel {k_fwd:.3f} ms "
-          f"({2 * prod / k_fwd / 1e9:.1f} TFLOP/s), plain {p_fwd:.3f} ms, bound "
-          f"{bounds['B2']['bound_ms']:.3f} ms by {bounds['B2']['bound_by']}; max|kernel-plain| "
-          f"{ll_diff.max().item():.3e}")
+    print(f"[{card}] gmm forward (B2) rows={rows} D={d} K={k} bf16, route "
+          f"{cgmm.forward_route(d, bf16)}: kernel {k_fwd:.3f} ms ({2 * prod / k_fwd / 1e9:.1f} "
+          f"TFLOP/s, {bounds['B2']['bound_ms'] / k_fwd:.3f} of the bound), plain {p_fwd:.3f} ms, "
+          f"bound {bounds['B2']['bound_ms']:.3f} ms by {bounds['B2']['bound_by']}; "
+          f"max|kernel-plain| {ll_diff.max().item():.3e}")
     out = {"B2": {"max_abs_err": ll_diff.max().item(), "ms": k_fwd, "plain_ms": p_fwd,
                   "library_ms": None, **bounds["B2"]}}
     for key, idx, what in (("B3", 1, "parameter backward"), ("B4", 2, "feature backward")):
@@ -1130,10 +1196,12 @@ def mdn_times(mdn: dict, images, card: str, gen) -> dict:
         # two [rows, D] x [D, D] products per component; x, log_pi, both heads
         # and their biases read once, ll written once
         b2 = bound(tensor_bytes(*args) + rows * d * 4, tflop * 1e12)
-        print(f"[{card}] gmm forward (B2) B={FLAGSHIP_BATCH} rows={rows} D={d} K={k} bf16: "
-              f"kernel {kern_ms} ms ({tflop / statistics.mean(kern_ms) * 1e3:.1f} TFLOP/s), "
-              f"plain {plain_ms} ms (order plain, kernel, kernel, plain), bound "
-              f"{b2['bound_ms']:.3f} ms by {b2['bound_by']}; max|kernel-plain| {err:.3e}")
+        print(f"[{card}] gmm forward (B2) B={FLAGSHIP_BATCH} rows={rows} D={d} K={k} bf16, "
+              f"route {cgmm.last_fwd_route}: kernel {kern_ms} ms "
+              f"({tflop / statistics.mean(kern_ms) * 1e3:.1f} TFLOP/s, "
+              f"{b2['bound_ms'] / statistics.mean(kern_ms):.3f} of the bound), plain {plain_ms} ms "
+              f"(order plain, kernel, kernel, plain), bound {b2['bound_ms']:.3f} ms by "
+              f"{b2['bound_by']}; max|kernel-plain| {err:.3e}")
         out["B2"] = {"max_abs_err": err, "ms": statistics.mean(kern_ms),
                      "plain_ms": statistics.mean(plain_ms), "library_ms": None, **b2,
                      "shape": f"rows={rows} D={d} K={k}"}
@@ -1225,10 +1293,10 @@ def fused_mlp_main_path(tmp: str, nf_pth: str, deit_pth: str, img_dir: str, file
     wall = time.perf_counter() - t0
     launches = read_launches()
     n_batches = -(-N_IMAGES // SMOKE_BATCH)
-    expect = {**NO_LAUNCHES, "B1": 12 * n_batches}
+    expect = {**NO_LAUNCHES, "B1": 12 * n_batches, "B7": DEIT_B7_PER_BATCH * n_batches}
     print(f"cli.score.main {flag} rc={rc} in {wall:.2f} s; launches {launches}, expected "
-          f"{expect} (12 attention and no MLP launches x {n_batches} batches); wgmma "
-          f"route {cmlp.wgmma_launches}")
+          f"{expect} (12 attention, {DEIT_B7_PER_BATCH} LayerNorm and no MLP launches x "
+          f"{n_batches} batches); wgmma route {cmlp.wgmma_launches}")
     if rc != 0 or launches != expect or cmlp.wgmma_launches != 0:
         raise AssertionError(f"the {flag} path launched the MLP kernel, or not the attention "
                              f"kernel once per block per batch")
@@ -1248,7 +1316,8 @@ def fused_mlp_main_path(tmp: str, nf_pth: str, deit_pth: str, img_dir: str, file
     f32_launches = read_launches()
     print(f"f32 policy with the flag on (erf GELU: the gate is off): launches {f32_launches}, "
           f"scores {got.tolist()} vs the default {f32_cuda_scores.tolist()}")
-    if f32_launches != {**NO_LAUNCHES, "B1": 12} or not np.array_equal(got, f32_cuda_scores):
+    if f32_launches != {**NO_LAUNCHES, "B1": 12, "B7": DEIT_B7_PER_BATCH} or \
+            not np.array_equal(got, f32_cuda_scores):
         raise AssertionError("the f32 policy took the fused MLP or its scores moved")
     return {"launches": launches}
 
@@ -1310,8 +1379,10 @@ def resnet_main_path(tmp: str) -> dict:
               "B3": steps * 2 * sum(chunks), "B4": steps * sum(chunks)}
     print(f"cli.train_mdn.main -m res_net rc={rc} in {wall:.2f} s ({ep} epochs x {n_tr} train + "
           f"{n_va} valid batches of {RESNET_BATCH}, {n_te} test batch; backward chunks "
-          f"{chunks} at D=1024, 2048): launches {train}, expected {expect}")
-    if rc != 0 or train != expect or ep != RESNET_EPOCHS:
+          f"{chunks} at D=1024, 2048): launches {train}, expected {expect}; B2 through the "
+          f"wgmma kernel {cgmm.fwd_wgmma_launches}")
+    if rc != 0 or train != expect or ep != RESNET_EPOCHS or \
+            cgmm.fwd_wgmma_launches != expect["B2"]:
         raise AssertionError("the ResNet MDN training path did not launch B2, B3 and B4 for "
                              "both heads on every step")
     if not all(math.isfinite(v) for v in hist["train_loss"] + hist["valid_loss"]) or \
@@ -1348,8 +1419,8 @@ def resnet_main_path(tmp: str) -> dict:
     score = read_launches()
     expect = {**NO_LAUNCHES, "B2": 2 * n_batches(2 * RESNET_TEST, RESNET_SCORE_BATCH)}
     print(f"cli.score.main -a mdn, two stage heads, rc={rc} in {wall:.2f} s: launches {score}, "
-          f"expected {expect}")
-    if rc != 0 or score != expect:
+          f"expected {expect}; B2 through the wgmma kernel {cgmm.fwd_wgmma_launches}")
+    if rc != 0 or score != expect or cgmm.fwd_wgmma_launches != expect["B2"]:
         raise AssertionError("ResNet MDN scoring did not launch B2 once per head per batch "
                              "(and B3, B4 never)")
     files = score_cli.list_images(test_dir)
@@ -1540,6 +1611,57 @@ def fused_mlp_ab(nf_pth: str, deit_pth: str, images, card: str) -> dict:
     return fns
 
 
+def vit_norm_ab(nf_pth: str, deit_pth: str, images, card: str) -> None:
+    """Phase 9: DeiT-base + NF-20 uint8→scores img/s at B=128 bf16 with the
+    blocks' first norm and the final norm through the LayerNorm kernel (B7,
+    the port's path: 13 launches a batch) and through `F.layer_norm` on the
+    f32 cast and back (the path before it: `models/vit.layer_norm` swapped for
+    that expression during the "off" turns), order off, on, on, off."""
+    import torch
+    import torch.nn.functional as F
+    from vit_ad_tpu_torch.data.dataset import default_norm_stats
+    from vit_ad_tpu_torch.models import vit
+    from vit_ad_tpu_torch.ops.cuda import layer_norm as ln
+    from vit_ad_tpu_torch.pipeline.eval import make_nf_batch_fn
+    from vit_ad_tpu_torch.pipeline.loading import build_pth_models
+
+    dev = torch.device("cuda")
+    mean, std = (torch.as_tensor(a, device=dev) for a in default_norm_stats())
+    m = build_pth_models(nf_pth, "enc_deit", "nf", encoder_ckpt=deit_pth, device=dev)
+    batch_fn = make_nf_batch_fn(*m.parts, m.hp, mean, std)
+    kernel_norm = vit.layer_norm
+    unfused = lambda x, w, b, eps: F.layer_norm(x.float(), (x.shape[-1],), w, b, eps).to(x.dtype)
+
+    def scores(on: bool):
+        vit.layer_norm = kernel_norm if on else unfused
+        try:
+            with torch.inference_mode():
+                return batch_fn(images).amax(dim=(1, 2))
+        finally:
+            vit.layer_norm = kernel_norm
+
+    launched = {}
+    for on in (False, True):
+        before = ln.launches
+        out = scores(on)
+        torch.cuda.synchronize()
+        launched[on] = ln.launches - before
+        if out.shape != (FLAGSHIP_BATCH,) or not torch.isfinite(out).all():
+            raise AssertionError("DeiT NF batch gave non-finite or misshapen scores")
+    if launched != {False: 0, True: DEIT_B7_PER_BATCH}:
+        raise AssertionError(f"B7 launches per DeiT batch with the norms off / on: {launched}")
+    drift = ((scores(True) - scores(False)).abs() / scores(False).abs()).max().item()
+    off = [median_ms(lambda: scores(False), torch, runs=10)]
+    on = [median_ms(lambda: scores(True), torch, runs=10) for _ in range(2)]
+    off.append(median_ms(lambda: scores(False), torch, runs=10))
+    rate = lambda ms: FLAGSHIP_BATCH / statistics.mean(ms) * 1e3
+    print(f"[{card}] DeiT uint8→scores DeiT-base + NF-20 B={FLAGSHIP_BATCH} bf16, batch on the "
+          f"device, norm1 and final norm: F.layer_norm on the f32 cast and back {off} ms = "
+          f"{rate(off):.1f} img/s, the LayerNorm kernel (B7, {DEIT_B7_PER_BATCH} launches a "
+          f"batch) {on} ms = {rate(on):.1f} img/s (order off, on, on, off); scores on vs off "
+          f"max rel diff {drift:.3e} (bf16 roundings)")
+
+
 def resnet_times(resnet: dict, images, card: str, gen) -> dict:
     """Phase 9, ResNet part: the joint train step (frozen trunk forward, two
     heads' B2 + B3 + B4, stage norms, Adam) at batch 16 with K=100 and K=150:
@@ -1640,21 +1762,51 @@ def resnet_times(resnet: dict, images, card: str, gen) -> dict:
     return {key: [shape[key] for shape in per_shape] for key in ("B2", "B3", "B4")}
 
 
+# B2's shapes on the main paths, (what, rows, D, K): DeiT MDN scoring at
+# B=128 and its train step at B=64, the ResNet-50 stage-2 and stage-3 heads on
+# a 16-image step
+GMM_PATH_SHAPES = [("DeiT MDN scoring B=128", 25088, 768, 150),
+                   ("DeiT MDN train B=64", 12544, 768, 150),
+                   ("ResNet stage 2, 16 images", 3136, 1024, 100),
+                   ("ResNet stage 3, 16 images", 784, 2048, 100)]
+# B7's shapes: the Swin-T block norms at B=128 and B6's LayerNorm step
+LN_PATH_SHAPES = LN_STAGES + [(25344, 768)]
+
+
+def gmm_forward_args(entries: dict, t: dict, rows: int, d: int, k: int) -> list:
+    """gmm_forward's arguments (but the stream and the route) in the layout
+    of the checkout whose ENTRY_POINTS are `entries`: x rounded to bf16 and
+    component-major log_pi and biases beside x (this form), or, in a checkout
+    whose entry takes no route, log_pi [rows, K] and the Linear-layout biases.
+    `t` holds both layouts."""
+    if len(entries["gmm_forward"]) == 13:
+        return [t["x"].data_ptr(), t["log_pi"].data_ptr(), t["w_mu"].data_ptr(),
+                t["w_sigma"].data_ptr(), t["b_mu"].data_ptr(), t["b_sigma"].data_ptr(),
+                t["ll"].data_ptr(), rows, d, k, 1, 0]
+    return [t["x"].data_ptr(), t["x_m"].data_ptr(), t["log_pi_t"].data_ptr(),
+            t["w_mu"].data_ptr(), t["w_sigma"].data_ptr(), t["b_mu_t"].data_ptr(),
+            t["b_sigma_t"].data_ptr(), t["ll"].data_ptr(), rows, d, k, 1, 0]
+
+
 def against(parent: str) -> int:
     """`python3 chip_smoke.py --against <checkout>`: every kernel entry point of
     the checkout at <checkout> (built from its csrc by its own
     ops/cuda/build.py) against this checkout's, called raw on the same inputs,
-    back to back (200 launches), in turns parent, change, change, parent: B5 at
-    the four Swin-T stage shapes of a B=128 batch and at stage 0 without the
-    mask, B5a at stage 0, B1 at DeiT-base B=128, B6 at [25344,768] H=3072, B7
-    at the widest and narrowest block norm of Swin-T. Prints ms per call and
-    the change's largest difference from the parent's output."""
+    back to back (200 launches; B2 5), in turns parent, change, change, parent:
+    B5 at the four Swin-T stage shapes of a B=128 batch and at stage 0 without
+    the mask, B5a at stage 0, B1 at DeiT-base B=128, B6 at [25344,768] H=3072,
+    B7 at the four Swin-T block norms and B6's LayerNorm step (beside
+    `F.layer_norm` on the same bf16 rows, before and after the turns), B2 bf16
+    at `GMM_PATH_SHAPES`. Prints ms per call, the bound, and the change's
+    largest difference from the parent's output."""
     import ctypes
     import importlib.util
 
     import torch
+    import torch.nn.functional as F
     from vit_ad_tpu_torch.ops import window_attention as wops
     from vit_ad_tpu_torch.ops.cuda import build
+    from vit_ad_tpu_torch.ops.cuda import gmm as cgmm
     from vit_ad_tpu_torch.ops.cuda import window_attention as wa
 
     if not torch.cuda.is_available():
@@ -1682,10 +1834,11 @@ def against(parent: str) -> int:
     route = ctypes.c_int(0)
     ptr = lambda t: None if t is None else t.data_ptr()
 
-    def call(who: str, entry: str, args: list, out):
+    def call(who: str, entry: str, args, out):
         lib, entries = libs[who]
         takes_route = entries[entry][-1] is ctypes.POINTER(ctypes.c_int)
         fn = getattr(lib, entry)
+        args = args(entries) if callable(args) else args
 
         def run():
             err = fn(*args, stream, *((ctypes.byref(route),) if takes_route else ()))
@@ -1694,8 +1847,10 @@ def against(parent: str) -> int:
             return out
         return run
 
-    # (name, entry, its arguments but the stream and the route, the output);
-    # `hold` keeps every tensor whose pointer an argument list holds alive
+    # (name, entry, its arguments but the stream and the route, or a function
+    # of a checkout's ENTRY_POINTS giving them, the output, launches per turn,
+    # the library call or None, (bytes, FLOP) of the bound); `hold` keeps
+    # every tensor whose pointer an argument list holds alive
     cases, hold = [], []
     for stage, windows, side, c, heads, n_w in SWIN_STAGES:
         case = (windows, side, c, heads, windows // n_w if n_w else 0, 0)
@@ -1712,7 +1867,8 @@ def against(parent: str) -> int:
                           "swin_window_attention_forward",
                           [qkv3.data_ptr(), qkv3[..., c:].data_ptr(), qkv3[..., 2 * c:].data_ptr(),
                            out.data_ptr(), bias.data_ptr(), ptr(m), windows, n, heads, hd, 3 * c,
-                           1 if m is None else m.shape[0], 1, 1, scale, 0], out))
+                           1 if m is None else m.shape[0], 1, 1, scale, 0], out, 200, None,
+                          None))
         if stage == "stage 0":
             split = [t.contiguous() for t in qkv3.reshape(windows, n, 3, c).unbind(2)]
             hold += split
@@ -1721,13 +1877,13 @@ def against(parent: str) -> int:
                           "swin_window_attention_forward",
                           [*(t.data_ptr() for t in split), out.data_ptr(), bias.data_ptr(),
                            mask.data_ptr(), windows, n, heads, hd, c, mask.shape[0], 0, 1, scale,
-                           0], out))
+                           0], out, 200, None, None))
     qkv = torch.randn(FLAGSHIP_BATCH, 198, 3 * 768, device=dev, generator=gen).to(bf16)
     out = torch.empty(FLAGSHIP_BATCH, 198, 768, dtype=bf16, device=dev)
     hold.append(qkv)
     cases.append(("B1 [128,198,2304] H=12", "vit_attention_qkv_forward",
                   [qkv.data_ptr(), out.data_ptr(), FLAGSHIP_BATCH, 198, 12, 64, 1,
-                   wa._scale_value(64, bf16), 0], out))
+                   wa._scale_value(64, bf16), 0], out, 200, None, None))
     rows, d, hidden = MLP_CASES[0]
     mlp = mlp_inputs(rows, d, hidden, bf16, gen, dev)  # x, norm w/b, w1, b1, w2, b2
     out, y = torch.empty_like(mlp[0]), torch.empty_like(mlp[0])
@@ -1735,28 +1891,65 @@ def against(parent: str) -> int:
     hold += [*mlp, y, hid]
     cases.append((f"B6 [{rows},{d}] H={hidden}", "mlp_block_forward",
                   [*(t.data_ptr() for t in mlp), out.data_ptr(), y.data_ptr(), hid.data_ptr(),
-                   rows, d, hidden, MLP_EPS, 1, 0], out))
-    for rows, d in (LN_STAGES[0], LN_STAGES[-1]):
-        x = torch.randn(rows, d, device=dev, generator=gen).to(bf16)
+                   rows, d, hidden, MLP_EPS, 1, 0], out, 200, None, None))
+    for rows, d in LN_PATH_SHAPES:
+        x = (1.5 * torch.randn(rows, d, device=dev, generator=gen) + 0.3).to(bf16)
         scale, shift = (torch.randn(d, device=dev, generator=gen) for _ in range(2))
+        scale_bf, shift_bf = scale.to(bf16), shift.to(bf16)
         out = torch.empty_like(x)
-        hold += [x, scale, shift]
+        hold += [x, scale, shift, scale_bf, shift_bf]
+        lib = lambda x=x, d=d, w=scale_bf, b=shift_bf: F.layer_norm(x, (d,), w, b, LN_EPS)
         cases.append((f"B7 [{rows},{d}]", "layer_norm_forward",
                       [x.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(), rows, d,
-                       LN_EPS, 1, 0], out))
+                       LN_EPS, 1, 0], out, 200, lib, (2 * tensor_bytes(x), 0)))
+    for what, rows, d, k in GMM_PATH_SHAPES:
+        x = torch.randn(rows, d, device=dev, generator=gen)
+        log_pi = torch.log(torch.softmax(torch.randn(rows, k, device=dev, generator=gen), -1)
+                           + 1e-15)
+        s_w = 0.5 / math.sqrt(d)
+        t = {"x": x, "x_m": x.to(bf16), "log_pi": log_pi,
+             "log_pi_t": cgmm.component_major(log_pi),
+             "ll": torch.empty(rows, d, device=dev)}
+        for name in ("mu", "sigma"):
+            t[f"w_{name}"] = (torch.randn(d * k, d, device=dev, generator=gen) * s_w).to(bf16)
+            t[f"b_{name}"] = torch.randn(d * k, device=dev, generator=gen) * 0.1
+            t[f"b_{name}_t"] = cgmm.component_major(t[f"b_{name}"].reshape(d, k))
+        hold.append(t)
+        cases.append((f"B2 {what} rows={rows} D={d} K={k}", "gmm_forward",
+                      lambda entries, t=t, rows=rows, d=d, k=k:
+                      gmm_forward_args(entries, t, rows, d, k), t["ll"], 5, None,
+                      (tensor_bytes(x, log_pi, t["w_mu"], t["w_sigma"], t["b_mu"], t["b_sigma"],
+                                    t["ll"]), 4 * rows * d * d * k)))
 
-    for name, entry, args, out in cases:
+    for name, entry, args, out, launches, lib, work in cases:
         fns = {who: call(who, entry, args, out) for who in libs}
+        b2b = lambda fn: back_to_back_ms(fn, torch, launches=launches,
+                                         warmup=1 if launches < 10 else 10)
         with torch.no_grad():
             want = fns["parent"]().clone()
             diff = (fns["change"]().float() - want.float()).abs().max().item()
-            times = {"parent": [], "change": []}
-            for who in ("parent", "change", "change", "parent"):
-                times[who].append(back_to_back_ms(fns[who], torch))
-        print(f"[{card}] {name} bf16, back to back (200 launches), parent {times['parent']} ms, "
-              f"change {times['change']} ms (order parent, change, change, parent): change / "
-              f"parent {statistics.mean(times['change']) / statistics.mean(times['parent']):.4f}; "
-              f"max|change-parent| {diff:.3e}", flush=True)
+            times = {"parent": [], "change": [], "library": []}
+            turns = ("parent", "change", "change", "parent")
+            if lib is not None:
+                turns = ("library",) + turns + ("library",)
+                fns["library"] = lib
+            for who in turns:
+                times[who].append(b2b(fns[who]))
+        ratio = statistics.mean(times["change"]) / statistics.mean(times["parent"])
+        line = (f"[{card}] {name} bf16, back to back ({launches} launches), parent "
+                f"{times['parent']} ms, change {times['change']} ms (order "
+                f"{', '.join(turns)}): change / parent {ratio:.4f}; max|change-parent| {diff:.3e}")
+        if lib is not None:
+            line += f"; F.layer_norm on the bf16 rows {times['library']} ms"
+        if work is not None:
+            b = bound(*work)
+            line += f"; bound {b['bound_ms']:.4f} ms by {b['bound_by']}"
+            if work[1]:
+                tflops = lambda ms: work[1] / statistics.mean(ms) / 1e9
+                share = b["bound_ms"] / statistics.mean(times["change"])
+                line += (f", {tflops(times['parent']):.1f} / {tflops(times['change']):.1f} "
+                         f"TFLOP/s parent / change (the change at {share:.3f} of the bound)")
+        print(line, flush=True)
     return 0
 
 
@@ -1776,6 +1969,7 @@ def main() -> int:
     from vit_ad_tpu_torch.data.loader import DataPipeline
     from vit_ad_tpu_torch.models.flow import NormalizingFlow
     from vit_ad_tpu_torch.ops.cuda import build
+    from vit_ad_tpu_torch.ops.cuda import layer_norm as ln
     from vit_ad_tpu_torch.ops.cuda import mlp as cmlp
     from vit_ad_tpu_torch.ops.cuda import window_attention as wa
     from vit_ad_tpu_torch.pipeline.eval import make_nf_batch_fn
@@ -1830,7 +2024,7 @@ def main() -> int:
           f"max diff {gerr:.3e} (tol 1e-6)")
     if not gerr <= 1e-6:
         raise AssertionError(f"backward disagrees with the plain version: {gerr}")
-    for case in GMM_FWD_CASES:
+    for case in GMM_FWD_CASES + GMM_FWD_EDGES:
         check_gmm_forward(*case, gen, dev)
     for case in GMM_BWD_CASES:
         check_gmm_backward(*case, gen, dev)
@@ -1868,16 +2062,18 @@ def main() -> int:
         wall = time.perf_counter() - t0
         nf_launches = read_launches()
         n_batches = -(-N_IMAGES // SMOKE_BATCH)
-        expect = {**NO_LAUNCHES, "B1": 12 * n_batches, "B6": 12 * n_batches}
+        expect = {**NO_LAUNCHES, "B1": 12 * n_batches, "B6": 12 * n_batches,
+                  "B7": DEIT_B7_PER_BATCH * n_batches}
         print(f"cli.score.main rc={rc} in {wall:.2f} s (model load included); launches "
-              f"{nf_launches}, expected {expect} (12 attention and 12 MLP "
-              f"launches x {n_batches} batches); one-pass attention {wa.one_pass_launches}, "
-              f"wgmma MLP route {cmlp.wgmma_launches}")
+              f"{nf_launches}, expected {expect} (12 attention, 12 MLP and "
+              f"{DEIT_B7_PER_BATCH} LayerNorm launches x {n_batches} batches); one-pass "
+              f"attention {wa.one_pass_launches}, wgmma MLP route {cmlp.wgmma_launches}, rows "
+              f"LayerNorm {ln.rows_launches}")
         if rc != 0 or nf_launches != expect or wa.one_pass_launches != expect["B1"] \
-                or cmlp.wgmma_launches != expect["B6"]:
-            raise AssertionError("main path did not launch the attention kernel and the MLP "
-                                 "kernel once per block per batch, each through its "
-                                 "redesigned route")
+                or cmlp.wgmma_launches != expect["B6"] or ln.rows_launches != expect["B7"]:
+            raise AssertionError("main path did not launch the attention, MLP and LayerNorm "
+                                 "kernels as many times per batch as the encoder has blocks "
+                                 "(and norms), each through its redesigned route")
         files = score_cli.list_images(img_dir)
         scores = check_scores_csv(out_dir, files, "NF")
 
@@ -1962,6 +2158,7 @@ def main() -> int:
               f"batch on the device: {batch_ms:.3f} ms/batch = "
               f"{FLAGSHIP_BATCH / batch_ms * 1e3:.1f} img/s; peak memory {peak:.2f} GiB")
         deit_fns = fused_mlp_ab(nf_pth, deit_pth, images, card)
+        vit_norm_ab(nf_pth, deit_pth, images, card)
         mlp = mlp_times(card, gen)
         gmm_times = mdn_times(mdn, images, card, gen)
         wide = resnet_times(resnet, images, card, gen)
@@ -2004,6 +2201,11 @@ def main() -> int:
                         "replaces": replaces,
                         "launches": mdn["launches"][key] + resnet["launches"][key],
                         **main, "per_shape": shapes})
+    kernels[1]["kernel_route"] = "wgmma_x_resident (D <= 1024), wgmma_x_streamed (above)"
+    kernels[1]["design"] = ("64 rows x 128 features a block, two consumer warpgroups of 64 "
+                            "features on wgmma m64n128k16 (mu and pre as one B operand), a TMA "
+                            "ring per warpgroup, x rows resident in shared memory up to "
+                            "D = 1024, density and one-exp online logsumexp in registers")
     # B5a, the split-input entry, is on no CLI path (the JAX package reaches it
     # only by an experiment toggle): its check and time are phases 3, 7
     for key, kernel, source, replaces in (
@@ -2015,6 +2217,12 @@ def main() -> int:
         kernels.append({"name": kernel, "route": "cuda",
                         "source": f"vit_ad_tpu_torch/csrc/{source}", "replaces": replaces,
                         "launches": esvit["launches"][key], **swin[key]})
+    # B7 also runs the DeiT blocks' first norm and the final norm
+    kernels[-1]["launches"] += (nf_launches["B7"] + fused["launches"]["B7"]
+                                + mdn["launches"]["B7"])
+    kernels[-1]["design"] = ("rows kernel: D = 8 LPR NV, 32 / LPR rows a warp, scale and bias "
+                             "in registers, the warps striding over the rows from D = 384 with "
+                             "the next group's loads in flight")
     kernels.append({"name": "mlp_block", "route": "cuda",
                     "source": "vit_ad_tpu_torch/csrc/mlp_block.cu",
                     "replaces": "vit_ad_tpu/ops/pallas/mlp.py:44",

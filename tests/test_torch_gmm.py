@@ -203,3 +203,74 @@ def test_backward_chunk_keeps_the_scratch_under_its_bound(rows, dtype, chunk):
     kc = cgmm.backward_chunk(rows, 768, 150, dtype)
     assert kc == chunk
     assert 2 * kc * rows * 768 * dtype.itemsize <= cgmm.SCRATCH_BYTES
+
+
+def test_component_major_staging_matches_the_jax_layout():
+    """B2 reads the biases [K, D] and log_pi [K, rows] component-major:
+    entry [k, e] of the staged bias is entry [e, k] of the JAX layout
+    (`linear_to_jax_layout`), entry [k, r] of the staged log_pi is log_pi[r, k];
+    the weights stay in the Linear layout, in the matmul type."""
+    r = np.random.default_rng(9)
+    d, k, rows = 64, 3, 5
+    w = [torch.from_numpy(r.standard_normal((d * k, d)).astype(np.float32)) for _ in range(2)]
+    b = [torch.from_numpy(r.standard_normal(d * k).astype(np.float32)) for _ in range(2)]
+    ops = cgmm.kernel_operands(w[0], b[0], w[1], b[1], torch.bfloat16)
+    for name, wt, bt in (("sigma", w[0], b[0]), ("mu", w[1], b[1])):
+        _, jax_b = cgmm.linear_to_jax_layout(wt, bt, k)
+        staged = ops[f"b_{name}_t"]
+        assert staged.shape == (k, d) and staged.dtype == torch.float32
+        assert staged.is_contiguous()
+        assert torch.equal(staged, jax_b.t())
+        for kk, e in ((0, 0), (2, 5), (1, d - 1)):
+            assert staged[kk, e] == bt[e * k + kk]
+        assert ops[f"w_{name}"].dtype == torch.bfloat16
+        assert torch.equal(ops[f"w_{name}"], wt.to(torch.bfloat16))
+    log_pi = torch.from_numpy(r.standard_normal((rows, k)).astype(np.float32))
+    staged = cgmm.component_major(log_pi)
+    assert staged.shape == (k, rows) and staged.is_contiguous()
+    assert torch.equal(staged, log_pi.t())
+    # f32 matmuls: the weights are the parameters themselves
+    f32 = cgmm.kernel_operands(w[0], b[0], w[1], b[1], torch.float32)
+    assert f32["w_sigma"].data_ptr() == w[0].data_ptr()
+
+
+@pytest.mark.parametrize("d", [64, 128, 192, 768, 1024, 1088, 2048, 4096])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_forward_route_covers_every_width_the_entry_takes(d, dtype):
+    """Every feature width the C entry takes (a multiple of 64) has a route:
+    the FMA kernel under f32, under bf16 the wgmma kernel with the block's x
+    rows resident in shared memory up to D = 1024 and streamed above."""
+    route = cgmm.forward_route(d, dtype)
+    if dtype == torch.float32:
+        assert route == "fma"
+    else:
+        assert route == ("wgmma_x_resident" if d <= cgmm.RESIDENT_X_MAX_D
+                         else "wgmma_x_streamed")
+
+
+@pytest.mark.parametrize("d,dtype,err", [
+    (48, torch.bfloat16, ValueError), (0, torch.bfloat16, ValueError),
+    (100, torch.float32, ValueError), (768, torch.float16, TypeError),
+])
+def test_forward_route_refuses_what_the_kernel_shape_check_refuses(d, dtype, err):
+    with pytest.raises(err):
+        cgmm.forward_route(d, dtype)
+    k = 2
+    x, lp = torch.zeros(1, 3, d), torch.zeros(1, 3, k)
+    w, b = torch.zeros(d * k, d), torch.zeros(d * k)
+    with pytest.raises(err):
+        cgmm.check_kernel_shape(x, lp, w, b, w, b, dtype)
+
+
+def test_cpu_path_ignores_prepared_operands():
+    """The plain version reads the heads it is given; staged kernel operands
+    (a frozen head's cache) change nothing on the CPU."""
+    a = _args(10, k=3)
+    ws, bs = _linear(a["w_sigma"], a["b_sigma"])
+    wm, bm = _linear(a["w_mu"], a["b_mu"])
+    lp = np.log(np.full((2, 5, 3), 1 / 3, dtype=np.float32))
+    args = (_t(a["x"]), _t(lp), _t(ws), _t(bs), _t(wm), _t(bm))
+    ops = cgmm.kernel_operands(*args[2:], torch.bfloat16)
+    got = cgmm.gmm_log_likelihood(*args, matmul_dtype=torch.bfloat16, operands=ops)
+    want = cgmm.gmm_log_likelihood(*args, matmul_dtype=torch.bfloat16)
+    assert torch.equal(got, want)

@@ -119,3 +119,28 @@ def test_kernel_shape_check_refuses(bad):
         else:
             ln.check_kernel_shape(x[:0], s, s)
     assert ln.check_kernel_shape(x, s, s) == 96
+
+
+@pytest.mark.parametrize("d", [96, 192, 384, 768, 1536, 64, 128, 2048])
+def test_swin_and_vit_widths_take_the_rows_kernel(d):
+    """The bf16 widths of the Swin-T norms (block 96-768, merges 384-1536)
+    and of the ViT blocks split as D = 8 LPR NV, so the rows kernel takes
+    them; f32 stays on one warp per row."""
+    assert ln.layer_norm_route(d, torch.bfloat16) == "rows"
+    assert ln.layer_norm_route(d, torch.float32) == "warp_per_row"
+
+
+def test_layer_norm_route_covers_every_width_the_entry_takes():
+    """Every D of 1..2048 has a route; the rows kernel exactly where D / 8
+    splits into LPR in {4, 8, 16, 32} lanes x NV in {1, 2, 3, 4, 6, 8}
+    vectors; outside the entry's range the route raises."""
+    rows = [d for d in range(1, ln.MAX_DIM + 1)
+            if ln.layer_norm_route(d, torch.bfloat16) == "rows"]
+    want = sorted({8 * lpr * nv for lpr in (4, 8, 16, 32) for nv in (1, 2, 3, 4, 6, 8)})
+    assert rows == want
+    assert ln.layer_norm_route(100, torch.bfloat16) == "warp_per_row"
+    assert ln.layer_norm_route(1000, torch.bfloat16) == "warp_per_row"
+    for d, dtype in ((0, torch.bfloat16), (ln.MAX_DIM + 8, torch.bfloat16),
+                     (96, torch.float16)):
+        with pytest.raises(ValueError):
+            ln.layer_norm_route(d, dtype)

@@ -159,3 +159,30 @@ def test_cli_score_mdn_matches_jax(mdn_slice, tmp_path, monkeypatch):
     assert [row[0] for row in rows] == r["files"]
     np.testing.assert_allclose([float(row[1]) for row in rows], r["want"].image_scores,
                                rtol=0, atol=ATOL)
+
+
+def test_kernel_operands_are_cached_while_the_head_is_frozen():
+    """`GaussianMDN.kernel_operands` (the bf16 heads and component-major
+    biases the GMM kernels take) is made once and reused while no gradient
+    flows, made again after an in-place update of a weight, and made per call
+    while gradients flow to the head (training casts per call)."""
+    head = GaussianMDN(64, 3, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        a = head.kernel_operands()
+        b = head.kernel_operands()
+        assert a is b and a["w_mu"].dtype == torch.bfloat16
+        assert torch.equal(a["w_mu"], head.mu.weight.to(torch.bfloat16))
+        head.mu.weight.add_(1.0)
+        c = head.kernel_operands()
+        assert c is not a
+        assert torch.equal(c["w_mu"], head.mu.weight.to(torch.bfloat16))
+        assert not torch.equal(c["w_mu"], a["w_mu"])
+        head.sigma.bias.mul_(2.0)
+        e = head.kernel_operands()
+        assert e is not c
+        assert torch.equal(e["b_sigma_t"], head.sigma.bias.reshape(64, 3).t())
+    d1, d2 = head.kernel_operands(), head.kernel_operands()
+    assert d1 is not d2 and d1 is not e
+    assert not d1["w_mu"].requires_grad
+    with torch.no_grad():
+        assert head.kernel_operands() is e

@@ -28,4 +28,23 @@ inline int raise_dynamic_smem(const void* kernel, size_t bytes, int device) {
   return 0;
 }
 
+// Blocks of `threads` threads and no dynamic shared memory that one SM of
+// `device` holds at once, for `kernel`: asked once per kernel and device.
+inline int resident_blocks(const void* kernel, int threads, int device, int* blocks) {
+  static std::mutex mutex;
+  static std::map<std::pair<const void*, int>, int> known;
+  std::lock_guard<std::mutex> lock(mutex);
+  const auto it = known.find({kernel, device});
+  if (it != known.end()) {
+    *blocks = it->second;
+    return 0;
+  }
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (*blocks < 1) *blocks = 1;
+  known[{kernel, device}] = *blocks;
+  return 0;
+}
+
 }  // namespace vitad_launch

@@ -68,9 +68,11 @@
 // 0.69 (the host's share of a call moves from run to run) and 2.820 ms for the
 // first version.
 // So the aim of 0.60 ms is met back to back and only just by events.
+// With the LayerNorm's rows kernel as k0 (0.0313 to 0.0316 ms back to back,
+// 2.5 of the card's 3.35 TB/s; 0.050 before) the half-block reads 0.41 to
+// 0.455 ms back to back on the same card.
 // What holds it now: k1's GELU runs on the special-function unit (two
-// operations an element) while the tensor cores wait, and k0 reads at 1.4 of
-// the card's 3.35 TB/s.
+// operations an element) while the tensor cores wait.
 //
 // f32 (the f32 numerics policy uses the erf GELU, so this is off the main
 // path): the first version's fused kernel, its sums by FMA (TF32 stays off),
@@ -79,13 +81,13 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "hopper_mma.cuh"
 #include "launch_common.cuh"
 #include "layer_norm_common.cuh"
+#include "tensor_map.cuh"
 
 namespace {
 
@@ -300,55 +302,18 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// Errors of the tensor-map set-up, told apart from CUDA runtime error codes.
-constexpr int kErrNoEncodeSymbol = 2001;
-constexpr int kErrEncodeBase = 3000;  // + the CUresult of the call
-
-// cuTensorMapEncodeTiled lives in libcuda, which this library does not link:
-// take it from the libcuda the process has loaded.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* libcuda = dlopen("libcuda.so.1", RTLD_LAZY);
-    return libcuda == nullptr
-               ? nullptr
-               : reinterpret_cast<EncodeTiled>(dlsym(libcuda, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
-}
-
-// Tensor map of a contiguous bf16 matrix [rows, cols] moved in boxes of
-// [box_rows, 64], 128-byte swizzle; a load brings zeros from outside the
-// matrix, a store writes nothing there.
-int encode_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return kErrNoEncodeSymbol;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {kBK, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t element_strides[2] = {1, 1};
-  const CUresult res =
-      encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
-             element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : kErrEncodeBase + static_cast<int>(res);
-}
-
 // out[m, n] = epilogue(a[m, k] . b[n, k]^T): the tensor maps are encoded per
 // call (they hold the base pointers) and passed to the kernel by value.
 template <int EPI>
 int launch(const void* a, const void* b, const float* bias, const void* resid, void* out, int m,
            int n, int k, int device, cudaStream_t stream) {
   CUtensorMap map_a, map_b, map_resid, map_out;
-  int err = encode_map(&map_a, a, m, k, kBM);
-  if (err == 0) err = encode_map(&map_b, b, n, k, kBN);
-  if (err == 0) err = encode_map(&map_out, out, m, n, 64);
+  int err = vitad_tma::encode_matrix(&map_a, a, m, k, kBM);
+  if (err == 0) err = vitad_tma::encode_matrix(&map_b, b, n, k, kBN);
+  if (err == 0) err = vitad_tma::encode_matrix(&map_out, out, m, n, 64);
   // without a residual the kernel never touches this map
-  if (err == 0) err = encode_map(&map_resid, EPI == kEpilogueResidual ? resid : out, m, n, 64);
+  if (err == 0)
+    err = vitad_tma::encode_matrix(&map_resid, EPI == kEpilogueResidual ? resid : out, m, n, 64);
   if (err != 0) return err;
   int sms = 0;
   cudaError_t cerr = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);

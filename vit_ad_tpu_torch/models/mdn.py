@@ -6,22 +6,24 @@ D→D*K (sigma = elu + 1 + 1e-15) and mu D→D*K. Parameters are the reference's
 `pi`/`sigma`/`mu` nn.Linear modules (reference
 src/classes/MixtureDensityNetwork.py:129-141), so
 `vit_ad_tpu/utils/torch_convert.export_mdn_head` output loads with
-strict=True; the GMM kernels read that layout in place.
+strict=True; the GMM kernels read that layout in place. The matmul-type
+copies of the sigma and mu heads that the kernels take are cached while the
+head is frozen (`kernel_operands`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from vit_ad_tpu_torch.config import DtypePolicy
-from vit_ad_tpu_torch.models.layers import trunc_normal_
+from vit_ad_tpu_torch.models.layers import ComputeWeights, trunc_normal_
 from vit_ad_tpu_torch.ops import gmm
-from vit_ad_tpu_torch.ops.cuda.gmm import gmm_log_likelihood
+from vit_ad_tpu_torch.ops.cuda.gmm import gmm_log_likelihood, kernel_operands
 
 
 class GaussianMDN(nn.Module):
@@ -34,6 +36,7 @@ class GaussianMDN(nn.Module):
         self.pi = nn.Linear(features, num_gaussians)
         self.sigma = nn.Linear(features, features * num_gaussians)
         self.mu = nn.Linear(features, features * num_gaussians)
+        self._kernel_operands = ComputeWeights()
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -53,6 +56,16 @@ class GaussianMDN(nn.Module):
         logits = F.linear(x.float(), self.pi.weight.float(), self.pi.bias.float())
         return gmm.mixture_log_weights(logits, generator, tau)
 
+    def kernel_operands(self) -> Dict[str, torch.Tensor]:
+        """The sigma and mu heads as the GMM kernels take them
+        (`ops/cuda/gmm.kernel_operands`: the weights in the compute dtype, the
+        biases component-major). Cached and made again only when a parameter
+        changed (storage or in-place version); while gradients flow to the
+        parameters they are made per call, as the JAX package casts per call."""
+        return self._kernel_operands.get(
+            self, self.dtypes, lambda cd: kernel_operands(self.sigma.weight, self.sigma.bias,
+                                                          self.mu.weight, self.mu.bias, cd))
+
     def log_likelihood(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                        tau: float = 1.0) -> torch.Tensor:
         """Per-feature log-likelihood [B,P,D]: the GMM kernels (B2, B3, B4)
@@ -60,7 +73,8 @@ class GaussianMDN(nn.Module):
         operands in the policy's compute dtype."""
         return gmm_log_likelihood(x.float(), self.log_pi(x, generator, tau), self.sigma.weight,
                                   self.sigma.bias, self.mu.weight, self.mu.bias,
-                                  self.dtypes.compute_dtype)
+                                  self.dtypes.compute_dtype,
+                                  self.kernel_operands() if x.is_cuda else None)
 
     def loss(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         return gmm.mdn_loss_from_log_likelihood(self.log_likelihood(x, generator))

@@ -8,7 +8,11 @@ so exported JAX weights and upstream timm checkpoints load with strict=True.
 Cast points follow `_block_apply` (:70-149): the residual stream is in the
 compute dtype, LayerNorm statistics run in f32 (eps 1e-6), the matmul weights
 run in the compute dtype and attention is the packed-qkv kernel
-(`ops/cuda/window_attention.vit_attention_qkv`). With `fused_mlp` (the default)
+(`ops/cuda/window_attention.vit_attention_qkv`). The blocks' first norm and
+the final norm are the one-pass LayerNorm kernel (`ops/cuda/layer_norm`: f32
+statistics on the compute-dtype rows, rounded once to the compute dtype, the
+function of `F.layer_norm` on the f32 cast and back in one pass; on the H100
+it is faster, PERF.md). With `fused_mlp` (the default)
 the MLP tail of a block is the kernel `ops/cuda/mlp.mlp_block` (JAX :117-128,
 there behind `VITAD_PALLAS_MLP=1`), taken only under tanh GELU and where
 `use_fused_mlp` admits the widths. The compute-dtype copies of the weights are
@@ -33,6 +37,7 @@ from vit_ad_tpu_torch.models.layers import (
     trunc_normal_,
 )
 from vit_ad_tpu_torch.models.outputs import EncoderOutput
+from vit_ad_tpu_torch.ops.cuda.layer_norm import layer_norm
 from vit_ad_tpu_torch.ops.cuda.mlp import mlp_block, use_fused_mlp
 from vit_ad_tpu_torch.ops.cuda.window_attention import vit_attention_qkv
 
@@ -76,7 +81,7 @@ def _block_apply(x: torch.Tensor, blk: Block, w: Dict[str, torch.Tensor], num_he
     tail through `mlp_block` when the GELU is the tanh one and the kernel
     takes the widths."""
     d = x.shape[-1]
-    y = F.layer_norm(x.float(), (d,), blk.norm1.weight, blk.norm1.bias, LN_EPS).to(cd)
+    y = layer_norm(x, blk.norm1.weight, blk.norm1.bias, LN_EPS)  # x is in cd
     qkv = F.linear(y, w["qkv_w"], w["qkv_b"])  # [B, N, 3D] packed
     out = vit_attention_qkv(qkv, num_heads).to(cd)
     x = x + F.linear(out, w["proj_w"], w["proj_b"])
@@ -183,8 +188,8 @@ class ViTEncoder(nn.Module):
         return {**{k: v.to(cd) for k, v in w.items()}, "blocks": blocks}
 
     def _final_norm(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), (self.embed_dim,), self.norm.weight, self.norm.bias,
-                            LN_EPS).to(self.dtypes.compute_dtype)
+        return layer_norm(x.to(self.dtypes.compute_dtype), self.norm.weight, self.norm.bias,
+                          LN_EPS)
 
     def forward(self, x: torch.Tensor, block_index: int = 0) -> EncoderOutput:
         cd = self.dtypes.compute_dtype

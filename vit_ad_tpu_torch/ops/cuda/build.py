@@ -106,16 +106,16 @@ ENTRY_POINTS = {
     # q, k, v, out, bias, mask, batch, n, heads, head_dim, row_stride, n_w,
     # defer_norm, is_bf16, scale, device, stream, route
     "swin_window_attention_forward": [_P] * 6 + [_I] * 8 + [ctypes.c_float, _I, _P, _ROUTE],
-    # x, scale, bias, out, rows, d, eps, is_bf16, device, stream
-    "layer_norm_forward": [_P] * 4 + [_I, _I, ctypes.c_float, _I, _I, _P],
+    # x, scale, bias, out, rows, d, eps, is_bf16, device, stream, route
+    "layer_norm_forward": [_P] * 4 + [_I, _I, ctypes.c_float, _I, _I, _P, _ROUTE],
     # x, norm_scale, norm_bias, w1, b1, w2, b2, out, y, hid, rows, d, hidden,
     # eps, is_bf16, device, stream, route
     "mlp_block_forward": [_P] * 10 + [_I] * 3 + [ctypes.c_float, _I, _I, _P, _ROUTE],
     # a, b, bias, resid, out, m, n, k, epilogue, device, stream
     "mlp_gemm_forward": [_P] * 5 + [_I] * 5 + [_P],
-    # x, log_pi, w_mu, w_sigma, b_mu, b_sigma, ll, rows, d, k, is_bf16,
-    # device, stream
-    "gmm_forward": [_P] * 7 + [_I] * 5 + [_P],
+    # x, x_m, log_pi_t, w_mu, w_sigma, b_mu_t, b_sigma_t, ll, rows, d, k,
+    # is_bf16, device, stream, route
+    "gmm_forward": [_P] * 8 + [_I] * 5 + [_P, _ROUTE],
     # x, log_pi, g, ll, w_mu, w_sigma, b_mu, b_sigma, k0, kc, dmu, dpre,
     # bmu_part, bsig_part, dlp_part, dmu_sum, rows, d, k, is_bf16, device,
     # stream

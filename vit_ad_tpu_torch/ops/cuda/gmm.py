@@ -17,12 +17,16 @@ cannot; for CPU tensors it runs the plain version,
 `ops/gmm.log_likelihood_from_log_pi`, whose autograd is the plain version of
 B3 and B4. Weights are taken in the reference nn.Linear layout
 ([D*K, D_in], row e*K + k = output feature e of component k), which the
-kernels read in place.
+kernels read in place. B2 takes the biases and log_pi component-major
+([K, D] and [K, rows], `component_major`) and, under bf16, x rounded to bf16
+beside the f32 x; `kernel_operands` makes the heads' part of that, which a
+frozen head caches (`models/mdn.GaussianMDN.kernel_operands`).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -35,8 +39,17 @@ from vit_ad_tpu_torch.ops.gmm import log_likelihood_from_log_pi
 fwd_launches = 0         # B2
 bwd_params_launches = 0  # B3
 bwd_x_launches = 0       # B4
+# B2 launches that the C entry reported as its bf16 wgmma kernel (either form
+# of `forward_route`), and the route the last launch reported.
+fwd_wgmma_launches = 0
+last_fwd_route: Optional[str] = None
 
 TILE = 64
+# B2's bf16 kernel keeps a block's x rows [64, D] in shared memory up to this
+# width and streams them beside the weights above it (csrc/gmm.cu).
+RESIDENT_X_MAX_D = 1024
+# What gmm_forward reports through its `route` out-parameter.
+_FWD_ROUTES = {1: "wgmma_x_resident", 2: "fma", 3: "wgmma_x_streamed"}
 # The backward keeps dmu/dpre of a chunk of components in device memory:
 # chunks are sized to stay under this many bytes.
 SCRATCH_BYTES = 1 << 30
@@ -84,6 +97,42 @@ def check_kernel_shape(x, log_pi, w_sigma, b_sigma, w_mu, b_mu,
     return rows, d, k
 
 
+def forward_route(d: int, matmul_dtype: torch.dtype) -> str:
+    """The kernel B2's C entry launches at feature width `d`: under bf16 the
+    wgmma kernel with the x rows resident in shared memory (D <= 1024) or
+    streamed with the weights, under f32 the FMA kernel. Raises for a width or
+    type the entry refuses."""
+    if matmul_dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"GMM kernels take bf16 or f32 matmuls, got {matmul_dtype}")
+    if d < TILE or d % TILE:
+        raise ValueError(f"GMM kernels take a feature width that is a multiple of {TILE}, "
+                         f"got {d}")
+    if matmul_dtype == torch.float32:
+        return "fma"
+    return "wgmma_x_resident" if d <= RESIDENT_X_MAX_D else "wgmma_x_streamed"
+
+
+def component_major(t: torch.Tensor) -> torch.Tensor:
+    """[n, K] → a contiguous f32 [K, n] copy: component k's column as a row,
+    the layout in which B2 reads the biases ([D, K] views of the Linear
+    layout's [D*K]) and log_pi ([rows, K])."""
+    return t.detach().float().t().contiguous()
+
+
+def kernel_operands(w_sigma: torch.Tensor, b_sigma: torch.Tensor, w_mu: torch.Tensor,
+                    b_mu: torch.Tensor, matmul_dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """The heads as B2 takes them, detached: both weight matrices in the
+    matmul type, Linear layout (what B3 and B4 read too), and both biases
+    component-major [K, D] (`component_major`)."""
+    from vit_ad_tpu_torch.ops.cuda.build import aligned_buffer
+
+    k = w_sigma.shape[0] // w_sigma.shape[1]
+    return {"w_sigma": aligned_buffer(w_sigma.detach(), matmul_dtype),
+            "w_mu": aligned_buffer(w_mu.detach(), matmul_dtype),
+            "b_sigma_t": component_major(b_sigma.reshape(-1, k)),
+            "b_mu_t": component_major(b_mu.reshape(-1, k))}
+
+
 def backward_chunk(rows: int, d: int, k: int, matmul_dtype: torch.dtype) -> int:
     """Components per chunk of the backward: dmu and dpre of a chunk stay
     under SCRATCH_BYTES."""
@@ -97,24 +146,38 @@ def _check(err: int, what: str) -> None:
 
 class _GmmLogLikelihood(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, log_pi, w_sigma, b_sigma, w_mu, b_mu, matmul_dtype):
-        global fwd_launches
+    def forward(ctx, x, log_pi, w_sigma, b_sigma, w_mu, b_mu, matmul_dtype, operands):
+        global fwd_launches, fwd_wgmma_launches, last_fwd_route
         from vit_ad_tpu_torch.ops.cuda.build import aligned_buffer, device_index, load_library
 
         rows, d, k = check_kernel_shape(x, log_pi, w_sigma, b_sigma, w_mu, b_mu, matmul_dtype)
+        want = forward_route(d, matmul_dtype)
+        if operands is None:
+            operands = kernel_operands(w_sigma, b_sigma, w_mu, b_mu, matmul_dtype)
+        ws, wm = operands["w_sigma"], operands["w_mu"]
+        if ws.dtype != matmul_dtype or wm.dtype != matmul_dtype:
+            raise TypeError(f"kernel operands are {ws.dtype}, the matmuls {matmul_dtype}")
         lib = load_library()
         f32 = torch.float32
         xr = aligned_buffer(x.reshape(rows, d), f32)
+        xm = aligned_buffer(xr, matmul_dtype) if matmul_dtype == torch.bfloat16 else None
         lpr = aligned_buffer(log_pi.reshape(rows, k), f32)
-        ws, wm = aligned_buffer(w_sigma, matmul_dtype), aligned_buffer(w_mu, matmul_dtype)
+        lpt = component_major(lpr)
         bs, bm = aligned_buffer(b_sigma, f32), aligned_buffer(b_mu, f32)
         ll = torch.empty((rows, d), dtype=torch.float32, device=x.device)
-        bf16 = int(matmul_dtype == torch.bfloat16)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        _check(lib.gmm_forward(xr.data_ptr(), lpr.data_ptr(), wm.data_ptr(), ws.data_ptr(),
-                               bm.data_ptr(), bs.data_ptr(), ll.data_ptr(), rows, d, k, bf16,
-                               device_index(x), stream), "gmm_forward")
+        route = ctypes.c_int(0)
+        _check(lib.gmm_forward(xr.data_ptr(), None if xm is None else xm.data_ptr(),
+                               lpt.data_ptr(), wm.data_ptr(), ws.data_ptr(),
+                               operands["b_mu_t"].data_ptr(), operands["b_sigma_t"].data_ptr(),
+                               ll.data_ptr(), rows, d, k, int(matmul_dtype == torch.bfloat16),
+                               device_index(x), torch.cuda.current_stream(x.device).cuda_stream,
+                               ctypes.byref(route)), "gmm_forward")
+        last_fwd_route = _FWD_ROUTES.get(route.value)
+        if last_fwd_route != want:
+            raise RuntimeError(f"gmm_forward launched route {route.value} "
+                               f"({last_fwd_route}), expected {want}")
         fwd_launches += 1
+        fwd_wgmma_launches += want != "fma"
         ctx.save_for_backward(xr, lpr, ws, bs, wm, bm, ll)
         ctx.shapes = (x.shape, log_pi.shape, x.dtype)
         ctx.matmul_dtype = matmul_dtype
@@ -173,20 +236,24 @@ class _GmmLogLikelihood(torch.autograd.Function):
         dlp = dlp_part.sum(0).reshape(lp_shape)
         dbm = bmu_part.sum(0).t().reshape(d * k)
         dbs = bsig_part.sum(0).t().reshape(d * k)
-        return dx, dlp, dws, dbs, dwm, dbm, None
+        return dx, dlp, dws, dbs, dwm, dbm, None, None
 
 
 def gmm_log_likelihood(x: torch.Tensor, log_pi: torch.Tensor, w_sigma: torch.Tensor,
                        b_sigma: torch.Tensor, w_mu: torch.Tensor, b_mu: torch.Tensor,
-                       matmul_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                       matmul_dtype: torch.dtype = torch.float32,
+                       operands: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
     """Differentiable per-feature log-likelihood [B,P,D] from features x
     [B,P,D] and log mixture weights [B,P,K], with Linear-layout heads
     (w [D*K, D], b [D*K]). Matmul operands are rounded to `matmul_dtype`
     (bf16 on the tensor cores, f32 accumulation; or f32), the density math is
     f32. The Hopper kernels on CUDA tensors, the plain version on CPU
-    tensors."""
+    tensors. `operands`: `kernel_operands` of these heads made beforehand (a
+    frozen head's cached copy); made per call when None; the plain version
+    does not read it."""
     if x.device.type == "cuda":
-        return _GmmLogLikelihood.apply(x, log_pi, w_sigma, b_sigma, w_mu, b_mu, matmul_dtype)
+        return _GmmLogLikelihood.apply(x, log_pi, w_sigma, b_sigma, w_mu, b_mu, matmul_dtype,
+                                       operands)
     if x.device.type == "cpu":
         return gmm_log_likelihood_reference(x, log_pi, w_sigma, b_sigma, w_mu, b_mu,
                                             matmul_dtype)

@@ -14,14 +14,24 @@ VJP does (:144-147): the TPU kernel had no backward kernel either.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 # Kernel launches made by `layer_norm` (a plain count, read by chip_smoke.py
-# to show that the main path went through the kernel).
+# to show that the main path went through the kernel), and those the C entry
+# reported as the rows kernel (`layer_norm_route`).
 launches = 0
+rows_launches = 0
 
 MAX_DIM = 2048
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+# What layer_norm_forward reports through its `route` out-parameter.
+_ROUTES = {1: "rows", 2: "warp_per_row"}
+# The rows kernel's forms: D = 8 LPR NV, LPR lanes per row, NV 16-byte vectors
+# per lane (csrc/layer_norm_common.cuh `dispatch_rows`).
+_ROWS_LANES, _ROWS_VECTORS = (4, 8, 16, 32), (1, 2, 3, 4, 6, 8)
 
 
 def layer_norm_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -51,24 +61,53 @@ def check_kernel_shape(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor)
     return d
 
 
+@functools.lru_cache(maxsize=None)
+def layer_norm_route(d: int, dtype: torch.dtype) -> str:
+    """The kernel the C entry launches for contiguous, 16-byte aligned rows
+    of width `d`: bf16 rows whose D / 8 vectors split as LPR lanes x NV
+    vectors ("rows": several rows a warp, D < 384 included), else one warp
+    per row ("warp_per_row": f32, and bf16 widths without such a split)."""
+    if dtype not in _KERNEL_DTYPES or not 1 <= d <= MAX_DIM:
+        raise ValueError(f"layer_norm kernel takes bf16 or f32 with 1 <= D <= {MAX_DIM}, got "
+                         f"{dtype} and D={d}")
+    if dtype == torch.bfloat16 and d % 8 == 0 and any(
+            (d // 8) % nv == 0 and (d // 8) // nv in _ROWS_LANES for nv in _ROWS_VECTORS):
+        return "rows"
+    return "warp_per_row"
+
+
 def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
-    global launches
-    from vit_ad_tpu_torch.ops.cuda.build import device_index, load_library
+    global launches, rows_launches
+    from vit_ad_tpu_torch.ops.cuda.build import aligned_buffer, device_index, load_library
 
     d = check_kernel_shape(x, scale, bias)
-    x = x.contiguous()
+    x = aligned_buffer(x, x.dtype)
     scale = scale.to(device=x.device, dtype=torch.float32).contiguous()
     bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
     out = torch.empty_like(x)
+    route = ctypes.c_int(0)
     err = load_library().layer_norm_forward(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), x.numel() // d, d,
         float(eps), int(x.dtype == torch.bfloat16), device_index(x),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        torch.cuda.current_stream(x.device).cuda_stream, ctypes.byref(route),
     )
     if err:
         raise RuntimeError(f"layer_norm kernel launch failed: CUDA error {err}")
+    took, want = _ROUTES.get(route.value), layer_norm_route(d, x.dtype)
+    if took != want:
+        raise RuntimeError(f"layer_norm launched route {route.value} ({took}), expected {want}")
     launches += 1
+    rows_launches += took == "rows"
     return out
+
+
+def _forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+             eps: float) -> torch.Tensor:
+    if x.device.type == "cuda":
+        return _launch(x, scale, bias, eps)
+    if x.device.type == "cpu":
+        return layer_norm_reference(x, scale, bias, eps)
+    raise RuntimeError(f"layer_norm has no path for device {x.device}")
 
 
 class _LayerNorm(torch.autograd.Function):
@@ -76,11 +115,7 @@ class _LayerNorm(torch.autograd.Function):
     def forward(ctx, x, scale, bias, eps):
         ctx.save_for_backward(x, scale, bias)
         ctx.eps = eps
-        if x.device.type == "cuda":
-            return _launch(x, scale, bias, eps)
-        if x.device.type == "cpu":
-            return layer_norm_reference(x, scale, bias, eps)
-        raise RuntimeError(f"layer_norm has no path for device {x.device}")
+        return _forward(x, scale, bias, eps)
 
     @staticmethod
     def backward(ctx, grad):
@@ -94,5 +129,9 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
     """Differentiable one-pass LayerNorm over the last dim, in x's dtype: the
     Hopper kernel on CUDA tensors, the plain version on CPU tensors, backward
-    by recomputation through the plain version."""
-    return _LayerNorm.apply(x, scale, bias, eps)
+    by recomputation through the plain version. Where no gradient is wanted
+    the autograd node is skipped (its host time is a short kernel's own)."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        return _LayerNorm.apply(x, scale, bias, eps)
+    return _forward(x, scale, bias, eps)
