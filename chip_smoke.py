@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --against <another checkout>   # kernels A/B, `against`
+    python3 chip_smoke.py --gmm-backward-ab <checkout> ...   # B3 terms, B4 A/B
 
 Drives the port's main paths at full width, bf16 compute, through the port's
 CLIs, after building and checking the hand-written kernels: on a DeiT-base/16
@@ -20,7 +21,9 @@ score a folder with them). Phases:
   3. kernels  each kernel against its plain PyTorch version on the card:
               ViT attention (B1), GMM forward (B2; also at the edges of its
               bf16 kernel, `GMM_FWD_EDGES`, each asserting the route the C
-              entry reported), its parameter and feature backwards (B3, B4),
+              entry reported), its parameter and feature backwards (B3, B4;
+              also at the edges of their bf16 kernels, `GMM_BWD_EDGES`, and
+              without dx, each asserting the routes the C entries reported),
               Swin window attention from packed and from split inputs (B5,
               B5a; also at the edges of its three forms, `WINDOW_EDGES`),
               one-pass LayerNorm (B7, each case asserting its route), fused
@@ -57,8 +60,8 @@ score a folder with them). Phases:
               norms on B7 and on the f32 cast), MDN, EsViT NF (fused LayerNorm
               off and on) and ResNet MDN uint8→scores img/s at batch 128; the
               MDN, NF and joint ResNet MDN (K=100, 150) train steps; where the
-              device time of a DeiT NF and of an EsViT batch goes
-              (torch.profiler)
+              device time of a DeiT NF batch, an EsViT batch and a ResNet joint
+              step (K=100) goes (torch.profiler)
  10. result   a kernels JSON line, the nvidia-smi line, and last the
               {"ok": true, "device": ...} line
 
@@ -128,14 +131,30 @@ GMM_FWD_EDGES = [(1, 768, 2, "bfloat16"), (63, 768, 2, "bfloat16"), (65, 768, 2,
                  (100, 128, 2, "bfloat16"), (100, 192, 151, "bfloat16"),
                  (333, 1024, 3, "bfloat16"), (333, 1088, 3, "bfloat16"),
                  (65, 64, 151, "float32"), (129, 192, 2, "float32")]
-# backward: one chunk of components at 392 and 200 rows; the train step's
-# 16 x 196 rows take 2 chunks under bf16 and 3 under f32 (ops/cuda/gmm.py
-# `backward_chunk`), which run k0 > 0 and carry the dx sum across chunks
-GMM_BWD_CASES = [(392, 768, 150, "bfloat16"), (392, 768, 150, "float32"),
-                 (200, 1024, 8, "bfloat16"), (200, 2048, 4, "float32"),
-                 (3136, 768, 150, "bfloat16"), (3136, 768, 150, "float32"),
-                 # the ResNet-50 heads' train step: 2 chunks at D=1024, 1 at D=2048
-                 (3136, 1024, 100, "bfloat16"), (784, 2048, 100, "bfloat16")]
+# backward, (rows, D, K, dtype, dx wanted): one chunk of components at 392
+# and 200 rows; the train step's 16 x 196 rows take 2 chunks under bf16 and 3
+# under f32 (ops/cuda/gmm.py `backward_chunk`), which run k0 > 0 and carry
+# the dx sum across chunks; the frozen-trunk trainers want no dx
+GMM_BWD_CASES = [(392, 768, 150, "bfloat16", True), (392, 768, 150, "float32", True),
+                 (200, 1024, 8, "bfloat16", True), (200, 2048, 4, "float32", True),
+                 (3136, 768, 150, "bfloat16", True), (3136, 768, 150, "float32", True),
+                 (392, 768, 150, "bfloat16", False), (3136, 768, 150, "bfloat16", False),
+                 # the ResNet-50 heads' train step: 2 chunks at D=1024, 1 at D=2048,
+                 # B4 in 5 and 7 split partials a chunk on 132 SMs (`gmm.dx_splits`)
+                 (3136, 1024, 100, "bfloat16", True), (784, 2048, 100, "bfloat16", True)]
+# B3 and B4 at the edges of their bf16 kernels: 64-row blocks filled by one row,
+# one row short of a block, one over one and two blocks (B4's 128-row tiles
+# too); widths of one, two and three 64-feature groups (D = 64 and 192: the
+# last block of the terms kernel has one consumer warpgroup, the last
+# 128-wide GEMM tile one box); the widest width whose x rows stay in shared
+# memory (1024) and the narrowest streamed one (1088); K = 1; and, under f32,
+# the first kernels at the same edges
+GMM_BWD_EDGES = [(1, 768, 2, "bfloat16", True), (63, 768, 2, "bfloat16", True),
+                 (65, 768, 2, "bfloat16", True), (129, 768, 2, "bfloat16", True),
+                 (100, 64, 3, "bfloat16", True), (100, 128, 3, "bfloat16", True),
+                 (100, 192, 3, "bfloat16", True), (333, 1024, 3, "bfloat16", True),
+                 (333, 1088, 3, "bfloat16", True), (100, 768, 1, "bfloat16", True),
+                 (65, 64, 3, "float32", True), (129, 192, 2, "float32", True)]
 # the MDN main path: K=150 (startTraining_mdn.py:33) on DeiT-base, D=768
 MDN_K, MDN_TRAIN, MDN_TEST, MDN_EPOCHS, MDN_BATCH, MDN_SCORE_BATCH = 150, 32, 4, 3, 16, 4
 MDN_TIMED_RUNS = 3
@@ -312,25 +331,29 @@ def check_gmm_forward(rows: int, d: int, k: int, dt: str, gen, dev) -> float:
     return err
 
 
-def check_gmm_backward(rows: int, d: int, k: int, dt: str, gen, dev) -> float:
-    """B3 (log_pi, weight and bias gradients) and B4 (dx, x requiring grad)
-    against autograd of the plain version; returns the largest relative
-    error."""
+def check_gmm_backward(rows: int, d: int, k: int, dt: str, want_dx: bool, gen, dev) -> float:
+    """B3 (log_pi, weight and bias gradients) and, with `want_dx` (x requiring
+    grad), B4 against autograd of the plain version; asserts the routes the C
+    entries reported; returns the largest relative error."""
     import torch
     from vit_ad_tpu_torch.ops.cuda import gmm as cgmm
 
     dtype = getattr(torch, dt)
     chunks = -(-k // cgmm.backward_chunk(rows, d, k, dtype))
-    args = [t.requires_grad_(True) for t in gmm_inputs(rows, d, k, gen, dev)]
+    args = gmm_inputs(rows, d, k, gen, dev)
+    args = [t.requires_grad_(i > 0 or want_dx) for i, t in enumerate(args)]
+    wrt = args if want_dx else args[1:]
     c = torch.randn(1, rows, d, device=dev, generator=gen)
-    names = ("x", "log_pi", "w_sigma", "b_sigma", "w_mu", "b_mu")
-    before = (cgmm.bwd_params_launches, cgmm.bwd_x_launches)
-    got = torch.autograd.grad((cgmm.gmm_log_likelihood(*args, matmul_dtype=dtype) * c).sum(),
-                              args)
-    launched = (cgmm.bwd_params_launches - before[0], cgmm.bwd_x_launches - before[1])
+    names = ("x", "log_pi", "w_sigma", "b_sigma", "w_mu", "b_mu")[0 if want_dx else 1:]
+    counts = lambda: (cgmm.bwd_params_launches, cgmm.bwd_x_launches,
+                      cgmm.bwd_wgmma_params_launches, cgmm.bwd_wgmma_x_launches)
+    before = counts()
+    got = torch.autograd.grad((cgmm.gmm_log_likelihood(*args, matmul_dtype=dtype) * c).sum(), wrt)
+    launched = tuple(a - b for a, b in zip(counts(), before))
     want = torch.autograd.grad(
-        (cgmm.gmm_log_likelihood_reference(*args, matmul_dtype=dtype) * c).sum(), args)
+        (cgmm.gmm_log_likelihood_reference(*args, matmul_dtype=dtype) * c).sum(), wrt)
     torch.cuda.synchronize()
+    routes = cgmm.backward_routes(d, dtype)
     worst = 0.0
     for name, g, w in zip(names, got, want):
         rel = ((g - w).abs().max() / w.abs().max()).item()
@@ -340,10 +363,16 @@ def check_gmm_backward(rows: int, d: int, k: int, dt: str, gen, dev) -> float:
               f"(tol {GRAD_RTOL[dt]:.0e})")
         if not (math.isfinite(rel) and rel <= GRAD_RTOL[dt]):
             raise AssertionError(f"GMM backward kernel disagrees on d{name}: {rel}")
-    # per chunk: B3's terms and weights kernels, B4's dx kernel
-    if launched != (2 * chunks, chunks):
-        raise AssertionError(f"GMM backward launched (B3, B4) {launched}, expected "
-                             f"{(2 * chunks, chunks)}")
+    # per chunk: B3's terms and weights entries, B4's dx entry when dx is wanted
+    bf16 = int(dt == "bfloat16")
+    expect = (2 * chunks, chunks * want_dx, 2 * chunks * bf16, chunks * want_dx * bf16)
+    reported = {key: cgmm.last_bwd_routes[key] for key in ("terms", "weights")
+                + (("x",) if want_dx else ())}
+    print(f"  routes reported {reported}, expected {routes}; launches (B3, B4, B3 wgmma, "
+          f"B4 wgmma) {launched}, expected {expect}")
+    if launched != expect or any(routes[key] != v for key, v in reported.items()):
+        raise AssertionError(f"GMM backward launched {launched} through {reported}, expected "
+                             f"{expect} through {routes}")
     return worst
 
 
@@ -881,7 +910,10 @@ def print_device_profile(what: str, fn, card: str, batches: int = 3, top: int = 
     wall_ms = (time.perf_counter() - start) * 1e3 / batches
     kernels = {}
     for event in prof.events():
-        if event.device_type == torch.autograd.DeviceType.CUDA:
+        # a user range on the device's timeline (the optimizer's step) spans
+        # kernels that are counted themselves
+        if event.device_type == torch.autograd.DeviceType.CUDA and \
+                not getattr(event, "is_user_annotation", False):
             us = getattr(event, "device_time", None)
             us = event.cuda_time if us is None else us
             ms, count = kernels.get(event.name, (0.0, 0))
@@ -965,6 +997,7 @@ def reset_launches() -> None:
     wa.launches = cgmm.fwd_launches = cgmm.bwd_params_launches = cgmm.bwd_x_launches = 0
     wa.window_launches = wa.split_launches = ln.launches = cmlp.launches = 0
     cgmm.fwd_wgmma_launches = ln.rows_launches = 0
+    cgmm.bwd_wgmma_params_launches = cgmm.bwd_wgmma_x_launches = 0
     wa.one_pass_launches = cmlp.wgmma_launches = 0
     wa.window_one_pass_launches = wa.split_one_pass_launches = 0
 
@@ -1042,10 +1075,12 @@ def mdn_main_path(tmp: str) -> dict:
     print(f"cli.train_mdn.main rc={rc} in {wall:.2f} s ({ep} epochs x {n_tr} train + {n_va} "
           f"valid batches of {MDN_BATCH}, {n_te} test batch; {chunks} backward chunks): "
           f"launches {train}, expected {expect}; B2 through the wgmma kernel "
-          f"{cgmm.fwd_wgmma_launches}")
-    if rc != 0 or train != expect or cgmm.fwd_wgmma_launches != expect["B2"]:
-        raise AssertionError("the MDN training path did not launch B2 (each through the wgmma "
-                             "kernel) and B3 on every step (and B4 on none)")
+          f"{cgmm.fwd_wgmma_launches}, B3 through its wgmma kernels "
+          f"{cgmm.bwd_wgmma_params_launches}")
+    if rc != 0 or train != expect or cgmm.fwd_wgmma_launches != expect["B2"] or \
+            cgmm.bwd_wgmma_params_launches != expect["B3"]:
+        raise AssertionError("the MDN training path did not launch B2 and B3 on every step, "
+                             "each through its wgmma kernels (and B4 on none)")
     metrics = hist["metrics"]
     if not all(math.isfinite(v) for v in hist["train_loss"] + hist["valid_loss"]) or \
             not all(math.isfinite(v) for v in metrics.values()):
@@ -1379,12 +1414,15 @@ def resnet_main_path(tmp: str) -> dict:
               "B3": steps * 2 * sum(chunks), "B4": steps * sum(chunks)}
     print(f"cli.train_mdn.main -m res_net rc={rc} in {wall:.2f} s ({ep} epochs x {n_tr} train + "
           f"{n_va} valid batches of {RESNET_BATCH}, {n_te} test batch; backward chunks "
-          f"{chunks} at D=1024, 2048): launches {train}, expected {expect}; B2 through the "
-          f"wgmma kernel {cgmm.fwd_wgmma_launches}")
+          f"{chunks} at D=1024, 2048): launches {train}, expected {expect}; through the "
+          f"wgmma kernels B2 {cgmm.fwd_wgmma_launches}, B3 {cgmm.bwd_wgmma_params_launches}, "
+          f"B4 {cgmm.bwd_wgmma_x_launches}")
     if rc != 0 or train != expect or ep != RESNET_EPOCHS or \
-            cgmm.fwd_wgmma_launches != expect["B2"]:
+            cgmm.fwd_wgmma_launches != expect["B2"] or \
+            cgmm.bwd_wgmma_params_launches != expect["B3"] or \
+            cgmm.bwd_wgmma_x_launches != expect["B4"]:
         raise AssertionError("the ResNet MDN training path did not launch B2, B3 and B4 for "
-                             "both heads on every step")
+                             "both heads on every step, each through its wgmma kernels")
     if not all(math.isfinite(v) for v in hist["train_loss"] + hist["valid_loss"]) or \
             not all(math.isfinite(v) for v in hist["metrics"].values()):
         raise AssertionError(f"non-finite losses or metrics: {hist}")
@@ -1662,6 +1700,32 @@ def vit_norm_ab(nf_pth: str, deit_pth: str, images, card: str) -> None:
           f"max rel diff {drift:.3e} (bf16 roundings)")
 
 
+def resnet_joint_step(k: int, images):
+    """The ResNet-50 joint train step at batch RESNET_BATCH with two fresh
+    K=`k` stage heads (seeded) and the stage norms under Adam: (step,
+    encoder, heads, optimizer)."""
+    import torch
+    from vit_ad_tpu_torch.config import HyperParams
+    from vit_ad_tpu_torch.data.dataset import default_norm_stats
+    from vit_ad_tpu_torch.models.mdn import GaussianMDN
+    from vit_ad_tpu_torch.pipeline.optimizers import torch_adam
+    from vit_ad_tpu_torch.pipeline.train import default_encoder, mdn_resnet_train_step
+
+    dev = torch.device("cuda")
+    mean, std = (torch.as_tensor(a, device=dev) for a in default_norm_stats())
+    hp = HyperParams(model_name="enc_res_net", img_size=224)
+    batch = images[:RESNET_BATCH]
+    valid = torch.ones(RESNET_BATCH, device=dev)
+    encoder = default_encoder(hp).to(dev)
+    with torch.device(dev):
+        init = torch.Generator(device=dev).manual_seed(hp.seed)
+        heads = torch.nn.ModuleList(GaussianMDN(d, k, generator=init) for d, _ in RESNET_HEADS)
+    opt = torch_adam(list(heads.parameters()) + list(encoder.norms.parameters()), 7e-4, 7e-4)
+    noise = torch.Generator(device=dev).manual_seed(0)
+    step = lambda: mdn_resnet_train_step(encoder, heads, opt, batch, valid, noise, mean, std)
+    return step, encoder, heads, opt
+
+
 def resnet_times(resnet: dict, images, card: str, gen) -> dict:
     """Phase 9, ResNet part: the joint train step (frozen trunk forward, two
     heads' B2 + B3 + B4, stage norms, Adam) at batch 16 with K=100 and K=150:
@@ -1670,34 +1734,20 @@ def resnet_times(resnet: dict, images, card: str, gen) -> dict:
     trained K=100 heads. Returns the per-shape JSON numbers of B2-B4."""
     import numpy as np
     import torch
-    from vit_ad_tpu_torch.config import HyperParams
     from vit_ad_tpu_torch.data.dataset import default_norm_stats
     from vit_ad_tpu_torch.data.loader import preprocess
-    from vit_ad_tpu_torch.models.mdn import GaussianMDN
     from vit_ad_tpu_torch.pipeline.eval import make_mdn_resnet_batch_fn
     from vit_ad_tpu_torch.pipeline.loading import build_pth_resnet_mdn_models
-    from vit_ad_tpu_torch.pipeline.optimizers import torch_adam
-    from vit_ad_tpu_torch.pipeline.train import default_encoder, mdn_resnet_train_step
     from vit_ad_tpu_torch.scoring import payload_to_scores
 
     dev = torch.device("cuda")
     mean, std = (torch.as_tensor(a, device=dev) for a in default_norm_stats())
-    hp = HyperParams(model_name="enc_res_net", img_size=224)
     batch = images[:RESNET_BATCH]
-    valid = torch.ones(RESNET_BATCH, device=dev)
     per_shape = []
     for k in RESNET_TIMED_KS:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        encoder = default_encoder(hp).to(dev)
-        with torch.device(dev):
-            init = torch.Generator(device=dev).manual_seed(hp.seed)
-            heads = torch.nn.ModuleList(GaussianMDN(d, k, generator=init)
-                                        for d, _ in RESNET_HEADS)
-        opt = torch_adam(list(heads.parameters()) + list(encoder.norms.parameters()),
-                         7e-4, 7e-4)
-        noise = torch.Generator(device=dev).manual_seed(0)
-        step = lambda: mdn_resnet_train_step(encoder, heads, opt, batch, valid, noise, mean, std)
+        step, encoder, heads, opt = resnet_joint_step(k, images)
         before = read_launches()
         loss = step()
         after = read_launches()
@@ -1788,6 +1838,39 @@ def gmm_forward_args(entries: dict, t: dict, rows: int, d: int, k: int) -> list:
             t["b_sigma_t"].data_ptr(), t["ll"].data_ptr(), rows, d, k, 1, 0]
 
 
+def checkout_module(root: str, rel: str, name: str):
+    """The Python file <root>/<rel> of another checkout as a module named
+    `name`, or None where that checkout has no such file."""
+    import importlib.util
+
+    path = os.path.join(root, rel)
+    if not os.path.exists(path):
+        return None
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def load_checkout(root, who: str):
+    """(library, ENTRY_POINTS) of the checkout at `root` (None: this one),
+    its kernels built from its csrc by its own ops/cuda/build.py."""
+    import ctypes
+
+    from vit_ad_tpu_torch.ops.cuda import build
+
+    mod = build if root is None else checkout_module(
+        root, os.path.join("vit_ad_tpu_torch", "ops", "cuda", "build.py"), f"{who}_build")
+    t0 = time.perf_counter()
+    lib = ctypes.CDLL(str(mod.build()))
+    for entry, argtypes in mod.ENTRY_POINTS.items():
+        getattr(lib, entry).argtypes = argtypes
+        getattr(lib, entry).restype = ctypes.c_int
+    print(f"{who}: built and loaded {mod.library_path().name} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return lib, mod.ENTRY_POINTS
+
+
 def against(parent: str) -> int:
     """`python3 chip_smoke.py --against <checkout>`: every kernel entry point of
     the checkout at <checkout> (built from its csrc by its own
@@ -1797,15 +1880,14 @@ def against(parent: str) -> int:
     the mask, B5a at stage 0, B1 at DeiT-base B=128, B6 at [25344,768] H=3072,
     B7 at the four Swin-T block norms and B6's LayerNorm step (beside
     `F.layer_norm` on the same bf16 rows, before and after the turns), B2 bf16
-    at `GMM_PATH_SHAPES`. Prints ms per call, the bound, and the change's
+    at `GMM_PATH_SHAPES`, and B3 and B4 bf16 at `GMM_BWD_PATH_SHAPES`
+    (`gmm_backward_against`). Prints ms per call, the bound, and the change's
     largest difference from the parent's output."""
     import ctypes
-    import importlib.util
 
     import torch
     import torch.nn.functional as F
     from vit_ad_tpu_torch.ops import window_attention as wops
-    from vit_ad_tpu_torch.ops.cuda import build
     from vit_ad_tpu_torch.ops.cuda import gmm as cgmm
     from vit_ad_tpu_torch.ops.cuda import window_attention as wa
 
@@ -1813,20 +1895,7 @@ def against(parent: str) -> int:
         sys.exit("chip_smoke.py --against: torch.cuda.is_available() is False")
     card = card_line()
     print(card, flush=True)
-    spec = importlib.util.spec_from_file_location(
-        "parent_build", os.path.join(parent, "vit_ad_tpu_torch", "ops", "cuda", "build.py"))
-    parent_build = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(parent_build)
-    libs = {}
-    for who, mod in (("parent", parent_build), ("change", build)):
-        t0 = time.perf_counter()
-        lib = ctypes.CDLL(str(mod.build()))
-        for entry, argtypes in mod.ENTRY_POINTS.items():
-            getattr(lib, entry).argtypes = argtypes
-            getattr(lib, entry).restype = ctypes.c_int
-        libs[who] = (lib, mod.ENTRY_POINTS)
-        print(f"{who}: built and loaded {mod.library_path().name} in "
-              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    libs = {who: load_checkout(root, who) for who, root in (("parent", parent), ("change", None))}
 
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1950,6 +2019,244 @@ def against(parent: str) -> int:
                 line += (f", {tflops(times['parent']):.1f} / {tflops(times['change']):.1f} "
                          f"TFLOP/s parent / change (the change at {share:.3f} of the bound)")
         print(line, flush=True)
+    gmm_backward_against(libs, card, gen, stream)
+    return 0
+
+
+# B3 and B4 on the main paths, (what, rows, D, K): the DeiT MDN train step at
+# B=64 (B4 is off that path: timed for comparison) and the ResNet-50 stage
+# heads of a 16-image joint step
+GMM_BWD_PATH_SHAPES = [("DeiT MDN train B=64", 12544, 768, 150),
+                       ("ResNet stage 2, 16 images", 3136, 1024, 100),
+                       ("ResNet stage 3, 16 images", 784, 2048, 100)]
+
+
+def gmm_backward_calls(lib, entries, t: dict, o: dict, rows: int, d: int, k: int, kc: int,
+                       sms: int, stream, with_sum: bool, dx_splits=None):
+    """The backward's entry calls of one checkout, per chunk as its wrapper
+    makes them: (terms, weights, x) lists of argument-bound calls. A checkout
+    whose entries take no route (the first kernels) takes log_pi [rows, K] and
+    the Linear-layout biases; this form the component-major ones, x_m, and B4's
+    split count and partials. `t` holds the inputs in both layouts, `o` this
+    checkout's outputs and scratch; `kc` components a chunk, `sms` SMs;
+    `dx_splits` that checkout's split rule (default: this one's)."""
+    import ctypes
+
+    from vit_ad_tpu_torch.ops.cuda import gmm as cgmm
+
+    first_form = entries["gmm_backward_terms"][-1] is not ctypes.POINTER(ctypes.c_int)
+    route = ctypes.c_int(0)
+    p = lambda name: None if name is None else (t.get(name) if name in t else o[name]).data_ptr()
+    dmu_sum = "dmu_sum" if with_sum else None
+
+    def bind(entry, args):
+        fn = getattr(lib, entry)
+        tail = (stream,) if first_form else (stream, ctypes.byref(route))
+
+        def run():
+            err = fn(*args, *tail)
+            if err:
+                raise RuntimeError(f"{entry} failed: error {err}")
+        return run
+
+    terms, weights, dx = [], [], []
+    for k0 in range(0, k, kc):
+        n = min(kc, k - k0)
+        first, last = int(k0 == 0), int(k0 + n >= k)
+        if first_form:
+            terms.append(bind("gmm_backward_terms", [
+                p("x"), p("log_pi"), p("g"), p("ll"), p("w_mu"), p("w_sigma"), p("b_mu"),
+                p("b_sigma"), k0, n, p("dmu"), p("dpre"), p("bmu_part"), p("bsig_part"),
+                p("dlp_part"), p(dmu_sum), rows, d, k, 1, 0]))
+            weights.append(bind("gmm_backward_weights", [
+                p("x"), p("dmu"), p("dpre"), p("dwm"), p("dws"), k0, n, rows, d, k, 1, 0]))
+            dx.append(bind("gmm_backward_x", [
+                p("dmu"), p("dpre"), p("w_mu"), p("w_sigma"), p("dmu_sum"), p("dx"), k0, n,
+                first, last, rows, d, k, 1, 0]))
+        else:
+            splits = (dx_splits or cgmm.dx_splits)(rows, d, n, sms)
+            terms.append(bind("gmm_backward_terms", [
+                p("x"), p("x_m"), p("log_pi_t"), p("g"), p("ll"), p("w_mu"), p("w_sigma"),
+                p("b_mu_t"), p("b_sigma_t"), k0, n, p("dmu"), p("dpre"), p("bmu_part"),
+                p("bsig_part"), p("dlp_part"), p(dmu_sum), rows, d, k, 1, 0]))
+            weights.append(bind("gmm_backward_weights", [
+                p("x"), p("x_m"), p("dmu"), p("dpre"), p("dwm"), p("dws"), k0, n, rows, d, k, 1,
+                0]))
+            dx.append(bind("gmm_backward_x", [
+                p("dmu"), p("dpre"), p("w_mu"), p("w_sigma"), p("dmu_sum"), p("dx"),
+                p("dx_part"), k0, n, first, last, splits, rows, d, k, 1, 0]))
+    return terms, weights, dx, first_form
+
+
+def gmm_backward_inputs(rows: int, d: int, k: int, gen) -> dict:
+    """Seeded backward inputs on the card in both checkouts' layouts: x, x_m,
+    log_pi and its component-major copy, g, bf16 Linear-layout heads with f32
+    biases (and their component-major copies), and ll from this checkout's B2."""
+    import torch
+
+    from vit_ad_tpu_torch.ops.cuda import gmm as cgmm
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    s_w = 0.5 / math.sqrt(d)
+    x = torch.randn(rows, d, device=dev, generator=gen)
+    log_pi = torch.log(torch.softmax(torch.randn(rows, k, device=dev, generator=gen), -1)
+                       + 1e-15)
+    t = {"x": x, "x_m": x.to(bf16), "log_pi": log_pi, "log_pi_t": cgmm.component_major(log_pi),
+         "g": torch.randn(rows, d, device=dev, generator=gen)}
+    for name in ("mu", "sigma"):
+        t[f"w_{name}"] = (torch.randn(d * k, d, device=dev, generator=gen) * s_w).to(bf16)
+        t[f"b_{name}"] = torch.randn(d * k, device=dev, generator=gen) * 0.1
+        t[f"b_{name}_t"] = cgmm.component_major(t[f"b_{name}"].reshape(d, k))
+    with torch.no_grad():
+        t["ll"] = cgmm.gmm_log_likelihood(
+            x[None], log_pi[None], t["w_sigma"], t["b_sigma"], t["w_mu"], t["b_mu"],
+            matmul_dtype=bf16)[0].contiguous()
+    return t
+
+
+def gmm_backward_outputs(rows: int, d: int, k: int, kc: int) -> dict:
+    """A checkout's backward outputs and scratch: dmu/dpre [kc, R, D] bf16,
+    the partials (d log_pi flat, so either layout fits), dW, sum_k dmu, dx and
+    MAX_DX_SPLITS partial dx buffers."""
+    import torch
+
+    from vit_ad_tpu_torch.ops.cuda import gmm as cgmm
+
+    f32 = dict(dtype=torch.float32, device=torch.device("cuda"))
+    o = {"dmu": torch.empty(kc, rows, d, dtype=torch.bfloat16, device=torch.device("cuda")),
+         "bmu_part": torch.empty(-(-rows // 64), k, d, **f32),
+         "dlp_part": torch.empty(d // 64, rows * k, **f32),
+         "dwm": torch.empty(d * k, d, **f32), "dmu_sum": torch.empty(rows, d, **f32),
+         "dx": torch.empty(rows, d, **f32),
+         "dx_part": torch.empty(cgmm.MAX_DX_SPLITS, rows, d, **f32)}
+    o["dpre"], o["bsig_part"] = torch.empty_like(o["dmu"]), torch.empty_like(o["bmu_part"])
+    o["dws"] = torch.empty_like(o["dwm"])
+    return o
+
+
+def gmm_backward_against(libs: dict, card: str, gen, stream) -> None:
+    """`--against`, B3 and B4: at `GMM_BWD_PATH_SHAPES`, each checkout's
+    backward entries called raw as its wrapper calls them (terms and weights
+    per chunk of components; dx per chunk), back to back in turns parent,
+    change, change, parent: B3 whole and its two halves, B4; ms, TFLOP/s,
+    the share of the bound; the change's largest difference from the parent
+    in each gradient (the partials reduced in each checkout's layout); and,
+    beside the weight-gradient half and B4, one torch.matmul pair on bf16
+    operands of the same sizes ([R, D K] against the Linear-layout [D K, D]),
+    a yardstick the port never calls."""
+    import torch
+
+    from vit_ad_tpu_torch.ops.cuda import gmm as cgmm
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for what, rows, d, k in GMM_BWD_PATH_SHAPES:
+        t = gmm_backward_inputs(rows, d, k, gen)
+        kc = cgmm.backward_chunk(rows, d, k, bf16)
+        outs, calls, grads = {}, {}, {}
+        for who, (lib, entries) in libs.items():
+            o = outs[who] = gmm_backward_outputs(rows, d, k, kc)
+            # the full backward with dx, for the comparison
+            terms, weights, dx, first_form = gmm_backward_calls(lib, entries, t, o, rows, d, k,
+                                                                kc, sms, stream, True)
+            for a, b, c in zip(terms, weights, dx):
+                a(), b(), c()
+            dlp = o["dlp_part"].sum(0).reshape((rows, k) if first_form else (k, rows))
+            grads[who] = {"dlog_pi": dlp if first_form else dlp.t(), "dw_mu": o["dwm"].clone(),
+                          "dw_sigma": o["dws"].clone(), "db_mu": o["bmu_part"].sum(0).clone(),
+                          "db_sigma": o["bsig_part"].sum(0).clone(), "dx": o["dx"].clone()}
+            # what the paths time: B3 with sum_k dmu where dx is wanted (the
+            # ResNet joint step), without on the frozen-trunk DeiT path
+            calls[who] = gmm_backward_calls(lib, entries, t, o, rows, d, k, kc, sms, stream,
+                                            not what.startswith("DeiT"))[:3]
+        torch.cuda.synchronize()
+        diffs = {}
+        for name, want in grads["parent"].items():
+            got = grads["change"][name]
+            diffs[name] = ((got - want).abs().max() / want.abs().max()).item()
+            if not math.isfinite(diffs[name]) or diffs[name] > GRAD_RTOL["bfloat16"]:
+                raise AssertionError(f"--against: B3/B4 d{name} of the change differs from the "
+                                     f"parent's by {diffs[name]} of its largest entry at {what}")
+        prod = 2 * rows * d * d * k  # one [R, D] x [D, D] product per component
+        a = torch.randn(rows, d * k, device=dev, generator=gen).to(bf16)
+        pair = lambda fn: (lambda: (fn(), fn()))
+        yard = {"weights": pair(lambda: torch.matmul(a.t(), t["x_m"])),
+                "x": pair(lambda: torch.matmul(a, t["w_mu"]))}
+        for part, idx, flop in (("B3", (0, 1), 4 * prod), ("B3 terms", (0,), 2 * prod),
+                                ("B3 weights", (1,), 2 * prod), ("B4", (2,), 2 * prod)):
+            seq = {who: (lambda fns=[f for i in idx for f in calls[who][i]]:
+                         [fn() for fn in fns]) for who in calls}
+            times = {"parent": [], "change": []}
+            with torch.no_grad():
+                for who in ("parent", "change", "change", "parent"):
+                    times[who].append(back_to_back_ms(seq[who], torch, launches=3, warmup=1))
+            ms = {who: statistics.mean(v) for who, v in times.items()}
+            b = bound(0, flop)
+            line = (f"[{card}] {part} {what} rows={rows} D={d} K={k} bf16 ({-(-k // kc)} chunks), "
+                    f"raw back to back (3 a turn), parent {times['parent']} ms, change "
+                    f"{times['change']} ms (order parent, change, change, parent): change / "
+                    f"parent {ms['change'] / ms['parent']:.4f}; {flop / ms['parent'] / 1e9:.1f} / "
+                    f"{flop / ms['change'] / 1e9:.1f} TFLOP/s parent / change, bound "
+                    f"{b['bound_ms']:.3f} ms by {b['bound_by']} (the change at "
+                    f"{b['bound_ms'] / ms['change']:.3f} of it)")
+            key = {"B3 weights": "weights", "B4": "x"}.get(part)
+            if key:
+                yard_ms = back_to_back_ms(yard[key], torch, launches=3, warmup=1)
+                line += (f"; torch.matmul pair on [{rows}, {d * k}] bf16 operands (yardstick) "
+                         f"{yard_ms:.3f} ms")
+            if part == "B3":
+                line += "; max|change-parent|/max|parent| " + ", ".join(
+                    f"d{n} {v:.2e}" for n, v in diffs.items())
+            print(line, flush=True)
+        del outs, calls, grads, t, a, yard
+        torch.cuda.empty_cache()
+
+
+def gmm_backward_ab(others: list) -> int:
+    """`python3 chip_smoke.py --gmm-backward-ab <checkout> ...`: B3's terms
+    entry and B4's entry of this checkout and of each other checkout (built
+    from its csrc by its own ops/cuda/build.py, with its own
+    ops/cuda/gmm.dx_splits where it has one), called raw per chunk as the
+    wrappers call them, back to back (3 sequences a turn), in turns this,
+    the others, the others reversed, this, at `GMM_BWD_PATH_SHAPES`. Outputs
+    are not compared, so a diagnostic build (a part of the kernel switched
+    off) can be timed too."""
+    import torch
+
+    from vit_ad_tpu_torch.ops.cuda import gmm as cgmm
+
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke.py --gmm-backward-ab: torch.cuda.is_available() is False")
+    card = card_line()
+    print(card, flush=True)
+    libs, rules = {"change": load_checkout(None, "change")}, {"change": cgmm.dx_splits}
+    for root in others:
+        libs[root] = load_checkout(root, root)
+        mod = checkout_module(root, os.path.join("vit_ad_tpu_torch", "ops", "cuda", "gmm.py"),
+                              f"{root}_gmm")
+        rules[root] = getattr(mod, "dx_splits", cgmm.dx_splits)
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for what, rows, d, k in GMM_BWD_PATH_SHAPES:
+        t = gmm_backward_inputs(rows, d, k, gen)
+        kc = cgmm.backward_chunk(rows, d, k, bf16)
+        o = gmm_backward_outputs(rows, d, k, kc)
+        seqs = {"terms": {}, "x": {}}
+        for who, (lib, entries) in libs.items():
+            calls = gmm_backward_calls(lib, entries, t, o, rows, d, k, kc, sms, stream,
+                                       not what.startswith("DeiT"), rules[who])
+            seqs["terms"][who] = lambda fns=calls[0]: [fn() for fn in fns]
+            seqs["x"][who] = lambda fns=calls[2]: [fn() for fn in fns]
+        for part, seq in seqs.items():
+            times = {who: [] for who in seq}
+            for who in list(seq) + list(seq)[::-1]:
+                times[who].append(back_to_back_ms(seq[who], torch, launches=3, warmup=1))
+            print(f"[{card}] {part} {what} rows={rows} D={d} K={k} bf16, raw back to back (3 a "
+                  f"turn): " + ", ".join(f"{who} {v} ms" for who, v in times.items()), flush=True)
+        del t, o, seqs
+        torch.cuda.empty_cache()
     return 0
 
 
@@ -2026,7 +2333,7 @@ def main() -> int:
         raise AssertionError(f"backward disagrees with the plain version: {gerr}")
     for case in GMM_FWD_CASES + GMM_FWD_EDGES:
         check_gmm_forward(*case, gen, dev)
-    for case in GMM_BWD_CASES:
+    for case in GMM_BWD_CASES + GMM_BWD_EDGES:
         check_gmm_backward(*case, gen, dev)
     check_swin_kernels(gen, dev)
     check_mlp_kernel(gen, dev)
@@ -2167,6 +2474,12 @@ def main() -> int:
         # last: the profiler's hooks slow the host down for whatever is timed after it
         print_device_profile(f"DeiT NF uint8→scores B={FLAGSHIP_BATCH} bf16, fused MLP on "
                              f"(the default)", deit_fns[True], card, top=20)
+        del deit_fns
+        torch.cuda.empty_cache()
+        step = resnet_joint_step(RESNET_K, images)[0]
+        print_device_profile(f"ResNet-50 + MDN joint train step B={RESNET_BATCH} "
+                             f"K={RESNET_K} bf16", step, card, top=24)
+        del step
     torch.cuda.synchronize()
 
     phase("10 result")
@@ -2206,6 +2519,16 @@ def main() -> int:
                             "features on wgmma m64n128k16 (mu and pre as one B operand), a TMA "
                             "ring per warpgroup, x rows resident in shared memory up to "
                             "D = 1024, density and one-exp online logsumexp in registers")
+    kernels[2]["kernel_route"] = "terms: B2's routes; weights: wgmma"
+    kernels[2]["design"] = ("terms on B2's block, rings and products with the gradient terms "
+                            "as epilogue (bf16 scratch, fixed-order partials); weight "
+                            "gradients as a persistent wgmma GEMM over (component, 128 e, "
+                            "128 i) tiles with MN-major operands, contracting over all rows")
+    kernels[3]["kernel_route"] = "wgmma"
+    kernels[3]["design"] = ("wgmma GEMM over (128 rows, 128 i) tiles, dmu and dpre K-major "
+                            "against the weights MN-major through 3-D tensor maps, one "
+                            "accumulator; a chunk split into partials summed in order where "
+                            "the tiles fill the card poorly")
     # B5a, the split-input entry, is on no CLI path (the JAX package reaches it
     # only by an experiment toggle): its check and time are phases 3, 7
     for key, kernel, source, replaces in (
@@ -2239,4 +2562,7 @@ if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--against":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         sys.exit(against(sys.argv[2]))
+    if len(sys.argv) >= 3 and sys.argv[1] == "--gmm-backward-ab":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(gmm_backward_ab(sys.argv[2:]))
     sys.exit(main())

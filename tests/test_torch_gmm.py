@@ -274,3 +274,112 @@ def test_cpu_path_ignores_prepared_operands():
     got = cgmm.gmm_log_likelihood(*args, matmul_dtype=torch.bfloat16, operands=ops)
     want = cgmm.gmm_log_likelihood(*args, matmul_dtype=torch.bfloat16)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("d", [64, 128, 192, 768, 1024, 1088, 2048, 4096])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_routes_cover_every_width_the_entries_take(d, dtype):
+    """Every width the backward's C entries take has a route for each: under
+    bf16 the terms kernel on B2's block (x resident up to D = 1024, streamed
+    above) and the wgmma GEMMs for the weight gradients and dx; under f32 the
+    FMA kernels."""
+    routes = cgmm.backward_routes(d, dtype)
+    assert set(routes) == {"terms", "weights", "x"}
+    assert routes["terms"] == cgmm.forward_route(d, dtype)
+    gemm = "fma" if dtype == torch.float32 else "wgmma"
+    assert routes["weights"] == routes["x"] == gemm
+
+
+@pytest.mark.parametrize("d,dtype,err", [
+    (48, torch.bfloat16, ValueError), (0, torch.bfloat16, ValueError),
+    (100, torch.float32, ValueError), (768, torch.float16, TypeError),
+])
+def test_backward_routes_refuse_what_the_kernel_shape_check_refuses(d, dtype, err):
+    with pytest.raises(err):
+        cgmm.backward_routes(d, dtype)
+
+
+def test_route_codes_match_the_c_entries():
+    """The codes the wrapper reads back are the ones gmm.cu writes, and every
+    GMM entry point takes the route out-parameter last."""
+    import ctypes
+    import re
+
+    from vit_ad_tpu_torch.ops.cuda import build
+
+    src = (build.CSRC_DIR / "gmm.cu").read_text()
+    codes = dict(re.findall(r"kRoute(\w+) = (\d)", src))
+    names = {"WgmmaResident": "wgmma_x_resident", "Fma": "fma",
+             "WgmmaStreamed": "wgmma_x_streamed", "Wgmma": "wgmma"}
+    assert {int(v): names[k] for k, v in codes.items()} == cgmm._ROUTES
+    for entry in ("gmm_forward", "gmm_backward_terms", "gmm_backward_weights",
+                  "gmm_backward_x"):
+        assert build.ENTRY_POINTS[entry][-1] is ctypes.POINTER(ctypes.c_int)
+
+
+@pytest.mark.parametrize("rows,d,kc,sms,splits", [
+    (784, 2048, 100, 132, 7),   # ResNet stage 3: 56 tiles, 0.42 of one wave alone
+    (3136, 1024, 83, 132, 5),   # stage 2, first chunk: 100 tiles
+    (3136, 1024, 17, 132, 5),   # its second chunk
+    (12544, 768, 27, 132, 4),   # DeiT at B=64: 294 tiles, the third wave 0.23 full
+    (784, 2048, 2, 132, 2),     # never more ranges than components
+    (16896, 256, 14, 132, 1),   # 132 tiles, one whole wave: no split
+    (1, 64, 20, 132, 8),        # one tile: nor more than MAX_DX_SPLITS
+])
+def test_dx_splits_fill_the_card(rows, d, kc, sms, splits):
+    got = cgmm.dx_splits(rows, d, kc, sms)
+    assert got == splits
+    assert 1 <= got <= min(kc, cgmm.MAX_DX_SPLITS)
+    tiles = -(-rows // cgmm.DX_TILE_ROWS) * -(-d // cgmm.DX_TILE_COLS)
+    fill = lambda s: tiles * s / (-(-tiles * s // sms) * sms)
+    assert fill(got) >= fill(1)
+
+
+@pytest.mark.parametrize("need_x", [True, False])
+@pytest.mark.parametrize("dtype,jdtype", [(torch.float32, jnp.float32),
+                                          (torch.bfloat16, jnp.bfloat16)])
+def test_backward_decomposition_matches_pallas_train_interpret(dtype, jdtype, need_x):
+    """The kernels' decomposition of the backward (`backward_decomposition`:
+    terms per chunk of components into a scratch rounded to the matmul type,
+    bias partials per 64-row tile, d log_pi partials per 64-feature group,
+    weight gradients from the scratch, dx in split partials summed in order
+    across chunks, the wrapper's reductions) vs jax.grad of the Pallas
+    training kernels in interpret mode, with the same operand rounding: 70
+    rows (a ragged 64-row tile), two 64-feature groups, K = 5 in chunks of 2
+    (three chunks, k0 > 0, the dx carry), dx split in two on a card of 4 SMs.
+    Tolerance GRAD_RTOL of each gradient's largest entry: both sum the same
+    rounded products in f32 in other orders."""
+    r = np.random.default_rng(11)
+    b, p, d, k = 2, 35, 128, 5
+    f = lambda *s, sc=1.0: (sc * r.standard_normal(s)).astype(np.float32)
+    x, logits = f(b, p, d), f(b, p, k)
+    lp = np.log(np.exp(logits) / np.exp(logits).sum(-1, keepdims=True) + 1e-15)
+    lp = lp.astype(np.float32)
+    w_s, w_m = f(d, d, k, sc=0.1), f(d, d, k, sc=0.1)
+    b_s, b_m = f(d, k, sc=0.1), f(d, k, sc=0.1)
+    c = f(b, p, d)
+    assert cgmm.dx_splits(b * p, d, 2, 4) == 2
+
+    def jloss(*args):
+        return jnp.sum(gmm_log_likelihood_train(*args, interpret=True, matmul_dtype=jdtype) * c)
+
+    want = jax.grad(jloss, argnums=tuple(range(6)))(
+        *(jnp.asarray(v) for v in (x, lp, w_s, b_s, w_m, b_m)))
+    ws, bs = _linear(w_s, b_s)
+    wm, bm = _linear(w_m, b_m)
+    args = [_t(v) for v in (x, lp, ws, bs, wm, bm)]
+    ll = cgmm.gmm_log_likelihood_reference(*args, matmul_dtype=dtype)
+    got = cgmm.backward_decomposition(*args, _t(c), ll, dtype, need_x=need_x, chunk=2, sms=4)
+    assert (got[0] is None) == (not need_x)
+    names = ("x", "log_pi", "w_sigma", "b_sigma", "w_mu", "b_mu")
+    for name, g, w in zip(names, got, want):
+        if g is None:
+            continue
+        g = g.numpy()
+        if name.startswith("w_"):
+            g = g.T.reshape(d, d, k)
+        elif name.startswith("b_"):
+            g = g.reshape(d, k)
+        w = np.asarray(w)
+        np.testing.assert_allclose(g, w, rtol=0, atol=GRAD_RTOL * np.abs(w).max(),
+                                   err_msg=name)

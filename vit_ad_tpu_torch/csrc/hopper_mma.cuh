@@ -1,15 +1,20 @@
 // Hopper (sm_90a) building blocks of the port's warpgroup GEMM kernels: the
 // PTX of mbarriers, the Tensor Memory Accelerator (TMA), warpgroup matrix
 // multiply (wgmma) and register rebalancing, each behind one device function.
-// Included by mlp_block.cu (B6) and gmm.cu (B2); the host side of TMA, the
-// tensor maps, is tensor_map.cuh.
+// Included by mlp_block.cu (B6) and gmm.cu (B2-B4); the host side of TMA,
+// the tensor maps, is tensor_map.cuh.
 //
-// Shared-memory operands of wgmma are K-major tiles of 64 bf16 (128 bytes) per
-// row in the 128-byte-swizzled layout that a TMA load with
-// CU_TENSOR_MAP_SWIZZLE_128B writes: row r starts at byte 128 r of a tile
-// aligned to 1024 bytes, and the 16-byte chunk c of a row is stored at chunk
-// c ^ (r % 8). `operand_descriptor` describes such a tile to wgmma; a step of
-// 16 along the contraction advances the descriptor's address by 32 bytes.
+// Shared-memory operands of wgmma are tiles of 64 bf16 (128 bytes) per row in
+// the 128-byte-swizzled layout that a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
+// writes: row r starts at byte 128 r of a tile aligned to 1024 bytes, and the
+// 16-byte chunk c of a row is stored at chunk c ^ (r % 8).
+//  - K-major (the contraction runs along a row): `operand_descriptor`; a step
+//    of 16 along the contraction advances the descriptor's address by 32
+//    bytes.
+//  - MN-major (a row holds 64 consecutive rows of the operand, or columns of
+//    B, at one contraction index; the next contraction index is the next
+//    row): `operand_descriptor_mn`, used with the instruction's transpose bit
+//    set; a step of 16 along the contraction is 16 rows, 2048 bytes.
 
 #pragma once
 
@@ -147,6 +152,17 @@ __device__ __forceinline__ uint64_t operand_descriptor(uint32_t tile) {
          (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
 }
 
+// Descriptor of an MN-major, 128-byte-swizzled bf16 operand at shared
+// address `tile` (1024-byte aligned): groups of 8 contraction rows 1024 bytes
+// apart (the stride offset), and, for an operand wider than 64 along M or N,
+// its next 64 columns `chunk_bytes` further (the leading offset: the next
+// TMA box).
+__device__ __forceinline__ uint64_t operand_descriptor_mn(uint32_t tile, uint32_t chunk_bytes) {
+  return static_cast<uint64_t>((tile & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>((chunk_bytes >> 4) & 0x3FFFu) << 16) |
+         (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -206,7 +222,9 @@ __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t desc_a
 
 // The same for one 64 x 128 x 16 step: thread (warp w, lane 4 g + t) holds, for
 // j < 16, d[4 j + 0..1] = row 16 w + g, columns 8 j + 2 t + {0, 1};
-// d[4 j + 2..3] = row 16 w + g + 8, the same columns.
+// d[4 j + 2..3] = row 16 w + g + 8, the same columns. kTransA / kTransB = 1
+// read A / B MN-major (`operand_descriptor_mn`), 0 K-major.
+template <int kTransA = 0, int kTransB = 0>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
                                                  int scale_d) {
   asm volatile(
@@ -218,7 +236,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
       " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
+      "%64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       :
       "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -229,7 +247,48 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
       "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
       "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+// The same for one 64 x 256 x 16 step: thread (warp w, lane 4 g + t) holds, for
+// j < 32, d[4 j + 0..1] = row 16 w + g, columns 8 j + 2 t + {0, 1};
+// d[4 j + 2..3] = row 16 w + g + 8, the same columns.
+template <int kTransA = 0, int kTransB = 0>
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, %131, %132;\n"
+      "}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+      "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+      "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+      "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+      "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+      "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+      "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+      "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+      "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
 }  // namespace vitad_hopper

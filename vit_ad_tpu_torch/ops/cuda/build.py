@@ -116,16 +116,16 @@ ENTRY_POINTS = {
     # x, x_m, log_pi_t, w_mu, w_sigma, b_mu_t, b_sigma_t, ll, rows, d, k,
     # is_bf16, device, stream, route
     "gmm_forward": [_P] * 8 + [_I] * 5 + [_P, _ROUTE],
-    # x, log_pi, g, ll, w_mu, w_sigma, b_mu, b_sigma, k0, kc, dmu, dpre,
-    # bmu_part, bsig_part, dlp_part, dmu_sum, rows, d, k, is_bf16, device,
-    # stream
-    "gmm_backward_terms": [_P] * 8 + [_I] * 2 + [_P] * 6 + [_I] * 5 + [_P],
-    # x, dmu, dpre, dw_mu, dw_sigma, k0, kc, rows, d, k, is_bf16, device,
-    # stream
-    "gmm_backward_weights": [_P] * 5 + [_I] * 7 + [_P],
-    # dmu, dpre, w_mu, w_sigma, dmu_sum, dx, k0, kc, first, last, rows, d, k,
-    # is_bf16, device, stream
-    "gmm_backward_x": [_P] * 6 + [_I] * 9 + [_P],
+    # x, x_m, log_pi_t, g, ll, w_mu, w_sigma, b_mu_t, b_sigma_t, k0, kc, dmu,
+    # dpre, bmu_part, bsig_part, dlp_part, dmu_sum, rows, d, k, is_bf16,
+    # device, stream, route
+    "gmm_backward_terms": [_P] * 9 + [_I] * 2 + [_P] * 6 + [_I] * 5 + [_P, _ROUTE],
+    # x, x_m, dmu, dpre, dw_mu, dw_sigma, k0, kc, rows, d, k, is_bf16, device,
+    # stream, route
+    "gmm_backward_weights": [_P] * 6 + [_I] * 7 + [_P, _ROUTE],
+    # dmu, dpre, w_mu, w_sigma, dmu_sum, dx, dx_part, k0, kc, first, last,
+    # splits, rows, d, k, is_bf16, device, stream, route
+    "gmm_backward_x": [_P] * 7 + [_I] * 10 + [_P, _ROUTE],
 }
 
 
