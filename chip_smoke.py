@@ -14,7 +14,9 @@ K=150 GMM head on cached features, save it, score a folder with it); on the
 EsViT Swin-T trunk the NF path (train an NF-20 head on cached Swin features,
 save it, score a folder with it); on the ResNet-50 trunk the multi-stage MDN
 path (train two K=100 GMM heads jointly with the stage LayerNorms, save them,
-score a folder with them). Phases:
+score a folder with them); on the DeiT-base trunk the reconstruction path
+(train the ResNetDecoder of ae_deit on cached trunk latents, save the AE,
+score a folder with it) and the vanilla CNN auto-encoder end to end. Phases:
 
   1. device   card name and power limit (nvidia-smi)
   2. build    compile the kernels from vit_ad_tpu_torch/csrc (nvcc, sm_90a)
@@ -50,7 +52,15 @@ score a folder with them). Phases:
               per step for both heads (B4 never while scoring); the loss
               falls, only the read stage norms move; CUDA-vs-CPU f32 scores
               at K=4
-  9. times    kernels vs plain vs the one PyTorch call that computes the same
+  9. recon    a synthetic category: `cli.train_recon.main -m ae_deit` (the
+              ResNetDecoder on the frozen DeiT-base, a few epochs), then
+              `cli.score.main -a recon` on the AE file it wrote; B1, B6 and B7
+              launch counts per encoder batch (latent cache, scoring) and
+              none in a decoder-only step; the loss falls, the trunk is
+              bit-identical, the decoder moved; CUDA-vs-CPU f32 scores, bf16
+              scores within the policy's drift; `cli.train_recon -m ae_cnn`
+              end to end (BatchNorm in training mode), its loss falling
+ 10. times    kernels vs plain vs the one PyTorch call that computes the same
               function, where there is one, each beside its bound, by events
               and, for the attention kernels and B7, back to back (B5a alone
               with its bias gathered, beside its public entry; B3 and B4 also
@@ -59,10 +69,13 @@ score a folder with them). Phases:
               (fused MLP off and on, with the peak memory of each; the ViT
               norms on B7 and on the f32 cast), MDN, EsViT NF (fused LayerNorm
               off and on) and ResNet MDN uint8→scores img/s at batch 128; the
-              MDN, NF and joint ResNet MDN (K=100, 150) train steps; where the
-              device time of a DeiT NF batch, an EsViT batch and a ResNet joint
-              step (K=100) goes (torch.profiler)
- 10. result   a kernels JSON line, the nvidia-smi line, and last the
+              MDN, NF and joint ResNet MDN (K=100, 150) train steps; ae_deit
+              recon uint8→scores img/s at batch 128, the ae_deit decoder-only
+              and ae_cnn end-to-end train steps at batch 64 (ms, peak memory);
+              where the device time of a DeiT NF batch, an EsViT batch, a
+              ResNet joint step (K=100), an ae_deit recon batch and the
+              ae_deit decoder step goes (torch.profiler)
+ 11. result   a kernels JSON line, the nvidia-smi line, and last the
               {"ok": true, "device": ...} line
 
 Every phase raises on failure, so the script exits non-zero and prints no
@@ -173,6 +186,11 @@ NO_LAUNCHES = {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B5": 0, "B5a": 0, "B6": 0, "
 RESNET_K, RESNET_TRAIN, RESNET_TEST, RESNET_EPOCHS, RESNET_BATCH = 100, 32, 4, 3, 16
 RESNET_SCORE_BATCH, RESNET_TIMED_KS, RESNET_CPU_K = 4, (100, 150), 4
 RESNET_HEADS = ((1024, 196), (2048, 49))  # (D, tokens per image) of stages 2, 3
+# the recon path: ae_deit (DeiT-base trunk + ResNetDecoder) trained by
+# cli.train_recon at a smoke batch, a few epochs, and scored by cli.score; the
+# end-to-end ae_cnn run; the timed decoder step and ae_cnn step at batch 64
+RECON_TRAIN, RECON_TEST, RECON_EPOCHS, RECON_BATCH, RECON_SCORE_BATCH = 32, 4, 3, 16, 4
+RECON_STEP_BATCH = 64
 # bf16 image scores with the fused MLP on vs off, relative: the two tails
 # round the hidden activations and the residual at other points (f32 vs bf16)
 # through 12 blocks; the bf16 policy itself drifts ~1e-2 from f32
@@ -756,7 +774,7 @@ def sdpa_ms(q, k, v, additive, torch):
 
 
 def swin_times(card: str, gen) -> dict:
-    """Phase 9, Swin part: B5 at the four Swin-T stage shapes of a B=128
+    """Phase 10, Swin part: B5 at the four Swin-T stage shapes of a B=128
     batch, B5a at stage 0, B7 at the four block-norm shapes and B6's
     LayerNorm step (`layer_norm_times`): kernel vs plain vs the library call
     (SDPA with an additive mask; `F.layer_norm`), beside the bound. Returns
@@ -841,7 +859,7 @@ def swin_times(card: str, gen) -> dict:
 
 
 def layer_norm_times(card: str, gen) -> dict:
-    """Phase 9, B7 at `LN_PATH_SHAPES` (the four Swin-T block norms of a B=128
+    """Phase 10, B7 at `LN_PATH_SHAPES` (the four Swin-T block norms of a B=128
     batch and B6's LayerNorm step), bf16: kernel vs plain by events (order
     plain, kernel, kernel, plain), and kernel, `F.layer_norm` on the same bf16
     rows and the unfused path (`F.layer_norm` on the f32 cast and back: the
@@ -931,7 +949,7 @@ def print_device_profile(what: str, fn, card: str, batches: int = 3, top: int = 
 
 
 def esvit_times(esvit: dict, images, card: str, gen) -> None:
-    """Phase 9, EsViT part: uint8→scores img/s of Swin-T + NF-20 at B=128
+    """Phase 10, EsViT part: uint8→scores img/s of Swin-T + NF-20 at B=128
     bf16 with the fused LayerNorm off and on (order off, on, on, off), the
     encoder alone likewise, the NF train step on cached [B, 49, 768] tokens
     (7x7x768 maps), and where the device time of a scoring batch goes."""
@@ -1202,7 +1220,7 @@ def gmm_split_times(rows: int, d: int, k: int, head, card: str, gen, runs: int) 
 
 
 def mdn_times(mdn: dict, images, card: str, gen) -> dict:
-    """Phase 9, MDN part: B2 at batch 128, the train step (B2 + B3) at 32
+    """Phase 10, MDN part: B2 at batch 128, the train step (B2 + B3) at 32
     and 64 with its peak memory, B3 and B4 alone by difference, MDN
     uint8→scores img/s. Returns the kernels' JSON numbers; raises if B3 or
     B4 disagrees with the plain version at B=64 (6 chunks of components)."""
@@ -1493,8 +1511,240 @@ def resnet_main_path(tmp: str) -> dict:
             "encoder": enc_pth}
 
 
+def check_deit_routes(got: dict, expect: dict, what: str) -> None:
+    """`got` (read_launches) is `expect`, and every B1, B6 and B7 launch took
+    the redesigned route (one-pass attention, the wgmma MLP, the rows
+    LayerNorm kernel)."""
+    from vit_ad_tpu_torch.ops.cuda import layer_norm as ln
+    from vit_ad_tpu_torch.ops.cuda import mlp as cmlp
+    from vit_ad_tpu_torch.ops.cuda import window_attention as wa
+
+    print(f"{what}: launches {got}, expected {expect}; one-pass attention "
+          f"{wa.one_pass_launches}, wgmma MLP {cmlp.wgmma_launches}, rows LayerNorm "
+          f"{ln.rows_launches}")
+    if got != expect or wa.one_pass_launches != expect["B1"] or \
+            cmlp.wgmma_launches != expect["B6"] or ln.rows_launches != expect["B7"]:
+        raise AssertionError(f"{what} did not launch B1, B6 and B7 as expected, each through "
+                             "its redesigned route (and nothing else)")
+
+
+def recon_main_path(tmp: str) -> dict:
+    """Phase 9: train the ResNetDecoder of `ae_deit` (full-width DeiT-base/16
+    trunk, seeded random weights) on a synthetic 224-px category with
+    `cli.train_recon`, score its test folder with `cli.score -a recon`, and
+    check: the B1, B6 and B7 launches of the latent cache (12, 12 and 13 per
+    encoder batch, each through its redesigned route) and of scoring, none in
+    a decoder-only step, the train loss falls, the trunk is bit-identical to
+    its init and the decoder moved, f32 scores card vs CPU, bf16 card scores
+    against them; then `cli.train_recon -m ae_cnn` end to end (BatchNorm in
+    training mode on the card, no kernel), its loss falling."""
+    import glob
+
+    import numpy as np
+    import torch
+    from vit_ad_tpu_torch.cli import score as score_cli
+    from vit_ad_tpu_torch.cli import train_recon as train_cli
+    from vit_ad_tpu_torch.config import DtypePolicy, HyperParams
+    from vit_ad_tpu_torch.data.dataset import default_norm_stats
+    from vit_ad_tpu_torch.data.loader import DataPipeline
+    from vit_ad_tpu_torch.data.synthetic import make_mvtec_category
+    from vit_ad_tpu_torch.pipeline.loading import build_pth_models, score_models
+    from vit_ad_tpu_torch.pipeline.optimizers import torch_adam
+    from vit_ad_tpu_torch.pipeline.train import (
+        cache_latents,
+        default_encoder,
+        recon_train_step,
+        stage_image_batches,
+    )
+
+    dev = torch.device("cuda")
+    cat = make_mvtec_category(os.path.join(tmp, "recon"), "gear", img_size=224,
+                              n_train=RECON_TRAIN, n_test_good=RECON_TEST,
+                              n_test_defect=RECON_TEST)
+    test_dir = os.path.join(cat, "test")
+    run = os.path.join(tmp, "recon_run")
+    split = DataPipeline(RECON_BATCH, 224, base_path=cat, data_path="train/good")
+    n_batches = lambda n, b: -(-n // b)
+    n_enc = (n_batches(len(split.train_files), RECON_BATCH)
+             + n_batches(len(split.valid_files), RECON_BATCH)
+             + n_batches(2 * RECON_TEST, RECON_BATCH))
+    per_batch = {**NO_LAUNCHES, "B1": 12, "B6": 12, "B7": DEIT_B7_PER_BATCH}
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = train_cli.main(["-m", "ae_deit", "-d", cat, "-t", "train/good", "-v", "test",
+                         "-e", str(RECON_EPOCHS), "-p", str(RECON_EPOCHS),
+                         "-b", str(RECON_BATCH), "-i", "224", "--device", "cuda", "--out", run])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train = read_launches()
+    print(f"cli.train_recon.main -m ae_deit rc={rc} in {wall:.2f} s ({n_enc} encoder batches of "
+          f"{RECON_BATCH}: the latent cache of the train and valid batches, the test batch)")
+    # the trunk runs once per batch (latent cache, evaluation); the decoder
+    # steps and validation passes launch no kernel
+    check_deit_routes(train, {k: v * n_enc for k, v in per_batch.items()}, "ae_deit training")
+    with open(os.path.join(run, "history.json")) as f:
+        hist = json.load(f)
+    if rc != 0 or hist["epochs_ran"] != RECON_EPOCHS or \
+            not all(math.isfinite(v) for v in hist["train_loss"] + hist["valid_loss"]) or \
+            not all(math.isfinite(v) for v in hist["metrics"].values()):
+        raise AssertionError(f"ae_deit training failed or gave non-finite losses: {hist}")
+    if not hist["train_loss"][-1] < hist["train_loss"][0]:
+        raise AssertionError(f"the ae_deit train loss did not fall: {hist['train_loss']}")
+    print(f"train loss {hist['train_loss']}, valid loss {hist['valid_loss']}, "
+          f"metrics {hist['metrics']} (random trunk: information only)")
+    (pth,) = glob.glob(os.path.join(run, "ae_deit_*.pth"))
+    init = default_encoder(HyperParams(model_name="ae_deit", img_size=224)).state_dict()
+    after = torch.load(pth, map_location="cpu", weights_only=True)
+    changed = [k for k, v in init.items() if not torch.equal(v, after[k])]
+    trunk_changed = [k for k in changed if k.startswith("encoder.")]
+    decoder_weights = [k for k in init if k.startswith("decoder.") and k.endswith(".weight")]
+    moved = [k for k in decoder_weights if k in changed]
+    print(f"AE file: {len(after)} tensors; trunk tensors changed {len(trunk_changed)}; decoder "
+          f"weights moved {len(moved)} of {len(decoder_weights)}")
+    if sorted(after) != sorted(init) or trunk_changed or len(moved) != len(decoder_weights):
+        raise AssertionError("training changed the frozen trunk or left decoder weights where "
+                             f"they were: trunk {trunk_changed[:4]}, decoder moved {len(moved)}")
+    del init, after
+
+    # one encoder batch of the latent cache, then one decoder-only step
+    mean_t, std_t = (torch.as_tensor(a, device=dev) for a in default_norm_stats())
+    ae = build_pth_models(pth, "ae_deit", "recon", device=dev).parts[0]
+    batches = stage_image_batches(DataPipeline(RECON_BATCH, 224, base_path=cat,
+                                               data_path="train/good").train_batches(), dev)[:1]
+    reset_launches()
+    latents = cache_latents(ae, batches, mean_t, std_t)
+    torch.cuda.synchronize()
+    check_deit_routes(read_launches(), per_batch, "one encoder batch of the latent cache")
+    ae.train()
+    opt = torch_adam(ae.decoder.parameters(), 1e-3, 1e-4)
+    reset_launches()
+    loss = recon_train_step(ae, opt, batches[0][0], batches[0][1], latents[0], mean_t, std_t)
+    torch.cuda.synchronize()
+    step = read_launches()
+    print(f"one decoder-only train step (B={RECON_BATCH}, loss {loss.item():.6f}): launches "
+          f"{step}, expected none")
+    if step != NO_LAUNCHES or not torch.isfinite(loss):
+        raise AssertionError("a decoder-only recon step launched a kernel or gave a non-finite "
+                             "loss")
+    del ae, opt, latents, batches
+
+    out_dir = os.path.join(tmp, "recon_scores")
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = score_cli.main(["--pth", pth, "-a", "recon", "-m", "ae_deit", "-d", test_dir,
+                         "-b", str(RECON_SCORE_BATCH), "-o", out_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    score = read_launches()
+    nb = n_batches(2 * RECON_TEST, RECON_SCORE_BATCH)
+    print(f"cli.score.main -a recon -m ae_deit rc={rc} in {wall:.2f} s ({nb} batches)")
+    check_deit_routes(score, {k: v * nb for k, v in per_batch.items()}, "ae_deit recon scoring")
+    if rc != 0:
+        raise AssertionError("recon scoring failed")
+    files = score_cli.list_images(test_dir)
+    scores = check_scores_csv(out_dir, files, "recon")
+
+    mean, std = default_norm_stats()
+    two = files[:2]
+    got = {}
+    for device in ("cuda", "cpu"):
+        m = build_pth_models(pth, "ae_deit", "recon", dtypes=DtypePolicy.f32(), device=device)
+        got[device] = score_models(m, DataPipeline(2, 224, files=two), mean, std).image_scores
+    rel = np.abs(got["cuda"] - got["cpu"]) / np.abs(got["cpu"])
+    print(f"recon f32 image scores cuda {got['cuda'].tolist()} cpu {got['cpu'].tolist()}: max "
+          f"rel diff {rel.max():.3e} (rtol {SCORE_RTOL_F32:.0e})")
+    if not rel.max() <= SCORE_RTOL_F32:
+        raise AssertionError("CUDA f32 recon scores disagree with the CPU path")
+    bf16_rel = np.abs(scores[:2] - got["cpu"]) / np.abs(got["cpu"])
+    print(f"recon bf16 card scores vs f32 CPU scores (same 2 images): max rel diff "
+          f"{bf16_rel.max():.3e} (rtol {FUSED_MLP_SCORE_RTOL:.0e}, the bf16 policy's drift)")
+    if not bf16_rel.max() <= FUSED_MLP_SCORE_RTOL:
+        raise AssertionError("bf16 recon scores drift from the f32 ones beyond the policy's")
+
+    cnn_run = os.path.join(tmp, "recon_cnn_run")
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = train_cli.main(["-m", "ae_cnn", "-d", cat, "-t", "train/good", "-v", "test",
+                         "-e", str(RECON_EPOCHS), "-p", str(RECON_EPOCHS),
+                         "-b", str(RECON_BATCH), "-i", "224", "--device", "cuda",
+                         "--out", cnn_run])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cnn = read_launches()
+    with open(os.path.join(cnn_run, "history.json")) as f:
+        cnn_hist = json.load(f)
+    print(f"cli.train_recon.main -m ae_cnn rc={rc} in {wall:.2f} s: launches {cnn} (the vanilla "
+          f"AE runs no kernel of the repo); train loss {cnn_hist['train_loss']}, valid loss "
+          f"{cnn_hist['valid_loss']}, metrics {cnn_hist['metrics']}")
+    if rc != 0 or cnn != NO_LAUNCHES or \
+            not all(math.isfinite(v) for v in cnn_hist["train_loss"] + cnn_hist["valid_loss"]) \
+            or not cnn_hist["train_loss"][-1] < cnn_hist["train_loss"][0]:
+        raise AssertionError(f"the ae_cnn run failed or its loss did not fall: {cnn_hist}")
+    return {"launches": {k: train[k] + score[k] for k in train}, "pth": pth}
+
+
+def recon_times(recon: dict, images, card: str):
+    """Phase 10, recon part: ae_deit uint8→scores img/s at B=128 (bf16, the
+    batch on the device), the ae_deit decoder-only train step on cached
+    latents and the ae_cnn end-to-end train step at B=64 (ms, peak memory),
+    by events. Returns the scoring batch and the decoder step, for the
+    profiles at the phase's end."""
+    import torch
+    from vit_ad_tpu_torch.config import HyperParams
+    from vit_ad_tpu_torch.data.dataset import default_norm_stats
+    from vit_ad_tpu_torch.pipeline.eval import make_recon_batch_fn
+    from vit_ad_tpu_torch.pipeline.loading import build_pth_models
+    from vit_ad_tpu_torch.pipeline.optimizers import torch_adam
+    from vit_ad_tpu_torch.pipeline.train import default_encoder, recon_train_step
+
+    dev = torch.device("cuda")
+    mean, std = (torch.as_tensor(a, device=dev) for a in default_norm_stats())
+    m = build_pth_models(recon["pth"], "ae_deit", "recon", device=dev)
+    ae = m.parts[0]
+    fn = make_recon_batch_fn(ae, mean, std)
+
+    def score_batch():
+        with torch.inference_mode():
+            return fn(images).amax(dim=(1, 2))
+
+    out = score_batch()
+    if out.shape != (images.shape[0],) or not torch.isfinite(out).all():
+        raise AssertionError("recon scoring batch gave non-finite or misshapen scores")
+    torch.cuda.reset_peak_memory_stats()
+    ms = median_ms(score_batch, torch, runs=10)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{card}] recon uint8→scores ae_deit (DeiT-base + ResNetDecoder) B={images.shape[0]} "
+          f"bf16, batch on the device: {ms:.3f} ms/batch = {images.shape[0] / ms * 1e3:.1f} "
+          f"img/s; peak memory {peak:.2f} GiB")
+
+    b = RECON_STEP_BATCH
+    batch, valid = images[:b], torch.ones(b, device=dev)
+    latents = torch.randn(b, ae.trunk.embed_dim, device=dev).to(m.hp.dtypes.compute_dtype)
+    # a second copy trains: the scoring batch keeps its AE in eval mode
+    trained = build_pth_models(recon["pth"], "ae_deit", "recon", device=dev).parts[0].train()
+    opt = torch_adam(trained.decoder.parameters(), 1e-3, 1e-4)
+    step = lambda: recon_train_step(trained, opt, batch, valid, latents, mean, std)
+    cnn = default_encoder(HyperParams(model_name="ae_cnn", img_size=224)).to(dev).train()
+    cnn_opt = torch_adam(cnn.parameters(), 1e-3, 1e-4)
+    cnn_step = lambda: recon_train_step(cnn, cnn_opt, batch, valid, None, mean, std)
+    for what, fn_ in ((f"ae_deit decoder-only train step on cached [{b},{latents.shape[1]}] "
+                       "latents (ResNetDecoder forward + backward + Adam)", step),
+                      ("ae_cnn end-to-end train step (encoder + decoder, BatchNorm in training "
+                       "mode, Adam)", cnn_step)):
+        loss = fn_()
+        if not torch.isfinite(loss):
+            raise AssertionError(f"{what}: non-finite loss {loss}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = median_ms(fn_, torch, runs=10)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[{card}] {what} B={b} bf16: {ms:.3f} ms = {b / ms * 1e3:.1f} img/s; peak "
+              f"memory {peak:.2f} GiB")
+    return score_batch, step
+
+
 def mlp_times(card: str, gen) -> dict:
-    """Phase 9, B6: the MLP half-block at the DeiT-base shape of a B=128
+    """Phase 10, B6: the MLP half-block at the DeiT-base shape of a B=128
     batch, bf16: kernel vs plain (order plain, kernel, kernel, plain) vs the
     stock tail of `models/vit._block_apply` (LayerNorm on the f32 cast, two
     `F.linear`, `F.gelu`, add: the library's path for the same function),
@@ -1618,7 +1868,7 @@ def flag_ab(name: str, trunk: str, flag: str, images, card: str, build):
 
 
 def fused_mlp_ab(nf_pth: str, deit_pth: str, images, card: str) -> dict:
-    """Phase 9: DeiT-base + NF-20 uint8→scores img/s at B=128 bf16 with the
+    """Phase 10: DeiT-base + NF-20 uint8→scores img/s at B=128 bf16 with the
     fused MLP off and on (order off, on, on, off), and the encoder alone; B6
     runs 12 times per batch with the flag on, each through the wgmma route,
     never with it off; the peak memory of a batch either way. Returns {flag
@@ -1650,7 +1900,7 @@ def fused_mlp_ab(nf_pth: str, deit_pth: str, images, card: str) -> dict:
 
 
 def vit_norm_ab(nf_pth: str, deit_pth: str, images, card: str) -> None:
-    """Phase 9: DeiT-base + NF-20 uint8→scores img/s at B=128 bf16 with the
+    """Phase 10: DeiT-base + NF-20 uint8→scores img/s at B=128 bf16 with the
     blocks' first norm and the final norm through the LayerNorm kernel (B7,
     the port's path: 13 launches a batch) and through `F.layer_norm` on the
     f32 cast and back (the path before it: `models/vit.layer_norm` swapped for
@@ -1727,7 +1977,7 @@ def resnet_joint_step(k: int, images):
 
 
 def resnet_times(resnet: dict, images, card: str, gen) -> dict:
-    """Phase 9, ResNet part: the joint train step (frozen trunk forward, two
+    """Phase 10, ResNet part: the joint train step (frozen trunk forward, two
     heads' B2 + B3 + B4, stage norms, Adam) at batch 16 with K=100 and K=150:
     ms, img/s, peak memory; B2, B3, B4 alone at the step's two head shapes
     (K=100); the trunk alone; multi-stage MDN scoring img/s at B=128 with the
@@ -2417,7 +2667,10 @@ def main() -> int:
               "the CLIs")
         resnet = resnet_main_path(tmp)
 
-        phase("9 times (CUDA events, median of %d after warm-up)" % TIMED_RUNS)
+        phase("9 recon path: ae_deit, train the decoder, then score through the CLIs")
+        recon = recon_main_path(tmp)
+
+        phase("10 times (CUDA events, median of %d after warm-up)" % TIMED_RUNS)
         qkv = torch.randn(FLAGSHIP_BATCH, 198, 3 * 768, device=dev,
                           generator=gen).to(torch.bfloat16)
         err = (wa.vit_attention_qkv(qkv, 12).float()
@@ -2471,6 +2724,7 @@ def main() -> int:
         wide = resnet_times(resnet, images, card, gen)
         swin = swin_times(card, gen)
         esvit_times(esvit, images, card, gen)
+        recon_fns = recon_times(recon, images, card)
         # last: the profiler's hooks slow the host down for whatever is timed after it
         print_device_profile(f"DeiT NF uint8→scores B={FLAGSHIP_BATCH} bf16, fused MLP on "
                              f"(the default)", deit_fns[True], card, top=20)
@@ -2480,15 +2734,21 @@ def main() -> int:
         print_device_profile(f"ResNet-50 + MDN joint train step B={RESNET_BATCH} "
                              f"K={RESNET_K} bf16", step, card, top=24)
         del step
+        print_device_profile(f"ae_deit recon uint8→scores B={FLAGSHIP_BATCH} bf16",
+                             recon_fns[0], card, top=16)
+        print_device_profile(f"ae_deit decoder-only train step B={RECON_STEP_BATCH} bf16",
+                             recon_fns[1], card, top=16)
+        del recon_fns
     torch.cuda.synchronize()
 
-    phase("10 result")
+    phase("11 result")
     kernels = [{
         "name": "vit_attention_qkv",
         "route": "cuda",
         "source": "vit_ad_tpu_torch/csrc/vit_attention_qkv.cu",
         "replaces": "vit_ad_tpu/ops/pallas/window_attention.py:375",
-        "launches": nf_launches["B1"] + fused["launches"]["B1"] + mdn["launches"]["B1"],
+        "launches": nf_launches["B1"] + fused["launches"]["B1"] + mdn["launches"]["B1"]
+        + recon["launches"]["B1"],
         "max_abs_err": err,
         "ms": att_ms,
         "plain_ms": att_plain_ms,
@@ -2530,7 +2790,7 @@ def main() -> int:
                             "accumulator; a chunk split into partials summed in order where "
                             "the tiles fill the card poorly")
     # B5a, the split-input entry, is on no CLI path (the JAX package reaches it
-    # only by an experiment toggle): its check and time are phases 3, 7
+    # only by an experiment toggle): its check and time are phases 3, 10
     for key, kernel, source, replaces in (
             ("B5", "swin_window_attention", "swin_window_attention.cu",
              "vit_ad_tpu/ops/pallas/window_attention.py:212"),
@@ -2542,7 +2802,7 @@ def main() -> int:
                         "launches": esvit["launches"][key], **swin[key]})
     # B7 also runs the DeiT blocks' first norm and the final norm
     kernels[-1]["launches"] += (nf_launches["B7"] + fused["launches"]["B7"]
-                                + mdn["launches"]["B7"])
+                                + mdn["launches"]["B7"] + recon["launches"]["B7"])
     kernels[-1]["design"] = ("rows kernel: D = 8 LPR NV, 32 / LPR rows a warp, scale and bias "
                              "in registers, the warps striding over the rows from D = 384 with "
                              "the next group's loads in flight")
@@ -2550,7 +2810,7 @@ def main() -> int:
                     "source": "vit_ad_tpu_torch/csrc/mlp_block.cu",
                     "replaces": "vit_ad_tpu/ops/pallas/mlp.py:44",
                     "launches": nf_launches["B6"] + fused["launches"]["B6"]
-                    + mdn["launches"]["B6"], **mlp})
+                    + mdn["launches"]["B6"] + recon["launches"]["B6"], **mlp})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -121,8 +121,10 @@ def test_fused_batch_norm_eval_matches_jax(dt):
         got = bn(xt).permute(0, 2, 3, 1)
     assert got.dtype == xt.dtype
     _close(got.float().numpy(), want.astype(jnp.float32), 1e-6 if dt == "float32" else 2.0**-7)
-    with pytest.raises(NotImplementedError, match="inference"):
-        bn.train()(xt)
+    # the cached folded form belongs to the inference path only (a frozen
+    # trunk passes it); the training path is tests/test_torch_recon_models.py's
+    with pytest.raises(RuntimeError, match="inference"):
+        bn.train()(xt, bn.folded(xt.dtype))
 
 
 def test_encoder_forward_and_stage_features_match_jax(jax_resnet):

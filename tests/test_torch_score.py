@@ -256,7 +256,7 @@ def test_payload_to_scores_matches_jax(kind, ref_max):
 
 @pytest.mark.parametrize("args,match", [
     (["-r", "run_dir"], "orbax"),
-    (["--pth", "x.pth", "-a", "recon"], "A8"),
+    (["--pth", "x.pth", "-a", "recon", "-m", "ae_nest"], "A9"),
     (["--pth", "x.pth", "-a", "nf", "--watch", "5"], "A10"),
     (["--pth", "x.pth", "-a", "nf", "--mesh", "2"], "A11"),
     (["--pth", "x.pth"], "-a nf"),
@@ -274,8 +274,9 @@ def test_registry_names_the_roadmap_item():
     assert type(registry.get_model("enc_res_net", 32)).__name__ == "ResNetEncoder"
     with pytest.raises(ValueError, match="fused MLP"):
         registry.get_model("enc_esvit", fused_mlp=True)
-    with pytest.raises(NotImplementedError, match="A8"):
-        registry.get_model("ae_deit")
+    with pytest.raises(NotImplementedError, match="A9"):
+        registry.get_model("ae_nest")
+    assert type(registry.get_model("ae_deit", 32)).__name__ == "TransformerAutoEncoder"
     with pytest.raises(KeyError):
         registry.get_model("no_such_model")
 
@@ -296,7 +297,10 @@ def test_port_imports_no_jax():
         "vit_ad_tpu_torch.ops.cuda.layer_norm, vit_ad_tpu_torch.models.layers, "
         "vit_ad_tpu_torch.models.swin, vit_ad_tpu_torch.cli.train_nf, "
         "vit_ad_tpu_torch.ops.mlp, vit_ad_tpu_torch.ops.cuda.mlp, "
-        "vit_ad_tpu_torch.models.vit, vit_ad_tpu_torch.models.resnet, chip_smoke\n"
+        "vit_ad_tpu_torch.models.vit, vit_ad_tpu_torch.models.resnet, "
+        "vit_ad_tpu_torch.models.cnn, vit_ad_tpu_torch.models.reverse_resnet, "
+        "vit_ad_tpu_torch.models.decoders, vit_ad_tpu_torch.models.autoencoder, "
+        "vit_ad_tpu_torch.ops.ssim, vit_ad_tpu_torch.cli.train_recon, chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'vit_ad_tpu'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"

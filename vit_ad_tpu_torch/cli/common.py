@@ -175,23 +175,28 @@ def run_trainer(parsed: Tuple[HyperParams, str, str, str, str, str], trainer: Ca
                 banner: str, run_name: str, pth_name: str,
                 checkpoints: Callable = head_checkpoints) -> int:
     """What the trainer CLIs do with their parsed flags: build the registry
-    trunk (seed-deterministic init, as in the JAX package's trainers) and the
-    pipelines, train, print the metrics, and write into the run directory
+    model (seed-deterministic init, as in the JAX package's trainers: the
+    trunk, or for a reconstruction run the whole auto-encoder, which the
+    trainer takes as `model`) and the pipelines, train, print the metrics,
+    and write into the run directory
     (`--out`, default `<log_dir>/<run_name>_<dataset>_<class>`) `history.json`
     (epoch losses, metrics, best epoch), `config.json` (the hyper-parameters
     of `RUN_CONFIG_KEYS`, which `cli.score --pth` reads back: the centering and
     the feature depth) and the files of `checkpoints(result, hp, pth_name)`: by
-    default the best head's state dict as `<pth_name>_<class>.pth`, which
-    `cli.score --pth` reads back. `banner` and the two names are format strings
-    over the hyper-parameters."""
+    default the best head's state dict as `<pth_name>_<class>.pth` (for a
+    recon run the whole auto-encoder), which `cli.score --pth` reads back.
+    `banner` and the two names are format strings over the hyper-parameters."""
     from vit_ad_tpu_torch.config import set_numerics_policy
     from vit_ad_tpu_torch.pipeline.train import default_encoder
 
     hp, data_path, train_pref, test_pref, device, out_dir = parsed
     try:
-        encoder = default_encoder(hp)
+        model = default_encoder(hp)
     except (KeyError, NotImplementedError, ValueError) as e:
         raise SystemExit(f"-m {hp.model_name}: {e}") from None
+    # a recon run trains the registry's auto-encoder itself, the other
+    # trainers a head on the registry trunk
+    model_arg = {"model": model} if hp.architecture == "reconstruction" else {"encoder": model}
     set_numerics_policy()
     data, test = build_pipelines(hp, data_path, train_pref, test_pref)
     fields = vars(hp)
@@ -201,7 +206,7 @@ def run_trainer(parsed: Tuple[HyperParams, str, str, str, str, str], trainer: Ca
     print(f"{banner.format(**fields)}, patience {hp.patience}, epochs {hp.epochs}, "
           f"lr {hp.learning_rate}, wd {hp.weight_decay}, bs {hp.batch_size}, "
           f"img {hp.img_size}, data {data_path}/{train_pref}, device {device}", flush=True)
-    result = trainer(hp, data, test, encoder=encoder, device=device,
+    result = trainer(hp, data, test, **model_arg, device=device,
                      log=lambda row: print(json.dumps(row), flush=True))
     print("final metrics:", json.dumps(result.metrics))
     with open(os.path.join(out_dir, "history.json"), "w") as f:

@@ -1,18 +1,22 @@
 """Score a folder of images with reference-format `.pth` weights on the GPU.
 
-Port of `python -m vit_ad_tpu.cli.score` (the `--pth` path, NF and MDN
-heads):
+Port of `python -m vit_ad_tpu.cli.score` (the `--pth` path: NF, MDN and
+reconstruction heads):
 
     python -m vit_ad_tpu_torch.cli.score --pth <head .pth> -a nf|mdn \\
         -m enc_deit|enc_vit|enc_esvit -E <trunk .pth> -d /path/to/images \\
         [-o out_dir] [-b BATCH] [--fused-ln|--no-fused-ln] [--fused-mlp|--no-fused-mlp]
     python -m vit_ad_tpu_torch.cli.score --pth <stage-2 head .pth> <stage-3 head .pth> \\
         -a mdn -E <ResNet encoder .pth> -d /path/to/images
+    python -m vit_ad_tpu_torch.cli.score --pth <auto-encoder .pth> -a recon -m ae_* \\
+        -d /path/to/images [--fused-ln|--no-fused-ln] [--fused-mlp|--no-fused-mlp]
 
 MDN files are named `<K>_..._<class>.pth` (K = number of gaussians), as
 `cli.train_mdn` saves them; `cli.train_nf` saves `nf_<model>_<class>.pth`.
 Two `.pth` files are the reference's ResNet-MDN convention: one head per
 ResNet-50 stage map (2, then 3), as `cli.train_mdn -m res_net` saves them.
+A recon `.pth` is the whole auto-encoder of the `-m ae_*` key, as
+`cli.train_recon` saves it (`<model>_<class>.pth`); `-E` is ignored there.
 `-E` is the pretrained trunk the head was trained against: a timm ViT/DeiT
 `.pth`, the EsViT Swin-T checkpoint for `-m enc_esvit`, or for the ResNet
 heads the encoder file their training run wrote (or ImageNet ResNet-50
@@ -33,12 +37,13 @@ Outputs (under -o, default `<pth stem>_scores`), as the JAX CLI writes them:
   scores.csv      path,image_score — one row per input image, input order
   summary.json    n_images, score stats, run config echo
 
-Image score: max over the NF anomaly map (reference ValidatorNF.py:137-142);
-for MDN the inverted min patch probability (reference ValidatorMDN.py:133).
-Run directories (`-r`, orbax checkpoints), `--watch`, `--heatmaps`, `--mesh`,
-`--weights-dtype bf16` and `-a recon` are ROADMAP A8/A10/A11 and exit with a
-message. `--device` defaults to cuda; without a card the CLI exits unless
-`--device cpu` is given.
+Image score: max over the NF anomaly map (reference ValidatorNF.py:137-142)
+or over the recon squared-error map (ValidatorRecon.py:115-117); for MDN the
+inverted min patch probability (reference ValidatorMDN.py:133).
+Run directories (`-r`, orbax checkpoints), `--watch`, `--heatmaps`, `--mesh`
+and `--weights-dtype bf16` are ROADMAP A10/A11 and exit with a message, as do
+the auto-encoders on the trunks not ported yet (A9). `--device` defaults to
+cuda; without a card the CLI exits unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ import numpy as np
 from vit_ad_tpu_torch.cli.common import RUN_CONFIG, check_device
 from vit_ad_tpu_torch.config import set_numerics_policy
 from vit_ad_tpu_torch.data.files import IMAGE_EXTENSIONS
-from vit_ad_tpu_torch.registry import FUSED_LN_MODELS, FUSED_MLP_MODELS
+from vit_ad_tpu_torch.registry import FUSED_LN_MODELS, FUSED_MLP_MODELS, not_ported
 
 
 def list_images(images_dir: str) -> List[str]:
@@ -201,8 +206,9 @@ def main(argv=None) -> int:
     ap.add_argument("--watch", type=float, default=0.0, metavar="SECS",
                     help="not ported (ROADMAP A10)")
     ap.add_argument("--watch-waves", type=int, default=0, help="not ported (ROADMAP A10)")
-    ap.add_argument("-a", "--arch", default="", help="nf | mdn (recon: ROADMAP A8)")
-    ap.add_argument("-m", "--model", default="enc_deit", help="encoder registry key")
+    ap.add_argument("-a", "--arch", default="", help="nf | mdn | recon")
+    ap.add_argument("-m", "--model", default="enc_deit",
+                    help="registry key: the encoder (nf, mdn) or the auto-encoder (recon: ae_*)")
     ap.add_argument("-E", "--encoder-ckpt", default="",
                     help="pretrained trunk the head was trained against (timm ViT/DeiT "
                          ".pth, or the EsViT Swin-T .pth for -m enc_esvit)")
@@ -229,9 +235,14 @@ def main(argv=None) -> int:
         if on:
             ap.error(f"{flag} is not ported to vit_ad_tpu_torch yet (ROADMAP {item})")
     if not args.arch:
-        ap.error("--pth needs -a nf or -a mdn")
-    if args.arch not in ("nf", "mdn"):
-        ap.error(f"-a {args.arch}: only nf and mdn heads are ported (recon: ROADMAP A8)")
+        ap.error("--pth needs -a nf, -a mdn or -a recon")
+    if args.arch not in ("nf", "mdn", "recon"):
+        ap.error(f"-a {args.arch}: the heads are nf, mdn and recon")
+    if args.arch == "recon" and not args.model.startswith("ae_"):
+        ap.error(f"-a recon scores an auto-encoder: give its registry key (-m ae_*), not "
+                 f"{args.model!r}")
+    if not_ported(args.model):
+        ap.error(not_ported(args.model))
     if args.fused_ln is not None and args.model not in FUSED_LN_MODELS:
         ap.error(f"--fused-ln/--no-fused-ln: -m {args.model} has no fused LayerNorm path "
                  f"(models that have: {', '.join(FUSED_LN_MODELS)})")

@@ -1,7 +1,8 @@
 """Shared building blocks for the backbones (port of
 `vit_ad_tpu/models/layers.py`: `PatchEmbed` :27, `resolve_gelu_approx` :58,
-the inference half of `FusedBatchNorm` :149, `LayerNorm` :227), and the cache
-of compute-dtype weight copies the encoders share."""
+`FusedBatchNorm` :149, `LayerNorm` :227), the JAX initializers of the conv
+layers (`init_conv_layers`), and the cache of compute-dtype weight copies the
+encoders share."""
 
 from __future__ import annotations
 
@@ -78,13 +79,23 @@ class LayerNorm(nn.LayerNorm):
 
 
 class FusedBatchNorm(nn.BatchNorm2d):
-    """Inference BatchNorm over NCHW maps that stays in the compute dtype
-    (JAX `FusedBatchNorm` :149, its `use_running_average` path): per channel
+    """BatchNorm over NCHW maps with the JAX `FusedBatchNorm` math (:149).
+
+    Inference (eval mode) stays in the compute dtype: per channel
     `mul = rsqrt(var + eps) * weight` in f32 from the f32 running statistics,
     cast once, then `(x - mean) * mul + bias` on the map in x's dtype, in that
-    op order. Parameters and buffers are `nn.BatchNorm2d`'s, so torchvision
-    state dicts load. The port never trains a trunk that has one: the training
-    half is not ported and a module in training mode raises."""
+    op order. Training (train mode) is flax's: the batch statistics over
+    (N, H, W) in f32 as the "fast variance" `mean(x²) - mean(x)²` clamped at
+    0 (biased), the running statistics blended in place as
+    `MOMENTUM·old + (1 - MOMENTUM)·batch` with no n/(n-1) correction, and the
+    map normalised in f32; the caller casts the f32 result to its compute
+    dtype. (`F.batch_norm(training=True)` takes the variance in two passes
+    and blends the unbiased one into `running_var`: not this function.)
+    Parameters and buffers are `nn.BatchNorm2d`'s, so torchvision and the
+    reference's state dicts load; `num_batches_tracked` counts the training
+    calls and nothing reads it."""
+
+    MOMENTUM = 0.9  # flax's convention: the weight of the old statistics
 
     def __init__(self, channels: int, eps: float = 1e-5) -> None:
         super().__init__(channels, eps=eps)
@@ -98,13 +109,51 @@ class FusedBatchNorm(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor,
                 folded: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
                 ) -> torch.Tensor:
-        """`folded`: a cached `self.folded(x.dtype)`."""
+        """`folded`: a cached `self.folded(x.dtype)`, which only the inference
+        path reads; a frozen trunk that passes it (`models/resnet.py`) must be
+        in eval mode."""
         if self.training:
-            raise NotImplementedError(
-                "FusedBatchNorm: only the inference path is ported (the trunks that use it "
-                "are frozen); call .eval() on the model")
+            if folded is not None:
+                raise RuntimeError(
+                    "FusedBatchNorm: the folded inference form was passed in training mode; "
+                    "a frozen trunk's BatchNorms stay in eval mode (call .eval())")
+            return self._train_forward(x)
         mean, mul, bias = self.folded(x.dtype) if folded is None else folded
         return (x - mean) * mul + bias
+
+    def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mu = x32.mean(dim=(0, 2, 3))
+        var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mu * mu, min=0.0)
+        with torch.no_grad():
+            m = self.MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mu)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        return (x32 - mu.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1) \
+            + self.bias.float().view(1, -1, 1, 1)
+
+
+def init_conv_layers(module: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """JAX's initializers on every conv, transposed conv and Linear of
+    `module`: LeCun (truncated) normal kernels over their fan-in (a flax
+    ConvTranspose kernel [kh, kw, in, out] counts kh·kw·in), zero biases;
+    unit BatchNorms."""
+    seen = set()
+    for m in module.modules():
+        if id(m) in seen:  # a module the reference registers under two names
+            continue
+        seen.add(id(m))
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            w = m.weight
+            fan_in = (w.shape[0] * w[0, 0].numel() if isinstance(m, nn.ConvTranspose2d)
+                      else w[0].numel())
+            lecun_normal_(w.data, fan_in, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, FusedBatchNorm):
+            m.reset_parameters()
 
 
 class ComputeWeights:

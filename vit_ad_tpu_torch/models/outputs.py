@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Iterator, NamedTuple, Protocol
+from typing import Iterator, NamedTuple, Optional, Protocol
 
 import torch
 
@@ -37,3 +37,13 @@ class FlowOutput(NamedTuple):
 
     loss: torch.Tensor
     anomaly_score_map: torch.Tensor
+
+
+class AutoEncoderOutput(NamedTuple):
+    """latent: [B, D] (the vanilla AE: its [s, s, 768] map flattened in NHWC
+    order, as the JAX module flattens it); reconstruction: [B, H, W, 3];
+    patch_embedding: [B, P, D] for the transformer AEs, else None."""
+
+    latent: torch.Tensor
+    reconstruction: torch.Tensor
+    patch_embedding: Optional[torch.Tensor] = None

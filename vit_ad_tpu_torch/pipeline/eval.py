@@ -2,8 +2,9 @@
 `vit_ad_tpu/pipeline/eval.py`: `make_mdn_batch_fn` :357, `score_mdn` :446,
 `evaluate_mdn` :482, `make_nf_batch_fn` :371, `score_nf` :500, `evaluate_nf`
 :532, `make_mdn_resnet_batch_fn` :401, `score_mdn_resnet` :608,
-`evaluate_mdn_resnet` :651 and the metrics half of `_metrics_and_figures` :55;
-figures are ROADMAP A10, the recon evaluators A8, the NF-ResNet ones A7b).
+`evaluate_mdn_resnet` :651, `make_recon_batch_fn` :388, `score_recon` :550,
+`evaluate_recon` :579 and the metrics half of `_metrics_and_figures` :55;
+figures are ROADMAP A10, the NF-ResNet evaluators A7b).
 
   * MDN — per-patch mean log-likelihood; image score = inverted min patch
     probability, normalized by the max log-likelihood over the whole scored
@@ -14,6 +15,9 @@ figures are ROADMAP A10, the recon evaluators A8, the NF-ResNet ones A7b).
   * MDN over ResNet stages — one head per stage map; per-stage probability
     maps upsampled, inverted and averaged; image score = max
     (`scoring.payload_to_scores("mdn_resnet")`).
+  * Reconstruction — anomaly map = the channel mean of the squared error
+    between the auto-encoder's reconstruction and its preprocessed input;
+    image score = max (reference ValidatorRecon.py:92-136).
 """
 
 from __future__ import annotations
@@ -194,3 +198,39 @@ def evaluate_mdn_resnet(encoder: ResNetEncoder, mdns: Sequence[GaussianMDN],
                         stages: Sequence[int] = (2, 3)) -> Dict[str, float]:
     """score_mdn_resnet + the reference metric suite."""
     return metrics_of(score_mdn_resnet(encoder, mdns, test_data, hp, mean, std, stages), hp)
+
+
+def make_recon_batch_fn(model: torch.nn.Module, mean: Optional[torch.Tensor],
+                        std: Optional[torch.Tensor]) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Per-batch recon scorer: uint8 images [B, H, W, 3] on the model's device
+    → the channel-mean squared error [B, H, W] f32 against the preprocessed
+    input (the device half of `score_recon`). The model must be in eval mode
+    when it is called (the JAX scorer's `train=False`: BatchNorms on their
+    running statistics, which a training-mode call would also move)."""
+
+    def error_maps(images_u8: torch.Tensor) -> torch.Tensor:
+        if model.training:
+            raise ValueError("recon scoring: the auto-encoder must be in eval mode")
+        x = preprocess(images_u8, mean, std)
+        recon = model(x).reconstruction
+        return torch.mean(torch.square(recon.float() - x.float()), dim=-1)
+
+    return error_maps
+
+
+def score_recon(model: torch.nn.Module, test_data: DataPipeline, hp: HyperParams,
+                mean: Optional[np.ndarray] = None, std: Optional[np.ndarray] = None
+                ) -> ScoreOutput:
+    """Reconstruction scoring on the device the model lives on."""
+    device = next(model.parameters()).device
+    fn = make_recon_batch_fn(model, _as_device(mean, device), _as_device(std, device))
+    maps, labels, masks = _collect(test_data.test_batches(hp.prefetch), fn, device)
+    image_scores, maps = payload_to_scores("recon", maps, hp.img_size)
+    return ScoreOutput(image_scores, maps, labels, masks)
+
+
+def evaluate_recon(model: torch.nn.Module, test_data: DataPipeline, hp: HyperParams,
+                   mean: Optional[np.ndarray] = None, std: Optional[np.ndarray] = None
+                   ) -> Dict[str, float]:
+    """score_recon + the reference metric suite."""
+    return metrics_of(score_recon(model, test_data, hp, mean, std), hp)

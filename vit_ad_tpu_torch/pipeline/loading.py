@@ -30,7 +30,7 @@ class RunModels:
     """Live models for one head. `parts` is the positional model prefix the
     matching `pipeline.eval.score_*` function takes."""
 
-    kind: str  # 'nf' | 'mdn' | 'mdn_resnet' in the ported slices
+    kind: str  # 'nf' | 'mdn' | 'mdn_resnet' | 'recon' in the ported slices
     hp: HyperParams
     parts: Tuple[Any, ...]
 
@@ -170,17 +170,17 @@ def build_pth_models(
     block_index: int = 0,
 ) -> RunModels:
     """Encoder + NF or MDN head from a reference-format head `.pth` (MDN:
-    K from the `<K>_..._<class>.pth` filename). `encoder_ckpt` is the
-    pretrained trunk the head was trained against (a timm or EsViT `.pth`);
-    without it the encoder is the seed-random init (warned). `fused_ln` and
-    `fused_mlp` are `registry.get_model`'s; `block_index` is the feature depth
-    the head was trained on (`HyperParams.block_index`, 0 = the last block).
-    The models are moved to `device` (default CPU) in eval mode."""
-    if arch not in ("nf", "mdn"):
-        raise NotImplementedError(
-            f"legacy .pth scoring of arch {arch!r} is not ported yet (ROADMAP A8 for "
-            "recon); the port scores -a nf and -a mdn"
-        )
+    K from the `<K>_..._<class>.pth` filename), or for `arch` "recon" the
+    whole auto-encoder of `model_name` (an ae_* key) from its `.pth`
+    (`_load_recon_model`). `encoder_ckpt` is the pretrained trunk the head
+    was trained against (a timm or EsViT `.pth`); without it the encoder is
+    the seed-random init (warned). `fused_ln` and `fused_mlp` are
+    `registry.get_model`'s; `block_index` is the feature depth the head was
+    trained on (`HyperParams.block_index`, 0 = the last block). The models
+    are moved to `device` (default CPU) in eval mode."""
+    if arch not in ("nf", "mdn", "recon"):
+        raise NotImplementedError(f"legacy .pth scoring of arch {arch!r} is not ported; the "
+                                  "port scores -a nf, -a mdn and -a recon")
     num_gaussians, dataclass = parse_pth_filename(pth_path, arch)
     hp = HyperParams(model_name=model_name, architecture=arch, img_size=img_size,
                      hidden_ratio=hidden_ratio, flow_steps=flow_steps,
@@ -191,6 +191,9 @@ def build_pth_models(
     encoder = get_model(hp.model_name, hp.img_size, hp.dtypes,
                         generator=torch.Generator().manual_seed(hp.seed), fused_ln=fused_ln,
                         fused_mlp=fused_mlp)
+    if arch == "recon":  # `encoder` is the whole auto-encoder
+        ae = _load_recon_model(encoder, pth_path, encoder_ckpt)
+        return RunModels(kind="recon", hp=hp, parts=(ae.to(device).eval(),))
     if encoder_ckpt:
         load_encoder_checkpoint(encoder, encoder_ckpt)
     else:
@@ -208,6 +211,30 @@ def build_pth_models(
                                                strict=True)
     return RunModels(kind=arch, hp=hp,
                      parts=(encoder.to(device).eval(), head.to(device).eval()))
+
+
+def _load_recon_model(model: torch.nn.Module, pth_path: str, encoder_ckpt: str
+                      ) -> torch.nn.Module:
+    """A reference recon `.pth` is the whole auto-encoder's state dict (its
+    frozen encoder included; reference TrainingsHelper.py:112-122): the
+    weightless torchmetrics `ssim.*` and MSELoss `mse.*` entries of the
+    reference's base AE are dropped (JAX `convert_recon_ae`,
+    torch_convert.py:1487-1490), an EsViT trunk gets the checkpoint surgery
+    of `load_encoder_checkpoint`, and the rest loads strictly. `-E` is
+    ignored, with the JAX loader's message."""
+    if encoder_ckpt:
+        print("build_pth_models (recon): -E/--encoder-ckpt ignored — a recon .pth is the WHOLE "
+              "AutoEncoder (its own frozen encoder included); the file's encoder weights are "
+              "used")
+    sd = {k: v for k, v in load_pth(pth_path).items() if not k.startswith(("ssim.", "mse."))}
+    trunk = getattr(model, "trunk", None)
+    if isinstance(trunk, SwinTransformer):
+        pre = f"encoder.{model.family}."
+        own = {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)}
+        sd = {**{k: v for k, v in sd.items() if not k.startswith(pre)},
+              **{pre + k: v for k, v in _swin_checkpoint_surgery(trunk, own).items()}}
+    model.load_state_dict(sd, strict=True)
+    return model
 
 
 def build_pth_resnet_mdn_models(
@@ -255,9 +282,10 @@ def build_pth_resnet_mdn_models(
 
 def score_models(m: RunModels, test_data, mean=None, std=None):
     """Label-free scoring dispatch: RunModels → pipeline.eval.ScoreOutput."""
-    from vit_ad_tpu_torch.pipeline.eval import score_mdn, score_mdn_resnet, score_nf
+    from vit_ad_tpu_torch.pipeline.eval import score_mdn, score_mdn_resnet, score_nf, score_recon
 
-    score = {"nf": score_nf, "mdn": score_mdn, "mdn_resnet": score_mdn_resnet}.get(m.kind)
+    score = {"nf": score_nf, "mdn": score_mdn, "mdn_resnet": score_mdn_resnet,
+             "recon": score_recon}.get(m.kind)
     if score is None:
         raise NotImplementedError(f"scoring kind {m.kind!r} is not ported yet")
     return score(*m.parts, test_data, m.hp, mean, std)

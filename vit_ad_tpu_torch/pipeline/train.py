@@ -1,6 +1,7 @@
 """Head training loops (port of `vit_ad_tpu/pipeline/train.py`: `train_mdn`
-:113, `train_nf` :286 and the joint step of `train_mdn_resnet` :805; the
-NF-ResNet and recon trainers are ROADMAP A7b/A8).
+:113, `train_nf` :286, `train_recon` :461 and the joint step of
+`train_mdn_resnet` :805; the NF-ResNet trainer is ROADMAP A7b, `train_vae`
+A8b).
 
 `train_mdn` and `train_nf`: the trunk is frozen, its features are extracted
 once and the head trains on them, cached on the device, with torch-semantics
@@ -8,6 +9,9 @@ Adam, early stopping on the validation loss and a final metric evaluation
 (reference src/pipeline/LearnerMDN.py:97-240, LearnerNF.py:91-235).
 `train_mdn_resnet` has no feature cache: the ResNet's stage LayerNorms train
 with the two stage heads, so every step runs the frozen trunk on the images.
+`train_recon` trains an auto-encoder's decoder (the vanilla AE: all of it);
+a transformer AE's frozen trunk runs once over the batches (the latent cache)
+and each step runs the decoder alone.
 The JAX package's scan-of-batches epochs amortize TPU dispatch and are not
 ported: an epoch is a Python loop over the staged batches.
 """
@@ -22,11 +26,13 @@ import torch
 
 from vit_ad_tpu_torch.config import HyperParams, MeshConfig
 from vit_ad_tpu_torch.data.dataset import default_norm_stats
-from vit_ad_tpu_torch.data.loader import Batch, DataPipeline
+from vit_ad_tpu_torch.data.loader import Batch, DataPipeline, preprocess
+from vit_ad_tpu_torch.models.autoencoder import TransformerAutoEncoder, VanillaAutoEncoder
 from vit_ad_tpu_torch.models.flow import NormalizingFlow, patch_tokens_to_map
 from vit_ad_tpu_torch.models.mdn import GaussianMDN
 from vit_ad_tpu_torch.models.outputs import Encoder
 from vit_ad_tpu_torch.models.resnet import STAGE_CHANNELS, ResNetEncoder
+from vit_ad_tpu_torch.ops.ssim import ssim_per_image
 from vit_ad_tpu_torch.pipeline.early_stopping import run_epochs
 from vit_ad_tpu_torch.pipeline.features import (
     extract_features,
@@ -44,7 +50,7 @@ HeadLoss = Callable[[torch.nn.Module, torch.Tensor, torch.Tensor, Optional[torch
 @dataclasses.dataclass
 class TrainResult:
     head: torch.nn.Module            # holds the best (lowest validation loss) weights
-    encoder: torch.nn.Module
+    encoder: Optional[torch.nn.Module]  # None for train_recon: `head` is the whole AE
     history: Dict[str, Any]
     metrics: Dict[str, float]
     epochs_ran: int
@@ -52,8 +58,9 @@ class TrainResult:
     best_valid_loss: float
 
 
-def default_encoder(hp: HyperParams) -> Encoder:
-    """The registry trunk with its seed-deterministic init (on the CPU)."""
+def default_encoder(hp: HyperParams) -> torch.nn.Module:
+    """The registry model of `hp.model_name` with its seed-deterministic init
+    (on the CPU): a trunk, or for the ae_* keys the whole auto-encoder."""
     return get_model(hp.model_name, hp.img_size, hp.dtypes,
                      generator=torch.Generator().manual_seed(hp.seed), fused_ln=hp.fused_ln,
                      fused_mlp=hp.fused_mlp)
@@ -328,5 +335,134 @@ def train_mdn_resnet(hp: HyperParams, data: DataPipeline,
         metrics = evaluate_mdn_resnet(encoder, heads, test_data, hp, mean, std, stages)
     return TrainResult(
         head=heads, encoder=encoder, history=history, metrics=metrics, epochs_ran=epochs_ran,
+        best_epoch=stopper.best_epoch,
+        best_valid_loss=float("nan") if stopper.best_loss is None else stopper.best_loss)
+
+
+def recon_loss(recon: torch.Tensor, x: torch.Tensor, valid: torch.Tensor, use_ssim: bool = False,
+               mse_weight: float = 1.0, ssim_weight: float = 0.0) -> torch.Tensor:
+    """The recon objective on a padded batch (JAX `loss_fn` :536-559): the
+    per-image mean squared error in f32, masked-mean over the valid rows; with
+    `use_ssim`, `mse_weight·MSE + ssim_weight·(1 - masked mean SSIM)` (the
+    reference's learn_ae_with_SSIM). recon and x are [B, H, W, 3]."""
+    recon, x = recon.float(), x.float()
+    loss = _masked_mean(torch.mean(torch.square(recon - x), dim=(1, 2, 3)), valid)
+    if use_ssim:
+        s = ssim_per_image(recon.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), data_range=1.0)
+        loss = mse_weight * loss + ssim_weight * (1.0 - _masked_mean(s, valid))
+    return loss
+
+
+def reconstruct(model: torch.nn.Module, x: torch.Tensor,
+                latents: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The AE's reconstruction [B, H, W, 3] of the preprocessed x; with the
+    cached trunk latents of a transformer AE, the decoder alone."""
+    if latents is None:
+        return model(x).reconstruction
+    return model.decoder(latents).permute(0, 2, 3, 1)
+
+
+def recon_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer, images_u8: torch.Tensor,
+                     valid: torch.Tensor, latents: Optional[torch.Tensor],
+                     mean: Optional[torch.Tensor], std: Optional[torch.Tensor],
+                     use_ssim: bool = False, mse_weight: float = 1.0,
+                     ssim_weight: float = 0.0) -> torch.Tensor:
+    """One optimizer step of `train_recon` on one padded uint8 batch (model in
+    train mode: the decoder's BatchNorms take batch statistics and update
+    their running ones); returns the (detached) loss."""
+    opt.zero_grad(set_to_none=True)
+    x = preprocess(images_u8, mean, std)
+    loss = recon_loss(reconstruct(model, x, latents), x, valid, use_ssim, mse_weight,
+                      ssim_weight)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def cache_latents(model: TransformerAutoEncoder,
+                  batches: Sequence[Tuple[torch.Tensor, torch.Tensor, float]],
+                  mean: Optional[torch.Tensor], std: Optional[torch.Tensor]) -> List[torch.Tensor]:
+    """The frozen trunk's latents [B, D] of every staged batch, in eval mode
+    and without gradient (JAX :593-645); a padded row's latent is the last
+    valid row's."""
+    out = []
+    for images, _, w in batches:
+        z = model.latent(preprocess(images, mean, std)).clone()
+        z[int(w):] = z[int(w) - 1]
+        out.append(z)
+    return out
+
+
+def train_recon(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPipeline] = None,
+                model: Optional[torch.nn.Module] = None, use_ssim: bool = False,
+                device: Optional[str] = None,
+                log: Optional[Callable[[Dict[str, Any]], None]] = None) -> TrainResult:
+    """Train a reconstruction auto-encoder (reference
+    LearnerRecon.learn_ae_with_MSE_only; `use_ssim` learn_ae_with_SSIM).
+
+    `model` defaults to the registry AE of `hp.model_name` with its seeded
+    init; it lives on `device` (default: its own). Torch-semantics Adam over
+    the whole AE for `VanillaAutoEncoder`, over the decoder otherwise (the
+    frozen encoder stays in eval mode). The loss is `recon_loss`; the
+    validation loss is the masked MSE in eval mode. A transformer AE's trunk
+    runs once over the train and validation batches (`cache_latents`), and
+    each step and validation pass runs the decoder alone. The uint8 batches
+    are decoded once and kept on the device. The AE ends with the weights and
+    running statistics of its best validation epoch, in eval mode, and is
+    evaluated on `test_data`. `TrainResult.head` is the AE."""
+    from vit_ad_tpu_torch.pipeline.eval import evaluate_recon
+
+    _check_unported(hp)
+    if model is None:
+        model = default_encoder(hp)
+    if device is None:
+        device = next(model.parameters()).device
+    device = torch.device(device)
+    model = model.to(device)
+    mean, std = data.compute_mean_std() if hp.centering else default_norm_stats()
+    mean_t, std_t = (torch.as_tensor(a, dtype=torch.float32, device=device) for a in (mean, std))
+    # the vanilla AE trains end to end; a pretrained encoder stays frozen
+    trainable = model if isinstance(model, VanillaAutoEncoder) else model.decoder
+    opt = torch_adam(trainable.parameters(), hp.learning_rate, hp.weight_decay)
+    train_batches = stage_image_batches(data.train_batches(hp.prefetch), device)
+    valid_batches = stage_image_batches(data.valid_batches(hp.prefetch), device)
+    train_latents = valid_latents = None
+    if isinstance(model, TransformerAutoEncoder):
+        model.eval()
+        train_latents = cache_latents(model, train_batches, mean_t, std_t)
+        valid_latents = cache_latents(model, valid_batches, mean_t, std_t)
+    weights = (hp.mse_weight, hp.ssim_weight) if use_ssim else (1.0, 0.0)
+
+    def train_epoch(epoch: int):
+        model.train()
+        losses, counts = [], []
+        for i, (images, valid, w) in enumerate(train_batches):
+            z = None if train_latents is None else train_latents[i]
+            losses.append(recon_train_step(model, opt, images, valid, z, mean_t, std_t,
+                                           use_ssim, *weights))
+            counts.append(w)
+        return _weighted_mean(losses, counts), float(sum(counts))
+
+    def valid_epoch() -> float:
+        model.eval()
+        losses, counts = [], []
+        with torch.no_grad():
+            for i, (images, valid, w) in enumerate(valid_batches):
+                z = None if valid_latents is None else valid_latents[i]
+                x = preprocess(images, mean_t, std_t)
+                losses.append(recon_loss(reconstruct(model, x, z), x, valid))
+                counts.append(w)
+        return _weighted_mean(losses, counts)
+
+    history, epochs_ran, stopper = run_epochs(hp, train_epoch, valid_epoch,
+                                              trainable.state_dict, log)
+    if stopper.best_params is not None:
+        trainable.load_state_dict(stopper.best_params)
+    model.eval()
+    metrics: Dict[str, float] = {}
+    if test_data is not None:
+        metrics = evaluate_recon(model, test_data, hp, mean, std)
+    return TrainResult(
+        head=model, encoder=None, history=history, metrics=metrics, epochs_ran=epochs_ran,
         best_epoch=stopper.best_epoch,
         best_valid_loss=float("nan") if stopper.best_loss is None else stopper.best_loss)

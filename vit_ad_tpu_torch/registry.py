@@ -1,45 +1,98 @@
 """Model registry (port of `vit_ad_tpu/registry.py`; the ported keys build the
-ViT-family encoders, the EsViT Swin-T and the ResNet-50 encoder, the other
-keys raise with the ROADMAP item that brings them)."""
+ViT-family encoders, the EsViT Swin-T, the ResNet-50 and vanilla CNN encoders
+and the reconstruction auto-encoders on them; the other keys raise with the
+ROADMAP item that brings them).
+
+`enc_*` keys build a bare (frozen) encoder, `ae_*` keys an auto-encoder whose
+decoder is the ResNet-style decoder for the transformer trunks and the small
+conv decoder where the key ends in `_small` (reference ModelHelper.py:52-58).
+"""
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional
 
 import torch
+from torch import nn
 
 from vit_ad_tpu_torch.config import DtypePolicy
-from vit_ad_tpu_torch.models.outputs import Encoder
+from vit_ad_tpu_torch.models.cnn import VanillaCNNEncoder
 from vit_ad_tpu_torch.models.resnet import resnet50_encoder
 from vit_ad_tpu_torch.models.swin import esvit_swin_tiny
 from vit_ad_tpu_torch.models.vit import deit_base_distilled_patch16, vit_base_patch16
 
-_BUILDERS: Dict[str, Callable[..., Encoder]] = {
+_BUILDERS: Dict[str, Callable[..., nn.Module]] = {
     "enc_deit": deit_base_distilled_patch16,
     "enc_vit": vit_base_patch16,
     "enc_esvit": esvit_swin_tiny,
     "enc_res_net": resnet50_encoder,
+    "enc_cnn": VanillaCNNEncoder,
 }
+
+
+def _transformer_ae(trunk_key: str, decoder_kind: str) -> Callable[..., nn.Module]:
+    def build(img_size: int = 224, dtypes: DtypePolicy = DtypePolicy(),
+              generator: Optional[torch.Generator] = None, **flags) -> nn.Module:
+        from vit_ad_tpu_torch.models.autoencoder import TransformerAutoEncoder
+
+        # the trunk's constructor is looked up when the AE is built, as the JAX
+        # registry does: an `enc_*` entry that is replaced serves its AEs too
+        trunk = _BUILDERS[trunk_key](img_size=img_size, dtypes=dtypes, generator=generator,
+                                     **flags)
+        return TransformerAutoEncoder(trunk, decoder_kind, img_size, dtypes, generator)
+
+    return build
+
+
+def _ae_cnn(img_size: int = 224, dtypes: DtypePolicy = DtypePolicy(),
+            generator: Optional[torch.Generator] = None) -> nn.Module:
+    from vit_ad_tpu_torch.models.autoencoder import VanillaAutoEncoder
+
+    return VanillaAutoEncoder(img_size, dtypes, generator)
+
+
+def _ae_res_net(small_decoder: bool) -> Callable[..., nn.Module]:
+    def build(img_size: int = 224, dtypes: DtypePolicy = DtypePolicy(),
+              generator: Optional[torch.Generator] = None) -> nn.Module:
+        from vit_ad_tpu_torch.models.autoencoder import ResNetAutoEncoder
+
+        return ResNetAutoEncoder(img_size, small_decoder, dtypes, generator)
+
+    return build
+
+
+for _k in ("deit", "vit", "esvit"):
+    _BUILDERS[f"ae_{_k}"] = _transformer_ae(f"enc_{_k}", "resnet")
+    _BUILDERS[f"ae_{_k}_small"] = _transformer_ae(f"enc_{_k}", "cnn")
+_BUILDERS["ae_cnn"] = _ae_cnn
+_BUILDERS["ae_res_net"] = _ae_res_net(False)
+_BUILDERS["ae_res_net_small"] = _ae_res_net(True)
 
 # Keys whose constructor takes `fused_ln` (LayerNorms through the one-pass kernel)
-FUSED_LN_MODELS = ("enc_esvit",)
+FUSED_LN_MODELS = ("enc_esvit", "ae_esvit", "ae_esvit_small")
 # Keys whose constructor takes `fused_mlp` (the blocks' MLP tail through the
 # fused kernel)
-FUSED_MLP_MODELS = ("enc_deit", "enc_vit")
+FUSED_MLP_MODELS = ("enc_deit", "enc_vit", "ae_deit", "ae_deit_small", "ae_vit",
+                    "ae_vit_small")
 
-# JAX registry keys not ported yet → the ROADMAP item that ports them; every
-# ae_* key (the reconstruction autoencoders) is A8
-_PENDING = {
-    "enc_nest": "A9 (other backbones)",
-    "enc_eff_former": "A9 (other backbones)",
-    "enc_eff_net": "A9 (other backbones)",
-    "enc_cnn": "A9 (other backbones)",
-}
+# JAX registry keys not ported yet → the ROADMAP item that ports them
+_PENDING = {k: "A9 (other backbones)" for k in (
+    "enc_nest", "enc_eff_former", "enc_eff_net", "ae_nest", "ae_nest_small", "ae_eff_former",
+    "ae_eff_former_small")}
+
+
+def not_ported(name: str) -> Optional[str]:
+    """Why the JAX registry key `name` cannot be built here (the ROADMAP item
+    that ports it), or None where it is ported or unknown."""
+    if name not in _PENDING:
+        return None
+    return (f"model {name!r} is not ported to vit_ad_tpu_torch yet (ROADMAP {_PENDING[name]}); "
+            f"ported: {sorted(_BUILDERS)}")
 
 
 def get_model(name: str, img_size: int = 224, dtypes: DtypePolicy = DtypePolicy(),
               generator: Optional[torch.Generator] = None,
-              fused_ln: Optional[bool] = None, fused_mlp: Optional[bool] = None) -> Encoder:
+              fused_ln: Optional[bool] = None, fused_mlp: Optional[bool] = None) -> nn.Module:
     """Build a registry model on the CPU with seeded init (move it with `.to`).
     `fused_ln` and `fused_mlp` (None: the model's default) are for the models
     whose LayerNorms, or whose blocks' MLP tails, can run through the fused
@@ -55,10 +108,7 @@ def get_model(name: str, img_size: int = 224, dtypes: DtypePolicy = DtypePolicy(
                                      f"(models that have: {sorted(models)})")
                 kwargs[flag] = value
         return _BUILDERS[name](img_size=img_size, dtypes=dtypes, generator=generator, **kwargs)
-    if name in _PENDING or name.startswith("ae_"):
-        item = _PENDING.get(name, "A8 (reconstruction)")
-        raise NotImplementedError(
-            f"model {name!r} is not ported to vit_ad_tpu_torch yet (ROADMAP {item}); "
-            f"ported: {sorted(_BUILDERS)}"
-        )
+    message = not_ported(name)
+    if message is not None:
+        raise NotImplementedError(message)
     raise KeyError(f"unknown model {name!r}; ported: {sorted(_BUILDERS)}")

@@ -8,6 +8,10 @@ in the timm, EsViT, reference-ResNetEncoder, FrEIA and reference-MDN layouts
 that `vit_ad_tpu/utils/torch_convert.export_vit` (:607), `export_swin` (:803),
 `export_resnet_encoder` (:977), `export_nf_head` (:518) and `export_mdn_head`
 (:497) emit.
+`recon_state_dict_from_jax` takes a JAX auto-encoder's variables (params and
+batch_stats) to the port's state dict, in the reference .pth layouts that
+`export_vanilla_ae` (:1440), `export_resnet_ae` (:1000) and
+`export_transformer_ae` (:1022) emit.
 `interpolate_rel_pos_table` is the port's copy of the bias-table resize of
 `torch_convert.py` (:1099). numpy and scipy only: no jax, no `vit_ad_tpu`.
 """
@@ -232,3 +236,130 @@ def mdn_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor
         "mu.weight": flat(p["w_mu"]),
         "mu.bias": _t(np.asarray(p["b_mu"], np.float32).reshape(d * k)),
     }
+
+
+def _bn_from_jax(sd: Dict[str, torch.Tensor], bp: Mapping[str, Any], bs: Mapping[str, Any],
+                 name: str) -> None:
+    """flax BatchNorm (params, batch_stats) → the five `nn.BatchNorm2d` entries
+    (`num_batches_tracked` 0: strict loads need the key, nothing reads it)."""
+    sd[f"{name}.weight"], sd[f"{name}.bias"] = _t(bp["scale"]), _t(bp["bias"])
+    sd[f"{name}.running_mean"], sd[f"{name}.running_var"] = _t(bs["mean"]), _t(bs["var"])
+    sd[f"{name}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+
+
+def _convt_from_jax(kernel) -> torch.Tensor:
+    """flax ConvTranspose kernel [kh, kw, in, out] → torch ConvTranspose2d
+    weight [in, out, kh, kw], spatially flipped (`torch_convert._inv_convt`
+    :577)."""
+    return _t(np.transpose(np.asarray(kernel, np.float32)[::-1, ::-1], (2, 3, 0, 1)))
+
+
+def _linear_from_jax(sd: Dict[str, torch.Tensor], leaf: Mapping[str, Any], name: str) -> None:
+    sd[f"{name}.weight"] = _t(np.asarray(leaf["kernel"], np.float32).T)
+    sd[f"{name}.bias"] = _t(leaf["bias"])
+
+
+def small_decoder_state_dict_from_jax(p: Mapping[str, Any], s: Mapping[str, Any]
+                                      ) -> Dict[str, torch.Tensor]:
+    """`SmallDecoder` params and batch_stats → the reference DecoderVanillaCNN
+    / DecoderCNNLinEnd keys (`export_small_decoder` :858): every conv under
+    both of its names, the z-space MLP's second Linear re-permuted from the
+    JAX NHWC unflatten to the reference's channel-first one."""
+    sd: Dict[str, torch.Tensor] = {}
+    if "fc1" in p:
+        _linear_from_jax(sd, p["fc1"], "decoder_lin.0")
+        w = np.asarray(p["fc2"]["kernel"], np.float32)  # [in, s*s*768]
+        side = int(round(np.sqrt(w.shape[1] // 768)))
+        sd["decoder_lin.2.weight"] = _t(
+            w.reshape(-1, side, side, 768).transpose(0, 3, 1, 2).reshape(w.shape[0], -1).T)
+        sd["decoder_lin.2.bias"] = _t(np.asarray(p["fc2"]["bias"], np.float32)
+                                      .reshape(side, side, 768).transpose(2, 0, 1).reshape(-1))
+    for i in range(5):
+        leaf = p[f"recon_conv{i + 1}"]
+        for name in (f"recon_conv{i + 1}", f"decoder_cnn.{3 * i}"):
+            sd[f"{name}.weight"], sd[f"{name}.bias"] = _convt_from_jax(leaf["kernel"]), \
+                _t(leaf["bias"])
+        _bn_from_jax(sd, p[f"bn{i + 1}"], s[f"bn{i + 1}"], f"decoder_cnn.{3 * i + 1}")
+    if "linear_end" in p:
+        for name in ("linear_end", "decoder_cnn.14"):
+            sd[f"{name}.weight"] = _t(_hwio_to_oihw(p["linear_end"]["kernel"]))
+            sd[f"{name}.bias"] = _t(p["linear_end"]["bias"])
+    return sd
+
+
+def reverse_resnet_state_dict_from_jax(p: Mapping[str, Any], s: Mapping[str, Any]
+                                       ) -> Dict[str, torch.Tensor]:
+    """`ReverseResNet` params (trunk blocks `layer{n}_{i}` at the root, or under
+    `trunk` for `ResNetDecoder`), `de_conv1` and `bn1` → the reference
+    ReverseResNet keys (`export_reverse_resnet` :934; `export_resnet_decoder`
+    :920 adds `fc1.0` and `fc2.0`)."""
+    tp, ts = (p["trunk"], s["trunk"]) if "trunk" in p else (p, s)
+    sd: Dict[str, torch.Tensor] = {}
+    for n in (4, 3, 2, 1):
+        i = 0
+        while f"layer{n}_{i}" in tp:
+            bp, bs, t = tp[f"layer{n}_{i}"], ts[f"layer{n}_{i}"], f"layer{n}.{i}"
+            for c in ("conv1", "conv2", "conv3"):
+                sd[f"{t}.{c}.weight"] = _convt_from_jax(bp[c]["kernel"])
+            for b in ("bn1", "bn2", "bn3"):
+                _bn_from_jax(sd, bp[b], bs[b], f"{t}.{b}")
+            if "upsample_conv" in bp:
+                sd[f"{t}.upsample.0.weight"] = _convt_from_jax(bp["upsample_conv"]["kernel"])
+                _bn_from_jax(sd, bp["upsample_bn"], bs["upsample_bn"], f"{t}.upsample.1")
+            i += 1
+    sd["de_conv1.weight"] = _convt_from_jax(p["de_conv1"]["kernel"])
+    _bn_from_jax(sd, p["bn1"], s["bn1"], "bn1")
+    if "fc1" in p:
+        _linear_from_jax(sd, p["fc1"], "fc1.0")
+        _linear_from_jax(sd, p["fc2"], "fc2.0")
+    return sd
+
+
+def vanilla_encoder_state_dict_from_jax(p: Mapping[str, Any], s: Mapping[str, Any]
+                                        ) -> Dict[str, torch.Tensor]:
+    """`VanillaCNNEncoder` params and batch_stats → the reference
+    EncoderVanillaCNN keys (`export_vanilla_encoder` :1425): each conv as
+    `conv{i}` and `encoder.{4(i-1)}`, the BatchNorms at `encoder.{4(i-1)+1}`."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(5):
+        leaf = p[f"conv{i + 1}"]
+        for name in (f"conv{i + 1}", f"encoder.{4 * i}"):
+            sd[f"{name}.weight"] = _t(_hwio_to_oihw(leaf["kernel"]))
+            sd[f"{name}.bias"] = _t(leaf["bias"])
+        _bn_from_jax(sd, p[f"bn{i + 1}"], s[f"bn{i + 1}"], f"encoder.{4 * i + 1}")
+    return sd
+
+
+def recon_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX auto-encoder's variables ({'params', 'batch_stats'} as numpy
+    arrays) → the port's AE state dict, key for key the reference .pth layout
+    the JAX exporters emit: `VanillaAutoEncoder` (`export_vanilla_ae` :1440),
+    `ResNetAutoEncoder` (`export_resnet_ae` :1000) and
+    `TransformerAutoEncoder` on a ViT/DeiT or Swin trunk
+    (`export_transformer_ae` :1022: the trunk under `encoder.vit.` /
+    `encoder.deit.` with zeroed classifier heads, or `encoder.esvit.`). The
+    encoder family is read from the encoder's params, the decoder kind from
+    the decoder's."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    ep, es = p["encoder"], s.get("encoder", {})
+    dp, ds = p["decoder"], s.get("decoder", {})
+    dec = (small_decoder_state_dict_from_jax(dp, ds) if "recon_conv1" in dp
+           else reverse_resnet_state_dict_from_jax(dp, ds))
+    if "trunk" in ep:
+        enc = resnet_state_dict_from_jax(ep, es)
+    elif "conv1" in ep:
+        enc = vanilla_encoder_state_dict_from_jax(ep, es)
+    elif "esvit" in ep:
+        enc = {f"esvit.{k}": v for k, v in swin_state_dict_from_jax(ep).items()}
+    elif "prefix_tokens" in ep:
+        trunk = vit_state_dict_from_jax(ep)
+        family = "deit" if "dist_token" in trunk else "vit"
+        d = trunk["norm.weight"].shape[0]
+        for head in ("head", "head_dist") if family == "deit" else ("head",):
+            trunk[f"{head}.weight"], trunk[f"{head}.bias"] = torch.zeros(1000, d), \
+                torch.zeros(1000)
+        enc = {f"{family}.{k}": v for k, v in trunk.items()}
+    else:
+        raise ValueError(f"no port of the AE encoder with params {sorted(ep)[:6]}")
+    return {**{f"encoder.{k}": v for k, v in enc.items()},
+            **{f"decoder.{k}": v for k, v in dec.items()}}
