@@ -16,7 +16,9 @@ save it, score a folder with it); on the ResNet-50 trunk the multi-stage MDN
 path (train two K=100 GMM heads jointly with the stage LayerNorms, save them,
 score a folder with them); on the DeiT-base trunk the reconstruction path
 (train the ResNetDecoder of ae_deit on cached trunk latents, save the AE,
-score a folder with it) and the vanilla CNN auto-encoder end to end. Phases:
+score a folder with it) and the vanilla CNN auto-encoder end to end; on the
+NesT-T, EfficientFormer-L3 and EfficientNet-B4 trunks an NF, an MDN and an
+NF path (train, save, score). Phases:
 
   1. device   card name and power limit (nvidia-smi)
   2. build    compile the kernels from vit_ad_tpu_torch/csrc (nvcc, sm_90a)
@@ -60,7 +62,15 @@ score a folder with it) and the vanilla CNN auto-encoder end to end. Phases:
               bit-identical, the decoder moved; CUDA-vs-CPU f32 scores, bf16
               scores within the policy's drift; `cli.train_recon -m ae_cnn`
               end to end (BatchNorm in training mode), its loss falling
- 10. times    kernels vs plain vs the one PyTorch call that computes the same
+ 10. trunks   one synthetic category: `cli.train_nf -m nest`, then
+              `cli.score -a nf -m enc_nest` (B1 12 times per encoder batch,
+              all through the one-pass kernel at hd = 32; under the default
+              fused LayerNorm B7 27 times, all through the rows kernel); `cli.train_mdn -m eff_former` (K=150),
+              then `cli.score -a mdn` (B2 per forward and B3 per train step at
+              D = 512, all through their wgmma kernels); `cli.train_nf -m
+              eff_net`, then `cli.score -a nf` (no kernel); CUDA-vs-CPU f32
+              scores of each
+ 11. times    kernels vs plain vs the one PyTorch call that computes the same
               function, where there is one, each beside its bound, by events
               and, for the attention kernels and B7, back to back (B5a alone
               with its bias gathered, beside its public entry; B3 and B4 also
@@ -74,8 +84,14 @@ score a folder with it) and the vanilla CNN auto-encoder end to end. Phases:
               and ae_cnn end-to-end train steps at batch 64 (ms, peak memory);
               where the device time of a DeiT NF batch, an EsViT batch, a
               ResNet joint step (K=100), an ae_deit recon batch and the
-              ae_deit decoder step goes (torch.profiler)
- 11. result   a kernels JSON line, the nvidia-smi line, and last the
+              ae_deit decoder step goes (torch.profiler); NesT-T + NF-20
+              uint8→scores img/s at batch 128 with the fused LayerNorm off and
+              on and its peak memory, B1 at NesT's three level shapes beside
+              SDPA, B7 at its two ConvPool norm shapes, B2 and B3 at
+              EfficientFormer's MDN shapes, EfficientFormer-L3 and
+              EfficientNet-B4 ms per batch alone, and the profiles of the
+              three
+ 12. result   a kernels JSON line, the nvidia-smi line, and last the
               {"ok": true, "device": ...} line
 
 Every phase raises on failure, so the script exits non-zero and prints no
@@ -132,6 +148,8 @@ GMM_FWD_CASES = [  # (rows, D, K, dtype): the DeiT shape, the tiled widths, K=1
     (392, 768, 1, "bfloat16"), (392, 768, 1, "float32"),
     # the ResNet-50 heads on a 16-image step: stage 2 (196 tokens), stage 3 (49)
     (3136, 1024, 100, "bfloat16"), (784, 2048, 100, "bfloat16"),
+    # the EfficientFormer-L3 head on a 16-image step (49 tokens of 512)
+    (784, 512, 150, "bfloat16"), (784, 512, 150, "float32"),
 ]
 # B2 at the edges of its bf16 kernel, (rows, D, K): 64-row blocks filled by
 # one row, one row short of a block, one over one and two blocks; widths of one
@@ -154,7 +172,9 @@ GMM_BWD_CASES = [(392, 768, 150, "bfloat16", True), (392, 768, 150, "float32", T
                  (392, 768, 150, "bfloat16", False), (3136, 768, 150, "bfloat16", False),
                  # the ResNet-50 heads' train step: 2 chunks at D=1024, 1 at D=2048,
                  # B4 in 5 and 7 split partials a chunk on 132 SMs (`gmm.dx_splits`)
-                 (3136, 1024, 100, "bfloat16", True), (784, 2048, 100, "bfloat16", True)]
+                 (3136, 1024, 100, "bfloat16", True), (784, 2048, 100, "bfloat16", True),
+                 # the EfficientFormer-L3 head's train step: 16 images, D=512, no dx
+                 (784, 512, 150, "bfloat16", False)]
 # B3 and B4 at the edges of their bf16 kernels: 64-row blocks filled by one row,
 # one row short of a block, one over one and two blocks (B4's 128-row tiles
 # too); widths of one, two and three 64-feature groups (D = 64 and 192: the
@@ -191,6 +211,19 @@ RESNET_HEADS = ((1024, 196), (2048, 49))  # (D, tokens per image) of stages 2, 3
 # end-to-end ae_cnn run; the timed decoder step and ae_cnn step at batch 64
 RECON_TRAIN, RECON_TEST, RECON_EPOCHS, RECON_BATCH, RECON_SCORE_BATCH = 32, 4, 3, 16, 4
 RECON_STEP_BATCH = 64
+# the other trunks (phase 10): NesT-T + NF-20, EfficientFormer-L3 + MDN K=150
+# and EfficientNet-B4 + NF-20 trained by the CLIs on one synthetic category at
+# a smoke batch, a few epochs, and scored by cli.score
+TRUNK_TRAIN, TRUNK_TEST, TRUNK_EPOCHS, TRUNK_BATCH, TRUNK_SCORE_BATCH = 32, 4, 3, 16, 4
+# kernel launches of one NesT-T encoder batch: 12 block attentions; with the
+# fused LayerNorm the 24 block norms, the two ConvPool norms and the final norm
+NEST_B1_PER_BATCH, NEST_B7_PER_BATCH = 12, 24 + 2 + 1
+# NesT-T's attention calls at B=128, 224 px: (level, blocks, C, heads); every
+# block holds 14 x 14 = 196 tokens, hd = 32
+NEST_LEVELS = [("level 0", 2048, 96, 3), ("level 1", 512, 192, 6), ("level 2", 128, 384, 12)]
+# B7's shapes on NesT-T at B=128 that no other path gives it: the two ConvPool
+# norms (its block norms are the Swin-T stage shapes of LN_STAGES)
+NEST_LN_SHAPES = [(401408, 192), (100352, 384)]
 # bf16 image scores with the fused MLP on vs off, relative: the two tails
 # round the hidden activations and the residual at other points (f32 vs bf16)
 # through 12 blocks; the bf16 policy itself drifts ~1e-2 from f32
@@ -774,7 +807,7 @@ def sdpa_ms(q, k, v, additive, torch):
 
 
 def swin_times(card: str, gen) -> dict:
-    """Phase 10, Swin part: B5 at the four Swin-T stage shapes of a B=128
+    """Phase 11, Swin part: B5 at the four Swin-T stage shapes of a B=128
     batch, B5a at stage 0, B7 at the four block-norm shapes and B6's
     LayerNorm step (`layer_norm_times`): kernel vs plain vs the library call
     (SDPA with an additive mask; `F.layer_norm`), beside the bound. Returns
@@ -858,21 +891,22 @@ def swin_times(card: str, gen) -> dict:
     return out
 
 
-def layer_norm_times(card: str, gen) -> dict:
-    """Phase 10, B7 at `LN_PATH_SHAPES` (the four Swin-T block norms of a B=128
-    batch and B6's LayerNorm step), bf16: kernel vs plain by events (order
-    plain, kernel, kernel, plain), and kernel, `F.layer_norm` on the same bf16
-    rows and the unfused path (`F.layer_norm` on the f32 cast and back: the
-    DeiT blocks' norm before this port's kernel took it) by events and back to
-    back, beside the bound. Returns the JSON numbers of [401408,96] (the
-    heaviest call), every shape in `per_stage`."""
+def layer_norm_times(card: str, gen, shapes=None) -> dict:
+    """Phase 11, B7 at `shapes` (default `LN_PATH_SHAPES`: the four Swin-T
+    block norms of a B=128 batch and B6's LayerNorm step), bf16: kernel vs
+    plain by events (order plain, kernel, kernel, plain), and kernel,
+    `F.layer_norm` on the same bf16 rows and the unfused path (`F.layer_norm`
+    on the f32 cast and back: the DeiT blocks' norm before this port's kernel
+    took it) by events and back to back, beside the bound. Returns the JSON
+    numbers of the first shape ([401408,96] by default, the heaviest call),
+    every shape in `per_stage`."""
     import torch
     import torch.nn.functional as F
     from vit_ad_tpu_torch.ops.cuda import layer_norm as ln
 
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     per_shape = []
-    for rows, d in LN_PATH_SHAPES:
+    for rows, d in shapes or LN_PATH_SHAPES:
         x = (1.5 * torch.randn(rows, d, device=dev, generator=gen) + 0.3).to(bf16)
         scale = 1.0 + 0.2 * torch.randn(d, device=dev, generator=gen)
         shift = 0.2 * torch.randn(d, device=dev, generator=gen)
@@ -949,7 +983,7 @@ def print_device_profile(what: str, fn, card: str, batches: int = 3, top: int = 
 
 
 def esvit_times(esvit: dict, images, card: str, gen) -> None:
-    """Phase 10, EsViT part: uint8→scores img/s of Swin-T + NF-20 at B=128
+    """Phase 11, EsViT part: uint8→scores img/s of Swin-T + NF-20 at B=128
     bf16 with the fused LayerNorm off and on (order off, on, on, off), the
     encoder alone likewise, the NF train step on cached [B, 49, 768] tokens
     (7x7x768 maps), and where the device time of a scoring batch goes."""
@@ -1220,7 +1254,7 @@ def gmm_split_times(rows: int, d: int, k: int, head, card: str, gen, runs: int) 
 
 
 def mdn_times(mdn: dict, images, card: str, gen) -> dict:
-    """Phase 10, MDN part: B2 at batch 128, the train step (B2 + B3) at 32
+    """Phase 11, MDN part: B2 at batch 128, the train step (B2 + B3) at 32
     and 64 with its peak memory, B3 and B4 alone by difference, MDN
     uint8→scores img/s. Returns the kernels' JSON numbers; raises if B3 or
     B4 disagrees with the plain version at B=64 (6 chunks of components)."""
@@ -1684,7 +1718,7 @@ def recon_main_path(tmp: str) -> dict:
 
 
 def recon_times(recon: dict, images, card: str):
-    """Phase 10, recon part: ae_deit uint8→scores img/s at B=128 (bf16, the
+    """Phase 11, recon part: ae_deit uint8→scores img/s at B=128 (bf16, the
     batch on the device), the ae_deit decoder-only train step on cached
     latents and the ae_cnn end-to-end train step at B=64 (ms, peak memory),
     by events. Returns the scoring batch and the decoder step, for the
@@ -1743,8 +1777,302 @@ def recon_times(recon: dict, images, card: str):
     return score_batch, step
 
 
+def _cli_runs(what: str, cat: str, train_main, train_args, score_args, pth_glob: str,
+              expect_train: dict, expect_score: dict, tmp: str, routes) -> dict:
+    """Train a head with `train_main` on the category `cat`, then score its
+    test folder with `cli.score` on the head it wrote; the launch counts of
+    each run against `expect_*`, `routes(counts)` (the redesigned routes'
+    counters, which must equal the launch counts they name), the history's
+    losses and metrics finite and the scores.csv rows. Returns the launches
+    of both runs, the head file and the scored files."""
+    import glob
+
+    import torch
+    from vit_ad_tpu_torch.cli import score as score_cli
+
+    run = os.path.join(tmp, f"{what}_run")
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = train_main(["-d", cat, "-t", "train/good", "-v", "test", "-i", "224", "--device",
+                     "cuda", "--out", run, *train_args])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train = read_launches()
+    print(f"{what}: train CLI {train_args} rc={rc} in {wall:.2f} s: launches {train}, expected "
+          f"{expect_train}; routes {routes(train)}")
+    if rc != 0 or train != expect_train or any(a != b for a, b in routes(train)):
+        raise AssertionError(f"{what}: the training run did not launch the path's kernels as "
+                             "many times per batch and step as expected, each through its "
+                             "redesigned route")
+    with open(os.path.join(run, "history.json")) as f:
+        hist = json.load(f)
+    if not all(math.isfinite(v) for v in hist["train_loss"] + hist["valid_loss"]) or \
+            not all(math.isfinite(v) for v in hist["metrics"].values()):
+        raise AssertionError(f"{what}: non-finite losses or metrics: {hist}")
+    print(f"{what}: train loss {hist['train_loss']}, valid loss {hist['valid_loss']}, metrics "
+          f"{hist['metrics']} (random trunk and head: information only)")
+    (pth,) = glob.glob(os.path.join(run, pth_glob))
+
+    test_dir = os.path.join(cat, "test")
+    out_dir = os.path.join(tmp, f"{what}_scores")
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = score_cli.main(["--pth", pth, "-d", test_dir, "-b", str(TRUNK_SCORE_BATCH), "-o",
+                         out_dir, *score_args])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    score = read_launches()
+    print(f"{what}: cli.score.main {score_args} rc={rc} in {wall:.2f} s: launches {score}, "
+          f"expected {expect_score}; routes {routes(score)}")
+    if rc != 0 or score != expect_score or any(a != b for a, b in routes(score)):
+        raise AssertionError(f"{what}: scoring did not launch the path's kernels as many times "
+                             "per batch as expected, each through its redesigned route")
+    files = score_cli.list_images(test_dir)
+    check_scores_csv(out_dir, files, what)
+    return {"launches": {k: train[k] + score[k] for k in train}, "pth": pth, "files": files}
+
+
+def _f32_card_vs_cpu(what: str, pth: str, model: str, arch: str, files, distinct: bool = True,
+                     **flags) -> None:
+    """The head `pth` on `model` under the f32 policy, on the card and on the
+    CPU: the image scores of two images, relative, and the trunk's tokens of
+    the same images, relative to their largest entry, each within
+    SCORE_RTOL_F32 (the tokens also show how far the two images' features
+    are apart, which a random trunk may bring close). With `distinct`, the
+    two images' scores must also lie further apart than SCORE_RTOL_F32 of
+    the larger, or the comparison could not tell a head fault from
+    agreement."""
+    import numpy as np
+    import torch
+    from vit_ad_tpu_torch.config import DtypePolicy
+    from vit_ad_tpu_torch.data.dataset import default_norm_stats
+    from vit_ad_tpu_torch.data.loader import DataPipeline, preprocess
+    from vit_ad_tpu_torch.pipeline.loading import build_pth_models, score_models
+
+    mean, std = default_norm_stats()
+    pipe = DataPipeline(2, 224, files=files[:2])
+    images = torch.from_numpy(next(iter(pipe.test_batches())).images)
+    got, tokens = {}, {}
+    for device in ("cuda", "cpu"):
+        m = build_pth_models(pth, model, arch, dtypes=DtypePolicy.f32(), device=device,
+                             **flags)
+        got[device] = score_models(m, pipe, mean, std).image_scores
+        as_t = lambda a: torch.as_tensor(a, device=device)
+        with torch.inference_mode():
+            x = preprocess(images.to(device), as_t(mean), as_t(std))
+            tokens[device] = m.parts[0](x).patch_embedding.float().cpu()
+    rel = np.abs(got["cuda"] - got["cpu"]) / np.abs(got["cpu"])
+    scale = tokens["cpu"].abs().max().item()
+    tok_rel = (tokens["cuda"] - tokens["cpu"]).abs().max().item() / scale
+    apart = (tokens["cpu"][0] - tokens["cpu"][1]).abs().max().item() / scale
+    print(f"{what} f32 image scores cuda {got['cuda'].tolist()} cpu {got['cpu'].tolist()}: "
+          f"max rel diff {rel.max():.3e}; tokens (max |token| {scale:.3e}): max diff "
+          f"{tok_rel:.3e} of it (rtol {SCORE_RTOL_F32:.0e}), the two images' tokens "
+          f"{apart:.3e} of it apart")
+    if not (rel.max() <= SCORE_RTOL_F32 and tok_rel <= SCORE_RTOL_F32):
+        raise AssertionError(f"CUDA f32 {what} scores or tokens disagree with the CPU path")
+    gap = abs(got["cpu"][0] - got["cpu"][1]) / np.abs(got["cpu"]).max()
+    print(f"{what}: the two images' f32 scores {gap:.3e} of the larger apart"
+          + (f" (must exceed {SCORE_RTOL_F32:.0e})" if distinct else " (not checked)"))
+    if distinct and not gap > SCORE_RTOL_F32:
+        raise AssertionError(f"{what}: the two images score alike, so the card-vs-CPU "
+                             "comparison cannot show a fault of the head or the score tail")
+
+
+def trunks_main_path(tmp: str) -> dict:
+    """Phase 10: the three other trunks at full width through the CLIs, on
+    one synthetic 224-px category. NesT-T + NF-20 (`cli.train_nf -m nest`,
+    then `cli.score -a nf -m enc_nest`, under the default fused LayerNorm,
+    `models/nest.FUSED_LN_DEFAULT`): B1 12 and B7 27 times per encoder batch,
+    all through the one-pass and rows kernels.
+    EfficientFormer-L3 + MDN K=150 (`cli.train_mdn -m eff_former`, then
+    `cli.score -a mdn`): B2 on every forward and B3 on every train step, all
+    through their wgmma kernels, at D = 512. EfficientNet-B4 + NF-20
+    (`cli.train_nf -m eff_net`, then `cli.score -a nf`): no kernel. Each with
+    its f32 scores on the card against the CPU. Returns each path's
+    launches and head file."""
+    import torch
+    from vit_ad_tpu_torch.cli import train_mdn as train_mdn_cli
+    from vit_ad_tpu_torch.cli import train_nf as train_nf_cli
+    from vit_ad_tpu_torch.config import DtypePolicy
+    from vit_ad_tpu_torch.data.loader import DataPipeline
+    from vit_ad_tpu_torch.data.synthetic import make_mvtec_category
+    from vit_ad_tpu_torch.ops.cuda import gmm as cgmm
+    from vit_ad_tpu_torch.ops.cuda import layer_norm as ln
+    from vit_ad_tpu_torch.ops.cuda import window_attention as wa
+
+    cat = make_mvtec_category(os.path.join(tmp, "trunks"), "hinge", img_size=224,
+                              n_train=TRUNK_TRAIN, n_test_good=TRUNK_TEST,
+                              n_test_defect=TRUNK_TEST)
+    split = DataPipeline(TRUNK_BATCH, 224, base_path=cat, data_path="train/good")
+    n_batches = lambda n, b: -(-n // b)
+    n_tr = n_batches(len(split.train_files), TRUNK_BATCH)
+    n_va = n_batches(len(split.valid_files), TRUNK_BATCH)
+    n_te = n_batches(2 * TRUNK_TEST, TRUNK_BATCH)
+    n_enc, nb = n_tr + n_va + n_te, n_batches(2 * TRUNK_TEST, TRUNK_SCORE_BATCH)
+    common = ["-e", str(TRUNK_EPOCHS), "-p", str(TRUNK_EPOCHS), "-b", str(TRUNK_BATCH)]
+    out = {}
+
+    # the trunks are frozen and their features cached: the encoder runs once
+    # over the train, validation and test batches
+    nest_expect = lambda n: {**NO_LAUNCHES, "B1": NEST_B1_PER_BATCH * n,
+                             "B7": NEST_B7_PER_BATCH * n}
+    out["nest"] = _cli_runs(
+        "NesT", cat, train_nf_cli.main, ["-m", "nest", *common],
+        ["-a", "nf", "-m", "enc_nest"], "nf_enc_nest_*.pth", nest_expect(n_enc),
+        nest_expect(nb), tmp,
+        lambda c: [(wa.one_pass_launches, c["B1"]), (ln.rows_launches, c["B7"])])
+    _f32_card_vs_cpu("NesT", out["nest"]["pth"], "enc_nest", "nf", out["nest"]["files"])
+
+    # every train step: one forward and a parameter backward of two kernels per
+    # chunk of components (padded batches: always TRUNK_BATCH x 49 rows); the
+    # validation loss and the final evaluation: forwards only; no dx
+    chunks = -(-MDN_K // cgmm.backward_chunk(TRUNK_BATCH * 49, 512, MDN_K,
+                                             DtypePolicy().compute_dtype))
+    ep = TRUNK_EPOCHS
+    out["eff_former"] = _cli_runs(
+        "EfficientFormer", cat, train_mdn_cli.main,
+        ["-m", "eff_former", "-n", str(MDN_K), *common], ["-a", "mdn", "-m", "enc_eff_former"],
+        f"{MDN_K}_gaussians_enc_eff_former_*.pth",
+        {**NO_LAUNCHES, "B2": ep * (n_tr + n_va) + n_te, "B3": ep * n_tr * 2 * chunks},
+        {**NO_LAUNCHES, "B2": nb}, tmp,
+        lambda c: [(cgmm.fwd_wgmma_launches, c["B2"]),
+                   (cgmm.bwd_wgmma_params_launches, c["B3"])])
+    _f32_card_vs_cpu("EfficientFormer", out["eff_former"]["pth"], "enc_eff_former", "mdn",
+                     out["eff_former"]["files"])
+
+    # the seed-random B4 (the JAX init) shrinks its tokens to ~1e-6 of unit
+    # scale, where the head scores every image alike: this pair shows that the
+    # path runs and the trunk agrees, not that the head's scores do
+    out["eff_net"] = _cli_runs(
+        "EfficientNet", cat, train_nf_cli.main, ["-m", "eff_net", *common],
+        ["-a", "nf", "-m", "enc_eff_net"], "nf_enc_eff_net_*.pth", dict(NO_LAUNCHES),
+        dict(NO_LAUNCHES), tmp, lambda c: [])
+    _f32_card_vs_cpu("EfficientNet", out["eff_net"]["pth"], "enc_eff_net", "nf",
+                     out["eff_net"]["files"], distinct=False)
+    torch.cuda.synchronize()
+    return out
+
+
+def nest_attention_times(card: str, gen) -> list:
+    """Phase 11: B1 at NesT-T's three level shapes of a B=128 batch (2048,
+    512 and 128 blocks of 196 tokens, hd = 32), bf16: kernel vs plain by
+    events (order plain, kernel, kernel, plain), SDPA on the same q, k, v
+    (views of the packed qkv) by events, both back to back, beside the bound.
+    Raises unless each launch took the one-pass kernel and agrees with the
+    plain version. Returns the per-shape JSON numbers."""
+    import torch
+    import torch.nn.functional as F
+    from vit_ad_tpu_torch.ops.cuda import window_attention as wa
+
+    per_shape = []
+    for level, windows, c, heads in NEST_LEVELS:
+        qkv = torch.randn(windows, 196, 3 * c, device="cuda", generator=gen).to(torch.bfloat16)
+        kern = lambda: wa.vit_attention_qkv(qkv, heads)
+        plain = lambda: wa.vit_attention_qkv_reference(qkv, heads)
+        q, k, v = qkv.reshape(windows, 196, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v)
+        with torch.no_grad():
+            before = wa.launches, wa.one_pass_launches
+            got = kern()
+            took = wa.launches - before[0], wa.one_pass_launches - before[1]
+            err = (got.float() - plain().float()).abs().max().item()
+            if took != (1, 1) or not err <= TOL["bfloat16"]:
+                raise AssertionError(f"B1 at NesT {level}: launches (all, one-pass) {took}, "
+                                     f"max|kernel-plain| {err}")
+            kern_ms, plain_ms = alternate(kern, plain, TIMED_RUNS, 3)
+            lib_ms = median_ms(sdpa, torch)
+            b2b = [back_to_back_ms(f, torch) for f in (kern, sdpa)]
+        nums = {"shape": f"NesT {level} [{windows},196,{3 * c}] H={heads}",
+                "max_abs_err": err, "ms": statistics.mean(kern_ms),
+                "plain_ms": statistics.mean(plain_ms), "library_ms": lib_ms,
+                "back_to_back_ms": b2b[0], "library_back_to_back_ms": b2b[1],
+                **bound(tensor_bytes(qkv, got), 4 * windows * heads * 196 * 196 * (c // heads))}
+        per_shape.append(nums)
+        print(f"[{card}] vit_attention_qkv (B1) {nums['shape']} bf16, one-pass route: kernel "
+              f"{kern_ms} ms ({b2b[0]:.4f} ms back to back, 200 launches), plain {plain_ms} ms "
+              f"(order plain, kernel, kernel, plain), SDPA {lib_ms:.4f} ms ({b2b[1]:.4f} ms back "
+              f"to back), bound {nums['bound_ms']:.4f} ms by {nums['bound_by']} (kernel back to "
+              f"back at {nums['bound_ms'] / b2b[0]:.3f} of it); max|kernel-plain| {err:.3e}")
+        del qkv, q, k, v, got
+    return per_shape
+
+
+def trunk_alone(name: str, model: str, images, card: str):
+    """Phase 11: uint8→tokens of the frozen trunk `model` alone at B=128 bf16
+    (preprocessing included), ms/batch and peak memory. Returns the timed
+    function."""
+    import torch
+    from vit_ad_tpu_torch.data.dataset import default_norm_stats
+    from vit_ad_tpu_torch.data.loader import preprocess
+    from vit_ad_tpu_torch.registry import get_model
+
+    dev = torch.device("cuda")
+    mean, std = (torch.as_tensor(a, device=dev) for a in default_norm_stats())
+    enc = get_model(model, 224, generator=torch.Generator().manual_seed(5)).to(dev).eval()
+
+    def encode():
+        with torch.inference_mode():
+            return enc(preprocess(images, mean, std)).patch_embedding
+
+    out = encode()
+    if out.shape != (FLAGSHIP_BATCH, enc.num_patches, enc.embed_dim) or \
+            not torch.isfinite(out).all():
+        raise AssertionError(f"{name} gave non-finite or misshapen tokens: {tuple(out.shape)}")
+    del out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = median_ms(encode, torch, runs=10)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{card}] {name} uint8→tokens alone B={FLAGSHIP_BATCH} bf16, batch on the device: "
+          f"{ms:.3f} ms/batch = {FLAGSHIP_BATCH / ms * 1e3:.1f} img/s; peak memory {peak:.2f} GiB")
+    return encode
+
+
+def trunks_times(trunks: dict, images, card: str, gen) -> dict:
+    """Phase 11, the other trunks: NesT-T + NF-20 uint8→scores img/s at B=128
+    with the fused LayerNorm off and on (the A/B that sets
+    `models/nest.FUSED_LN_DEFAULT`) and its peak memory; B1 at NesT's three
+    level shapes and B7 at its two new norm shapes; B2 and B3 at
+    EfficientFormer-L3's MDN shapes (D = 512); EfficientFormer-L3 and
+    EfficientNet-B4 trunk ms/batch and peak memory. Returns the kernels'
+    per-shape JSON numbers and the functions whose device time phase 11
+    profiles last."""
+    import torch
+    from vit_ad_tpu_torch.pipeline.loading import build_pth_models
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fns, _ = flag_ab("NesT", "NesT-T", "fused LN", images, card,
+                     lambda fused: build_pth_models(trunks["nest"]["pth"], "enc_nest", "nf",
+                                                    device=dev, fused_ln=fused))
+    print(f"[{card}] NesT peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"(both models and the batch resident)")
+    out = {"B1": nest_attention_times(card, gen),
+           "B7": layer_norm_times(card, gen, NEST_LN_SHAPES)["per_stage"]}
+    head = build_pth_models(trunks["eff_former"]["pth"], "enc_eff_former", "mdn",
+                            device=dev).parts[1]
+    gmm = [gmm_split_times(b * 49, 512, MDN_K, head, card, gen, MDN_TIMED_RUNS)
+           for b in (FLAGSHIP_BATCH, 64)]
+    for v, what in zip(gmm, ("EfficientFormer MDN scoring B=128",
+                             "EfficientFormer MDN train B=64")):
+        for nums in v.values():
+            nums["shape"] = f"{what}: {nums['shape']}"
+    # B2 at the scoring shape, B3 at the train step's
+    out["B2"], out["B3"] = [gmm[0]["B2"]], [gmm[1]["B3"]]
+    del head
+    torch.cuda.empty_cache()
+    profiles = {"NesT": fns[True]}
+    for name, model in (("EfficientFormer-L3", "enc_eff_former"),
+                        ("EfficientNet-B4", "enc_eff_net")):
+        torch.cuda.empty_cache()
+        profiles[name] = trunk_alone(name, model, images, card)
+    return out, profiles
+
+
 def mlp_times(card: str, gen) -> dict:
-    """Phase 10, B6: the MLP half-block at the DeiT-base shape of a B=128
+    """Phase 11, B6: the MLP half-block at the DeiT-base shape of a B=128
     batch, bf16: kernel vs plain (order plain, kernel, kernel, plain) vs the
     stock tail of `models/vit._block_apply` (LayerNorm on the f32 cast, two
     `F.linear`, `F.gelu`, add: the library's path for the same function),
@@ -1868,7 +2196,7 @@ def flag_ab(name: str, trunk: str, flag: str, images, card: str, build):
 
 
 def fused_mlp_ab(nf_pth: str, deit_pth: str, images, card: str) -> dict:
-    """Phase 10: DeiT-base + NF-20 uint8→scores img/s at B=128 bf16 with the
+    """Phase 11: DeiT-base + NF-20 uint8→scores img/s at B=128 bf16 with the
     fused MLP off and on (order off, on, on, off), and the encoder alone; B6
     runs 12 times per batch with the flag on, each through the wgmma route,
     never with it off; the peak memory of a batch either way. Returns {flag
@@ -1900,7 +2228,7 @@ def fused_mlp_ab(nf_pth: str, deit_pth: str, images, card: str) -> dict:
 
 
 def vit_norm_ab(nf_pth: str, deit_pth: str, images, card: str) -> None:
-    """Phase 10: DeiT-base + NF-20 uint8→scores img/s at B=128 bf16 with the
+    """Phase 11: DeiT-base + NF-20 uint8→scores img/s at B=128 bf16 with the
     blocks' first norm and the final norm through the LayerNorm kernel (B7,
     the port's path: 13 launches a batch) and through `F.layer_norm` on the
     f32 cast and back (the path before it: `models/vit.layer_norm` swapped for
@@ -1977,7 +2305,7 @@ def resnet_joint_step(k: int, images):
 
 
 def resnet_times(resnet: dict, images, card: str, gen) -> dict:
-    """Phase 10, ResNet part: the joint train step (frozen trunk forward, two
+    """Phase 11, ResNet part: the joint train step (frozen trunk forward, two
     heads' B2 + B3 + B4, stage norms, Adam) at batch 16 with K=100 and K=150:
     ms, img/s, peak memory; B2, B3, B4 alone at the step's two head shapes
     (K=100); the trunk alone; multi-stage MDN scoring img/s at B=128 with the
@@ -2128,11 +2456,11 @@ def against(parent: str) -> int:
     back to back (200 launches; B2 5), in turns parent, change, change, parent:
     B5 at the four Swin-T stage shapes of a B=128 batch and at stage 0 without
     the mask, B5a at stage 0, B1 at DeiT-base B=128, B6 at [25344,768] H=3072,
-    B7 at the four Swin-T block norms and B6's LayerNorm step (beside
-    `F.layer_norm` on the same bf16 rows, before and after the turns), B2 bf16
-    at `GMM_PATH_SHAPES`, and B3 and B4 bf16 at `GMM_BWD_PATH_SHAPES`
-    (`gmm_backward_against`). Prints ms per call, the bound, and the change's
-    largest difference from the parent's output."""
+    B7 at the four Swin-T block norms, B6's LayerNorm step and NesT-T's two
+    ConvPool norms (beside `F.layer_norm` on the same bf16 rows, before and
+    after the turns), B2 bf16 at `GMM_PATH_SHAPES`, and B3 and B4 bf16 at
+    `GMM_BWD_PATH_SHAPES` (`gmm_backward_against`). Prints ms per call, the
+    bound, and the change's largest difference from the parent's output."""
     import ctypes
 
     import torch
@@ -2211,7 +2539,7 @@ def against(parent: str) -> int:
     cases.append((f"B6 [{rows},{d}] H={hidden}", "mlp_block_forward",
                   [*(t.data_ptr() for t in mlp), out.data_ptr(), y.data_ptr(), hid.data_ptr(),
                    rows, d, hidden, MLP_EPS, 1, 0], out, 200, None, None))
-    for rows, d in LN_PATH_SHAPES:
+    for rows, d in LN_PATH_SHAPES + NEST_LN_SHAPES:
         x = (1.5 * torch.randn(rows, d, device=dev, generator=gen) + 0.3).to(bf16)
         scale, shift = (torch.randn(d, device=dev, generator=gen) for _ in range(2))
         scale_bf, shift_bf = scale.to(bf16), shift.to(bf16)
@@ -2670,7 +2998,11 @@ def main() -> int:
         phase("9 recon path: ae_deit, train the decoder, then score through the CLIs")
         recon = recon_main_path(tmp)
 
-        phase("10 times (CUDA events, median of %d after warm-up)" % TIMED_RUNS)
+        phase("10 other trunks: NesT-T + NF-20, EfficientFormer-L3 + MDN K=150, "
+              "EfficientNet-B4 + NF-20, train then score through the CLIs")
+        trunks = trunks_main_path(tmp)
+
+        phase("11 times (CUDA events, median of %d after warm-up)" % TIMED_RUNS)
         qkv = torch.randn(FLAGSHIP_BATCH, 198, 3 * 768, device=dev,
                           generator=gen).to(torch.bfloat16)
         err = (wa.vit_attention_qkv(qkv, 12).float()
@@ -2725,6 +3057,7 @@ def main() -> int:
         swin = swin_times(card, gen)
         esvit_times(esvit, images, card, gen)
         recon_fns = recon_times(recon, images, card)
+        trunk_nums, trunk_fns = trunks_times(trunks, images, card, gen)
         # last: the profiler's hooks slow the host down for whatever is timed after it
         print_device_profile(f"DeiT NF uint8→scores B={FLAGSHIP_BATCH} bf16, fused MLP on "
                              f"(the default)", deit_fns[True], card, top=20)
@@ -2739,21 +3072,27 @@ def main() -> int:
         print_device_profile(f"ae_deit decoder-only train step B={RECON_STEP_BATCH} bf16",
                              recon_fns[1], card, top=16)
         del recon_fns
+        for what, fn in (("NesT-T + NF-20 uint8→scores", trunk_fns["NesT"]),
+                         ("EfficientFormer-L3 uint8→tokens", trunk_fns["EfficientFormer-L3"]),
+                         ("EfficientNet-B4 uint8→tokens", trunk_fns["EfficientNet-B4"])):
+            print_device_profile(f"{what} B={FLAGSHIP_BATCH} bf16", fn, card, top=16)
+        del trunk_fns
     torch.cuda.synchronize()
 
-    phase("11 result")
+    phase("12 result")
     kernels = [{
         "name": "vit_attention_qkv",
         "route": "cuda",
         "source": "vit_ad_tpu_torch/csrc/vit_attention_qkv.cu",
         "replaces": "vit_ad_tpu/ops/pallas/window_attention.py:375",
         "launches": nf_launches["B1"] + fused["launches"]["B1"] + mdn["launches"]["B1"]
-        + recon["launches"]["B1"],
+        + recon["launches"]["B1"] + trunks["nest"]["launches"]["B1"],
         "max_abs_err": err,
         "ms": att_ms,
         "plain_ms": att_plain_ms,
         **att_bound,
         "library_ms": att_lib_ms,
+        "per_shape": trunk_nums["B1"],
         "design": "one score pass with the 16 x N scores in registers, ldmatrix fragments, "
                   "cp.async staging, keys padded to 16 (two-pass kernel above 208 tokens)",
     }]
@@ -2768,11 +3107,12 @@ def main() -> int:
             ("B2", "gmm_forward", "vit_ad_tpu/ops/pallas/gmm.py:39"),
             ("B3", "gmm_backward_params", "vit_ad_tpu/ops/pallas/gmm_train.py:88"),
             ("B4", "gmm_backward_x", "vit_ad_tpu/ops/pallas/gmm_train.py:175")):
-        shapes = [gmm_times[key]] + wide[key]
+        shapes = [gmm_times[key]] + wide[key] + trunk_nums.get(key, [])
         main = wide[key][0] if key == "B4" else gmm_times[key]
         kernels.append({"name": kernel, "route": "cuda", "source": "vit_ad_tpu_torch/csrc/gmm.cu",
                         "replaces": replaces,
-                        "launches": mdn["launches"][key] + resnet["launches"][key],
+                        "launches": mdn["launches"][key] + resnet["launches"][key]
+                        + trunks["eff_former"]["launches"][key],
                         **main, "per_shape": shapes})
     kernels[1]["kernel_route"] = "wgmma_x_resident (D <= 1024), wgmma_x_streamed (above)"
     kernels[1]["design"] = ("64 rows x 128 features a block, two consumer warpgroups of 64 "
@@ -2800,9 +3140,12 @@ def main() -> int:
         kernels.append({"name": kernel, "route": "cuda",
                         "source": f"vit_ad_tpu_torch/csrc/{source}", "replaces": replaces,
                         "launches": esvit["launches"][key], **swin[key]})
-    # B7 also runs the DeiT blocks' first norm and the final norm
+    # B7 also runs the DeiT blocks' first norm and the final norm, and every
+    # NesT-T LayerNorm
     kernels[-1]["launches"] += (nf_launches["B7"] + fused["launches"]["B7"]
-                                + mdn["launches"]["B7"] + recon["launches"]["B7"])
+                                + mdn["launches"]["B7"] + recon["launches"]["B7"]
+                                + trunks["nest"]["launches"]["B7"])
+    kernels[-1]["per_stage"] += trunk_nums["B7"]
     kernels[-1]["design"] = ("rows kernel: D = 8 LPR NV, 32 / LPR rows a warp, scale and bias "
                              "in registers, the warps striding over the rows from D = 384 with "
                              "the next group's loads in flight")

@@ -135,8 +135,9 @@ def test_resnet_autoencoder_keys_match_the_exporter():
 def test_registry_builds_every_ported_ae_key():
     """The JAX registry's ae_* semantics: ResNetDecoder on the transformer
     trunks, the small decoder for `_small` and the vanilla AE, ReverseResNet
-    on the ResNet-50; the fused flags reach the trunk; nest and eff_former
-    name A9. Built on the meta device: structure only."""
+    on the ResNet-50; the fused flags reach the trunk; the NesT and
+    EfficientFormer keys build with their families. Built on the meta device:
+    structure only."""
     from vit_ad_tpu_torch.models.reverse_resnet import ReverseResNet
 
     cases = {"ae_deit": (pdec.ResNetDecoder, "deit"), "ae_vit": (pdec.ResNetDecoder, "vit"),
@@ -144,15 +145,19 @@ def test_registry_builds_every_ported_ae_key():
              "ae_deit_small": (pdec.SmallDecoder, "deit"),
              "ae_vit_small": (pdec.SmallDecoder, "vit"),
              "ae_esvit_small": (pdec.SmallDecoder, "esvit"), "ae_cnn": (pdec.SmallDecoder, None),
-             "ae_res_net": (ReverseResNet, None), "ae_res_net_small": (pdec.SmallDecoder, None)}
+             "ae_res_net": (ReverseResNet, None), "ae_res_net_small": (pdec.SmallDecoder, None),
+             "ae_nest": (pdec.ResNetDecoder, "nest"),
+             "ae_nest_small": (pdec.SmallDecoder, "nest"),
+             "ae_eff_former": (pdec.ResNetDecoder, "efficientformer"),
+             "ae_eff_former_small": (pdec.SmallDecoder, "efficientformer")}
     with torch.device("meta"):
         for key, (decoder, family) in cases.items():
             ae = registry.get_model(key, 224, F32)
             assert type(ae.decoder) is decoder and getattr(ae, "family", None) == family, key
         assert registry.get_model("ae_deit", fused_mlp=False).trunk.fused_mlp is False
         assert registry.get_model("ae_esvit_small", fused_ln=True).trunk.fused_ln is True
-    for key in ("ae_nest", "ae_nest_small", "ae_eff_former", "ae_eff_former_small"):
-        with pytest.raises(NotImplementedError, match="A9"):
-            registry.get_model(key)
+        assert registry.get_model("ae_nest", fused_ln=False).trunk.fused_ln is False
+    with pytest.raises(ValueError, match="fused LayerNorm"):
+        registry.get_model("ae_eff_former", fused_ln=True)
     with pytest.raises(ValueError, match="fused MLP"):
         registry.get_model("ae_cnn", fused_mlp=True)

@@ -256,7 +256,7 @@ def test_payload_to_scores_matches_jax(kind, ref_max):
 
 @pytest.mark.parametrize("args,match", [
     (["-r", "run_dir"], "orbax"),
-    (["--pth", "x.pth", "-a", "recon", "-m", "ae_nest"], "A9"),
+    (["--pth", "x.pth", "-a", "nf", "--weights-dtype", "bf16"], "A10"),
     (["--pth", "x.pth", "-a", "nf", "--watch", "5"], "A10"),
     (["--pth", "x.pth", "-a", "nf", "--mesh", "2"], "A11"),
     (["--pth", "x.pth"], "-a nf"),
@@ -269,13 +269,21 @@ def test_cli_refuses_unported_options_clearly(args, match, capsys):
 
 
 def test_registry_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A9"):
-        registry.get_model("enc_nest")
+    """Every key of the JAX registry builds (nothing is pending a ROADMAP item
+    any more); a flag a model has no path for and an unknown key raise."""
+    from vit_ad_tpu import registry as jax_registry
+
+    assert registry.get_possible_models() == jax_registry.get_possible_models()
+    with torch.device("meta"):
+        for key, cls in (("enc_nest", "NesT"), ("enc_eff_former", "EfficientFormer"),
+                         ("enc_eff_net", "EfficientNetEncoder"),
+                         ("ae_nest", "TransformerAutoEncoder")):
+            assert type(registry.get_model(key)).__name__ == cls, key
     assert type(registry.get_model("enc_res_net", 32)).__name__ == "ResNetEncoder"
     with pytest.raises(ValueError, match="fused MLP"):
         registry.get_model("enc_esvit", fused_mlp=True)
-    with pytest.raises(NotImplementedError, match="A9"):
-        registry.get_model("ae_nest")
+    with pytest.raises(ValueError, match="fused LayerNorm"):
+        registry.get_model("enc_eff_net", fused_ln=True)
     assert type(registry.get_model("ae_deit", 32)).__name__ == "TransformerAutoEncoder"
     with pytest.raises(KeyError):
         registry.get_model("no_such_model")

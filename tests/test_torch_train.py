@@ -266,7 +266,7 @@ def test_cli_train_then_score_round_trip(category, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("args,match", [
     (["--mesh", "2x1", "--device", "cpu"], "A11"),
-    (["-m", "nest", "--device", "cpu"], "A9"),
+    (["-m", "no_such_model", "--device", "cpu"], "unknown model"),
 ])
 def test_train_cli_refuses_unported_options(args, match):
     with pytest.raises(SystemExit, match=match):

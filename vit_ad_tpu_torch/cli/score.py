@@ -4,7 +4,8 @@ Port of `python -m vit_ad_tpu.cli.score` (the `--pth` path: NF, MDN and
 reconstruction heads):
 
     python -m vit_ad_tpu_torch.cli.score --pth <head .pth> -a nf|mdn \\
-        -m enc_deit|enc_vit|enc_esvit -E <trunk .pth> -d /path/to/images \\
+        -m enc_deit|enc_vit|enc_esvit|enc_nest|enc_eff_former|enc_eff_net \\
+        -E <trunk .pth> -d /path/to/images \\
         [-o out_dir] [-b BATCH] [--fused-ln|--no-fused-ln] [--fused-mlp|--no-fused-mlp]
     python -m vit_ad_tpu_torch.cli.score --pth <stage-2 head .pth> <stage-3 head .pth> \\
         -a mdn -E <ResNet encoder .pth> -d /path/to/images
@@ -18,10 +19,11 @@ ResNet-50 stage map (2, then 3), as `cli.train_mdn -m res_net` saves them.
 A recon `.pth` is the whole auto-encoder of the `-m ae_*` key, as
 `cli.train_recon` saves it (`<model>_<class>.pth`); `-E` is ignored there.
 `-E` is the pretrained trunk the head was trained against: a timm ViT/DeiT
-`.pth`, the EsViT Swin-T checkpoint for `-m enc_esvit`, or for the ResNet
-heads the encoder file their training run wrote (or ImageNet ResNet-50
-weights). `--fused-ln` / `--no-fused-ln` send the EsViT trunk's LayerNorms
-through the one-pass kernel or not, `--fused-mlp` / `--no-fused-mlp` the
+`.pth`, the EsViT Swin-T checkpoint for `-m enc_esvit`, timm's `jx_nest_tiny`
+or `efficientformer_l3` file, NVIDIA's widese-B4 file for `-m enc_eff_net`,
+or for the ResNet heads the encoder file their training run wrote (or
+ImageNet ResNet-50 weights). `--fused-ln` / `--no-fused-ln` send the EsViT
+and NesT trunks' LayerNorms through the one-pass kernel or not, `--fused-mlp` / `--no-fused-mlp` the
 ViT/DeiT blocks' MLP tail through the fused kernel or not (default of both:
 the model's).
 
@@ -41,9 +43,9 @@ Image score: max over the NF anomaly map (reference ValidatorNF.py:137-142)
 or over the recon squared-error map (ValidatorRecon.py:115-117); for MDN the
 inverted min patch probability (reference ValidatorMDN.py:133).
 Run directories (`-r`, orbax checkpoints), `--watch`, `--heatmaps`, `--mesh`
-and `--weights-dtype bf16` are ROADMAP A10/A11 and exit with a message, as do
-the auto-encoders on the trunks not ported yet (A9). `--device` defaults to
-cuda; without a card the CLI exits unless `--device cpu` is given.
+and `--weights-dtype bf16` are ROADMAP A10/A11 and exit with a message.
+`--device` defaults to cuda; without a card the CLI exits unless `--device
+cpu` is given.
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ import numpy as np
 from vit_ad_tpu_torch.cli.common import RUN_CONFIG, check_device
 from vit_ad_tpu_torch.config import set_numerics_policy
 from vit_ad_tpu_torch.data.files import IMAGE_EXTENSIONS
-from vit_ad_tpu_torch.registry import FUSED_LN_MODELS, FUSED_MLP_MODELS, not_ported
+from vit_ad_tpu_torch.registry import FUSED_LN_MODELS, FUSED_MLP_MODELS, get_possible_models
 
 
 def list_images(images_dir: str) -> List[str]:
@@ -210,10 +212,12 @@ def main(argv=None) -> int:
     ap.add_argument("-m", "--model", default="enc_deit",
                     help="registry key: the encoder (nf, mdn) or the auto-encoder (recon: ae_*)")
     ap.add_argument("-E", "--encoder-ckpt", default="",
-                    help="pretrained trunk the head was trained against (timm ViT/DeiT "
-                         ".pth, or the EsViT Swin-T .pth for -m enc_esvit)")
+                    help="pretrained trunk the head was trained against (timm ViT/DeiT, "
+                         "NesT or EfficientFormer .pth, the EsViT Swin-T .pth for -m "
+                         "enc_esvit, NVIDIA's EfficientNet-B4 .pth for -m enc_eff_net)")
     ap.add_argument("--fused-ln", dest="fused_ln", action="store_true", default=None,
-                    help="LayerNorms of the trunk through the one-pass kernel (enc_esvit)")
+                    help="LayerNorms of the trunk through the one-pass kernel (enc_esvit, "
+                         "enc_nest and their ae_* keys)")
     ap.add_argument("--no-fused-ln", dest="fused_ln", action="store_false")
     ap.add_argument("--fused-mlp", dest="fused_mlp", action="store_true", default=None,
                     help="the blocks' MLP tail through the fused kernel (enc_deit, enc_vit)")
@@ -241,8 +245,8 @@ def main(argv=None) -> int:
     if args.arch == "recon" and not args.model.startswith("ae_"):
         ap.error(f"-a recon scores an auto-encoder: give its registry key (-m ae_*), not "
                  f"{args.model!r}")
-    if not_ported(args.model):
-        ap.error(not_ported(args.model))
+    if args.model not in get_possible_models():
+        ap.error(f"-m {args.model}: unknown model; known: {', '.join(get_possible_models())}")
     if args.fused_ln is not None and args.model not in FUSED_LN_MODELS:
         ap.error(f"--fused-ln/--no-fused-ln: -m {args.model} has no fused LayerNorm path "
                  f"(models that have: {', '.join(FUSED_LN_MODELS)})")

@@ -6,8 +6,9 @@ Port of `startTraining_mdn.py` (the flag surface of `cli/common.py`, with
 wd 7e-4, batch 64, K 150, 224 px — reference startTraining_mdn.py:26-38):
 
     python -m vit_ad_tpu_torch.cli.train_mdn -d <category dir> -t train/good \\
-        -v test [-m deit|vit|esvit|res_net] [-n 150] [-e EPOCHS] [-b BATCH] \\
-        [--device cuda|cpu] [--out RUN_DIR] [--fused-mlp|--no-fused-mlp]
+        -v test [-m deit|vit|esvit|nest|eff_former|eff_net|res_net] [-n 150] \\
+        [-e EPOCHS] [-b BATCH] [--device cuda|cpu] [--out RUN_DIR] \\
+        [--fused-ln|--no-fused-ln] [--fused-mlp|--no-fused-mlp]
 
 The trunk is the registry model with its seed-deterministic init, as in the
 JAX package's trainer. Writes into the run directory (default

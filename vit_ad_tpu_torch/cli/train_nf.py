@@ -6,7 +6,8 @@ Port of `startTraining_NF.py` (the flag surface of `cli/common.py`, with
 reference startTraining_NF.py:26-39):
 
     python -m vit_ad_tpu_torch.cli.train_nf -d <category dir> -t train/good \\
-        -v test [-m deit|vit|esvit] [-r 0.16] [-f 20] [-e EPOCHS] [-b BATCH] \\
+        -v test [-m deit|vit|esvit|nest|eff_former|eff_net] [-r 0.16] [-f 20] \\
+        [-e EPOCHS] [-b BATCH] \\
         [--device cuda|cpu] [--out RUN_DIR] [--fused-ln|--no-fused-ln] \\
         [--fused-mlp|--no-fused-mlp]
 

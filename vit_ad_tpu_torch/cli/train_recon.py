@@ -5,9 +5,10 @@ defaults: model ae_cnn, patience 30, epochs 50, lr 1e-3, wd 1e-4, batch 64,
 224 px — reference startTraining_recon.py:27-38):
 
     python -m vit_ad_tpu_torch.cli.train_recon -d <category dir> -t train/good \\
-        -v test [-m ae_cnn|ae_deit|ae_vit|ae_esvit|ae_*_small|ae_res_net|ae_res_net_small] \\
-        [-e EPOCHS] [-b BATCH] [-i IMG] [--device cuda|cpu] [--out RUN_DIR] \\
-        [--fused-ln|--no-fused-ln] [--fused-mlp|--no-fused-mlp]
+        -v test [-m ae_cnn|ae_deit|ae_vit|ae_esvit|ae_nest|ae_eff_former|ae_*_small \\
+        |ae_res_net|ae_res_net_small] [-e EPOCHS] [-b BATCH] [-i IMG] \\
+        [--device cuda|cpu] [--out RUN_DIR] [--fused-ln|--no-fused-ln] \\
+        [--fused-mlp|--no-fused-mlp]
 
 The auto-encoder is the registry model with its seed-deterministic init, as
 in the JAX package's trainer: the vanilla AE trains end to end, the others

@@ -8,7 +8,7 @@ TransformerAutoEncoder.py).
     small decoder on the 2048 latent).
   * TransformerAutoEncoder: a frozen transformer trunk + ResNetDecoder (or the
     small decoder) on its latent: the cls token of DeiT and ViT, the mean
-    token of Swin; it also returns the patch tokens.
+    token of Swin, NesT and EfficientFormer; it also returns the patch tokens.
 
 Inputs are preprocessed images [B, H, W, 3]; `AutoEncoderOutput.reconstruction`
 is [B, H, W, 3], a view of the decoders' NCHW (channels_last) output. The
@@ -17,9 +17,10 @@ modules run them with `train=False` while the decoder trains, :71) and run
 without gradient. State-dict keys are the reference's .pth layouts, as
 `utils/torch_convert.export_vanilla_ae` (:1440), `export_resnet_ae` (:1000)
 and `export_transformer_ae` (:1022) emit them: a transformer trunk sits under
-its family's name (`encoder.deit.`, `encoder.vit.`, `encoder.esvit.`), the
-DeiT and ViT trunks with the timm classifier heads the reference's files
-carry (zeroed here, never read).
+its family's name (`encoder.deit.`, `encoder.vit.`, `encoder.esvit.`,
+`encoder.nest.`, `encoder.efficientformer.`), the timm trunks with the
+classifier heads the reference's files carry (`head`, and `head_dist` for
+DeiT and EfficientFormer; zeroed here, never read).
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ from torch import nn
 from vit_ad_tpu_torch.config import DtypePolicy
 from vit_ad_tpu_torch.models.cnn import VanillaCNNEncoder
 from vit_ad_tpu_torch.models.decoders import ResNetDecoder, SmallDecoder
+from vit_ad_tpu_torch.models.efficientformer import EfficientFormer
+from vit_ad_tpu_torch.models.nest import NesT
 from vit_ad_tpu_torch.models.outputs import AutoEncoderOutput, Encoder
 from vit_ad_tpu_torch.models.resnet import ResNetEncoder
 from vit_ad_tpu_torch.models.reverse_resnet import ReverseResNet
@@ -95,10 +98,11 @@ class ResNetAutoEncoder(_FrozenEncoderAE):
 
 
 class TransformerAutoEncoder(_FrozenEncoderAE):
-    """A frozen transformer trunk (`ViTEncoder` or `SwinTransformer`) + a
-    trainable decoder on its latent: `decoder_kind` "resnet" (ResNetDecoder,
-    the default for the `ae_<trunk>` keys) or "cnn" (SmallDecoder with
-    z_space = D, the `_small` keys). `block_index` reaches the trunk."""
+    """A frozen transformer trunk (`ViTEncoder`, `SwinTransformer`, `NesT` or
+    `EfficientFormer`) + a trainable decoder on its latent: `decoder_kind`
+    "resnet" (ResNetDecoder, the default for the `ae_<trunk>` keys) or "cnn"
+    (SmallDecoder with z_space = D, the `_small` keys). `block_index` reaches
+    the trunk."""
 
     def __init__(self, trunk: Encoder, decoder_kind: str = "resnet", img_size: int = 224,
                  dtypes: DtypePolicy = DtypePolicy(),
@@ -106,18 +110,21 @@ class TransformerAutoEncoder(_FrozenEncoderAE):
         super().__init__()
         self.img_size = img_size
         if isinstance(trunk, SwinTransformer):
-            self.family = "esvit"
+            self.family, heads = "esvit", ()
         elif isinstance(trunk, ViTEncoder):
             self.family = "deit" if trunk.num_prefix_tokens == 2 else "vit"
-            trunk.head = nn.Linear(trunk.embed_dim, IMAGENET_CLASSES)
-            if self.family == "deit":
-                trunk.head_dist = nn.Linear(trunk.embed_dim, IMAGENET_CLASSES)
-            for m in (trunk.head, getattr(trunk, "head_dist", None)):
-                if m is not None:
-                    nn.init.zeros_(m.weight)
-                    nn.init.zeros_(m.bias)
+            heads = ("head", "head_dist") if self.family == "deit" else ("head",)
+        elif isinstance(trunk, NesT):
+            self.family, heads = "nest", ("head",)
+        elif isinstance(trunk, EfficientFormer):
+            self.family, heads = "efficientformer", ("head", "head_dist")
         else:
             raise TypeError(f"no transformer AE for a {type(trunk).__name__} trunk")
+        for name in heads:  # the timm classifier heads: in the files, never read
+            head = nn.Linear(trunk.embed_dim, IMAGENET_CLASSES)
+            nn.init.zeros_(head.weight)
+            nn.init.zeros_(head.bias)
+            trunk.add_module(name, head)
         self.encoder = nn.Module()
         self.encoder.add_module(self.family, trunk)
         d = trunk.embed_dim

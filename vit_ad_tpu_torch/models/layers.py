@@ -1,7 +1,8 @@
 """Shared building blocks for the backbones (port of
 `vit_ad_tpu/models/layers.py`: `PatchEmbed` :27, `resolve_gelu_approx` :58,
-`FusedBatchNorm` :149, `LayerNorm` :227), the JAX initializers of the conv
-layers (`init_conv_layers`), and the cache of compute-dtype weight copies the
+`FusedBatchNorm` :149, `LayerNorm` :227), the frozen trunks' conv and
+BatchNorm step (`conv_bn`), the JAX initializers of the conv layers
+(`init_conv_layers`), and the cache of compute-dtype weight copies the
 encoders share."""
 
 from __future__ import annotations
@@ -133,6 +134,16 @@ class FusedBatchNorm(nn.BatchNorm2d):
         mul = torch.rsqrt(var + self.eps) * self.weight.float()
         return (x32 - mu.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1) \
             + self.bias.float().view(1, -1, 1, 1)
+
+
+def conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: FusedBatchNorm, weight: torch.Tensor,
+            bias: Optional[torch.Tensor],
+            folded: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """A frozen trunk's conv and its BatchNorm: `conv`'s geometry on the cached
+    compute-dtype `weight` (and `bias`, or None), then `bn` on its cached
+    `folded` statistics (eval mode only, which `FusedBatchNorm` checks)."""
+    y = F.conv2d(x, weight, bias, conv.stride, conv.padding, conv.dilation, conv.groups)
+    return bn(y, folded)
 
 
 def init_conv_layers(module: nn.Module, generator: Optional[torch.Generator]) -> None:

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vit_ad_tpu_torch.config import DtypePolicy
-from vit_ad_tpu_torch.models.layers import ComputeWeights, FusedBatchNorm, lecun_normal_
+from vit_ad_tpu_torch.models.layers import ComputeWeights, FusedBatchNorm, conv_bn, lecun_normal_
 from vit_ad_tpu_torch.models.outputs import EncoderOutput
 
 STAGE_CHANNELS = (256, 512, 1024, 2048)
@@ -55,8 +55,7 @@ class Bottleneck(nn.Module):
 
 def _conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: FusedBatchNorm, w: Dict[str, object],
              name_conv: str, name_bn: str) -> torch.Tensor:
-    y = F.conv2d(x, w[name_conv], None, conv.stride, conv.padding)
-    return bn(y, w[name_bn])
+    return conv_bn(x, conv, bn, w[name_conv], None, w[name_bn])
 
 
 def _bottleneck_apply(x: torch.Tensor, blk: Bottleneck, w: Dict[str, object],

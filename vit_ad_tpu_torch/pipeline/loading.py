@@ -108,14 +108,34 @@ def _resnet_encoder_state(encoder: ResNetEncoder, sd: Dict[str, torch.Tensor]
     return {**optional, **sd}
 
 
+# buffers a checkpoint may lack or hold in another form, which the encoder
+# makes itself: BatchNorm batch counts (never read) and EfficientFormer's
+# attention-bias index, which the JAX `convert_efficientformer` recomputes
+_OWN_BUFFERS = ("num_batches_tracked", "attention_bias_idxs")
+
+
+def _with_own_buffers(module: torch.nn.Module, sd: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+    """`sd` with every `_OWN_BUFFERS` entry taken from `module` itself."""
+    sd = {k: v for k, v in sd.items() if not k.endswith(_OWN_BUFFERS)}
+    for name, buf in module.named_buffers():
+        if name.endswith(_OWN_BUFFERS):
+            sd[name] = buf
+    return sd
+
+
 def load_encoder_checkpoint(encoder: Encoder, encoder_ckpt: str) -> Encoder:
     """Load a pretrained trunk `.pth` into `encoder` strictly: a timm ViT/DeiT
-    file, the EsViT Swin-T checkpoint for a `SwinTransformer`, or for a
-    `ResNetEncoder` a torchvision ResNet-50 or a reference-layout encoder
-    file. Strips a DataParallel `module.` prefix and drops the classifier
-    heads (`head.*`, `head_dist.*`, `pre_logits.*`), as the JAX `convert_vit`
-    (:122) and `convert_swin` (:1118) do; the Swin file also gets
-    `_swin_checkpoint_surgery`."""
+    file, the EsViT Swin-T checkpoint for a `SwinTransformer`, a timm
+    `jx_nest_tiny` or `efficientformer_l3` file, NVIDIA's widese-B4 file for
+    an `EfficientNetEncoder`, or for a `ResNetEncoder` a torchvision
+    ResNet-50 or a reference-layout encoder file. Strips a DataParallel
+    `module.` prefix and drops the classifier heads (`head.*`, `head_dist.*`,
+    `pre_logits.*`, `classifier.*`), as the JAX `convert_vit` (:122),
+    `convert_swin` (:1118), `convert_nest` (:200), `convert_efficientformer`
+    (:272) and `convert_efficientnet` (:365) do; the BatchNorm batch counts
+    and EfficientFormer's `attention_bias_idxs` are the encoder's own, and
+    the Swin file also gets `_swin_checkpoint_surgery`."""
     if not encoder_ckpt.endswith(".pth"):
         raise SystemExit(
             f"encoder checkpoint {encoder_ckpt!r}: the port reads .pth files; "
@@ -129,8 +149,8 @@ def load_encoder_checkpoint(encoder: Encoder, encoder_ckpt: str) -> Encoder:
     if "distillation_token" in sd:
         sd["dist_token"] = sd.pop("distillation_token")
     sd = {k: v for k, v in sd.items()
-          if not k.startswith(("head.", "head_dist.", "pre_logits."))
-          and not k.endswith("num_batches_tracked")}
+          if not k.startswith(("head.", "head_dist.", "pre_logits.", "classifier."))}
+    sd = _with_own_buffers(encoder, sd)
     if isinstance(encoder, SwinTransformer):
         sd = _swin_checkpoint_surgery(encoder, sd)
     encoder.load_state_dict(sd, strict=True)
@@ -221,7 +241,9 @@ def _load_recon_model(model: torch.nn.Module, pth_path: str, encoder_ckpt: str
     reference's base AE are dropped (JAX `convert_recon_ae`,
     torch_convert.py:1487-1490), an EsViT trunk gets the checkpoint surgery
     of `load_encoder_checkpoint`, and the rest loads strictly. `-E` is
-    ignored, with the JAX loader's message."""
+    ignored, with the JAX loader's message. Every `ae_*` family loads so: the
+    DeiT, ViT, EsViT, NesT and EfficientFormer trunks under their family's
+    name, the ResNet-50 and the vanilla CNN."""
     if encoder_ckpt:
         print("build_pth_models (recon): -E/--encoder-ckpt ignored — a recon .pth is the WHOLE "
               "AutoEncoder (its own frozen encoder included); the file's encoder weights are "

@@ -1,7 +1,7 @@
-"""Model registry (port of `vit_ad_tpu/registry.py`; the ported keys build the
-ViT-family encoders, the EsViT Swin-T, the ResNet-50 and vanilla CNN encoders
-and the reconstruction auto-encoders on them; the other keys raise with the
-ROADMAP item that brings them).
+"""Model registry (port of `vit_ad_tpu/registry.py`: all 21 of its keys, the
+ViT-family encoders, the EsViT Swin-T, NesT-T, EfficientFormer-L3, the
+ResNet-50, EfficientNet-B4 and vanilla CNN encoders and the reconstruction
+auto-encoders on them).
 
 `enc_*` keys build a bare (frozen) encoder, `ae_*` keys an auto-encoder whose
 decoder is the ResNet-style decoder for the transformer trunks and the small
@@ -17,6 +17,9 @@ from torch import nn
 
 from vit_ad_tpu_torch.config import DtypePolicy
 from vit_ad_tpu_torch.models.cnn import VanillaCNNEncoder
+from vit_ad_tpu_torch.models.efficientformer import efficientformer_l3
+from vit_ad_tpu_torch.models.efficientnet import efficientnet_b4
+from vit_ad_tpu_torch.models.nest import nest_tiny
 from vit_ad_tpu_torch.models.resnet import resnet50_encoder
 from vit_ad_tpu_torch.models.swin import esvit_swin_tiny
 from vit_ad_tpu_torch.models.vit import deit_base_distilled_patch16, vit_base_patch16
@@ -25,8 +28,11 @@ _BUILDERS: Dict[str, Callable[..., nn.Module]] = {
     "enc_deit": deit_base_distilled_patch16,
     "enc_vit": vit_base_patch16,
     "enc_esvit": esvit_swin_tiny,
-    "enc_res_net": resnet50_encoder,
+    "enc_nest": nest_tiny,
+    "enc_eff_former": efficientformer_l3,
     "enc_cnn": VanillaCNNEncoder,
+    "enc_res_net": resnet50_encoder,
+    "enc_eff_net": efficientnet_b4,
 }
 
 
@@ -61,7 +67,7 @@ def _ae_res_net(small_decoder: bool) -> Callable[..., nn.Module]:
     return build
 
 
-for _k in ("deit", "vit", "esvit"):
+for _k in ("deit", "vit", "esvit", "nest", "eff_former"):
     _BUILDERS[f"ae_{_k}"] = _transformer_ae(f"enc_{_k}", "resnet")
     _BUILDERS[f"ae_{_k}_small"] = _transformer_ae(f"enc_{_k}", "cnn")
 _BUILDERS["ae_cnn"] = _ae_cnn
@@ -69,25 +75,12 @@ _BUILDERS["ae_res_net"] = _ae_res_net(False)
 _BUILDERS["ae_res_net_small"] = _ae_res_net(True)
 
 # Keys whose constructor takes `fused_ln` (LayerNorms through the one-pass kernel)
-FUSED_LN_MODELS = ("enc_esvit", "ae_esvit", "ae_esvit_small")
+FUSED_LN_MODELS = ("enc_esvit", "ae_esvit", "ae_esvit_small", "enc_nest", "ae_nest",
+                   "ae_nest_small")
 # Keys whose constructor takes `fused_mlp` (the blocks' MLP tail through the
 # fused kernel)
 FUSED_MLP_MODELS = ("enc_deit", "enc_vit", "ae_deit", "ae_deit_small", "ae_vit",
                     "ae_vit_small")
-
-# JAX registry keys not ported yet → the ROADMAP item that ports them
-_PENDING = {k: "A9 (other backbones)" for k in (
-    "enc_nest", "enc_eff_former", "enc_eff_net", "ae_nest", "ae_nest_small", "ae_eff_former",
-    "ae_eff_former_small")}
-
-
-def not_ported(name: str) -> Optional[str]:
-    """Why the JAX registry key `name` cannot be built here (the ROADMAP item
-    that ports it), or None where it is ported or unknown."""
-    if name not in _PENDING:
-        return None
-    return (f"model {name!r} is not ported to vit_ad_tpu_torch yet (ROADMAP {_PENDING[name]}); "
-            f"ported: {sorted(_BUILDERS)}")
 
 
 def get_model(name: str, img_size: int = 224, dtypes: DtypePolicy = DtypePolicy(),
@@ -108,7 +101,9 @@ def get_model(name: str, img_size: int = 224, dtypes: DtypePolicy = DtypePolicy(
                                      f"(models that have: {sorted(models)})")
                 kwargs[flag] = value
         return _BUILDERS[name](img_size=img_size, dtypes=dtypes, generator=generator, **kwargs)
-    message = not_ported(name)
-    if message is not None:
-        raise NotImplementedError(message)
-    raise KeyError(f"unknown model {name!r}; ported: {sorted(_BUILDERS)}")
+    raise KeyError(f"unknown model {name!r}; known: {get_possible_models()}")
+
+
+def get_possible_models() -> list:
+    """The registry keys, sorted (JAX `get_possible_models`)."""
+    return sorted(_BUILDERS)

@@ -1,13 +1,17 @@
 """Carry JAX-trained weights into the port.
 
 `vit_state_dict_from_jax`, `swin_state_dict_from_jax`,
+`nest_state_dict_from_jax`, `efficientformer_state_dict_from_jax`,
 `resnet_state_dict_from_jax`, `nf_state_dict_from_jax` and
 `mdn_state_dict_from_jax` take the JAX package's params as nested dicts of
 numpy arrays (the caller does jax → numpy) and return the port's state dicts,
-in the timm, EsViT, reference-ResNetEncoder, FrEIA and reference-MDN layouts
-that `vit_ad_tpu/utils/torch_convert.export_vit` (:607), `export_swin` (:803),
-`export_resnet_encoder` (:977), `export_nf_head` (:518) and `export_mdn_head`
-(:497) emit.
+in the timm, EsViT, timm NesT, timm EfficientFormer, reference-ResNetEncoder,
+FrEIA and reference-MDN layouts that `vit_ad_tpu/utils/torch_convert.export_vit`
+(:607), `export_swin` (:803), `export_nest` (:662), `export_efficientformer`
+(:712), `export_resnet_encoder` (:977), `export_nf_head` (:518) and
+`export_mdn_head` (:497) emit (the trunks without their classifier heads).
+`efficientnet_state_dict_from_jax` gives the NVIDIA widese layout that
+`convert_efficientnet` (:365) reads.
 `recon_state_dict_from_jax` takes a JAX auto-encoder's variables (params and
 batch_stats) to the port's state dict, in the reference .pth layouts that
 `export_vanilla_ae` (:1440), `export_resnet_ae` (:1000) and
@@ -53,6 +57,13 @@ def _unwrap(params: Mapping[str, Any]) -> Mapping[str, Any]:
     return params["params"] if "params" in params else params
 
 
+def _ln_from_jax(sd: Dict[str, torch.Tensor], tree: Mapping[str, Any], name: str) -> None:
+    """A JAX LayerNorm's {scale, bias}, inside the package's wrapper
+    ({'LayerNorm_0': ...}) or bare, → `name`'s weight and bias."""
+    inner = tree.get("LayerNorm_0", tree)
+    sd[f"{name}.weight"], sd[f"{name}.bias"] = _t(inner["scale"]), _t(inner["bias"])
+
+
 def vit_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Scan-stacked JAX `ViTEncoder` params (or `{'params': ...}`) → the
     port's `ViTEncoder` state dict (timm keys; `dist_token` when the model
@@ -92,11 +103,10 @@ def swin_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
 
     p = _unwrap(params)
     p = p["esvit"] if "esvit" in p else p
-    ln = lambda tree: tree["LayerNorm_0"] if "LayerNorm_0" in tree else tree
     sd = {"patch_embed.proj.weight": _t(_hwio_to_oihw(p["patch_embed"]["kernel"])),
           "patch_embed.proj.bias": _t(p["patch_embed"]["bias"])}
-    for key, tree in (("patch_embed.norm", p["patch_norm"]), ("norm", p["norm"])):
-        sd[f"{key}.weight"], sd[f"{key}.bias"] = _t(ln(tree)["scale"]), _t(ln(tree)["bias"])
+    _ln_from_jax(sd, p["patch_norm"], "patch_embed.norm")
+    _ln_from_jax(sd, p["norm"], "norm")
     si = 0
     while f"layer{si}" in p:
         stage = p[f"layer{si}"]
@@ -113,8 +123,7 @@ def swin_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
         if f"layer{si}_downsample" in p:
             dp = p[f"layer{si}_downsample"]
             pre = f"layers.{si}.downsample"
-            sd[f"{pre}.norm.weight"] = _t(ln(dp["norm"])["scale"])
-            sd[f"{pre}.norm.bias"] = _t(ln(dp["norm"])["bias"])
+            _ln_from_jax(sd, dp["norm"], f"{pre}.norm")
             sd[f"{pre}.reduction.weight"] = _t(np.asarray(dp["reduction"]["kernel"], np.float32).T)
         si += 1
     return sd
@@ -259,6 +268,132 @@ def _linear_from_jax(sd: Dict[str, torch.Tensor], leaf: Mapping[str, Any], name:
     sd[f"{name}.bias"] = _t(leaf["bias"])
 
 
+def nest_state_dict_from_jax(params: Mapping[str, Any], num_heads: Sequence[int] = (3, 6, 12)
+                             ) -> Dict[str, torch.Tensor]:
+    """JAX `NesT` params → the port's `NesT` state dict (timm `jx_nest_tiny`
+    keys), key for key and value for value `export_nest` (:662) without the
+    classifier `head`. `num_heads` (per level) sets the re-permutation of
+    `attn.proj`'s input rows from the JAX (heads, head_dim) order to timm's
+    (head_dim, heads)."""
+    p = _unwrap(params)
+    sd = {"patch_embed.proj.weight": _t(_hwio_to_oihw(p["patch_embed"]["kernel"])),
+          "patch_embed.proj.bias": _t(p["patch_embed"]["bias"])}
+    li = 0
+    while f"pos_embed_{li}" in p:
+        sd[f"levels.{li}.pos_embed"] = _t(p[f"pos_embed_{li}"])
+        if li > 0:
+            pool, pre = p[f"pool{li - 1}"], f"levels.{li}.pool"
+            sd[f"{pre}.conv.weight"] = _t(_hwio_to_oihw(pool["conv"]["kernel"]))
+            sd[f"{pre}.conv.bias"] = _t(pool["conv"]["bias"])
+            _ln_from_jax(sd, pool["norm"], f"{pre}.norm")
+        bj = 0
+        while f"level{li}_block{bj}" in p:
+            bp, t = p[f"level{li}_block{bj}"], f"levels.{li}.transformer_encoder.{bj}"
+            _ln_from_jax(sd, bp["norm1"], f"{t}.norm1")
+            _linear_from_jax(sd, bp["qkv"], f"{t}.attn.qkv")
+            pk = np.asarray(bp["proj"]["kernel"], np.float32)  # [C_in, C_out], (heads, hd) rows
+            c, heads = pk.shape[0], num_heads[li]
+            pk = pk.reshape(heads, c // heads, c).transpose(1, 0, 2).reshape(c, c)
+            sd[f"{t}.attn.proj.weight"] = _t(pk.T)
+            sd[f"{t}.attn.proj.bias"] = _t(bp["proj"]["bias"])
+            _ln_from_jax(sd, bp["norm2"], f"{t}.norm2")
+            _linear_from_jax(sd, bp["mlp"]["fc1"], f"{t}.mlp.fc1")
+            _linear_from_jax(sd, bp["mlp"]["fc2"], f"{t}.mlp.fc2")
+            bj += 1
+        li += 1
+    _ln_from_jax(sd, p["norm"], "norm")
+    return sd
+
+
+def efficientformer_state_dict_from_jax(variables: Mapping[str, Any]
+                                        ) -> Dict[str, torch.Tensor]:
+    """JAX `EfficientFormer` variables (params and batch_stats) → the port's
+    `EfficientFormer` state dict (timm `efficientformer_l3` keys), key for key
+    and value for value `export_efficientformer` (:712) without the
+    classifier `head` and `head_dist`: the 3D blocks one slot further on (the
+    `Flat` slot), `attention_bias_idxs` recomputed."""
+    from vit_ad_tpu_torch.models.efficientformer import abs_rel_pos_index
+
+    p, s = variables["params"], variables.get("batch_stats", {})
+    sd: Dict[str, torch.Tensor] = {}
+
+    def conv_bn(bp, bs, conv: str, bn: str) -> None:
+        sd[f"{conv}.weight"] = _t(_hwio_to_oihw(bp["conv"]["kernel"]))
+        sd[f"{conv}.bias"] = _t(bp["conv"]["bias"])
+        _bn_from_jax(sd, bp["bn"], bs["bn"], bn)
+
+    conv_bn(p["stem1"], s["stem1"], "stem.conv1", "stem.norm1")
+    conv_bn(p["stem2"], s["stem2"], "stem.conv2", "stem.norm2")
+    si = 0
+    while f"stage{si}_block0" in p:
+        if si > 0:
+            conv_bn(p[f"downsample{si}"], s[f"downsample{si}"], f"stages.{si}.downsample.conv",
+                    f"stages.{si}.downsample.norm")
+        depth = 0
+        while f"stage{si}_block{depth}" in p:
+            depth += 1
+        n_3d = sum("qkv" in p[f"stage{si}_block{bj}"] for bj in range(depth))
+        for bj in range(depth):
+            bp = p[f"stage{si}_block{bj}"]
+            src = f"stages.{si}.blocks.{bj if bj < depth - n_3d else bj + 1}"
+            sd[f"{src}.layer_scale_1"] = _t(bp["layer_scale_1"])
+            sd[f"{src}.layer_scale_2"] = _t(bp["layer_scale_2"])
+            if "qkv" in bp:
+                _ln_from_jax(sd, bp["norm1"], f"{src}.norm1")
+                _linear_from_jax(sd, bp["qkv"], f"{src}.token_mixer.qkv")
+                ab = np.asarray(bp["attention_biases"], np.float32)  # [heads, res²]
+                sd[f"{src}.token_mixer.attention_biases"] = _t(ab)
+                sd[f"{src}.token_mixer.attention_bias_idxs"] = torch.from_numpy(
+                    abs_rel_pos_index(int(round(np.sqrt(ab.shape[1])))))
+                _linear_from_jax(sd, bp["proj"], f"{src}.token_mixer.proj")
+                _ln_from_jax(sd, bp["norm2"], f"{src}.norm2")
+                _linear_from_jax(sd, bp["mlp"]["fc1"], f"{src}.mlp.fc1")
+                _linear_from_jax(sd, bp["mlp"]["fc2"], f"{src}.mlp.fc2")
+            else:
+                bs = s[f"stage{si}_block{bj}"]
+                conv_bn(bp["mlp_fc1"], bs["mlp_fc1"], f"{src}.mlp.fc1", f"{src}.mlp.norm1")
+                conv_bn(bp["mlp_fc2"], bs["mlp_fc2"], f"{src}.mlp.fc2", f"{src}.mlp.norm2")
+        si += 1
+    _ln_from_jax(sd, p["norm"], "norm")
+    return sd
+
+
+def efficientnet_state_dict_from_jax(variables: Mapping[str, Any],
+                                     blocks: Optional[Sequence[Sequence[int]]] = None
+                                     ) -> Dict[str, torch.Tensor]:
+    """JAX `EfficientNetEncoder` variables (params and batch_stats) → the
+    port's `EfficientNetEncoder` state dict (NVIDIA widese keys), the
+    inverse of `convert_efficientnet` (:365): `block{i}` → `layer{L}.block{j}`
+    along `blocks` (default B0's, B4-scaled repeats), `depthwise` → `depsep`,
+    `project` → `proj`, the 1x1 squeeze-excite convs → Linears, `head` →
+    `features`."""
+    from vit_ad_tpu_torch.models.efficientnet import B0_BLOCKS, round_repeats
+
+    p, s = variables["params"], variables.get("batch_stats", {})
+    sd: Dict[str, torch.Tensor] = {}
+
+    def conv_bn(bp, bs, dst: str) -> None:
+        sd[f"{dst}.conv.weight"] = _t(_hwio_to_oihw(bp["conv"]["kernel"]))
+        _bn_from_jax(sd, bp["bn"], bs["bn"], f"{dst}.bn")
+
+    conv_bn(p["stem"], s["stem"], "stem")
+    bi = 0
+    for li, (expand, _ch, reps, _stride, _k) in enumerate(blocks or B0_BLOCKS):
+        for r in range(round_repeats(reps)):
+            bp, bs, dst = p[f"block{bi}"], s[f"block{bi}"], f"layer{li + 1}.block{r}"
+            if expand != 1:
+                conv_bn(bp["expand"], bs["expand"], f"{dst}.expand")
+            conv_bn(bp["depthwise"], bs["depthwise"], f"{dst}.depsep")
+            for src, name in (("se_reduce", "squeeze"), ("se_expand", "expand")):
+                k = np.asarray(bp[src]["kernel"], np.float32)  # [1, 1, in, out]
+                sd[f"{dst}.se.{name}.weight"] = _t(k.reshape(k.shape[2], k.shape[3]).T)
+                sd[f"{dst}.se.{name}.bias"] = _t(bp[src]["bias"])
+            conv_bn(bp["project"], bs["project"], f"{dst}.proj")
+            bi += 1
+    conv_bn(p["head"], s["head"], "features")
+    return sd
+
+
 def small_decoder_state_dict_from_jax(p: Mapping[str, Any], s: Mapping[str, Any]
                                       ) -> Dict[str, torch.Tensor]:
     """`SmallDecoder` params and batch_stats → the reference DecoderVanillaCNN
@@ -330,16 +465,20 @@ def vanilla_encoder_state_dict_from_jax(p: Mapping[str, Any], s: Mapping[str, An
     return sd
 
 
-def recon_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def recon_state_dict_from_jax(variables: Mapping[str, Any],
+                              nest_num_heads: Sequence[int] = (3, 6, 12)
+                              ) -> Dict[str, torch.Tensor]:
     """A JAX auto-encoder's variables ({'params', 'batch_stats'} as numpy
     arrays) → the port's AE state dict, key for key the reference .pth layout
     the JAX exporters emit: `VanillaAutoEncoder` (`export_vanilla_ae` :1440),
     `ResNetAutoEncoder` (`export_resnet_ae` :1000) and
-    `TransformerAutoEncoder` on a ViT/DeiT or Swin trunk
-    (`export_transformer_ae` :1022: the trunk under `encoder.vit.` /
-    `encoder.deit.` with zeroed classifier heads, or `encoder.esvit.`). The
-    encoder family is read from the encoder's params, the decoder kind from
-    the decoder's."""
+    `TransformerAutoEncoder` on a ViT/DeiT, Swin, NesT or EfficientFormer
+    trunk (`export_transformer_ae` :1022: the trunk under `encoder.vit.`,
+    `encoder.deit.`, `encoder.nest.` or `encoder.efficientformer.` with
+    zeroed classifier heads, or `encoder.esvit.`). The encoder family is read
+    from the encoder's params, the decoder kind from the decoder's;
+    `nest_num_heads` is a NesT trunk's heads per level
+    (`nest_state_dict_from_jax`)."""
     p, s = variables["params"], variables.get("batch_stats", {})
     ep, es = p["encoder"], s.get("encoder", {})
     dp, ds = p["decoder"], s.get("decoder", {})
@@ -351,11 +490,19 @@ def recon_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.T
         enc = vanilla_encoder_state_dict_from_jax(ep, es)
     elif "esvit" in ep:
         enc = {f"esvit.{k}": v for k, v in swin_state_dict_from_jax(ep).items()}
-    elif "prefix_tokens" in ep:
-        trunk = vit_state_dict_from_jax(ep)
-        family = "deit" if "dist_token" in trunk else "vit"
+    elif "prefix_tokens" in ep or "pos_embed_0" in ep or "stem1" in ep:
+        if "pos_embed_0" in ep:
+            family, heads = "nest", ("head",)
+            trunk = nest_state_dict_from_jax(ep, nest_num_heads)
+        elif "stem1" in ep:
+            family, heads = "efficientformer", ("head", "head_dist")
+            trunk = efficientformer_state_dict_from_jax({"params": ep, "batch_stats": es})
+        else:
+            trunk = vit_state_dict_from_jax(ep)
+            family = "deit" if "dist_token" in trunk else "vit"
+            heads = ("head", "head_dist") if family == "deit" else ("head",)
         d = trunk["norm.weight"].shape[0]
-        for head in ("head", "head_dist") if family == "deit" else ("head",):
+        for head in heads:  # the timm classifier heads the reference's files carry
             trunk[f"{head}.weight"], trunk[f"{head}.bias"] = torch.zeros(1000, d), \
                 torch.zeros(1000)
         enc = {f"{family}.{k}": v for k, v in trunk.items()}
