@@ -18,7 +18,9 @@ score a folder with them); on the DeiT-base trunk the reconstruction path
 (train the ResNetDecoder of ae_deit on cached trunk latents, save the AE,
 score a folder with it) and the vanilla CNN auto-encoder end to end; on the
 NesT-T, EfficientFormer-L3 and EfficientNet-B4 trunks an NF, an MDN and an
-NF path (train, save, score). Phases:
+NF path (train, save, score); on the ResNet-50 trunk the NF heads on stage
+maps 0-2 through the run directory (train, `cli.score -r`, `--watch`,
+`--heatmaps`, `--weights-dtype bf16`, `cli.validate`). Phases:
 
   1. device   card name and power limit (nvidia-smi)
   2. build    compile the kernels from vit_ad_tpu_torch/csrc (nvcc, sm_90a)
@@ -70,7 +72,18 @@ NF path (train, save, score). Phases:
               D = 512, all through their wgmma kernels); `cli.train_nf -m
               eff_net`, then `cli.score -a nf` (no kernel); CUDA-vs-CPU f32
               scores of each
- 11. times    kernels vs plain vs the one PyTorch call that computes the same
+ 11. run dirs a synthetic category: `cli.train_nf -m res_net` (ResNet-50 and
+              three NF-20 flows on stage maps 0-2 at batch 32, a few epochs;
+              no kernel on this path): every run-directory file, the loss
+              falls, the trunk bit-identical, only the read stage norms move;
+              `cli.score -r` on it, f32 card vs CPU; `cli.score -r` on phase
+              6's MDN run equal to `--pth` on its file (B1, B6, B7 and B2 per
+              batch); a DeiT-base NF run: `--watch` twice (the second scores
+              only the new files, as the one-shot scores, one set of B1, B6
+              and B7 per new batch), `--heatmaps 4`, `--weights-dtype bf16`
+              (cast count, drift); `cli.validate` over the runs against each
+              trainer's recorded metrics
+ 12. times    kernels vs plain vs the one PyTorch call that computes the same
               function, where there is one, each beside its bound, by events
               and, for the attention kernels and B7, back to back (B5a alone
               with its bias gathered, beside its public entry; B3 and B4 also
@@ -90,8 +103,10 @@ NF path (train, save, score). Phases:
               SDPA, B7 at its two ConvPool norm shapes, B2 and B3 at
               EfficientFormer's MDN shapes, EfficientFormer-L3 and
               EfficientNet-B4 ms per batch alone, and the profiles of the
-              three
- 12. result   a kernels JSON line, the nvidia-smi line, and last the
+              three; NF-ResNet uint8→scores img/s at batch 128, its train step
+              at batch 32 (ms, peak memory) and its profile; the wall time of
+              a 32-image `--watch` wave after the first
+ 13. result   a kernels JSON line, the nvidia-smi line, and last the
               {"ok": true, "device": ...} line
 
 Every phase raises on failure, so the script exits non-zero and prints no
@@ -1599,9 +1614,11 @@ def recon_main_path(tmp: str) -> dict:
     run = os.path.join(tmp, "recon_run")
     split = DataPipeline(RECON_BATCH, 224, base_path=cat, data_path="train/good")
     n_batches = lambda n, b: -(-n // b)
+    # the latent cache of the train and valid batches, the test batches, and
+    # the reconstructions of the test images the figures keep (up to 9)
     n_enc = (n_batches(len(split.train_files), RECON_BATCH)
              + n_batches(len(split.valid_files), RECON_BATCH)
-             + n_batches(2 * RECON_TEST, RECON_BATCH))
+             + n_batches(2 * RECON_TEST, RECON_BATCH) + 1)
     per_batch = {**NO_LAUNCHES, "B1": 12, "B6": 12, "B7": DEIT_B7_PER_BATCH}
     reset_launches()
     t0 = time.perf_counter()
@@ -1611,10 +1628,11 @@ def recon_main_path(tmp: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     train = read_launches()
-    print(f"cli.train_recon.main -m ae_deit rc={rc} in {wall:.2f} s ({n_enc} encoder batches of "
-          f"{RECON_BATCH}: the latent cache of the train and valid batches, the test batch)")
-    # the trunk runs once per batch (latent cache, evaluation); the decoder
-    # steps and validation passes launch no kernel
+    print(f"cli.train_recon.main -m ae_deit rc={rc} in {wall:.2f} s ({n_enc} encoder batches: "
+          f"the latent cache of the train and valid batches and the test batch, of "
+          f"{RECON_BATCH}, and the figures' reconstructions)")
+    # the trunk runs once per batch (latent cache, evaluation, the recon grid
+    # of the figures); the decoder steps and validation passes launch no kernel
     check_deit_routes(train, {k: v * n_enc for k, v in per_batch.items()}, "ae_deit training")
     with open(os.path.join(run, "history.json")) as f:
         hist = json.load(f)
@@ -2276,6 +2294,368 @@ def vit_norm_ab(nf_pth: str, deit_pth: str, images, card: str) -> None:
           f"{rate(off):.1f} img/s, the LayerNorm kernel (B7, {DEIT_B7_PER_BATCH} launches a "
           f"batch) {on} ms = {rate(on):.1f} img/s (order off, on, on, off); scores on vs off "
           f"max rel diff {drift:.3e} (bf16 roundings)")
+
+
+# the run-directory phase: NF-20 flows on ResNet-50 stage maps 0-2 (hidden
+# ratio 0.16, startTraining_NF.py:35-36) trained by `cli.train_nf -m res_net`
+# at batch 32 for a few epochs (80 training images: 2 train batches and 1
+# validation batch an epoch); a DeiT-base NF-20 run for `--watch`,
+# `--heatmaps` and `--weights-dtype bf16` (its first watch wave 16 images,
+# the second 32 new ones); the timed scoring batch 128 and train step 32
+NFRES_TRAIN, NFRES_TEST, NFRES_EPOCHS, NFRES_BATCH, NFRES_SCORE_BATCH = 80, 4, 3, 32, 4
+DEIT_NF_TRAIN, DEIT_NF_EPOCHS, WATCH_BATCH, WATCH_FIRST, WATCH_NEW = 32, 2, 16, 16, 32
+# cli.validate against the metrics each trainer recorded (absolute): the same
+# models and batches on the same card, so the same computation
+VALIDATE_ATOL = 1e-4
+
+
+def _launches_of(run) -> tuple:
+    """(what `run()` returned, the kernel launches it made, wall seconds)."""
+    import torch
+
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, read_launches(), time.perf_counter() - t0
+
+
+def _add(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _check_rundir(run: str, what: str, recons: bool = False) -> dict:
+    """Every file of a run directory (`cli/common.py`) is there; returns its
+    config.json."""
+    with open(os.path.join(run, "config.json")) as f:
+        cfg = json.load(f)
+    figures = ["heatmaps", "ground_truth", "overlay", "roc_curve", "pr_curve"] + \
+        (["recons"] if recons else [])
+    want = ["config.json", "metrics.jsonl", "metrics.csv", "history.json", "loss_curves.png",
+            *(f"figures/{name}.png" for name in figures), *cfg.get("checkpoints", [])]
+    missing = [name for name in want if not os.path.exists(os.path.join(run, name))]
+    if missing or not cfg.get("checkpoints"):
+        raise AssertionError(f"{what}: the run directory lacks {missing or 'checkpoints'}")
+    print(f"{what}: run directory holds {len(want)} files: checkpoints {cfg['checkpoints']}")
+    return cfg
+
+
+def _scores_of(out_dir: str) -> dict:
+    with open(os.path.join(out_dir, "scores.csv")) as f:
+        return {r[0]: float(r[1]) for r in list(csv.reader(f))[1:]}
+
+
+def _write_images(folder: str, start: int, n: int, size: int = 224) -> None:
+    """n synthetic `size`-px PNGs img_<i>.png, i from start (a bright square
+    on every fourth)."""
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(folder, exist_ok=True)
+    yy, xx = np.mgrid[0:size, 0:size]
+    for i in range(start, start + n):
+        rng = np.random.default_rng(100 + i)
+        base = rng.integers(0, 256, 3)[None, None, :] + 40 * np.sin((xx + 7 * i)[..., None] / 9.0)
+        img = np.clip(base + rng.normal(0, 12, (size, size, 3)), 0, 255).astype(np.uint8)
+        if i % 4 == 3:
+            q = size // 4
+            img[q:2 * q, q + i % q:2 * q + i % q] = 255
+        Image.fromarray(img).save(os.path.join(folder, f"img_{i:03d}.png"))
+
+
+def rundir_main_path(tmp: str, mdn_run: str, img: int = 224, device: str = "cuda") -> dict:
+    """Phase 11: run directories and NF on ResNet. `cli.train_nf -m res_net`
+    at full width (ResNet-50, three NF-20 flows, batch 32, bf16 trunk): every
+    run-directory file, the loss falls, the trunk bit-identical and only the
+    read stage norms moved, no kernel launched (the path has none); `cli.score
+    -r` on it, f32 card vs CPU; `cli.score -r` on phase 6's MDN run against
+    `--pth` on its file; a DeiT-base NF run: `--watch` twice (the second only
+    the new files, its rows the one-shot scores), `--heatmaps 4`,
+    `--weights-dtype bf16`; `cli.validate` over the phase's runs against each
+    trainer's recorded metrics. `img` and `device` let the phase run small on
+    the CPU with tiny registry models (a dry run of its checks; the launch
+    counts then stay 0)."""
+    import glob
+
+    import numpy as np
+    import torch
+    from vit_ad_tpu_torch.cli import score as score_cli
+    from vit_ad_tpu_torch.cli import train_nf as train_nf_cli
+    from vit_ad_tpu_torch.cli import validate as validate_cli
+    from vit_ad_tpu_torch.config import DtypePolicy, HyperParams
+    from vit_ad_tpu_torch.data.dataset import default_norm_stats
+    from vit_ad_tpu_torch.data.loader import DataPipeline
+    from vit_ad_tpu_torch.data.synthetic import make_mvtec_category
+    from vit_ad_tpu_torch.pipeline.loading import (
+        build_run_models,
+        compress_params_bf16,
+        find_checkpoint,
+        load_run_config,
+        score_models,
+    )
+    from vit_ad_tpu_torch.pipeline.train import default_encoder
+
+    runs = os.path.join(tmp, "runs")
+    os.makedirs(runs)
+    total: dict = {}
+    # the kernels launch on the card only; on the CPU every count stays 0
+    on_card = lambda counts: counts if device == "cuda" else NO_LAUNCHES
+
+    # NF-ResNet: train through the CLI
+    cat = make_mvtec_category(os.path.join(tmp, "nfres"), "screw", img_size=img,
+                              n_train=NFRES_TRAIN, n_test_good=NFRES_TEST,
+                              n_test_defect=NFRES_TEST)
+    test_dir = os.path.join(cat, "test")
+    run = os.path.join(runs, "nf_resnet")
+    rc, train, wall = _launches_of(lambda: train_nf_cli.main(
+        ["-m", "res_net", "-d", cat, "-t", "train/good", "-v", "test", "-e", str(NFRES_EPOCHS),
+         "-p", str(NFRES_EPOCHS), "-b", str(NFRES_BATCH), "-i", str(img), "-r", "0.16", "-f", "20",
+         "--device", device, "--out", run]))
+    _add(total, train)
+    with open(os.path.join(run, "history.json")) as f:
+        hist = json.load(f)
+    print(f"cli.train_nf.main -m res_net rc={rc} in {wall:.2f} s: train loss "
+          f"{hist['train_loss']}, valid loss {hist['valid_loss']}, metrics {hist['metrics']} "
+          f"(random trunk: information only); launches {train}, expected {NO_LAUNCHES}")
+    if rc != 0 or train != NO_LAUNCHES or hist["epochs_ran"] != NFRES_EPOCHS:
+        raise AssertionError("the NF-ResNet training run failed, or launched a kernel")
+    if not all(math.isfinite(v) for v in hist["train_loss"] + hist["valid_loss"]) or \
+            not hist["train_loss"][-1] < hist["train_loss"][0]:
+        raise AssertionError(f"the NF-ResNet train loss did not fall: {hist['train_loss']}")
+    cfg = _check_rundir(run, "NF-ResNet")
+    init = default_encoder(HyperParams(model_name="enc_res_net", img_size=img)).state_dict()
+    after = torch.load(os.path.join(run, cfg["checkpoints"][-1]), map_location="cpu",
+                       weights_only=True)
+    moved = sorted(k for k, v in init.items() if not torch.equal(v, after[k]))
+    want_moved = sorted(f"norms.{i}.{leaf}" for i in (0, 1, 2) for leaf in ("weight", "bias"))
+    print(f"encoder file: {len(after)} tensors, changed by training: {moved}")
+    if sorted(after) != sorted(init) or moved != want_moved:
+        raise AssertionError(f"training moved {moved}, expected exactly {want_moved}")
+    del init, after
+
+    # score it with -r: the CLI on the card, then f32 card vs CPU
+    out_dir = os.path.join(tmp, "nfres_scores")
+    rc, score, wall = _launches_of(lambda: score_cli.main(
+        ["-r", run, "-d", test_dir, "-b", str(NFRES_SCORE_BATCH), "-o", out_dir, "--device",
+         device]))
+    _add(total, score)
+    files = score_cli.list_images(test_dir)
+    print(f"cli.score.main -r <NF-ResNet run> rc={rc} in {wall:.2f} s: launches {score}")
+    if rc != 0 or score != NO_LAUNCHES:
+        raise AssertionError("NF-ResNet scoring failed or launched a kernel")
+    check_scores_csv(out_dir, files, "NF-ResNet")
+    hp, rcfg = load_run_config(run)
+    hp.dtypes = DtypePolicy.f32()
+    two = [files[0], files[-1]]  # a good and a defective image
+    got = {}
+    for where in (device, "cpu"):
+        m = build_run_models(hp, find_checkpoint(run, rcfg), where)
+        got[where] = score_models(m, DataPipeline(2, img, files=two),
+                                  *default_norm_stats()).image_scores
+    rel = np.abs(got[device] - got["cpu"]) / np.abs(got["cpu"])
+    apart = abs(got["cpu"][0] - got["cpu"][1])
+    print(f"NF-ResNet f32 image scores {device} {got[device].tolist()} cpu {got['cpu'].tolist()}: "
+          f"max rel diff {rel.max():.3e} (rtol {SCORE_RTOL_F32:.0e}); the two images' scores "
+          f"{apart:.3e} apart")
+    if not rel.max() <= SCORE_RTOL_F32 or not apart > SCORE_RTOL_F32:
+        raise AssertionError("CUDA f32 NF-ResNet scores disagree with the CPU path, or do not "
+                             "tell the two images apart")
+
+    # -r against --pth on phase 6's MDN run
+    mdn_cfg = _check_rundir(mdn_run, "MDN (phase 6)")
+    (mdn_pth,) = [os.path.join(mdn_run, n) for n in mdn_cfg["checkpoints"]]
+    mdn_test = os.path.join(mdn_cfg["base_path"], "test")
+    by_run, by_pth = os.path.join(tmp, "mdn_by_run"), os.path.join(tmp, "mdn_by_pth")
+    rc, r_launch, wall = _launches_of(lambda: score_cli.main(
+        ["-r", mdn_run, "-d", mdn_test, "-b", str(MDN_SCORE_BATCH), "-o", by_run, "--device",
+         device]))
+    _add(total, r_launch)
+    rc2, p_launch, _ = _launches_of(lambda: score_cli.main(
+        ["--pth", mdn_pth, "-a", "mdn", "-d", mdn_test, "-b", str(MDN_SCORE_BATCH), "-o",
+         by_pth, "-i", str(img), "--device", device]))
+    _add(total, p_launch)
+    nb = -(-len(score_cli.list_images(mdn_test)) // MDN_SCORE_BATCH)
+    expect = on_card({**NO_LAUNCHES, "B1": 12 * nb, "B6": 12 * nb, "B7": DEIT_B7_PER_BATCH * nb,
+                      "B2": nb})
+    a, b = _scores_of(by_run), _scores_of(by_pth)
+    diff = max(abs(a[k] - b[k]) for k in a) if a.keys() == b.keys() else float("inf")
+    print(f"cli.score -r <MDN run> rc={rc} in {wall:.2f} s: launches {r_launch} ({nb} batches; "
+          f"expected {expect}); --pth rc={rc2}: launches {p_launch}; max |-r - --pth| {diff:.3e}")
+    if rc != 0 or rc2 != 0 or r_launch != expect or p_launch != expect or diff != 0.0:
+        raise AssertionError("-r on the MDN run directory does not equal --pth on its file, or "
+                             "did not launch B1, B6, B7 and B2 per batch")
+
+    # a DeiT-base NF run: --watch, --heatmaps, --weights-dtype bf16
+    deit_cat = make_mvtec_category(os.path.join(tmp, "deit_nf"), "cable", img_size=img,
+                                   n_train=DEIT_NF_TRAIN, n_test_good=4, n_test_defect=4)
+    deit_run = os.path.join(runs, "deit_nf")
+    rc, train, wall = _launches_of(lambda: train_nf_cli.main(
+        ["-m", "deit", "-d", deit_cat, "-t", "train/good", "-v", "test", "-e",
+         str(DEIT_NF_EPOCHS), "-p", str(DEIT_NF_EPOCHS), "-b", str(WATCH_BATCH), "-i", str(img),
+         "--device", device, "--out", deit_run]))
+    _add(total, train)
+    split = DataPipeline(WATCH_BATCH, img, base_path=deit_cat, data_path="train/good")
+    n_enc = sum(-(-n // WATCH_BATCH) for n in (len(split.train_files), len(split.valid_files), 8))
+    expect = on_card({**NO_LAUNCHES, "B1": 12 * n_enc, "B6": 12 * n_enc,
+                      "B7": DEIT_B7_PER_BATCH * n_enc})
+    print(f"cli.train_nf.main -m deit rc={rc} in {wall:.2f} s: launches {train}, expected "
+          f"{expect} ({n_enc} encoder batches: feature cache and test)")
+    if rc != 0 or train != expect:
+        raise AssertionError("the DeiT NF training run did not launch B1, B6 and B7 per encoder "
+                             "batch")
+    _check_rundir(deit_run, "DeiT NF")
+
+    incoming, watch_out = os.path.join(tmp, "incoming"), os.path.join(tmp, "watch")
+    _write_images(incoming, 0, WATCH_FIRST, img)
+    watch = ["-r", deit_run, "-d", incoming, "-o", watch_out, "-b", str(WATCH_BATCH),
+             "--watch", "0.01", "--watch-waves", "1", "--device", device]
+    rc, first, _ = _launches_of(lambda: score_cli.main(watch))
+    _add(total, first)
+    before = open(os.path.join(watch_out, "scores.csv")).read().splitlines()
+    _write_images(incoming, WATCH_FIRST, WATCH_NEW, img)
+    rc2, second, wall = _launches_of(lambda: score_cli.main(watch))
+    _add(total, second)
+    lines = open(os.path.join(watch_out, "scores.csv")).read().splitlines()
+    oneshot = os.path.join(tmp, "watch_oneshot")
+    rc3, one, _ = _launches_of(lambda: score_cli.main(
+        ["-r", deit_run, "-d", incoming, "-o", oneshot, "-b", str(WATCH_BATCH), "--device",
+         device]))
+    _add(total, one)
+    w, o = _scores_of(watch_out), _scores_of(oneshot)
+    new_b = -(-WATCH_NEW // WATCH_BATCH)
+    expect = on_card({**NO_LAUNCHES, "B1": 12 * new_b, "B6": 12 * new_b,
+                      "B7": DEIT_B7_PER_BATCH * new_b})
+    diff = max(abs(w[k] - o[k]) for k in o) if w.keys() == o.keys() else float("inf")
+    print(f"--watch: first run rc={rc} {len(before) - 1} rows, launches {first}; second run "
+          f"rc={rc2} in {wall:.2f} s (model load included) {len(lines) - 1} rows, launches "
+          f"{second}, expected {expect}; max |watch - one-shot| {diff:.3e}")
+    if rc != 0 or rc2 != 0 or rc3 != 0 or lines[:len(before)] != before or \
+            len(lines) != 1 + WATCH_FIRST + WATCH_NEW or second != expect or diff != 0.0:
+        raise AssertionError("--watch did not score only the new files, with the one-shot "
+                             "scores and one B1/B6/B7 set per new batch")
+
+    hm_out = os.path.join(tmp, "heatmaps_out")
+    rc, hm, _ = _launches_of(lambda: score_cli.main(
+        ["-r", deit_run, "-d", os.path.join(deit_cat, "test"), "-o", hm_out, "--heatmaps", "4",
+         "--device", device]))
+    _add(total, hm)
+    pngs = sorted(os.listdir(os.path.join(hm_out, "heatmaps")))
+    print(f"--heatmaps 4: rc={rc}, {pngs}")
+    if rc != 0 or len(pngs) != 4:
+        raise AssertionError("--heatmaps 4 did not write four overlays")
+
+    bf_out = os.path.join(tmp, "bf16_out")
+    rc, bf, _ = _launches_of(lambda: score_cli.main(
+        ["-r", deit_run, "-d", os.path.join(deit_cat, "test"), "-o", bf_out,
+         "--weights-dtype", "bf16", "--device", device]))
+    _add(total, bf)
+    hp, dcfg = load_run_config(deit_run)
+    n_cast = compress_params_bf16(build_run_models(hp, find_checkpoint(deit_run, dcfg)))
+    s16, s32 = _scores_of(bf_out), _scores_of(hm_out)
+    drift = max(abs(s16[k] - s32[k]) / abs(s32[k]) for k in s32)
+    print(f"--weights-dtype bf16: rc={rc}, {n_cast} f32 tensors rounded to bf16; scores against "
+          f"the f32 weights (same bf16 policy): max rel drift {drift:.3e} (information)")
+    if rc != 0 or not n_cast or not all(math.isfinite(v) for v in s16.values()):
+        raise AssertionError("--weights-dtype bf16 failed")
+
+    # cli.validate over the phase's runs (phase 6's MDN run linked in)
+    os.symlink(mdn_run, os.path.join(runs, "mdn"))
+    rc, val, wall = _launches_of(lambda: validate_cli.main(["-r", runs, "--device", device]))
+    _add(total, val)
+    with open(os.path.join(runs, "validation_results.csv")) as f:
+        rows = {r["Name"]: r for r in csv.DictReader(f)}
+    worst = 0.0
+    for name in ("nf_resnet", "deit_nf", "mdn"):
+        with open(os.path.join(runs, name, "metrics.jsonl")) as f:
+            recorded = [json.loads(line) for line in f][-1]
+        for key in ("image_auroc_score", "pixel_auroc_score", "image_prauc_score",
+                    "pro_score_0.3fp"):
+            d = abs(float(rows[name][key]) - recorded[key])
+            worst = max(worst, d)
+            if d > VALIDATE_ATOL:
+                print(f"cli.validate {name} {key}: {rows[name][key]} against the recorded "
+                      f"{recorded[key]} ({d:.3e})")
+    print(f"cli.validate rc={rc} in {wall:.2f} s over {sorted(rows)}: max |validate - "
+          f"recorded| {worst:.3e} (atol {VALIDATE_ATOL:.0e}); launches {val}")
+    if rc != 0 or sorted(rows) != ["deit_nf", "mdn", "nf_resnet"] or worst > VALIDATE_ATOL:
+        raise AssertionError("cli.validate failed or did not reproduce the recorded metrics")
+    print(f"phase launches {total}")
+    return {"launches": total, "nf_resnet": run, "deit_nf": deit_run, "incoming": incoming}
+
+
+def rundir_times(r: dict, images, card: str) -> dict:
+    """Phase 12, run-directory part: NF-ResNet uint8→scores img/s at batch
+    128 (bf16 trunk, f32 flows) and its train step at batch 32 (ms, peak
+    memory), and the wall time of a 32-image `--watch` wave of the DeiT NF
+    run after the first (models loaded once). Returns the step for the
+    profile."""
+    import tempfile
+
+    import torch
+    from vit_ad_tpu_torch.cli.score import _load_run_cli, _prepare, watch_folder
+    from vit_ad_tpu_torch.data.dataset import default_norm_stats
+    from vit_ad_tpu_torch.pipeline.eval import make_nf_resnet_batch_fn
+    from vit_ad_tpu_torch.pipeline.optimizers import torch_adam
+    from vit_ad_tpu_torch.pipeline.train import nf_resnet_train_step
+
+    dev = torch.device("cuda")
+    m, _ = _load_run_cli(r["nf_resnet"], dev, None, None)
+    encoder, flows = m.parts
+    mean, std = (torch.as_tensor(a, device=dev) for a in default_norm_stats())
+    fn = make_nf_resnet_batch_fn(encoder, flows, m.hp, mean, std)
+
+    def scores():
+        with torch.inference_mode():
+            return fn(images).amax(dim=(1, 2))
+
+    out = scores()
+    if out.shape != (FLAGSHIP_BATCH,) or not torch.isfinite(out).all():
+        raise AssertionError("NF-ResNet batch gave non-finite or misshapen scores")
+    held = torch.cuda.memory_allocated() / 2**30  # what the times phase holds already
+    torch.cuda.reset_peak_memory_stats()
+    batch_ms = median_ms(scores, torch, runs=10)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{card}] NF-ResNet uint8→scores ResNet-50 + 3 NF-20 B={FLAGSHIP_BATCH} (bf16 trunk, "
+          f"f32 flows), batch on the device: {batch_ms:.3f} ms/batch = "
+          f"{FLAGSHIP_BATCH / batch_ms * 1e3:.1f} img/s; peak memory {peak:.2f} GiB, "
+          f"{peak - held:.2f} above the {held:.2f} GiB held before")
+
+    flows.train()
+    opt = torch_adam(list(flows.parameters()) + list(encoder.norms.parameters()), 1e-3, 1e-5)
+    batch, valid = images[:NFRES_BATCH], torch.ones(NFRES_BATCH, device=dev)
+    step = lambda: nf_resnet_train_step(encoder, flows, opt, batch, valid, mean, std)
+    step()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**30  # Adam's state included
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = median_ms(step, torch, runs=10)
+    step_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{card}] NF-ResNet joint train step B={NFRES_BATCH} (3 NF-20 flows + stage norms, "
+          f"Adam): {step_ms:.3f} ms = {NFRES_BATCH / step_ms * 1e3:.1f} img/s; peak memory "
+          f"{step_peak:.2f} GiB, {step_peak - held:.2f} above the {held:.2f} GiB held before")
+
+    wm, _ = _load_run_cli(r["deit_nf"], dev, None, None)
+    _, wmean, wstd = _prepare(wm, WATCH_BATCH, False, "")
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(r["incoming"])) as folder:
+        out = os.path.join(folder, "out")
+        _write_images(os.path.join(folder, "in"), 0, WATCH_BATCH)
+        watch_folder(wm, "timed", os.path.join(folder, "in"), out, wmean, wstd, 0.0, 1)
+        _write_images(os.path.join(folder, "in"), WATCH_BATCH, WATCH_NEW)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = watch_folder(wm, "timed", os.path.join(folder, "in"), out, wmean, wstd, 0.0, 1)
+        torch.cuda.synchronize()
+        wave_s = time.perf_counter() - t0
+    if summary["last_wave"]["n"] != WATCH_NEW:
+        raise AssertionError(f"the timed watch wave scored {summary['last_wave']['n']} files")
+    print(f"[{card}] --watch wave of {WATCH_NEW} new 224-px PNGs on the DeiT-base NF-20 run after "
+          f"the first (batch {WATCH_BATCH}, models loaded): {wave_s:.3f} s wall = "
+          f"{WATCH_NEW / wave_s:.1f} img/s (decode check, decode, scoring, scores.csv)")
+    del wm
+    return {"step": step, "batch_ms": batch_ms, "step_ms": step_ms, "step_peak": step_peak,
+            "wave_s": wave_s}
 
 
 def resnet_joint_step(k: int, images):
@@ -3002,7 +3382,11 @@ def main() -> int:
               "EfficientNet-B4 + NF-20, train then score through the CLIs")
         trunks = trunks_main_path(tmp)
 
-        phase("11 times (CUDA events, median of %d after warm-up)" % TIMED_RUNS)
+        phase("11 run directories and NF on ResNet: cli.train_nf -m res_net, cli.score -r "
+              "(--watch, --heatmaps, --weights-dtype bf16), cli.validate")
+        rundir = rundir_main_path(tmp, os.path.dirname(mdn["pth"]))
+
+        phase("12 times (CUDA events, median of %d after warm-up)" % TIMED_RUNS)
         qkv = torch.randn(FLAGSHIP_BATCH, 198, 3 * 768, device=dev,
                           generator=gen).to(torch.bfloat16)
         err = (wa.vit_attention_qkv(qkv, 12).float()
@@ -3058,6 +3442,7 @@ def main() -> int:
         esvit_times(esvit, images, card, gen)
         recon_fns = recon_times(recon, images, card)
         trunk_nums, trunk_fns = trunks_times(trunks, images, card, gen)
+        rundir_nums = rundir_times(rundir, images, card)
         # last: the profiler's hooks slow the host down for whatever is timed after it
         print_device_profile(f"DeiT NF uint8→scores B={FLAGSHIP_BATCH} bf16, fused MLP on "
                              f"(the default)", deit_fns[True], card, top=20)
@@ -3077,16 +3462,21 @@ def main() -> int:
                          ("EfficientNet-B4 uint8→tokens", trunk_fns["EfficientNet-B4"])):
             print_device_profile(f"{what} B={FLAGSHIP_BATCH} bf16", fn, card, top=16)
         del trunk_fns
+        print_device_profile(f"NF-ResNet joint train step B={NFRES_BATCH} (ResNet-50 bf16 trunk, "
+                             f"3 NF-20 flows f32, stage norms, Adam)", rundir_nums["step"], card,
+                             top=24)
+        del rundir_nums
     torch.cuda.synchronize()
 
-    phase("12 result")
+    phase("13 result")
     kernels = [{
         "name": "vit_attention_qkv",
         "route": "cuda",
         "source": "vit_ad_tpu_torch/csrc/vit_attention_qkv.cu",
         "replaces": "vit_ad_tpu/ops/pallas/window_attention.py:375",
         "launches": nf_launches["B1"] + fused["launches"]["B1"] + mdn["launches"]["B1"]
-        + recon["launches"]["B1"] + trunks["nest"]["launches"]["B1"],
+        + recon["launches"]["B1"] + trunks["nest"]["launches"]["B1"]
+        + rundir["launches"]["B1"],
         "max_abs_err": err,
         "ms": att_ms,
         "plain_ms": att_plain_ms,
@@ -3112,7 +3502,7 @@ def main() -> int:
         kernels.append({"name": kernel, "route": "cuda", "source": "vit_ad_tpu_torch/csrc/gmm.cu",
                         "replaces": replaces,
                         "launches": mdn["launches"][key] + resnet["launches"][key]
-                        + trunks["eff_former"]["launches"][key],
+                        + trunks["eff_former"]["launches"][key] + rundir["launches"][key],
                         **main, "per_shape": shapes})
     kernels[1]["kernel_route"] = "wgmma_x_resident (D <= 1024), wgmma_x_streamed (above)"
     kernels[1]["design"] = ("64 rows x 128 features a block, two consumer warpgroups of 64 "
@@ -3144,7 +3534,7 @@ def main() -> int:
     # NesT-T LayerNorm
     kernels[-1]["launches"] += (nf_launches["B7"] + fused["launches"]["B7"]
                                 + mdn["launches"]["B7"] + recon["launches"]["B7"]
-                                + trunks["nest"]["launches"]["B7"])
+                                + trunks["nest"]["launches"]["B7"] + rundir["launches"]["B7"])
     kernels[-1]["per_stage"] += trunk_nums["B7"]
     kernels[-1]["design"] = ("rows kernel: D = 8 LPR NV, 32 / LPR rows a warp, scale and bias "
                              "in registers, the warps striding over the rows from D = 384 with "
@@ -3153,7 +3543,8 @@ def main() -> int:
                     "source": "vit_ad_tpu_torch/csrc/mlp_block.cu",
                     "replaces": "vit_ad_tpu/ops/pallas/mlp.py:44",
                     "launches": nf_launches["B6"] + fused["launches"]["B6"]
-                    + mdn["launches"]["B6"] + recon["launches"]["B6"], **mlp})
+                    + mdn["launches"]["B6"] + recon["launches"]["B6"]
+                    + rundir["launches"]["B6"], **mlp})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

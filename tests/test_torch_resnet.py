@@ -323,6 +323,11 @@ def test_cli_train_res_net_then_score_round_trip(category, tmp_path):
     want = score_models(m, DataPipeline(4, IMG, files=imgs), *default_norm_stats())
     np.testing.assert_allclose([float(row[1]) for row in rows], want.image_scores, rtol=0,
                                atol=1e-6)
+    # the run directory lists the same files: `-r` scores as `--pth` does
+    by_run = tmp_path / "by_run"
+    assert score_cli.main(["-r", str(out), "-d", test_dir, "-b", "4", "-o", str(by_run),
+                           "--device", "cpu"]) == 0
+    assert (by_run / "scores.csv").read_text() == (scored / "scores.csv").read_text()
     # a torchvision-layout trunk file loads too; the norms then keep their init
     full = torch.load(enc_pth, weights_only=True)
     tv = tmp_path / "resnet50.pth"

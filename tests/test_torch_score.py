@@ -34,14 +34,14 @@ from vit_ad_tpu.utils.torch_convert import export_nf_head, export_vit
 from vit_ad_tpu_torch import registry
 from vit_ad_tpu_torch.cli import score as score_cli
 from vit_ad_tpu_torch.cli import train_nf as train_nf_cli
-from vit_ad_tpu_torch.cli.common import RUN_CONFIG_KEYS, parse_args
+from vit_ad_tpu_torch.cli.common import parse_args
 from vit_ad_tpu_torch.config import DtypePolicy, HyperParams
 from vit_ad_tpu_torch.data.dataset import default_norm_stats
 from vit_ad_tpu_torch.data.loader import DataPipeline
 from vit_ad_tpu_torch.models.flow import NormalizingFlow
 from vit_ad_tpu_torch.models.vit import ViTEncoder
 from vit_ad_tpu_torch.pipeline.eval import score_nf
-from vit_ad_tpu_torch.pipeline.loading import build_pth_models
+from vit_ad_tpu_torch.pipeline.loading import build_pth_models, hp_from_config
 from vit_ad_tpu_torch.scoring import payload_to_scores
 from vit_ad_tpu_torch.utils.convert import nf_state_dict_from_jax, vit_state_dict_from_jax
 
@@ -174,10 +174,12 @@ def _score_nf(pth, test_dir, mean, std, block_index=0):
 @pytest.mark.parametrize("run,centering,block_index", [("centering", True, 0),
                                                        ("block", False, 1)])
 def test_trainer_records_the_run_config(trained_runs, run, centering, block_index):
-    """`config.json` beside the head holds what scoring needs."""
+    """`config.json` beside the head holds what scoring needs: the run's
+    `HyperParams.to_log_dict()` and its checkpoint files."""
     with open(os.path.join(os.path.dirname(trained_runs[run]), "config.json")) as f:
         cfg = json.load(f)
-    assert tuple(cfg) == RUN_CONFIG_KEYS
+    assert cfg.pop("checkpoints") == [os.path.basename(trained_runs[run])]
+    assert cfg == hp_from_config(cfg).to_log_dict()
     assert cfg["centering"] is centering and cfg["block_index"] == block_index
     assert (cfg["model_name"], cfg["architecture"], cfg["img_size"], cfg["flow_steps"]) == \
         ("enc_deit", "nf", IMG, STEPS)
@@ -255,17 +257,26 @@ def test_payload_to_scores_matches_jax(kind, ref_max):
 
 
 @pytest.mark.parametrize("args,match", [
-    (["-r", "run_dir"], "orbax"),
-    (["--pth", "x.pth", "-a", "nf", "--weights-dtype", "bf16"], "A10"),
-    (["--pth", "x.pth", "-a", "nf", "--watch", "5"], "A10"),
+    (["-r", "{jax_run}", "--device", "cpu"], "vit_ad_tpu.cli.export_weights --run"),
+    (["-r", "{jax_run}", "--watch", "5", "--heatmaps", "2"], "not supported with --watch"),
+    (["--pth", "x.pth", "-a", "nf", "--watch", "5", "--mesh", "2"], "A11"),
     (["--pth", "x.pth", "-a", "nf", "--mesh", "2"], "A11"),
     (["--pth", "x.pth"], "-a nf"),
+    (["-r", "{tmp}"], "no config.json"),
 ])
-def test_cli_refuses_unported_options_clearly(args, match, capsys):
+def test_cli_refuses_unported_options_clearly(args, match, tmp_path, capsys):
+    """Each refusal names its reason: a JAX run directory (orbax params) names
+    the way across, `vit_ad_tpu.cli.export_weights` and then `--pth`;
+    `--heatmaps` needs the whole scored set and so not `--watch`; `--mesh` is
+    ROADMAP A11."""
+    jax_run = tmp_path / "jax_run"
+    (jax_run / "best_params").mkdir(parents=True)
+    (jax_run / "config.json").write_text(json.dumps(JaxHyperParams().to_log_dict()))
     with pytest.raises(SystemExit) as e:
-        score_cli.main(args + ["-d", "images"])
+        score_cli.main([a.format(jax_run=jax_run, tmp=tmp_path) for a in args]
+                       + ["-d", str(tmp_path)])
     assert e.value.code != 0
-    assert match in capsys.readouterr().err
+    assert match in capsys.readouterr().err + str(e.value.code)
 
 
 def test_registry_names_the_roadmap_item():
@@ -308,9 +319,12 @@ def test_port_imports_no_jax():
         "vit_ad_tpu_torch.models.vit, vit_ad_tpu_torch.models.resnet, "
         "vit_ad_tpu_torch.models.cnn, vit_ad_tpu_torch.models.reverse_resnet, "
         "vit_ad_tpu_torch.models.decoders, vit_ad_tpu_torch.models.autoencoder, "
-        "vit_ad_tpu_torch.ops.ssim, vit_ad_tpu_torch.cli.train_recon, chip_smoke\n"
+        "vit_ad_tpu_torch.ops.ssim, vit_ad_tpu_torch.cli.train_recon, "
+        "vit_ad_tpu_torch.cli.validate, vit_ad_tpu_torch.utils.checkpoint, "
+        "vit_ad_tpu_torch.utils.logging, vit_ad_tpu_torch.utils.images, "
+        "vit_ad_tpu_torch.utils.profiling, chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'vit_ad_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'orbax', 'matplotlib', 'vit_ad_tpu'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
     p = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -366,7 +366,7 @@ def test_cli_train_nf_then_score_round_trip(swin_category, tmp_path, monkeypatch
 
 
 @pytest.mark.parametrize("cli,args,match", [
-    (train_nf_cli, ["-m", "res_net", "--device", "cpu"], "A7b"),
+    (train_nf_cli, ["-m", "res_net", "--fused-mlp", "--device", "cpu"], "fused MLP"),
     (train_nf_cli, ["--mesh", "2x1", "--device", "cpu"], "A11"),
     (train_nf_cli, ["-m", "deit", "--fused-ln", "--device", "cpu"], "fused"),
 ])

@@ -1,6 +1,6 @@
 """Shared CLI plumbing of the port's trainers (port of
-`vit_ad_tpu/cli/common.py`: `parse_args` :44, `build_pipelines` :137), and
-`run_trainer`, the body the trainer CLIs share.
+`vit_ad_tpu/cli/common.py`: `parse_args` :44, `build_pipelines` :137,
+`save_loss_curves` :170), and `run_trainer`, the body the trainer CLIs share.
 
 The reference's flag surface (reference startTraining_mdn.py:40):
 
@@ -10,12 +10,22 @@ The reference's flag surface (reference startTraining_mdn.py:40):
   NF adds -r hiddenRatio -f flowSteps
 
 plus the port's `--device` (default cuda; without a card the CLI exits
-unless `--device cpu` is given), `--out` (the run directory; `run_trainer`
-writes `config.json` there beside the weights, `RUN_CONFIG_KEYS`) and
-`--fused-ln` / `--no-fused-ln` (the trunk's LayerNorms through the one-pass
-kernel or not) and `--fused-mlp` / `--no-fused-mlp` (the ViT/DeiT blocks' MLP
-tail through the fused kernel or not; default of both: the model's). `--mesh`
-is ROADMAP A11 and exits with a message.
+unless `--device cpu` is given), `--out` (the run directory, default
+`runs/<run name>`) and `--fused-ln` / `--no-fused-ln` (the trunk's LayerNorms
+through the one-pass kernel or not) and `--fused-mlp` / `--no-fused-mlp` (the
+ViT/DeiT blocks' MLP tail through the fused kernel or not; default of both:
+the model's). `--mesh` is ROADMAP A11 and exits with a message.
+
+The run directory is the JAX package's (`utils/logging.MetricLogger`):
+  config.json      `HyperParams.to_log_dict()` and `checkpoints`, the weight
+                   files in load order (`pipeline/loading.find_checkpoint`)
+  metrics.jsonl    one record per epoch, then the metrics ("stage": "eval")
+  metrics.csv      the same rows' scalars
+  history.json     epoch losses and times, metrics, best epoch
+  loss_curves.png  train and validation loss per epoch
+  figures/         the evaluator's six figures (`pipeline/eval.save_eval_figures`)
+  *.pth            the checkpoints, in the reference layouts `cli.score --pth`
+                   reads; `cli.score -r` reads the directory
 """
 
 from __future__ import annotations
@@ -31,11 +41,6 @@ import torch
 from vit_ad_tpu_torch.config import HyperParams
 from vit_ad_tpu_torch.data.loader import DataPipeline
 
-# the hyper-parameters `run_trainer` records in the run directory's
-# config.json, beside the weights, for `cli.score --pth` to read back
-RUN_CONFIG = "config.json"
-RUN_CONFIG_KEYS = ("model_name", "architecture", "img_size", "centering", "block_index",
-                   "hidden_ratio", "flow_steps", "num_gaussians", "fused_ln", "fused_mlp")
 BTAD_BASE = "data/btad/BTech_Dataset_transformed/01"
 MVTEC_BASE = "data/mvtec_anomaly_detection/hazelnut"
 USAGE = ("usage: -m <modelType> -p <patience> -e <#epochs> -a <amountOfData> -l <learnRate> "
@@ -153,22 +158,36 @@ def _cpu_state(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
 
 
 def head_checkpoints(result, hp: HyperParams, pth_name: str) -> Dict[str, Dict]:
-    """File name → state dict of a frozen-trunk run: the best head."""
+    """File name → state dict of a frozen-trunk run: the best head (of a
+    recon run, the whole auto-encoder)."""
     return {f"{pth_name}_{hp.data_class}.pth": _cpu_state(result.head)}
 
 
-def resnet_mdn_checkpoints(result, hp: HyperParams, pth_name: str) -> Dict[str, Dict]:
-    """File name → state dict of a ResNet multi-stage MDN run: one file per
-    stage head (`<pth_name>_stage<i>_<class>.pth`; `cli.score --pth` takes the
-    two in stage order) and the encoder with its trained stage norms and the
-    trunk's BatchNorm statistics (`ResNetEncoder_<class>.pth`, the `-E` of
-    `cli.score`)."""
-    from vit_ad_tpu_torch.pipeline.train import RESNET_MDN_STAGES
+def resnet_checkpoints(result, hp: HyperParams, pth_name: str) -> Dict[str, Dict]:
+    """File name → state dict of a ResNet multi-stage run, in load order: one
+    file per stage head (`<pth_name>_stage<i>_<class>.pth`: the MDN heads of
+    stages 2 and 3, which `cli.score --pth` takes in stage order, or the
+    flows of stages 0-2, as the JAX `export_weights` names them), then the
+    encoder with its trained stage norms and the trunk's BatchNorm statistics
+    (`ResNetEncoder_<class>.pth`, the `-E` of `cli.score --pth`)."""
+    from vit_ad_tpu_torch.pipeline.train import NF_RESNET_STAGES, RESNET_MDN_STAGES
 
+    stages = RESNET_MDN_STAGES if hp.architecture == "mdn" else NF_RESNET_STAGES
     out = {f"{pth_name}_stage{i}_{hp.data_class}.pth": _cpu_state(head)
-           for i, head in zip(RESNET_MDN_STAGES, result.head)}
+           for i, head in zip(stages, result.head)}
     out[f"ResNetEncoder_{hp.data_class}.pth"] = _cpu_state(result.encoder)
     return out
+
+
+def save_loss_curves(logger, history: Dict) -> Optional[str]:
+    """`loss_curves.png` in the run directory, registered with the logger."""
+    if not history.get("train_loss"):
+        return None
+    from vit_ad_tpu_torch.utils.images import plot_loss_curves, save_png
+
+    path = save_png(plot_loss_curves(history), os.path.join(logger.dir, "loss_curves.png"))
+    logger.log_figure("loss_curves", path)
+    return path
 
 
 def run_trainer(parsed: Tuple[HyperParams, str, str, str, str, str], trainer: Callable,
@@ -178,16 +197,15 @@ def run_trainer(parsed: Tuple[HyperParams, str, str, str, str, str], trainer: Ca
     model (seed-deterministic init, as in the JAX package's trainers: the
     trunk, or for a reconstruction run the whole auto-encoder, which the
     trainer takes as `model`) and the pipelines, train, print the metrics,
-    and write into the run directory
-    (`--out`, default `<log_dir>/<run_name>_<dataset>_<class>`) `history.json`
-    (epoch losses, metrics, best epoch), `config.json` (the hyper-parameters
-    of `RUN_CONFIG_KEYS`, which `cli.score --pth` reads back: the centering and
-    the feature depth) and the files of `checkpoints(result, hp, pth_name)`: by
-    default the best head's state dict as `<pth_name>_<class>.pth` (for a
-    recon run the whole auto-encoder), which `cli.score --pth` reads back.
-    `banner` and the two names are format strings over the hyper-parameters."""
+    and write the run directory (`--out`, default
+    `<log_dir>/<run_name>_<dataset>_<class>`; the files are the module
+    docstring's): the checkpoints are `checkpoints(result, hp, pth_name)`, by
+    default the best head's state dict as `<pth_name>_<class>.pth`. `banner`
+    and the two names are format strings over the hyper-parameters."""
     from vit_ad_tpu_torch.config import set_numerics_policy
     from vit_ad_tpu_torch.pipeline.train import default_encoder
+    from vit_ad_tpu_torch.utils.checkpoint import save_params
+    from vit_ad_tpu_torch.utils.logging import MetricLogger
 
     hp, data_path, train_pref, test_pref, device, out_dir = parsed
     try:
@@ -200,22 +218,30 @@ def run_trainer(parsed: Tuple[HyperParams, str, str, str, str, str], trainer: Ca
     set_numerics_policy()
     data, test = build_pipelines(hp, data_path, train_pref, test_pref)
     fields = vars(hp)
-    out_dir = out_dir or os.path.join(
-        hp.log_dir, f"{run_name.format(**fields)}_{hp.dataset}_{hp.data_class}")
-    os.makedirs(out_dir, exist_ok=True)
+    out_dir = os.path.abspath(out_dir or os.path.join(
+        hp.log_dir, f"{run_name.format(**fields)}_{hp.dataset}_{hp.data_class}"))
+    config = hp.to_log_dict()
+    logger = MetricLogger(os.path.dirname(out_dir), run_name=os.path.basename(out_dir),
+                          config=config, enable_wandb=hp.enable_wandb)
     print(f"{banner.format(**fields)}, patience {hp.patience}, epochs {hp.epochs}, "
           f"lr {hp.learning_rate}, wd {hp.weight_decay}, bs {hp.batch_size}, "
           f"img {hp.img_size}, data {data_path}/{train_pref}, device {device}", flush=True)
-    result = trainer(hp, data, test, **model_arg, device=device,
-                     log=lambda row: print(json.dumps(row), flush=True))
-    print("final metrics:", json.dumps(result.metrics))
-    with open(os.path.join(out_dir, "history.json"), "w") as f:
-        json.dump({**result.history, "metrics": result.metrics,
-                   "epochs_ran": result.epochs_ran, "best_epoch": result.best_epoch,
-                   "best_valid_loss": result.best_valid_loss}, f, indent=1)
-    with open(os.path.join(out_dir, RUN_CONFIG), "w") as f:
-        json.dump({key: fields[key] for key in RUN_CONFIG_KEYS}, f, indent=1)
-    for name, state in checkpoints(result, hp, pth_name.format(**fields)).items():
-        torch.save(state, os.path.join(out_dir, name))
-        print("checkpoint:", os.path.join(out_dir, name))
+    try:
+        result = trainer(hp, data, test, **model_arg, device=device, log=logger.log,
+                         figures_dir=os.path.join(logger.dir, "figures"), logger=logger)
+        print("final metrics:", json.dumps(result.metrics))
+        with open(os.path.join(out_dir, "history.json"), "w") as f:
+            json.dump({**result.history, "metrics": result.metrics,
+                       "epochs_ran": result.epochs_ran, "best_epoch": result.best_epoch,
+                       "best_valid_loss": result.best_valid_loss}, f, indent=1)
+        save_loss_curves(logger, result.history)
+        names = []
+        for name, state in checkpoints(result, hp, pth_name.format(**fields)).items():
+            path = save_params(out_dir, name, state)
+            logger.log_artifact(path)
+            names.append(name)
+            print("checkpoint:", path)
+        logger.write_config({**config, "checkpoints": names})
+    finally:
+        logger.finish()
     return 0

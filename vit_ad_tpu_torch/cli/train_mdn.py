@@ -11,19 +11,19 @@ wd 7e-4, batch 64, K 150, 224 px — reference startTraining_mdn.py:26-38):
         [--fused-ln|--no-fused-ln] [--fused-mlp|--no-fused-mlp]
 
 The trunk is the registry model with its seed-deterministic init, as in the
-JAX package's trainer. Writes into the run directory (default
-runs/mdn_<model>_<K>g_<dataset>_<class>):
-  history.json                       epoch losses, metrics, best epoch
+JAX package's trainer. Writes the run directory (default
+runs/mdn_<model>_<K>g_<dataset>_<class>; its files: `cli/common.py`), which
+`cli.score -r` reads, with the checkpoint
   <K>_gaussians_<model>_<class>.pth  the best head, in the reference
                                      GaussianMixtureDensityNetwork layout,
                                      which `cli.score --pth ... -a mdn` reads
 With `-m res_net` (reference startTraining_mdn.py:134-147, the JAX CLI's
-dispatch to `train_mdn_resnet`) the run directory holds instead
+dispatch to `train_mdn_resnet`) the checkpoints are instead
   <K>_gaussians_enc_res_net_stage2_<class>.pth, ..._stage3_<class>.pth
                                      the heads on stage maps 2 and 3
   ResNetEncoder_<class>.pth          the encoder with its trained stage norms
 which `cli.score --pth <stage2> <stage3> -a mdn -E <encoder>` reads.
-The metric logger and wandb are ROADMAP A10; k-means init is ROADMAP A5.
+k-means init is ROADMAP A5.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from vit_ad_tpu_torch.cli.common import (
     BTAD_BASE,
     head_checkpoints,
     parse_args,
-    resnet_mdn_checkpoints,
+    resnet_checkpoints,
     run_trainer,
 )
 from vit_ad_tpu_torch.config import HyperParams
@@ -55,7 +55,7 @@ def main(argv=None) -> int:
                        banner="Training MDN: model {model_name}, K {num_gaussians}",
                        run_name="mdn_{model_name}_{num_gaussians}g",
                        pth_name="{num_gaussians}_gaussians_{model_name}",
-                       checkpoints=resnet_mdn_checkpoints if resnet else head_checkpoints)
+                       checkpoints=resnet_checkpoints if resnet else head_checkpoints)
 
 
 if __name__ == "__main__":

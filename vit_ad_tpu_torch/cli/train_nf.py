@@ -1,4 +1,6 @@
-"""Train a normalizing-flow anomaly head on frozen-trunk features on the GPU.
+"""Train a normalizing-flow anomaly head on the GPU: on frozen-trunk features,
+or (`-m res_net`) three stage flows jointly with the ResNet-50's stage
+LayerNorms.
 
 Port of `startTraining_NF.py` (the flag surface of `cli/common.py`, with
 `-r <hiddenRatio> -f <flowSteps>`; defaults: model deit, patience 60, epochs
@@ -6,31 +8,42 @@ Port of `startTraining_NF.py` (the flag surface of `cli/common.py`, with
 reference startTraining_NF.py:26-39):
 
     python -m vit_ad_tpu_torch.cli.train_nf -d <category dir> -t train/good \\
-        -v test [-m deit|vit|esvit|nest|eff_former|eff_net] [-r 0.16] [-f 20] \\
+        -v test [-m deit|vit|esvit|nest|eff_former|eff_net|res_net] [-r 0.16] [-f 20] \\
         [-e EPOCHS] [-b BATCH] \\
         [--device cuda|cpu] [--out RUN_DIR] [--fused-ln|--no-fused-ln] \\
         [--fused-mlp|--no-fused-mlp]
 
 The trunk is the registry model with its seed-deterministic init, as in the
-JAX package's trainer. Writes into the run directory (default
-runs/nf_<model>_<dataset>_<class>):
-  history.json               epoch losses, metrics, best epoch
+JAX package's trainer. Writes the run directory (default
+runs/nf_<model>_<dataset>_<class>; its files: `cli/common.py`) with the
+checkpoint
   nf_<model>_<class>.pth     the best head, in the reference's FrEIA layout,
                              which `cli.score --pth ... -a nf` reads
-`-m res_net` (NF heads on the ResNet stage maps, `train_nf_resnet`) is ROADMAP
-A7b and exits with a message; the metric logger and wandb are ROADMAP A10.
+With `-m res_net` (reference startTraining_NF.py:139-152, the JAX CLI's
+dispatch to `train_nf_resnet`) the checkpoints are instead
+  nf_enc_res_net_stage{0,1,2}_<class>.pth   the flows on stage maps 0-2
+  ResNetEncoder_<class>.pth                 the encoder with its trained
+                                            stage norms
+which `cli.score -r <run dir>` reads (as in the JAX package, no `--pth`
+convention scores this head).
 """
 
 from __future__ import annotations
 
 import sys
 
-from vit_ad_tpu_torch.cli.common import MVTEC_BASE, parse_args, run_trainer
+from vit_ad_tpu_torch.cli.common import (
+    MVTEC_BASE,
+    head_checkpoints,
+    parse_args,
+    resnet_checkpoints,
+    run_trainer,
+)
 from vit_ad_tpu_torch.config import HyperParams
 
 
 def main(argv=None) -> int:
-    from vit_ad_tpu_torch.pipeline.train import train_nf
+    from vit_ad_tpu_torch.pipeline.train import train_nf, train_nf_resnet
 
     hp = HyperParams(model_name="enc_deit", architecture="nf", patience=60, epochs=500,
                      learning_rate=1e-3, weight_decay=1e-5, batch_size=32, hidden_ratio=0.16,
@@ -40,14 +53,12 @@ def main(argv=None) -> int:
                         usage_extra=" -r <hiddenRatio> -f <flowSteps>")
     if parsed is None:
         return 0
-    if "res_net" in parsed[0].model_name:
-        raise SystemExit(f"-m {parsed[0].model_name}: NF heads on the ResNet stage maps "
-                         "(train_nf_resnet) are not ported to vit_ad_tpu_torch yet (ROADMAP "
-                         "A7b); cli.train_mdn -m res_net trains the MDN heads")
-    return run_trainer(parsed, train_nf,
+    resnet = "res_net" in parsed[0].model_name
+    return run_trainer(parsed, train_nf_resnet if resnet else train_nf,
                        banner="Training NF: model {model_name}, hidden_ratio {hidden_ratio}, "
                               "flow_steps {flow_steps}",
-                       run_name="nf_{model_name}", pth_name="nf_{model_name}")
+                       run_name="nf_{model_name}", pth_name="nf_{model_name}",
+                       checkpoints=resnet_checkpoints if resnet else head_checkpoints)
 
 
 if __name__ == "__main__":

@@ -14,14 +14,12 @@ The auto-encoder is the registry model with its seed-deterministic init, as
 in the JAX package's trainer: the vanilla AE trains end to end, the others
 train the decoder on their frozen encoder (a transformer trunk runs once
 over the batches: the latent cache). The loss is the MSE, as the JAX CLI
-trains it. Writes into the run directory (default
-runs/recon_<model>_<dataset>_<class>):
-  history.json          epoch losses, metrics, best epoch
-  config.json           the run's hyper-parameters (`cli/common.RUN_CONFIG_KEYS`)
+trains it. Writes the run directory (default
+runs/recon_<model>_<dataset>_<class>; its files: `cli/common.py`, the figures
+with the recon grid), which `cli.score -r` reads, with the checkpoint
   <model>_<class>.pth   the whole auto-encoder with its best weights, in the
                         reference's layout, which `cli.score --pth ... -a recon
                         -m <model>` reads
-Figures and the metric logger are ROADMAP A10.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Configuration dataclasses and the numerics policy.
 
-Port of `vit_ad_tpu/config.py` (:16-115): the same fields and defaults, with
+Port of `vit_ad_tpu/config.py` (:16-115, `to_log_dict` :111): the same fields and defaults, with
 torch dtypes in `DtypePolicy`. `set_numerics_policy` pins the f32 behaviour of
 the CUDA libraries, which the JAX package never had to state.
 """
@@ -101,3 +101,10 @@ class HyperParams:
     prefetch: int = 2
     log_dir: str = "runs"
     enable_wandb: bool = False
+
+    def to_log_dict(self) -> dict:
+        """The fields a run directory's `config.json` records (JAX
+        `to_log_dict` :111): all but the dtype policy and the mesh, so a
+        restored run scores on one device under the default policy."""
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+                if f.name not in ("dtypes", "mesh")}

@@ -21,6 +21,19 @@ from PIL import Image
 from vit_ad_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
 
 
+# what decoding an unreadable or half-written image file raises: PIL's
+# `UnidentifiedImageError` and "image file is truncated" are both OSErrors
+DECODE_ERRORS = (OSError,)
+
+
+def load_image(path: str, img_size: int) -> np.ndarray:
+    """Decode + bilinear resize → uint8 [img_size, img_size, 3]; raises one
+    of `DECODE_ERRORS` for a file that is not a whole image."""
+    with Image.open(path) as im:
+        img = im.convert("RGB").resize((img_size, img_size), Image.BILINEAR)
+    return np.asarray(img, dtype=np.uint8)
+
+
 def infer_label(image_path: str) -> int:
     d = os.path.dirname(image_path)
     return 0 if (d.endswith("good") or d.endswith("ok")) else 1
@@ -55,9 +68,7 @@ class AnomalyDataset:
         return len(self.file_names)
 
     def _load_image(self, path: str) -> np.ndarray:
-        with Image.open(path) as im:
-            img = im.convert("RGB").resize((self.img_size, self.img_size), Image.BILINEAR)
-        return np.asarray(img, dtype=np.uint8)
+        return load_image(path, self.img_size)
 
     def _load_mask(self, image_path: str) -> np.ndarray:
         mp = mask_path_for(image_path)

@@ -7,6 +7,7 @@ encoders share."""
 
 from __future__ import annotations
 
+import itertools
 import math
 import os
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -169,8 +170,10 @@ def init_conv_layers(module: nn.Module, generator: Optional[torch.Generator]) ->
 
 class ComputeWeights:
     """Compute-dtype copies of a module's matmul weights, and whatever else
-    `make(dtype)` derives from the parameters. They are cached and made
-    again only when a parameter changed (storage or in-place version); while
+    `make(dtype)` derives from the parameters and buffers (the folded
+    BatchNorms read the running statistics). They are cached and made again
+    only when a parameter or buffer changed (storage or in-place version:
+    `pipeline/loading.compress_params_bf16` rounds them in place); while
     gradients flow to the parameters they are made per call. (JAX casts them
     once per call outside its block scan.)"""
 
@@ -183,7 +186,8 @@ class ComputeWeights:
         cd = dtypes.compute_dtype
         if torch.is_grad_enabled() and any(p.requires_grad for p in module.parameters()):
             return make(cd)
-        key = tuple((p.data_ptr(), p._version, p.device) for p in module.parameters())
+        key = tuple((t.data_ptr(), t._version, t.device)
+                    for t in itertools.chain(module.parameters(), module.buffers()))
         if key != self._key:
             with torch.inference_mode(False), torch.no_grad():
                 self._cast = make(cd)

@@ -2,12 +2,17 @@
 `vit_ad_tpu/pipeline/early_stopping.py`: `EarlyStopping` :62 and
 `run_epochs` :108; reference src/util/TrainingsHelper.py:84-140).
 
-The best-weights snapshot is a host copy of the head's state dict.
+The best-weights snapshot is a host copy of the head's state dict. With
+`VITAD_TRACE=<dir>` in the environment, `run_epochs` captures the second
+epoch's training (the first builds the kernels and warms up) as a Chrome
+trace in `<dir>` (`utils/profiling.trace`), as the JAX loop does (:117-134).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import os
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -53,27 +58,34 @@ def run_epochs(hp, train_epoch: Callable[[int], Tuple[float, float]],
     snapshot() -> the head's state dict. `train_images_per_sec` leaves out
     epoch 0 (the first kernel builds and warm-up) unless it is the only one.
     Returns (history, epochs_ran, stopper)."""
+    from vit_ad_tpu_torch.utils.profiling import StepTimer, trace
+
+    trace_dir = os.environ.get("VITAD_TRACE")
     stopper = EarlyStopping(hp.patience)
+    timer = StepTimer()  # epochs 1 on
     history: Dict[str, Any] = {"train_loss": [], "valid_loss": [], "epoch_time": []}
-    items, train_time = [], []
+    first_rate = 0.0
     epochs_ran = 0
     for epoch in range(hp.epochs):
+        traced = trace_dir and epoch == min(1, hp.epochs - 1)
         t0 = time.perf_counter()
-        train_loss, n_items = train_epoch(epoch)
+        timer.start()
+        with trace(trace_dir) if traced else contextlib.nullcontext():
+            train_loss, n_items = train_epoch(epoch)
         t_train = time.perf_counter() - t0
+        if epoch:
+            timer.tick(n_items)
+        else:
+            first_rate = n_items / max(t_train, 1e-9)
         valid_loss = valid_epoch()
         history["train_loss"].append(train_loss)
         history["valid_loss"].append(valid_loss)
         history["epoch_time"].append(time.perf_counter() - t0)
-        items.append(n_items)
-        train_time.append(t_train)
         epochs_ran = epoch + 1
         if log is not None:
             log({"epoch": epoch, "train_loss": train_loss, "valid_loss": valid_loss,
                  "images_per_sec": n_items / max(t_train, 1e-9)})
         if stopper.update(valid_loss, snapshot, epoch):
             break
-    skip = 1 if len(items) > 1 else 0
-    history["train_images_per_sec"] = (sum(items[skip:]) / max(sum(train_time[skip:]), 1e-9)
-                                       if items else 0.0)
+    history["train_images_per_sec"] = timer.images_per_sec if timer.steps else first_rate
     return history, epochs_ran, stopper

@@ -1,10 +1,11 @@
-"""Scoring: models → anomaly maps → image scores → metrics (port of
-`vit_ad_tpu/pipeline/eval.py`: `make_mdn_batch_fn` :357, `score_mdn` :446,
+"""Scoring: models → anomaly maps → image scores → metrics and figures (port
+of `vit_ad_tpu/pipeline/eval.py`: `make_mdn_batch_fn` :357, `score_mdn` :446,
 `evaluate_mdn` :482, `make_nf_batch_fn` :371, `score_nf` :500, `evaluate_nf`
 :532, `make_mdn_resnet_batch_fn` :401, `score_mdn_resnet` :608,
-`evaluate_mdn_resnet` :651, `make_recon_batch_fn` :388, `score_recon` :550,
-`evaluate_recon` :579 and the metrics half of `_metrics_and_figures` :55;
-figures are ROADMAP A10, the NF-ResNet evaluators A7b).
+`evaluate_mdn_resnet` :651, `make_nf_resnet_batch_fn` :425, `score_nf_resnet`
+:671, `evaluate_nf_resnet` :705, `make_recon_batch_fn` :388, `score_recon`
+:550, `evaluate_recon` :579, `_metrics_and_figures` :55 and
+`save_eval_figures` :243).
 
   * MDN — per-patch mean log-likelihood; image score = inverted min patch
     probability, normalized by the max log-likelihood over the whole scored
@@ -15,14 +16,22 @@ figures are ROADMAP A10, the NF-ResNet evaluators A7b).
   * MDN over ResNet stages — one head per stage map; per-stage probability
     maps upsampled, inverted and averaged; image score = max
     (`scoring.payload_to_scores("mdn_resnet")`).
+  * NF over ResNet stages — one flow per stage map (0, 1, 2); the mean of
+    the three anomaly maps, image score = max (reference
+    ValidatorNF.valid_loop_resnet_nf, :152-219).
   * Reconstruction — anomaly map = the channel mean of the squared error
     between the auto-encoder's reconstruction and its preprocessed input;
     image score = max (reference ValidatorRecon.py:92-136).
+
+Every `evaluate_*` takes `figures_dir` (write the six figures of
+`save_eval_figures` there; the first 9 images are kept for the overlays) and
+`logger` (a `utils.logging.MetricLogger` the figures are registered with).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple, Union
+import os
+from typing import Any, Callable, Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -44,18 +53,76 @@ class ScoreOutput(NamedTuple):
     pixel_scores: np.ndarray            # [N, H, W] anomaly map per image
     labels: np.ndarray                  # [N] path-inferred 0/1
     masks: np.ndarray                   # [N, H, W] ground-truth or zeros
+    origs: Optional[np.ndarray] = None  # the first keep_origs uint8 images
 
 
 def _as_device(a: Optional[np.ndarray], device: torch.device) -> Optional[torch.Tensor]:
     return None if a is None else torch.as_tensor(a, dtype=torch.float32, device=device)
 
 
-def metrics_of(s: ScoreOutput, hp: HyperParams) -> Dict[str, float]:
-    """The reference metric suite of a labelled ScoreOutput."""
-    return M.calc_all_metrics(M.EvalResult(
+def metrics_of(s: ScoreOutput, hp: HyperParams, figures_dir: Optional[str] = None,
+               logger: Any = None, vmax: float = 1.0,
+               recons: Optional[np.ndarray] = None) -> Dict[str, float]:
+    """The reference metric suite of a labelled ScoreOutput, and with
+    `figures_dir` its figures (JAX `_metrics_and_figures`)."""
+    result = M.EvalResult(
         image_scores=s.image_scores, image_labels=s.labels.astype(np.float64),
-        pixel_scores=s.pixel_scores, pixel_labels=s.masks.astype(np.float64)),
-        hp.fp_threshold)
+        pixel_scores=s.pixel_scores, pixel_labels=s.masks.astype(np.float64), origs=s.origs,
+        recons=recons)
+    out = M.calc_all_metrics(result, hp.fp_threshold)
+    if figures_dir:
+        save_eval_figures(result, out, figures_dir, hp.fp_threshold, vmax=vmax, logger=logger)
+    return out
+
+
+def eval_figure_arrays(result: M.EvalResult, metrics: Dict[str, float],
+                       fp_threshold: float = 0.3, vmax: float = 1.0) -> Dict[str, np.ndarray]:
+    """The six figures of `save_eval_figures` as RGB arrays, by name."""
+    from vit_ad_tpu_torch.utils import images as I
+
+    thresholded = M.create_heatmap_from_scores(result.pixel_scores, result.pixel_labels,
+                                               fp_threshold)
+    n = min(9, thresholded.shape[0])
+    origs = None if result.origs is None else result.origs[:n]
+    if origs is not None and origs.dtype == np.uint8:
+        origs = origs.astype(np.float32) / 255.0
+    heat, gt, over = I.plot_heatmaps(thresholded[:n], result.pixel_labels[:n], origs, vmax=vmax,
+                                     n=n)
+    figures = {"heatmaps": heat, "ground_truth": gt, "overlay": over}
+    if result.recons is not None:
+        figures["recons"] = I.plot_recons(result.recons)
+    fpr, tpr, _ = M.roc_curve(result.image_labels, result.image_scores)
+    figures["roc_curve"] = I.plot_roc_curve(fpr, tpr,
+                                            metrics.get("image_auroc_score", float("nan")))
+    precision, recall, _ = M.precision_recall_curve(result.image_labels, result.image_scores)
+    figures["pr_curve"] = I.plot_pr_curve(precision, recall,
+                                          metrics.get("image_prauc_score", float("nan")))
+    return figures
+
+
+def save_eval_figures(result: M.EvalResult, metrics: Dict[str, float], out_dir: str,
+                      fp_threshold: float = 0.3, vmax: float = 1.0,
+                      logger: Any = None) -> Dict[str, str]:
+    """Write the reference's eval figures into `out_dir` (reference
+    ValidationHelper.py:149-153,193-209 via ImageHelper.py:66-150):
+
+      heatmaps.png       FPR-thresholded anomaly-map grid (jet)
+      ground_truth.png   mask grid
+      overlay.png        thresholded map over the original images
+      recons.png         reconstruction grid (recon head only)
+      roc_curve.png      image-level ROC, AUROC in the title
+      pr_curve.png       image-level precision-recall, PR-AUC in the title
+
+    Each is registered with `logger` when one is given. Returns {name: path}."""
+    from vit_ad_tpu_torch.utils.images import save_png
+
+    os.makedirs(out_dir, exist_ok=True)
+    paths = {}
+    for name, image in eval_figure_arrays(result, metrics, fp_threshold, vmax).items():
+        paths[name] = save_png(image, os.path.join(out_dir, f"{name}.png"))
+        if logger is not None:
+            logger.log_figure(name, paths[name])
+    return paths
 
 
 def make_mdn_batch_fn(encoder: Encoder, mdn: GaussianMDN, hp: HyperParams,
@@ -74,23 +141,30 @@ def make_mdn_batch_fn(encoder: Encoder, mdn: GaussianMDN, hp: HyperParams,
     return loglik_map
 
 
+def _device_of(model: torch.nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
 def score_mdn(encoder: Encoder, mdn: GaussianMDN, test_data: DataPipeline,
               hp: HyperParams, mean: Optional[np.ndarray] = None,
-              std: Optional[np.ndarray] = None) -> ScoreOutput:
+              std: Optional[np.ndarray] = None, keep_origs: int = 0) -> ScoreOutput:
     """MDN scoring pipeline on the device the models live on. Scores are
     comparable within one call (global-max normalization over the set)."""
-    device = next(encoder.parameters()).device
+    device = _device_of(encoder)
     fn = make_mdn_batch_fn(encoder, mdn, hp, _as_device(mean, device), _as_device(std, device))
-    ll, labels, masks = _collect(test_data.test_batches(hp.prefetch), fn, device)
+    ll, labels, masks, origs = _collect(test_data.test_batches(hp.prefetch), fn, device,
+                                        keep_origs)
     image_scores, pixel_scores = payload_to_scores("mdn", ll, hp.img_size)
-    return ScoreOutput(image_scores, pixel_scores, labels, masks)
+    return ScoreOutput(image_scores, pixel_scores, labels, masks, origs)
 
 
 def evaluate_mdn(encoder: Encoder, mdn: GaussianMDN, test_data: DataPipeline,
                  hp: HyperParams, mean: Optional[np.ndarray] = None,
-                 std: Optional[np.ndarray] = None) -> Dict[str, float]:
-    """score_mdn + the reference metric suite."""
-    return metrics_of(score_mdn(encoder, mdn, test_data, hp, mean, std), hp)
+                 std: Optional[np.ndarray] = None, figures_dir: Optional[str] = None,
+                 logger: Any = None) -> Dict[str, float]:
+    """score_mdn + the reference metric suite (+ figures)."""
+    s = score_mdn(encoder, mdn, test_data, hp, mean, std, keep_origs=9 if figures_dir else 0)
+    return metrics_of(s, hp, figures_dir, logger)
 
 
 def make_nf_batch_fn(encoder: Encoder, flow: NormalizingFlow, hp: HyperParams,
@@ -109,12 +183,14 @@ def make_nf_batch_fn(encoder: Encoder, flow: NormalizingFlow, hp: HyperParams,
 
 def _collect(batches: Iterable[Batch],
              score_fn: Callable[[torch.Tensor], Union[torch.Tensor, Tuple[torch.Tensor, ...]]],
-             device: torch.device):
-    """Score every batch; return (payloads, labels, masks) with the padded
-    rows trimmed. A `score_fn` that returns a tuple (one output per stage)
-    gives a tuple of concatenated payloads."""
-    payloads, labels, masks = [], [], []
+             device: torch.device, keep_origs: int = 0):
+    """Score every batch; return (payloads, labels, masks, origs) with the
+    padded rows trimmed; origs are the first `keep_origs` uint8 images (None
+    for 0). A `score_fn` that returns a tuple (one output per stage) gives a
+    tuple of concatenated payloads."""
+    payloads, labels, masks, origs = [], [], [], []
     per_stage = False
+    kept = 0
     for batch in batches:
         n = int(batch.valid.sum())
         with torch.inference_mode():
@@ -123,29 +199,36 @@ def _collect(batches: Iterable[Batch],
             payloads.append([o[:n].float().cpu().numpy() for o in (out if per_stage else (out,))])
         labels.append(batch.labels[:n])
         masks.append(batch.masks[:n])
+        if kept < keep_origs:
+            origs.append(batch.images[:min(n, keep_origs - kept)])
+            kept += len(origs[-1])
     if not payloads:
         raise ValueError("no batches to score")
     cat = tuple(np.concatenate(stage) for stage in zip(*payloads))
-    return cat if per_stage else cat[0], np.concatenate(labels), np.concatenate(masks)
+    return (cat if per_stage else cat[0], np.concatenate(labels), np.concatenate(masks),
+            np.concatenate(origs) if origs else None)
 
 
 def score_nf(encoder: Encoder, flow: NormalizingFlow, test_data: DataPipeline,
              hp: HyperParams, mean: Optional[np.ndarray] = None,
-             std: Optional[np.ndarray] = None) -> ScoreOutput:
+             std: Optional[np.ndarray] = None, keep_origs: int = 0) -> ScoreOutput:
     """NF scoring pipeline on the device the models live on."""
-    device = next(encoder.parameters()).device
+    device = _device_of(encoder)
     anomaly_maps = make_nf_batch_fn(encoder, flow, hp, _as_device(mean, device),
                                     _as_device(std, device))
-    maps, labels, masks = _collect(test_data.test_batches(hp.prefetch), anomaly_maps, device)
+    maps, labels, masks, origs = _collect(test_data.test_batches(hp.prefetch), anomaly_maps,
+                                          device, keep_origs)
     image_scores, maps = payload_to_scores("nf", maps, hp.img_size)
-    return ScoreOutput(image_scores, maps, labels, masks)
+    return ScoreOutput(image_scores, maps, labels, masks, origs)
 
 
 def evaluate_nf(encoder: Encoder, flow: NormalizingFlow, test_data: DataPipeline,
                 hp: HyperParams, mean: Optional[np.ndarray] = None,
-                std: Optional[np.ndarray] = None) -> Dict[str, float]:
-    """score_nf + the reference metric suite."""
-    return metrics_of(score_nf(encoder, flow, test_data, hp, mean, std), hp)
+                std: Optional[np.ndarray] = None, figures_dir: Optional[str] = None,
+                logger: Any = None) -> Dict[str, float]:
+    """score_nf + the reference metric suite (+ figures)."""
+    s = score_nf(encoder, flow, test_data, hp, mean, std, keep_origs=9 if figures_dir else 0)
+    return metrics_of(s, hp, figures_dir, logger)
 
 
 def resnet_stage_tokens(encoder: ResNetEncoder, images_u8: torch.Tensor,
@@ -153,8 +236,14 @@ def resnet_stage_tokens(encoder: ResNetEncoder, images_u8: torch.Tensor,
                         stages: Sequence[int]) -> List[torch.Tensor]:
     """uint8 images → the LayerNorm'd maps of `stages` as tokens [B, h*w, C]
     (the trunk without gradient, the stage norms with)."""
-    x = preprocess(images_u8, mean, std)
-    return [m.flatten(1, 2) for m in encoder.stage_features(x, stages)]
+    return [m.flatten(1, 2) for m in resnet_stage_maps(encoder, images_u8, mean, std, stages)]
+
+
+def resnet_stage_maps(encoder: ResNetEncoder, images_u8: torch.Tensor,
+                      mean: Optional[torch.Tensor], std: Optional[torch.Tensor],
+                      stages: Sequence[int]) -> List[torch.Tensor]:
+    """uint8 images → the LayerNorm'd maps [B, h, w, C] of `stages`."""
+    return encoder.stage_features(preprocess(images_u8, mean, std), stages)
 
 
 def make_mdn_resnet_batch_fn(encoder: ResNetEncoder, mdns: Sequence[GaussianMDN],
@@ -177,27 +266,75 @@ def make_mdn_resnet_batch_fn(encoder: ResNetEncoder, mdns: Sequence[GaussianMDN]
 def score_mdn_resnet(encoder: ResNetEncoder, mdns: Sequence[GaussianMDN],
                      test_data: DataPipeline, hp: HyperParams,
                      mean: Optional[np.ndarray] = None, std: Optional[np.ndarray] = None,
-                     stages: Sequence[int] = (2, 3)) -> ScoreOutput:
+                     stages: Sequence[int] = (2, 3), keep_origs: int = 0) -> ScoreOutput:
     """Multi-stage MDN scoring (reference ValidatorMdn.valid_loop_resnet):
     per-stage probability maps are upsampled (align_corners=True), inverted
     to anomaly and averaged. As in the JAX package, and unlike the reference:
     probabilities are normalized by the max over the whole scored set, not
     per batch, and the image score is the max over the averaged anomaly map
     (the reference takes min-then-reinvert, a double inversion)."""
-    device = next(encoder.parameters()).device
+    device = _device_of(encoder)
     fn = make_mdn_resnet_batch_fn(encoder, mdns, hp, _as_device(mean, device),
                                   _as_device(std, device), stages)
-    stage_lls, labels, masks = _collect(test_data.test_batches(hp.prefetch), fn, device)
+    stage_lls, labels, masks, origs = _collect(test_data.test_batches(hp.prefetch), fn, device,
+                                               keep_origs)
     image_scores, pixel_scores = payload_to_scores("mdn_resnet", stage_lls, hp.img_size)
-    return ScoreOutput(image_scores, pixel_scores, labels, masks)
+    return ScoreOutput(image_scores, pixel_scores, labels, masks, origs)
 
 
 def evaluate_mdn_resnet(encoder: ResNetEncoder, mdns: Sequence[GaussianMDN],
                         test_data: DataPipeline, hp: HyperParams,
                         mean: Optional[np.ndarray] = None, std: Optional[np.ndarray] = None,
-                        stages: Sequence[int] = (2, 3)) -> Dict[str, float]:
-    """score_mdn_resnet + the reference metric suite."""
-    return metrics_of(score_mdn_resnet(encoder, mdns, test_data, hp, mean, std, stages), hp)
+                        stages: Sequence[int] = (2, 3), figures_dir: Optional[str] = None,
+                        logger: Any = None) -> Dict[str, float]:
+    """score_mdn_resnet + the reference metric suite (+ figures)."""
+    s = score_mdn_resnet(encoder, mdns, test_data, hp, mean, std, stages,
+                         keep_origs=9 if figures_dir else 0)
+    return metrics_of(s, hp, figures_dir, logger)
+
+
+def make_nf_resnet_batch_fn(encoder: ResNetEncoder, flows: Sequence[NormalizingFlow],
+                            hp: HyperParams, mean: Optional[torch.Tensor],
+                            std: Optional[torch.Tensor], stages: Sequence[int] = (0, 1, 2)
+                            ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Per-batch multi-stage NF scorer: uint8 images [B, H, W, 3] on the
+    models' device → the mean of the stages' anomaly maps [B, H, W] f32 (the
+    device half of `score_nf_resnet`). No kernel of the repo runs here: the
+    trunk, the stage norms and the flows are torch ops."""
+
+    def anomaly_maps(images_u8: torch.Tensor) -> torch.Tensor:
+        maps = resnet_stage_maps(encoder, images_u8, mean, std, stages)
+        return torch.mean(torch.stack([flow(m).anomaly_score_map
+                                       for m, flow in zip(maps, flows)], -1), dim=-1)
+
+    return anomaly_maps
+
+
+def score_nf_resnet(encoder: ResNetEncoder, flows: Sequence[NormalizingFlow],
+                    test_data: DataPipeline, hp: HyperParams,
+                    mean: Optional[np.ndarray] = None, std: Optional[np.ndarray] = None,
+                    stages: Sequence[int] = (0, 1, 2), keep_origs: int = 0) -> ScoreOutput:
+    """Multi-stage NF scoring (reference ValidatorNF.valid_loop_resnet_nf,
+    :152-219): the mean of the stage anomaly maps, image score = max
+    (:183-199)."""
+    device = _device_of(encoder)
+    fn = make_nf_resnet_batch_fn(encoder, flows, hp, _as_device(mean, device),
+                                 _as_device(std, device), stages)
+    maps, labels, masks, origs = _collect(test_data.test_batches(hp.prefetch), fn, device,
+                                          keep_origs)
+    image_scores, maps = payload_to_scores("nf_resnet", maps, hp.img_size)
+    return ScoreOutput(image_scores, maps, labels, masks, origs)
+
+
+def evaluate_nf_resnet(encoder: ResNetEncoder, flows: Sequence[NormalizingFlow],
+                       test_data: DataPipeline, hp: HyperParams,
+                       mean: Optional[np.ndarray] = None, std: Optional[np.ndarray] = None,
+                       stages: Sequence[int] = (0, 1, 2), figures_dir: Optional[str] = None,
+                       logger: Any = None) -> Dict[str, float]:
+    """score_nf_resnet + the reference metric suite (+ figures)."""
+    s = score_nf_resnet(encoder, flows, test_data, hp, mean, std, stages,
+                        keep_origs=9 if figures_dir else 0)
+    return metrics_of(s, hp, figures_dir, logger)
 
 
 def make_recon_batch_fn(model: torch.nn.Module, mean: Optional[torch.Tensor],
@@ -219,18 +356,29 @@ def make_recon_batch_fn(model: torch.nn.Module, mean: Optional[torch.Tensor],
 
 
 def score_recon(model: torch.nn.Module, test_data: DataPipeline, hp: HyperParams,
-                mean: Optional[np.ndarray] = None, std: Optional[np.ndarray] = None
-                ) -> ScoreOutput:
+                mean: Optional[np.ndarray] = None, std: Optional[np.ndarray] = None,
+                keep_origs: int = 0) -> ScoreOutput:
     """Reconstruction scoring on the device the model lives on."""
-    device = next(model.parameters()).device
+    device = _device_of(model)
     fn = make_recon_batch_fn(model, _as_device(mean, device), _as_device(std, device))
-    maps, labels, masks = _collect(test_data.test_batches(hp.prefetch), fn, device)
+    maps, labels, masks, origs = _collect(test_data.test_batches(hp.prefetch), fn, device,
+                                          keep_origs)
     image_scores, maps = payload_to_scores("recon", maps, hp.img_size)
-    return ScoreOutput(image_scores, maps, labels, masks)
+    return ScoreOutput(image_scores, maps, labels, masks, origs)
 
 
 def evaluate_recon(model: torch.nn.Module, test_data: DataPipeline, hp: HyperParams,
-                   mean: Optional[np.ndarray] = None, std: Optional[np.ndarray] = None
-                   ) -> Dict[str, float]:
-    """score_recon + the reference metric suite."""
-    return metrics_of(score_recon(model, test_data, hp, mean, std), hp)
+                   mean: Optional[np.ndarray] = None, std: Optional[np.ndarray] = None,
+                   figures_dir: Optional[str] = None, logger: Any = None) -> Dict[str, float]:
+    """score_recon + the reference metric suite (+ figures: the recon grid of
+    the kept images, the maps at the reference's vmax=0.15,
+    ValidatorRecon.py:60-90)."""
+    s = score_recon(model, test_data, hp, mean, std, keep_origs=9 if figures_dir else 0)
+    recons = None
+    if figures_dir and s.origs is not None:
+        device = _device_of(model)
+        with torch.inference_mode():
+            x = preprocess(torch.from_numpy(s.origs).to(device), _as_device(mean, device),
+                           _as_device(std, device))
+            recons = model(x).reconstruction.float().cpu().numpy()
+    return metrics_of(s, hp, figures_dir, logger, vmax=0.15, recons=recons)

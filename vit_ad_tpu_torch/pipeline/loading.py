@@ -1,16 +1,32 @@
-"""Rebuild live models from reference-format `.pth` checkpoints (port of the
-legacy-checkpoint half of `vit_ad_tpu/pipeline/loading.py`; run directories
-hold orbax checkpoints and are ROADMAP A10).
+"""Rebuild a trained run's live models (port of `vit_ad_tpu/pipeline/loading.py`).
 
-Every `.pth` is read with `torch.load(weights_only=True)`: tensors only, no
-pickled code.
+Two sources, as in the JAX package:
+
+  * a run directory (`load_run`, :27-211): its `config.json` (the trainer's
+    `HyperParams.to_log_dict()` plus `checkpoints`, the names of its weight
+    files in load order) and those files. The encoder is rebuilt with the
+    seed-deterministic init the trainer started from; the files hold the
+    trained head (the whole auto-encoder of a recon run; the stage heads and
+    the encoder with its trained stage norms of a ResNet run). A JAX run
+    directory (orbax `best_params`, `best_params.msgpack`) is refused with
+    the way across: the JAX package's `cli.export_weights`, then `--pth`;
+  * reference-format `.pth` files (`build_pth_models`,
+    `build_pth_resnet_mdn_models`).
+
+`score_models` and `evaluate_models` dispatch a `RunModels` to the matching
+`pipeline.eval` function; `compress_params_bf16` rounds its weights to bf16
+values (`cli.score --weights-dtype bf16`). Every `.pth` is read with
+`torch.load(weights_only=True)`: tensors only, no pickled code.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
+import json
 import os
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,14 +41,104 @@ from vit_ad_tpu_torch.registry import get_model
 from vit_ad_tpu_torch.utils.convert import interpolate_rel_pos_table
 
 
+RUN_CONFIG = "config.json"
+# what the JAX trainers' `save_params` leaves in a run directory
+JAX_CHECKPOINTS = ("best_params", "best_params.msgpack")
+
+
 @dataclass
 class RunModels:
     """Live models for one head. `parts` is the positional model prefix the
-    matching `pipeline.eval.score_*` function takes."""
+    matching `pipeline.eval.score_*` / `evaluate_*` function takes."""
 
-    kind: str  # 'nf' | 'mdn' | 'mdn_resnet' | 'recon' in the ported slices
+    kind: str  # 'nf' | 'mdn' | 'recon' | 'mdn_resnet' | 'nf_resnet'
     hp: HyperParams
     parts: Tuple[Any, ...]
+
+
+def hp_from_config(cfg: Dict[str, Any]) -> HyperParams:
+    """HyperParams from a run's config.json (JAX `hp_from_config` :27):
+    unknown keys are ignored; the dtype policy and the mesh are not recorded,
+    so a restored run scores on one device under the default policy."""
+    hp = HyperParams()
+    for k, v in cfg.items():
+        if hasattr(hp, k):
+            setattr(hp, k, v)
+    return hp
+
+
+def load_run_config(run_dir: str) -> Tuple[HyperParams, Dict[str, Any]]:
+    with open(os.path.join(run_dir, RUN_CONFIG)) as f:
+        cfg = json.load(f)
+    return hp_from_config(cfg), cfg
+
+
+def find_checkpoint(run_dir: str, cfg: Optional[Dict[str, Any]] = None) -> List[str]:
+    """The paths of the weight files the run's `config.json` lists under
+    `checkpoints`, in load order (no glob: a leftover temporary file of an
+    interrupted save is never read). A JAX run directory exits naming the
+    way across."""
+    if cfg is None:
+        cfg = load_run_config(run_dir)[1]
+    names = cfg.get("checkpoints")
+    if not names:
+        jax_files = sorted(n for n in os.listdir(run_dir) if n in JAX_CHECKPOINTS)
+        if jax_files:
+            raise SystemExit(
+                f"{run_dir}: a run directory of the JAX package ({', '.join(jax_files)}: "
+                "orbax/msgpack params, which need jax). Carry its weights across with "
+                f"`python -m vit_ad_tpu.cli.export_weights --run {run_dir} --dst <dir>`, then "
+                "score the exported .pth files with --pth")
+        raise FileNotFoundError(f"no checkpoint in {run_dir}: its {RUN_CONFIG} lists none "
+                                "under 'checkpoints'")
+    paths = [os.path.join(run_dir, n) for n in names]
+    missing = [p for p in paths if not os.path.exists(p)]
+    if missing:
+        raise FileNotFoundError(f"{run_dir}: checkpoint files listed in {RUN_CONFIG} are "
+                                f"missing: {missing}")
+    return paths
+
+
+def build_run_models(hp: HyperParams, ckpts: Sequence[str],
+                     device: Optional[torch.device] = None) -> RunModels:
+    """The run's models (JAX `build_run_models` :153) on `device` (default
+    CPU), in eval mode: the registry encoder with the trainer's seeded init
+    and the head of `ckpts[0]` (NF, MDN), or the whole auto-encoder
+    (reconstruction); for a ResNet run the stage heads of `ckpts[:-1]` and
+    the encoder of `ckpts[-1]`, its trained stage norms and BatchNorm
+    statistics included. Every file loads strictly."""
+    from vit_ad_tpu_torch.pipeline.train import NF_RESNET_STAGES, default_encoder, stage_flow
+
+    arch = hp.architecture
+    if hp.model_name == "enc_res_net" and arch == "mdn":
+        m = build_pth_resnet_mdn_models(ckpts[:-1], img_size=hp.img_size,
+                                        encoder_ckpt=ckpts[-1], dtypes=hp.dtypes, device=device)
+        return dataclasses.replace(m, hp=hp)
+    if hp.model_name == "enc_res_net" and arch == "nf":
+        if len(ckpts) != len(NF_RESNET_STAGES) + 1:
+            raise ValueError(f"an NF-ResNet run has one flow file per stage "
+                             f"{NF_RESNET_STAGES} and the encoder file; got {ckpts}")
+        encoder = default_encoder(hp)
+        load_encoder_checkpoint(encoder, ckpts[-1])
+        flows = torch.nn.ModuleList(stage_flow(hp, i) for i in NF_RESNET_STAGES)
+        for flow, path in zip(flows, ckpts):
+            flow.load_state_dict(load_pth(path), strict=True)
+        return RunModels(kind="nf_resnet", hp=hp,
+                         parts=(encoder.to(device).eval(), flows.to(device).eval()))
+    model = default_encoder(hp)
+    if arch == "reconstruction":
+        return RunModels(kind="recon", hp=hp,
+                         parts=(_load_recon_model(model, ckpts[0], "").to(device).eval(),))
+    return RunModels(kind=arch, hp=hp,
+                     parts=(model.to(device).eval(),
+                            _load_head(model, arch, hp, ckpts[0]).to(device).eval()))
+
+
+def load_run(run_dir: str, device: Optional[torch.device] = None
+             ) -> Tuple[RunModels, Dict[str, Any]]:
+    """One-call form: run directory → (RunModels, raw config dict)."""
+    hp, cfg = load_run_config(run_dir)
+    return build_run_models(hp, find_checkpoint(run_dir, cfg), device), cfg
 
 
 def parse_pth_filename(filename: str, arch: str):
@@ -138,9 +244,9 @@ def load_encoder_checkpoint(encoder: Encoder, encoder_ckpt: str) -> Encoder:
     the Swin file also gets `_swin_checkpoint_surgery`."""
     if not encoder_ckpt.endswith(".pth"):
         raise SystemExit(
-            f"encoder checkpoint {encoder_ckpt!r}: the port reads .pth files; "
-            "orbax checkpoint directories need jax (ROADMAP A10)"
-        )
+            f"encoder checkpoint {encoder_ckpt!r}: the port reads .pth files; an orbax "
+            "checkpoint directory of the JAX package needs jax: convert it with "
+            "`python -m vit_ad_tpu.cli.export_weights --run <run dir> --dst <dir>` first")
     sd = {(k[len("module."):] if k.startswith("module.") else k): v
           for k, v in load_pth(encoder_ckpt).items()}
     if isinstance(encoder, ResNetEncoder):
@@ -220,17 +326,22 @@ def build_pth_models(
         print(f"build_pth_models ({arch}): no encoder checkpoint given (-E) — "
               "evaluating against the seed-random trunk; reference-trained heads "
               "need their pretrained trunk weights for meaningful scores")
+    return RunModels(kind=arch, hp=hp,
+                     parts=(encoder.to(device).eval(),
+                            _load_head(encoder, arch, hp, pth_path).to(device).eval()))
+
+
+def _load_head(encoder: Encoder, arch: str, hp: HyperParams, pth_path: str) -> torch.nn.Module:
+    """The MDN or NF head of `pth_path`, sized for `encoder`'s tokens."""
     if arch == "mdn":
         head = GaussianMDN(encoder.embed_dim, hp.num_gaussians, dtypes=hp.dtypes)
         head.load_state_dict(load_pth(pth_path), strict=True)
-    else:
-        head = NormalizingFlow(num_channels=encoder.embed_dim, img_size=hp.img_size,
-                               num_patches=encoder.num_patches, hidden_ratio=hp.hidden_ratio,
-                               flow_steps=hp.flow_steps)
-        head.fast_flow_decoder.load_state_dict(_flow_decoder_state(load_pth(pth_path)),
-                                               strict=True)
-    return RunModels(kind=arch, hp=hp,
-                     parts=(encoder.to(device).eval(), head.to(device).eval()))
+        return head
+    head = NormalizingFlow(num_channels=encoder.embed_dim, img_size=hp.img_size,
+                           num_patches=encoder.num_patches, hidden_ratio=hp.hidden_ratio,
+                           flow_steps=hp.flow_steps)
+    head.fast_flow_decoder.load_state_dict(_flow_decoder_state(load_pth(pth_path)), strict=True)
+    return head
 
 
 def _load_recon_model(model: torch.nn.Module, pth_path: str, encoder_ckpt: str
@@ -302,12 +413,49 @@ def build_pth_resnet_mdn_models(
                      parts=(encoder.to(device).eval(), heads.to(device).eval()))
 
 
-def score_models(m: RunModels, test_data, mean=None, std=None):
-    """Label-free scoring dispatch: RunModels → pipeline.eval.ScoreOutput."""
-    from vit_ad_tpu_torch.pipeline.eval import score_mdn, score_mdn_resnet, score_nf, score_recon
+def _dispatch(m: RunModels, score: bool):
+    from vit_ad_tpu_torch.pipeline import eval as E
 
-    score = {"nf": score_nf, "mdn": score_mdn, "mdn_resnet": score_mdn_resnet,
-             "recon": score_recon}.get(m.kind)
-    if score is None:
-        raise NotImplementedError(f"scoring kind {m.kind!r} is not ported yet")
-    return score(*m.parts, test_data, m.hp, mean, std)
+    table = {"nf": (E.score_nf, E.evaluate_nf), "mdn": (E.score_mdn, E.evaluate_mdn),
+             "recon": (E.score_recon, E.evaluate_recon),
+             "mdn_resnet": (E.score_mdn_resnet, E.evaluate_mdn_resnet),
+             "nf_resnet": (E.score_nf_resnet, E.evaluate_nf_resnet)}
+    return table[m.kind][0 if score else 1]
+
+
+def score_models(m: RunModels, test_data, mean=None, std=None, keep_origs: int = 0):
+    """Label-free scoring dispatch: RunModels → pipeline.eval.ScoreOutput."""
+    return _dispatch(m, True)(*m.parts, test_data, m.hp, mean, std, keep_origs=keep_origs)
+
+
+def evaluate_models(m: RunModels, test_data, mean=None, std=None,
+                    figures_dir: Optional[str] = None, logger: Any = None) -> Dict[str, float]:
+    """Labelled re-evaluation dispatch: RunModels → the reference metric dict
+    (+ figures)."""
+    return _dispatch(m, False)(*m.parts, test_data, m.hp, mean, std, figures_dir=figures_dir,
+                               logger=logger)
+
+
+def compress_params_bf16(m: RunModels) -> int:
+    """bf16-at-rest weights for serving (JAX `compress_params_bf16` :437; an
+    opt-in that the JAX package measured slower and drifting on its one-shot
+    wave). Rounds every f32 parameter and buffer of the run's models in place
+    to its bf16 value: the heads, the trunk, the stage norms and the
+    BatchNorm statistics; the tensors keep their dtype, so each layer computes
+    as before on the rounded values, as the JAX modules promote bf16 params to
+    their compute dtype. The in-place writes move each tensor's version, so
+    the trunks' cached compute-dtype weights and folded BatchNorms
+    (`layers.ComputeWeights`) are made again from the rounded values. Returns
+    the number of tensors cast; raises when there was none (the JAX function
+    skips a part it does not recognise without a word)."""
+    seen = set()
+    with torch.no_grad():
+        for part in m.parts:
+            for t in itertools.chain(part.parameters(), part.buffers()):
+                if t.dtype == torch.float32 and id(t) not in seen:
+                    seen.add(id(t))
+                    t.copy_(t.to(torch.bfloat16))
+    if not seen:
+        raise ValueError(f"compress_params_bf16: no f32 parameter or buffer in the {m.kind!r} "
+                         "models; nothing was cast")
+    return len(seen)

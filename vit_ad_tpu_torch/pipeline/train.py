@@ -1,19 +1,25 @@
 """Head training loops (port of `vit_ad_tpu/pipeline/train.py`: `train_mdn`
-:113, `train_nf` :286, `train_recon` :461 and the joint step of
-`train_mdn_resnet` :805; the NF-ResNet trainer is ROADMAP A7b, `train_vae`
+:113, `train_nf` :286, `train_recon` :461, the joint step of
+`train_mdn_resnet` :805 and `train_nf_resnet` :1264; `train_vae` is ROADMAP
 A8b).
 
 `train_mdn` and `train_nf`: the trunk is frozen, its features are extracted
 once and the head trains on them, cached on the device, with torch-semantics
 Adam, early stopping on the validation loss and a final metric evaluation
 (reference src/pipeline/LearnerMDN.py:97-240, LearnerNF.py:91-235).
-`train_mdn_resnet` has no feature cache: the ResNet's stage LayerNorms train
-with the two stage heads, so every step runs the frozen trunk on the images.
+`train_mdn_resnet` and `train_nf_resnet` have no feature cache: the ResNet's
+stage LayerNorms train with the stage heads (two GMMs on stage maps 2 and 3,
+or three flows on stage maps 0-2), so every step runs the frozen trunk on the
+images.
 `train_recon` trains an auto-encoder's decoder (the vanilla AE: all of it);
 a transformer AE's frozen trunk runs once over the batches (the latent cache)
 and each step runs the decoder alone.
 The JAX package's scan-of-batches epochs amortize TPU dispatch and are not
-ported: an epoch is a Python loop over the staged batches.
+ported: an epoch is a Python loop over the staged batches. Every trainer
+takes `log` (called with each epoch's row and, after the final evaluation,
+the metrics with `"stage": "eval"`, as the JAX trainers log them),
+`figures_dir` (the evaluator's figures) and `logger` (a
+`utils.logging.MetricLogger` the figures are registered with).
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from vit_ad_tpu_torch.models.autoencoder import TransformerAutoEncoder, VanillaA
 from vit_ad_tpu_torch.models.flow import NormalizingFlow, patch_tokens_to_map
 from vit_ad_tpu_torch.models.mdn import GaussianMDN
 from vit_ad_tpu_torch.models.outputs import Encoder
-from vit_ad_tpu_torch.models.resnet import STAGE_CHANNELS, ResNetEncoder
+from vit_ad_tpu_torch.models.resnet import STAGE_CHANNELS, STAGE_SCALES, ResNetEncoder
 from vit_ad_tpu_torch.ops.ssim import ssim_per_image
 from vit_ad_tpu_torch.pipeline.early_stopping import run_epochs
 from vit_ad_tpu_torch.pipeline.features import (
@@ -45,6 +51,7 @@ from vit_ad_tpu_torch.registry import get_model
 # loss(head, feats [B, P, D], valid [B], generator | None) → scalar
 HeadLoss = Callable[[torch.nn.Module, torch.Tensor, torch.Tensor, Optional[torch.Generator]],
                     torch.Tensor]
+Log = Optional[Callable[[Dict[str, Any]], None]]
 
 
 @dataclasses.dataclass
@@ -112,6 +119,26 @@ def mdn_train_step(mdn: GaussianMDN, opt: torch.optim.Optimizer, feats: torch.Te
     return train_step(masked_mdn_loss, mdn, opt, feats, valid, generator)
 
 
+def _evaluated(evaluate: Callable[..., Dict[str, float]], test_data: Optional[DataPipeline],
+               log: Log, *args, **kwargs) -> Dict[str, float]:
+    """The final metrics on `test_data` ({} without), logged as the eval
+    row."""
+    if test_data is None:
+        return {}
+    metrics = evaluate(*args, test_data, **kwargs)
+    if log is not None:
+        log({**metrics, "stage": "eval"})
+    return metrics
+
+
+def _result(head: torch.nn.Module, encoder: Optional[torch.nn.Module], history, metrics,
+            epochs_ran: int, stopper) -> TrainResult:
+    return TrainResult(
+        head=head, encoder=encoder, history=history, metrics=metrics, epochs_ran=epochs_ran,
+        best_epoch=stopper.best_epoch,
+        best_valid_loss=float("nan") if stopper.best_loss is None else stopper.best_loss)
+
+
 def _check_unported(hp: HyperParams) -> None:
     if hp.kmeans_init:
         raise NotImplementedError("k-means init of the MDN (pipeline/cluster_init.py) is not "
@@ -125,10 +152,10 @@ def _check_unported(hp: HyperParams) -> None:
 
 
 def _train_head(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPipeline],
-                encoder: Optional[Encoder], device: Optional[str],
-                log: Optional[Callable[[Dict[str, Any]], None]],
+                encoder: Optional[Encoder], device: Optional[str], log: Log,
                 make_head: Callable[[torch.Tensor], torch.nn.Module], loss_fn: HeadLoss,
-                noisy: bool, evaluate: Callable[..., Dict[str, float]]) -> TrainResult:
+                noisy: bool, evaluate: Callable[..., Dict[str, float]],
+                figures_dir: Optional[str], logger: Any) -> TrainResult:
     """The frozen-trunk trainer both heads share: cache the features, build
     the head from them (`make_head(feats_train)`, on the CPU), train with
     `loss_fn` (noise from one generator seeded with `hp.seed` when `noisy`;
@@ -172,18 +199,14 @@ def _train_head(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPip
                                               log)
     if stopper.best_params is not None:
         head.load_state_dict(stopper.best_params)
-    metrics: Dict[str, float] = {}
-    if test_data is not None:
-        metrics = evaluate(encoder, head, test_data, hp, mean, std)
-    return TrainResult(
-        head=head, encoder=encoder, history=history, metrics=metrics, epochs_ran=epochs_ran,
-        best_epoch=stopper.best_epoch,
-        best_valid_loss=float("nan") if stopper.best_loss is None else stopper.best_loss)
+    metrics = _evaluated(evaluate, test_data, log, encoder, head, hp=hp, mean=mean, std=std,
+                         figures_dir=figures_dir, logger=logger)
+    return _result(head, encoder, history, metrics, epochs_ran, stopper)
 
 
 def train_mdn(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPipeline] = None,
-              encoder: Optional[Encoder] = None, device: Optional[str] = None,
-              log: Optional[Callable[[Dict[str, Any]], None]] = None) -> TrainResult:
+              encoder: Optional[Encoder] = None, device: Optional[str] = None, log: Log = None,
+              figures_dir: Optional[str] = None, logger: Any = None) -> TrainResult:
     """Train the GMM/MDN head on frozen-trunk features.
 
     `encoder` defaults to the registry trunk with its seeded init; it and
@@ -196,12 +219,12 @@ def train_mdn(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPipel
     make = lambda feats: GaussianMDN(feats.shape[-1], hp.num_gaussians, dtypes=hp.dtypes,
                                      generator=torch.Generator().manual_seed(hp.seed))
     return _train_head(hp, data, test_data, encoder, device, log, make, masked_mdn_loss, True,
-                       evaluate_mdn)
+                       evaluate_mdn, figures_dir, logger)
 
 
 def train_nf(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPipeline] = None,
-             encoder: Optional[Encoder] = None, device: Optional[str] = None,
-             log: Optional[Callable[[Dict[str, Any]], None]] = None) -> TrainResult:
+             encoder: Optional[Encoder] = None, device: Optional[str] = None, log: Log = None,
+             figures_dir: Optional[str] = None, logger: Any = None) -> TrainResult:
     """Train the normalizing-flow head on frozen-trunk features (reference
     LearnerNF.train_with_transformer): one flow sized (D, √P x √P), Adam on
     the flow's parameters only, the NLL ½ Σ z² - logdet, early stopping (always
@@ -214,7 +237,7 @@ def train_nf(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPipeli
         hidden_ratio=hp.hidden_ratio, flow_steps=hp.flow_steps,
         generator=torch.Generator().manual_seed(hp.seed))
     return _train_head(hp, data, test_data, encoder, device, log, make, masked_nf_loss, False,
-                       evaluate_nf)
+                       evaluate_nf, figures_dir, logger)
 
 
 RESNET_MDN_STAGES = (2, 3)  # reference LearnerMDN.py:268-279: stage maps 2 and 3
@@ -262,7 +285,8 @@ def stage_image_batches(batches: Iterable[Batch], device: torch.device
 def train_mdn_resnet(hp: HyperParams, data: DataPipeline,
                      test_data: Optional[DataPipeline] = None,
                      encoder: Optional[ResNetEncoder] = None, device: Optional[str] = None,
-                     log: Optional[Callable[[Dict[str, Any]], None]] = None) -> TrainResult:
+                     log: Log = None, figures_dir: Optional[str] = None,
+                     logger: Any = None) -> TrainResult:
     """MDN over ResNet stages 2 and 3: two GMM heads (D=1024 and D=2048 on a
     ResNet-50), one per stage map, summed NLL, one Adam over the heads and the
     encoder's stage LayerNorms (reference LearnerMDN.learn_mdn_resnet; JAX
@@ -330,13 +354,122 @@ def train_mdn_resnet(hp: HyperParams, data: DataPipeline,
                                               trainable.state_dict, log)
     if stopper.best_params is not None:
         trainable.load_state_dict(stopper.best_params)
-    metrics: Dict[str, float] = {}
-    if test_data is not None:
-        metrics = evaluate_mdn_resnet(encoder, heads, test_data, hp, mean, std, stages)
-    return TrainResult(
-        head=heads, encoder=encoder, history=history, metrics=metrics, epochs_ran=epochs_ran,
-        best_epoch=stopper.best_epoch,
-        best_valid_loss=float("nan") if stopper.best_loss is None else stopper.best_loss)
+    metrics = _evaluated(evaluate_mdn_resnet, test_data, log, encoder, heads, hp=hp, mean=mean,
+                         std=std, stages=stages, figures_dir=figures_dir, logger=logger)
+    return _result(heads, encoder, history, metrics, epochs_ran, stopper)
+
+
+NF_RESNET_STAGES = (0, 1, 2)  # reference LearnerNF.py:252-267: stage maps 0 to 2
+
+
+def stage_flow(hp: HyperParams, stage: int,
+               generator: Optional[torch.Generator] = None) -> NormalizingFlow:
+    """The flow of one ResNet stage map: its channels on its side² positions
+    (JAX `train_nf_resnet` :1290, `loading._build_resnet_models` :131)."""
+    return NormalizingFlow(num_channels=STAGE_CHANNELS[stage], img_size=hp.img_size,
+                           num_patches=(hp.img_size // STAGE_SCALES[stage]) ** 2,
+                           hidden_ratio=hp.hidden_ratio, flow_steps=hp.flow_steps,
+                           generator=generator)
+
+
+def nf_resnet_loss(encoder: ResNetEncoder, flows: Sequence[NormalizingFlow],
+                   images_u8: torch.Tensor, valid: torch.Tensor, mean: Optional[torch.Tensor],
+                   std: Optional[torch.Tensor],
+                   stages: Sequence[int] = NF_RESNET_STAGES) -> torch.Tensor:
+    """The objective of `train_nf_resnet` (JAX `loss_fn` :1326): per stage,
+    the masked mean over the valid rows of ½ Σ z² - logdet of its flow on
+    the LayerNorm'd stage map, summed over the stages. The trunk runs without
+    gradient; the stage norms and the flows differentiate."""
+    from vit_ad_tpu_torch.pipeline.eval import resnet_stage_maps
+
+    maps = resnet_stage_maps(encoder, images_u8, mean, std, stages)
+    total = 0.0
+    for m, flow in zip(maps, flows):
+        z, logdet = flow.transform(m)
+        total = total + _masked_mean(0.5 * torch.sum(z * z, dim=(1, 2, 3)) - logdet, valid)
+    return total
+
+
+def nf_resnet_train_step(encoder: ResNetEncoder, flows: Sequence[NormalizingFlow],
+                         opt: torch.optim.Optimizer, images_u8: torch.Tensor,
+                         valid: torch.Tensor, mean: Optional[torch.Tensor],
+                         std: Optional[torch.Tensor],
+                         stages: Sequence[int] = NF_RESNET_STAGES) -> torch.Tensor:
+    """One joint optimizer step on one padded uint8 batch; returns the
+    (detached) loss."""
+    opt.zero_grad(set_to_none=True)
+    loss = nf_resnet_loss(encoder, flows, images_u8, valid, mean, std, stages)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def train_nf_resnet(hp: HyperParams, data: DataPipeline,
+                    test_data: Optional[DataPipeline] = None,
+                    encoder: Optional[ResNetEncoder] = None, device: Optional[str] = None,
+                    log: Log = None, figures_dir: Optional[str] = None,
+                    logger: Any = None) -> TrainResult:
+    """NF over ResNet stages 0-2: three flows, one per stage map (256 x 56²,
+    512 x 28², 1024 x 14² channels at 224 px), their NLLs summed, one Adam
+    over the flows and the encoder's stage LayerNorms (reference
+    LearnerNF.train_with_resnet, src/pipeline/LearnerNF.py:237-381; JAX
+    `train_nf_resnet` :1264).
+
+    The trunk is frozen and stays in eval mode; the flows run in f32 on the
+    compute-dtype stage maps. The flows are made on the CPU in stage order
+    from one generator seeded with `hp.seed`, then moved to `device`. The
+    uint8 batches are decoded once and kept on the device. Flows and stage
+    norms end with the weights of the best validation epoch;
+    `TrainResult.head` is the `nn.ModuleList` of the stage flows and
+    `.encoder` the encoder with its trained norms (the trunk's BatchNorm
+    statistics never change, and `encoder.state_dict()` carries them to a
+    file). Stage norm 3 feeds no flow and keeps its init (torch Adam skips
+    parameters without a gradient; the JAX optimizer also decays it)."""
+    from vit_ad_tpu_torch.pipeline.eval import evaluate_nf_resnet
+
+    _check_unported(hp)
+    stages = NF_RESNET_STAGES
+    if encoder is None:
+        encoder = ResNetEncoder(hp.img_size, hp.dtypes,
+                                generator=torch.Generator().manual_seed(hp.seed))
+    if device is None:
+        device = next(encoder.parameters()).device
+    device = torch.device(device)
+    encoder = encoder.to(device).eval()
+    mean, std = data.compute_mean_std() if hp.centering else default_norm_stats()
+    mean_t, std_t = (torch.as_tensor(a, dtype=torch.float32, device=device)
+                     for a in (mean, std))
+    init = torch.Generator().manual_seed(hp.seed)
+    flows = torch.nn.ModuleList(stage_flow(hp, i, init) for i in stages).to(device)
+    trainable = torch.nn.ModuleDict({"flows": flows, "norms": encoder.norms})
+    opt = torch_adam(trainable.parameters(), hp.learning_rate, hp.weight_decay)
+    train_batches = stage_image_batches(data.train_batches(hp.prefetch), device)
+    valid_batches = stage_image_batches(data.valid_batches(hp.prefetch), device)
+
+    def train_epoch(epoch: int):
+        losses, weights = [], []
+        for images, valid, w in train_batches:
+            losses.append(nf_resnet_train_step(encoder, flows, opt, images, valid, mean_t,
+                                               std_t, stages))
+            weights.append(w)
+        return _weighted_mean(losses, weights), float(sum(weights))
+
+    def valid_epoch() -> float:
+        losses, weights = [], []
+        with torch.no_grad():
+            for images, valid, w in valid_batches:
+                losses.append(nf_resnet_loss(encoder, flows, images, valid, mean_t, std_t,
+                                             stages))
+                weights.append(w)
+        return _weighted_mean(losses, weights)
+
+    history, epochs_ran, stopper = run_epochs(hp, train_epoch, valid_epoch,
+                                              trainable.state_dict, log)
+    if stopper.best_params is not None:
+        trainable.load_state_dict(stopper.best_params)
+    metrics = _evaluated(evaluate_nf_resnet, test_data, log, encoder, flows, hp=hp, mean=mean,
+                         std=std, stages=stages, figures_dir=figures_dir, logger=logger)
+    return _result(flows, encoder, history, metrics, epochs_ran, stopper)
 
 
 def recon_loss(recon: torch.Tensor, x: torch.Tensor, valid: torch.Tensor, use_ssim: bool = False,
@@ -395,8 +528,8 @@ def cache_latents(model: TransformerAutoEncoder,
 
 def train_recon(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPipeline] = None,
                 model: Optional[torch.nn.Module] = None, use_ssim: bool = False,
-                device: Optional[str] = None,
-                log: Optional[Callable[[Dict[str, Any]], None]] = None) -> TrainResult:
+                device: Optional[str] = None, log: Log = None,
+                figures_dir: Optional[str] = None, logger: Any = None) -> TrainResult:
     """Train a reconstruction auto-encoder (reference
     LearnerRecon.learn_ae_with_MSE_only; `use_ssim` learn_ae_with_SSIM).
 
@@ -459,10 +592,6 @@ def train_recon(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPip
     if stopper.best_params is not None:
         trainable.load_state_dict(stopper.best_params)
     model.eval()
-    metrics: Dict[str, float] = {}
-    if test_data is not None:
-        metrics = evaluate_recon(model, test_data, hp, mean, std)
-    return TrainResult(
-        head=model, encoder=None, history=history, metrics=metrics, epochs_ran=epochs_ran,
-        best_epoch=stopper.best_epoch,
-        best_valid_loss=float("nan") if stopper.best_loss is None else stopper.best_loss)
+    metrics = _evaluated(evaluate_recon, test_data, log, model, hp=hp, mean=mean, std=std,
+                         figures_dir=figures_dir, logger=logger)
+    return _result(model, None, history, metrics, epochs_ran, stopper)

@@ -16,13 +16,16 @@ FrEIA and reference-MDN layouts that `vit_ad_tpu/utils/torch_convert.export_vit`
 batch_stats) to the port's state dict, in the reference .pth layouts that
 `export_vanilla_ae` (:1440), `export_resnet_ae` (:1000) and
 `export_transformer_ae` (:1022) emit.
+`nf_resnet_state_dicts_from_jax` carries a JAX NF-ResNet run (three stage
+flows and the encoder's variables) into the port's stage flows and
+`ResNetEncoder`.
 `interpolate_rel_pos_table` is the port's copy of the bias-table resize of
 `torch_convert.py` (:1099). numpy and scipy only: no jax, no `vit_ad_tpu`.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -226,6 +229,23 @@ def nf_state_dict_from_jax(params: Mapping[str, Any], num_patches: int,
     sd["layer_norm.weight"] = torch.ones(c, side, side)
     sd["layer_norm.bias"] = torch.zeros(c, side, side)
     return sd
+
+
+def nf_resnet_state_dicts_from_jax(flow_params: Sequence[Mapping[str, Any]],
+                                   enc_variables: Mapping[str, Any], img_size: int,
+                                   stages: Sequence[int] = (0, 1, 2)
+                                   ) -> Tuple[List[Dict[str, torch.Tensor]],
+                                              Dict[str, torch.Tensor]]:
+    """The JAX `train_nf_resnet`'s weights (one flow param tree per stage of
+    `stages`, and the `ResNetEncoder` variables {'params', 'batch_stats'}) →
+    (the port's stage `NormalizingFlow` state dicts, its `ResNetEncoder`
+    state dict)."""
+    from vit_ad_tpu_torch.models.resnet import STAGE_SCALES
+
+    flows = [nf_state_dict_from_jax(p, (img_size // STAGE_SCALES[i]) ** 2)
+             for i, p in zip(stages, flow_params)]
+    return flows, resnet_state_dict_from_jax(enc_variables["params"],
+                                             enc_variables["batch_stats"])
 
 
 def mdn_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
