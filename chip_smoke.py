@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --against <another checkout>   # kernels A/B, `against`
     python3 chip_smoke.py --gmm-backward-ab <checkout> ...   # B3 terms, B4 A/B
+    python3 chip_smoke.py --serve-bundle <bundle> <images.npy> <out.json> [device]
 
 Drives the port's main paths at full width, bf16 compute, through the port's
 CLIs, after building and checking the hand-written kernels: on a DeiT-base/16
@@ -20,7 +21,10 @@ score a folder with it) and the vanilla CNN auto-encoder end to end; on the
 NesT-T, EfficientFormer-L3 and EfficientNet-B4 trunks an NF, an MDN and an
 NF path (train, save, score); on the ResNet-50 trunk the NF heads on stage
 maps 0-2 through the run directory (train, `cli.score -r`, `--watch`,
-`--heatmaps`, `--weights-dtype bf16`, `cli.validate`). Phases:
+`--heatmaps`, `--weights-dtype bf16`, `cli.validate`); and the DeiT NF, DeiT
+MDN, EsViT NF and ResNet MDN runs as serving bundles (`torch.export`
+programs carrying the kernels as registered ops), each served from a fresh
+process (`--serve-bundle`). Phases:
 
   1. device   card name and power limit (nvidia-smi)
   2. build    compile the kernels from vit_ad_tpu_torch/csrc (nvcc, sm_90a)
@@ -83,7 +87,21 @@ maps 0-2 through the run directory (train, `cli.score -r`, `--watch`,
               and B7 per new batch), `--heatmaps 4`, `--weights-dtype bf16`
               (cast count, drift); `cli.validate` over the runs against each
               trainer's recorded metrics
- 12. times    kernels vs plain vs the one PyTorch call that computes the same
+ 12. bundles  the host's decode rates (PIL, and the native library where it
+              builds); `cli.score -b 128` on the DeiT NF, DeiT MDN, EsViT NF
+              and ResNet MDN runs' folders; each run exported as a native
+              bundle at batch 128 (DeiT NF with the full and the scores
+              payload, DeiT MDN with the scores payload and the training
+              images' baked normalizer, ResNet MDN with the tuple payload)
+              and served from a fresh process that imports torch, numpy, the
+              serving module and the op module only: launches per batch equal
+              the live path's, none while tracing, scores equal `cli.score`'s
+              (the MDN scores payload: the host tail of the live payload with
+              the same normalizer); the portable DeiT NF bundle (traced from
+              a copy of the models on the CPU) holds no kernel op, scores on
+              the CPU at batch 2 as the port's CPU path, and is moved to the
+              card and served there without a launch
+ 13. times    kernels vs plain vs the one PyTorch call that computes the same
               function, where there is one, each beside its bound, by events
               and, for the attention kernels and B7, back to back (B5a alone
               with its bias gathered, beside its public entry; B3 and B4 also
@@ -105,8 +123,10 @@ maps 0-2 through the run directory (train, `cli.score -r`, `--watch`,
               EfficientNet-B4 ms per batch alone, and the profiles of the
               three; NF-ResNet uint8→scores img/s at batch 128, its train step
               at batch 32 (ms, peak memory) and its profile; the wall time of
-              a 32-image `--watch` wave after the first
- 13. result   a kernels JSON line, the nvidia-smi line, and last the
+              a 32-image `--watch` wave after the first; each bundle's
+              uint8→payload img/s beside the live path's on the same batch,
+              its export, load and first-call seconds
+ 14. result   a kernels JSON line, the nvidia-smi line, and last the
               {"ok": true, "device": ...} line
 
 Every phase raises on failure, so the script exits non-zero and prints no
@@ -791,7 +811,8 @@ def esvit_main_path(tmp: str) -> dict:
     bf16_rel = np.abs(scores[:2] - got["cpu"]) / np.abs(got["cpu"])
     print(f"EsViT bf16 card scores vs f32 CPU scores (same 2 images): max rel diff "
           f"{bf16_rel.max():.3e} (information: bf16 policy drift)")
-    return {"launches": {k: train[k] + score[k] for k in train}, "pth": pth}
+    return {"launches": {k: train[k] + score[k] for k in train}, "pth": pth,
+            "test_dir": test_dir}
 
 
 def sdpa_windows(q, k, v, additive):
@@ -1190,7 +1211,8 @@ def mdn_main_path(tmp: str) -> dict:
     print(f"MDN bf16 card scores vs f32 CPU scores (same 2 images): max rel diff "
           f"{bf16_rel.max():.3e} (information: bf16 policy drift)")
     launches = {k: train[k] + score[k] for k in train}
-    return {"launches": launches, "pth": pth}
+    return {"launches": launches, "pth": pth, "test_dir": test_dir,
+            "train_dir": os.path.join(cat, "train", "good")}
 
 
 def gmm_split_times(rows: int, d: int, k: int, head, card: str, gen, runs: int) -> dict:
@@ -1557,7 +1579,7 @@ def resnet_main_path(tmp: str) -> dict:
     if not rel.max() <= SCORE_RTOL_F32:
         raise AssertionError("CUDA f32 ResNet MDN scores disagree with the CPU path")
     return {"launches": {k: train[k] + score[k] for k in train}, "pths": pths,
-            "encoder": enc_pth}
+            "encoder": enc_pth, "test_dir": test_dir}
 
 
 def check_deit_routes(got: dict, expect: dict, what: str) -> None:
@@ -2658,6 +2680,300 @@ def rundir_times(r: dict, images, card: str) -> dict:
             "wave_s": wave_s}
 
 
+# the bundles phase: the CLI runs above exported as native serving bundles
+# (`serving/aot.py`) at the flagship's batch and 224 px, each served from a
+# fresh process (`--serve-bundle`) that imports torch, numpy, the serving
+# module and the kernels' op module only; and the DeiT NF run as a portable
+# bundle at batch 2 (traced from a CPU copy of the models), served on the CPU
+# and on the card
+BUNDLE_BATCH, PORTABLE_BATCH = FLAGSHIP_BATCH, 2
+# modules a serving process must not import: JAX, the model zoo, the pipeline,
+# the data layer (it scores arrays)
+SERVING_FORBIDDEN = ("jax.", "flax", "vit_ad_tpu.", "vit_ad_tpu_torch.models",
+                     "vit_ad_tpu_torch.pipeline", "vit_ad_tpu_torch.registry",
+                     "vit_ad_tpu_torch.data")
+# the MDN scores payload against the host tail on the same payload: torch's
+# f32 exp against numpy's (a few ulps of a probability in [0, 1])
+SCORES_TAIL_ATOL = 1e-6
+# the portable bundle on the CPU against the port's CPU path: the same aten ops
+PORTABLE_RTOL = 1e-6
+DECODE_REPEATS = 3
+
+
+def serve_bundle(bundle_dir: str, images_npy: str, out_json: str, device: str = "cuda") -> int:
+    """`--serve-bundle`: load the bundle in this fresh process and score the
+    uint8 images of `images_npy`; write the scores, the kernel launches of
+    that call, its seconds and the load's, and any forbidden module the
+    process imported."""
+    import numpy as np
+    from vit_ad_tpu_torch.serving import aot
+
+    t0 = time.perf_counter()
+    bundle = aot.load_bundle(bundle_dir, device)
+    load_s = time.perf_counter() - t0
+    images = np.load(images_npy)
+    (scores, _), launches, first_s = _launches_of(lambda: bundle.score(images))
+    forbidden = sorted(m for m in sys.modules if m == "jax" or m.startswith(SERVING_FORBIDDEN))
+    with open(out_json, "w") as f:
+        json.dump({"scores": np.asarray(scores).tolist(), "launches": launches,
+                   "chunks": -(-len(images) // bundle.batch), "load_s": load_s,
+                   "first_call_s": first_s, "forbidden_imports": forbidden,
+                   "device": str(bundle.device)}, f)
+    return 0
+
+
+def decode_rates(files, card: str) -> dict:
+    """img/s of decoding 224-px PNGs on the host, one file at a time through
+    PIL and through the native library (`data/native.py`), and the native
+    batch decoder on all the host's cores; which decoder the data layer runs."""
+    import numpy as np
+    from PIL import Image
+    from vit_ad_tpu_torch.data import native
+
+    paths = list(files) * DECODE_REPEATS
+
+    def pil(p):
+        with Image.open(p) as im:
+            return np.asarray(im.convert("RGB").resize((224, 224), Image.BILINEAR))
+
+    def rate(fn):
+        t0 = time.perf_counter()
+        fn()
+        return len(paths) / (time.perf_counter() - t0)
+
+    which = native.decoder()
+    out = {"decoder": which, "cpus": os.cpu_count(), "files": len(paths),
+           "pil_img_s": rate(lambda: [pil(p) for p in paths])}
+    print(f"image decoder of the data layer: {which}"
+          + (f" (native unavailable: {native.reason})" if which == "pil" else ""))
+    if which == "native":
+        out["native_img_s"] = rate(lambda: [native.load_image(p, 224) for p in paths])
+        out["native_batch_img_s"] = rate(lambda: native.load_batch(paths, 224))
+    print(f"[{card}] decode + resize of {len(paths)} 224-px PNGs on the host (os.cpu_count() = "
+          f"{out['cpus']}): PIL {out['pil_img_s']:.1f} img/s on one thread; native "
+          + (f"{out['native_img_s']:.1f} img/s on one thread, {out['native_batch_img_s']:.1f} "
+             f"img/s through load_batch on {out['cpus']} threads" if which == "native"
+             else "not measured (unavailable)"))
+    return out
+
+
+def _serve_fresh(bundle_dir: str, images, tmp: str, device: str = "cuda") -> dict:
+    """Serve `images` with the bundle from a fresh `--serve-bundle` process."""
+    import numpy as np
+
+    npy, res = os.path.join(tmp, "bundle_images.npy"), os.path.join(tmp, "bundle_served.json")
+    np.save(npy, images)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve-bundle",
+                           bundle_dir, npy, res, device], capture_output=True, text=True,
+                          timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"serving {bundle_dir} failed: {proc.stderr[-3000:]}")
+    with open(res) as f:
+        out = json.load(f)
+    out["process_s"] = wall
+    return out
+
+
+def bundles_main_path(tmp: str, nf_pth: str, deit_pth: str, img_dir: str, mdn: dict,
+                      esvit: dict, resnet: dict) -> dict:
+    """Phase 12: the decode rates; `cli.score -b 128` on each run's folder;
+    each run exported as a native bundle at batch 128 (`serving/aot.py`) and
+    served from a fresh process: launches per batch equal to the live path's
+    (B1 12, B6 12, B7 13 for DeiT; B2 1 more for the MDN head; B5 12, B7 29
+    for EsViT; B2 2 for the ResNet heads), none while tracing, and scores
+    equal to `cli.score`'s (the MDN scores payload: to the host tail of the
+    live payload with the same baked normalizer); the portable DeiT NF bundle
+    holds no kernel op, scores on the CPU as the port's CPU path, and serves
+    on the card without a launch."""
+    import numpy as np
+    import torch
+    from vit_ad_tpu_torch.cli import score as score_cli
+    from vit_ad_tpu_torch.data.dataset import default_norm_stats
+    from vit_ad_tpu_torch.data.loader import DataPipeline
+    from vit_ad_tpu_torch.pipeline.loading import (
+        build_pth_models,
+        build_pth_resnet_mdn_models,
+        score_models,
+    )
+    from vit_ad_tpu_torch.scoring import payload_to_scores
+    from vit_ad_tpu_torch.serving import aot
+
+    card = card_line()
+    decode = decode_rates(score_cli.list_images(img_dir), card)
+    mean, std = default_norm_stats()
+    dev = torch.device("cuda")
+    deit = {"B1": 12, "B6": 12, "B7": DEIT_B7_PER_BATCH}
+    nf_argv = ["--pth", nf_pth, "-a", "nf", "-m", "enc_deit", "-E", deit_pth]
+    ref = aot.decode_files(score_cli.list_images(mdn["train_dir"]), 224, BUNDLE_BATCH)
+    runs = [  # name, models, folder, cli.score flags, launches per batch, export options
+        ("DeiT NF", lambda: build_pth_models(nf_pth, "enc_deit", "nf", encoder_ckpt=deit_pth,
+                                             device=dev), img_dir, nf_argv, deit, {}),
+        ("DeiT NF scores", None, img_dir, nf_argv, deit, {"payload": "scores"}),
+        ("DeiT MDN scores", lambda: build_pth_models(mdn["pth"], "enc_deit", "mdn", device=dev),
+         mdn["test_dir"], ["--pth", mdn["pth"], "-a", "mdn", "-m", "enc_deit"],
+         {**deit, "B2": 1}, {"payload": "scores", "ref_images": ref}),
+        ("EsViT NF", lambda: build_pth_models(esvit["pth"], "enc_esvit", "nf", device=dev,
+                                              fused_ln=True), esvit["test_dir"],
+         ["--pth", esvit["pth"], "-a", "nf", "-m", "enc_esvit", "--fused-ln"],
+         {"B5": ESVIT_B5_PER_BATCH, "B7": ESVIT_B7_PER_BATCH}, {}),
+        ("ResNet MDN", lambda: build_pth_resnet_mdn_models(resnet["pths"],
+                                                           encoder_ckpt=resnet["encoder"],
+                                                           device=dev), resnet["test_dir"],
+         ["--pth", *resnet["pths"], "-a", "mdn", "-E", resnet["encoder"]], {"B2": 2}, {}),
+    ]
+    total, bundles, cli_scores, m = dict(NO_LAUNCHES), {}, {}, None
+    for name, make, folder, argv, per_batch, options in runs:
+        files = score_cli.list_images(folder)
+        nb = -(-len(files) // BUNDLE_BATCH)
+        expect = {**NO_LAUNCHES, **{k: v * nb for k, v in per_batch.items()}}
+        if folder not in cli_scores:
+            out_dir = os.path.join(tmp, "bundle_cli_" + name.replace(" ", "_"))
+            rc, launches, wall = _launches_of(lambda: score_cli.main(
+                [*argv, "-d", folder, "-b", str(BUNDLE_BATCH), "-o", out_dir]))
+            print(f"{name}: cli.score -b {BUNDLE_BATCH} rc={rc} in {wall:.2f} s: launches "
+                  f"{launches}, expected {expect}")
+            if rc != 0 or launches != expect:
+                raise AssertionError(f"{name}: cli.score did not launch the path's kernels")
+            _add(total, launches)
+            cli_scores[folder] = check_scores_csv(out_dir, files, name)
+        m = make() if make is not None else m
+        images = aot.decode_files(files, 224, BUNDLE_BATCH)
+        bdir = os.path.join(tmp, "bundles", name.replace(" ", "_"))
+        man, traced, export_s = _launches_of(lambda: aot.export_bundle(
+            m, bdir, batch=BUNDLE_BATCH, portable=False, mean=mean, std=std,
+            extra_meta={"source": argv[1]}, **options))
+        size = sum(os.path.getsize(os.path.join(bdir, f)) for f in os.listdir(bdir))
+        served = _serve_fresh(bdir, images, tmp)
+        _add(total, served["launches"])
+        got = np.asarray(served["scores"], np.float32)
+        if "ref_images" in options:  # the baked normalizer: the host tail of the live payload
+            fn, _ = aot.build_payload_fn_and_params(m, mean, std)
+            live = aot._run_padded(fn, images, BUNDLE_BATCH, dev)
+            want = payload_to_scores("mdn", live, 224, ref_max_ll=man["ref_max_loglik"])[0]
+            call = payload_to_scores("mdn", live, 224)[0]
+            if not np.array_equal(call, cli_scores[folder]):
+                raise AssertionError(f"{name}: the live payload's per-call scores differ from "
+                                     "cli.score's")
+            tol = SCORES_TAIL_ATOL
+        else:
+            want, tol = cli_scores[folder], 0.0
+        diff = float(np.abs(got - want).max())
+        print(f"{name}: native bundle ({man['payload']} payload, {man['kernel_ops']} kernel "
+              f"ops, {size / 2**20:.1f} MiB) exported in {export_s:.2f} s (launches while "
+              f"tracing and computing the baked normalizer {traced}); served from a fresh "
+              f"process in {served['process_s']:.2f} s (load {served['load_s']:.2f} s, first "
+              f"call {served['first_call_s']:.3f} s for {served['chunks']} chunk of "
+              f"{BUNDLE_BATCH}): launches {served['launches']}, expected {expect}; max "
+              f"|bundle - {'host tail' if tol else 'cli.score'}| {diff:.3e} (tol {tol:.0e}); "
+              f"forbidden imports {served['forbidden_imports']}")
+        if "ref_images" not in options and traced != NO_LAUNCHES:
+            raise AssertionError(f"{name}: the export trace launched kernels {traced}")
+        if served["launches"] != expect or served["forbidden_imports"] or not diff <= tol \
+                or man["kernel_ops"] < 1:
+            raise AssertionError(f"{name}: the native bundle did not serve as the live path")
+        bundles[name] = {"dir": bdir, "models": m, "export_s": export_s,
+                         "load_s": served["load_s"], "first_call_s": served["first_call_s"],
+                         "mib": size / 2**20}
+
+    # the portable bundle of the DeiT NF run, exported from the models on the
+    # card (the export traces a CPU copy), served on the CPU and on the card
+    m = build_pth_models(nf_pth, "enc_deit", "nf", encoder_ckpt=deit_pth, device=dev)
+    pdir = os.path.join(tmp, "bundles", "DeiT_NF_portable")
+    man, traced, export_s = _launches_of(lambda: aot.export_bundle(
+        m, pdir, batch=PORTABLE_BATCH, platforms=["cpu", "cuda"], mean=mean, std=std))
+    ops = aot._ops_in(torch.export.load(os.path.join(pdir, aot.SCORER_NAME)))
+    two = score_cli.list_images(img_dir)[:PORTABLE_BATCH]
+    got = aot.load_bundle(pdir, device="cpu").score_files(two)[0]
+    cpu = build_pth_models(nf_pth, "enc_deit", "nf", encoder_ckpt=deit_pth, device="cpu")
+    want = score_models(cpu, DataPipeline(PORTABLE_BATCH, 224, files=two), mean, std).image_scores
+    rel = float((np.abs(got - want) / np.abs(want)).max())
+    live2 = cli_scores[img_dir][:PORTABLE_BATCH]
+    (on_card, _), card_launches, _ = _launches_of(
+        lambda: aot.load_bundle(pdir, device="cuda").score_files(two))
+    print(f"DeiT NF portable bundle exported in {export_s:.2f} s (traced on the "
+          f"{man['exported_on']}; launches {traced}): kernel ops in the graph {ops}; on the CPU "
+          f"at batch {PORTABLE_BATCH} scores {got.tolist()}, the port's CPU path "
+          f"{want.tolist()}: max rel diff {rel:.3e} (rtol {PORTABLE_RTOL:.0e}); moved to the "
+          f"card: scores {on_card.tolist()} (plain ops in bf16 there; max rel diff from "
+          f"cli.score's {float((np.abs(on_card - live2) / np.abs(live2)).max()):.3e}), launches "
+          f"{card_launches}")
+    if ops or man["kernel_ops"] or traced != NO_LAUNCHES or not rel <= PORTABLE_RTOL \
+            or man["exported_on"] != "cpu" or card_launches != NO_LAUNCHES \
+            or on_card.shape != got.shape or not np.isfinite(on_card).all():
+        raise AssertionError("the portable bundle holds a kernel op, scores otherwise than "
+                             "the CPU path, or does not serve on the card")
+    print(f"phase launches {total}")
+    return {"launches": total, "bundles": bundles, "decode": decode}
+
+
+def bundle_times(b: dict, images, card: str) -> dict:
+    """Each native bundle's program against the live payload function on the
+    same device batch of 128: median ms in the order bundle, live, bundle
+    (the first reading before the live path has run in this loop), beside
+    its export, load and first-call seconds, the device memory reserved
+    around it, and the decode rates of the bundles phase; then, once every
+    reading is taken, for each bundle and its live path the host seconds of
+    enqueueing one batch, the program's graph size, and their device
+    profiles."""
+    import torch
+    from vit_ad_tpu_torch.data.dataset import default_norm_stats
+    from vit_ad_tpu_torch.scoring import scores_tail
+    from vit_ad_tpu_torch.serving import aot
+
+    mean, std = default_norm_stats()
+    out = {}
+    for name, r in b["bundles"].items():
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved() / 2**30
+        bundle = aot.load_bundle(r["dir"])
+        fn, _ = aot.build_payload_fn_and_params(r["models"], mean, std)
+        if bundle.payload_kind == "scores":
+            tail = scores_tail(bundle.kind, 224, bundle.manifest.get("ref_max_loglik"))
+            live = lambda f=fn, t=tail: t(f(images))  # noqa: E731
+        else:
+            live = lambda f=fn: f(images)  # noqa: E731
+        program = lambda bundle=bundle: bundle._call(images)  # noqa: E731
+        with torch.inference_mode():
+            ms = [median_ms(g, torch) for g in (program, live, program)]
+        n = images.shape[0]
+        out[name] = {"bundle_img_s": [n / ms[0] * 1e3, n / ms[2] * 1e3],
+                     "live_img_s": n / ms[1] * 1e3, **{
+                         k: r[k] for k in ("export_s", "load_s", "first_call_s", "mib")}}
+        print(f"[{card}] {name} bundle uint8→payload B={n}: "
+              f"{out[name]['bundle_img_s'][0]:.1f} img/s, live path "
+              f"{out[name]['live_img_s']:.1f} img/s, bundle again "
+              f"{out[name]['bundle_img_s'][1]:.1f} img/s; export {r['export_s']:.2f} s, load "
+              f"{r['load_s']:.2f} s, first call {r['first_call_s']:.3f} s, {r['mib']:.1f} MiB; "
+              f"device memory reserved {reserved:.2f} GiB before loading, "
+              f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB after")
+        nodes = [nd.target for nd in bundle._program.graph.nodes if nd.op == "call_function"]
+        asserts = sum("_assert_tensor_metadata" in str(t) for t in nodes)
+        out[name]["fns"] = (program, live, len(nodes), asserts)
+    d = b["decode"]
+    print(f"[{card}] decode img/s on the host ({d['decoder']}, os.cpu_count() = {d['cpus']}): "
+          f"PIL {d['pil_img_s']:.1f}"
+          + (f", native {d['native_img_s']:.1f}, native batch {d['native_batch_img_s']:.1f}"
+             if d["decoder"] == "native" else ", native not available"))
+    # last: the profiler's hooks slow the host down for whatever is timed after it
+    for name, r in out.items():
+        program, live, nodes, asserts = r.pop("fns")
+        with torch.inference_mode():
+            for what, fn in (("bundle", program), ("live path", live)):
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                enqueue = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                print(f"[{card}] {name} {what}: one batch enqueued in {enqueue * 1e3:.1f} ms"
+                      + (f"; its program holds {nodes} calls, {asserts} of them tensor "
+                         f"metadata asserts" if what == "bundle" else ""))
+                print_device_profile(f"{name} {what} B={images.shape[0]}", fn, card, top=6)
+    return out
+
+
 def resnet_joint_step(k: int, images):
     """The ResNet-50 joint train step at batch RESNET_BATCH with two fresh
     K=`k` stage heads (seeded) and the stage norms under Adam: (step,
@@ -3386,7 +3702,12 @@ def main() -> int:
               "(--watch, --heatmaps, --weights-dtype bf16), cli.validate")
         rundir = rundir_main_path(tmp, os.path.dirname(mdn["pth"]))
 
-        phase("12 times (CUDA events, median of %d after warm-up)" % TIMED_RUNS)
+        phase(f"12 bundles: native serving bundles of the DeiT NF, DeiT MDN, EsViT NF and "
+              f"ResNet MDN runs at batch {BUNDLE_BATCH}, each served from a fresh process; the "
+              f"portable DeiT NF bundle on the CPU")
+        bundles = bundles_main_path(tmp, nf_pth, deit_pth, img_dir, mdn, esvit, resnet)
+
+        phase("13 times (CUDA events, median of %d after warm-up)" % TIMED_RUNS)
         qkv = torch.randn(FLAGSHIP_BATCH, 198, 3 * 768, device=dev,
                           generator=gen).to(torch.bfloat16)
         err = (wa.vit_attention_qkv(qkv, 12).float()
@@ -3443,6 +3764,9 @@ def main() -> int:
         recon_fns = recon_times(recon, images, card)
         trunk_nums, trunk_fns = trunks_times(trunks, images, card, gen)
         rundir_nums = rundir_times(rundir, images, card)
+        bundle_times(bundles, images, card)
+        bundle_launches = bundles["launches"]
+        del bundles
         # last: the profiler's hooks slow the host down for whatever is timed after it
         print_device_profile(f"DeiT NF uint8→scores B={FLAGSHIP_BATCH} bf16, fused MLP on "
                              f"(the default)", deit_fns[True], card, top=20)
@@ -3468,7 +3792,7 @@ def main() -> int:
         del rundir_nums
     torch.cuda.synchronize()
 
-    phase("13 result")
+    phase("14 result")
     kernels = [{
         "name": "vit_attention_qkv",
         "route": "cuda",
@@ -3476,7 +3800,7 @@ def main() -> int:
         "replaces": "vit_ad_tpu/ops/pallas/window_attention.py:375",
         "launches": nf_launches["B1"] + fused["launches"]["B1"] + mdn["launches"]["B1"]
         + recon["launches"]["B1"] + trunks["nest"]["launches"]["B1"]
-        + rundir["launches"]["B1"],
+        + rundir["launches"]["B1"] + bundle_launches["B1"],
         "max_abs_err": err,
         "ms": att_ms,
         "plain_ms": att_plain_ms,
@@ -3502,7 +3826,8 @@ def main() -> int:
         kernels.append({"name": kernel, "route": "cuda", "source": "vit_ad_tpu_torch/csrc/gmm.cu",
                         "replaces": replaces,
                         "launches": mdn["launches"][key] + resnet["launches"][key]
-                        + trunks["eff_former"]["launches"][key] + rundir["launches"][key],
+                        + trunks["eff_former"]["launches"][key] + rundir["launches"][key]
+                        + bundle_launches[key],
                         **main, "per_shape": shapes})
     kernels[1]["kernel_route"] = "wgmma_x_resident (D <= 1024), wgmma_x_streamed (above)"
     kernels[1]["design"] = ("64 rows x 128 features a block, two consumer warpgroups of 64 "
@@ -3529,7 +3854,8 @@ def main() -> int:
             ("B7", "layer_norm", "layer_norm.cu", "vit_ad_tpu/ops/pallas/layer_norm.py:53")):
         kernels.append({"name": kernel, "route": "cuda",
                         "source": f"vit_ad_tpu_torch/csrc/{source}", "replaces": replaces,
-                        "launches": esvit["launches"][key], **swin[key]})
+                        "launches": esvit["launches"][key] + bundle_launches[key],
+                        **swin[key]})
     # B7 also runs the DeiT blocks' first norm and the final norm, and every
     # NesT-T LayerNorm
     kernels[-1]["launches"] += (nf_launches["B7"] + fused["launches"]["B7"]
@@ -3544,7 +3870,7 @@ def main() -> int:
                     "replaces": "vit_ad_tpu/ops/pallas/mlp.py:44",
                     "launches": nf_launches["B6"] + fused["launches"]["B6"]
                     + mdn["launches"]["B6"] + recon["launches"]["B6"]
-                    + rundir["launches"]["B6"], **mlp})
+                    + rundir["launches"]["B6"] + bundle_launches["B6"], **mlp})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -3553,6 +3879,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) in (5, 6) and sys.argv[1] == "--serve-bundle":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(serve_bundle(*sys.argv[2:]))
     if len(sys.argv) == 3 and sys.argv[1] == "--against":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         sys.exit(against(sys.argv[2]))

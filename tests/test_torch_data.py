@@ -1,6 +1,7 @@
 """Port data layer (`vit_ad_tpu_torch/data/`) against the JAX package:
 `preprocess`, `AnomalyDataset` decode under VITAD_NO_NATIVE=1 (PIL on both
-sides), and the padded file-list batches of `DataPipeline`."""
+sides; the native decoder on both sides is tests/test_torch_native.py), and
+the padded file-list batches of `DataPipeline`."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,6 +10,7 @@ import torch
 
 from vit_ad_tpu.cli.score import list_images as jax_list_images
 from vit_ad_tpu.data import native
+from vit_ad_tpu_torch.data import native as port_native
 from vit_ad_tpu.data.dataset import AnomalyDataset as JaxDataset
 from vit_ad_tpu.data.dataset import default_norm_stats as jax_norm_stats
 from vit_ad_tpu.data.loader import DataPipeline as JaxPipeline
@@ -27,13 +29,14 @@ def category(tmp_path_factory):
 
 
 def pil_decode(mp: pytest.MonkeyPatch) -> None:
-    """VITAD_NO_NATIVE=1 for the JAX data layer (PIL decode, as the port
-    does). The native module remembers its first availability check for the
-    whole process, so that memory is saved and restored with the variable:
-    later tests in the same worker still find the native decoder."""
+    """VITAD_NO_NATIVE=1 for both data layers (PIL decode on both sides).
+    Each native module remembers its first availability check for the whole
+    process, so that memory is saved and restored with the variable: later
+    tests in the same worker still find the native decoder."""
     mp.setenv("VITAD_NO_NATIVE", "1")
-    mp.setattr(native, "_tried", False)
-    mp.setattr(native, "_lib", None)
+    for mod in (native, port_native):
+        mp.setattr(mod, "_tried", False)
+        mp.setattr(mod, "_lib", None)
 
 
 @pytest.fixture(autouse=True)

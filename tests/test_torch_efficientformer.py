@@ -63,15 +63,18 @@ def jax_run():
     f32 = JaxDtypePolicy.f32()
     ae = JaxTransformerAE(encoder=JaxEfficientFormer(img_size=IMG, **CFG, dtypes=f32),
                           decoder_kind="cnn", img_size=IMG, dtypes=f32)
-    variables = jax.tree.map(np.asarray, ae.init(jax.random.key(0), jnp.zeros((1, IMG, IMG, 3))))
+    # jitted: op by op, the JAX trunk takes several times its compile
+    variables = jax.tree.map(np.asarray, jax.jit(ae.init)(jax.random.key(0),
+                                                          jnp.zeros((1, IMG, IMG, 3))))
     # every leaf moved a little (the layer scales off 1e-5, the BatchNorm
     # variances staying positive)
     variables = jitter(variables, np.random.default_rng(0), 0.05)
     x = np.random.default_rng(1).standard_normal((2, IMG, IMG, 3)).astype(np.float32)
     trunk_vars = {"params": variables["params"]["encoder"],
                   "batch_stats": variables["batch_stats"]["encoder"]}
-    trunk = JaxEfficientFormer(img_size=IMG, **CFG, dtypes=f32).apply(trunk_vars, jnp.asarray(x))
-    recon = ae.apply(variables, jnp.asarray(x))
+    trunk = jax.jit(JaxEfficientFormer(img_size=IMG, **CFG, dtypes=f32).apply)(
+        trunk_vars, jnp.asarray(x))
+    recon = jax.jit(ae.apply)(variables, jnp.asarray(x))
     return {"variables": variables, "trunk_vars": trunk_vars, "x": x,
             "tokens": np.asarray(trunk.patch_embedding), "latent": np.asarray(trunk.latent),
             "recon": np.asarray(recon.reconstruction)}

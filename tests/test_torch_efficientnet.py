@@ -54,12 +54,13 @@ def jax_run():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_effnet, "_B0_BLOCKS", TOY_BLOCKS)
         model = jax_effnet.EfficientNetEncoder(img_size=IMG, dtypes=JaxDtypePolicy.f32())
-        variables = jax.tree.map(np.asarray,
-                                 model.init(jax.random.key(0), jnp.zeros((1, IMG, IMG, 3))))
+        # jitted: op by op, the JAX trunk takes several times its compile
+        variables = jax.tree.map(np.asarray, jax.jit(model.init)(jax.random.key(0),
+                                                                 jnp.zeros((1, IMG, IMG, 3))))
         # every leaf moved a little (the BatchNorm variances stay positive)
         variables = jitter(variables, np.random.default_rng(0), 0.05)
         x = np.random.default_rng(1).standard_normal((2, IMG, IMG, 3)).astype(np.float32)
-        out = model.apply(variables, jnp.asarray(x))
+        out = jax.jit(model.apply)(variables, jnp.asarray(x))
     return {"variables": variables, "x": x, "tokens": np.asarray(out.patch_embedding),
             "latent": np.asarray(out.latent)}
 

@@ -215,7 +215,7 @@ WIDE = dict(img_size=32, patch_size=8, embed_dim=128, depth=2, num_heads=4, num_
 @pytest.fixture(scope="module")
 def wide_params():
     enc = JaxViTEncoder(**WIDE, dtypes=JaxDtypePolicy.f32())
-    params = enc.init(jax.random.key(0), jnp.zeros((1, 32, 32, 3)))
+    params = jax.jit(enc.init)(jax.random.key(0), jnp.zeros((1, 32, 32, 3)))  # jitted: faster
     return jitter(params, np.random.default_rng(6), 0.05)
 
 

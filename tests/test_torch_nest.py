@@ -70,13 +70,15 @@ def jax_run():
     f32 = JaxDtypePolicy.f32()
     ae = JaxTransformerAE(encoder=JaxNesT(img_size=IMG, **CFG, dtypes=f32), decoder_kind="cnn",
                           img_size=IMG, dtypes=f32)
-    variables = jax.tree.map(np.asarray, ae.init(jax.random.key(0), jnp.zeros((1, IMG, IMG, 3))))
+    # jitted: op by op, the JAX NesT takes several times its compile
+    variables = jax.tree.map(np.asarray, jax.jit(ae.init)(jax.random.key(0),
+                                                          jnp.zeros((1, IMG, IMG, 3))))
     # every leaf moved a little (the decoder's BatchNorm variances stay positive)
     variables = jitter(variables, np.random.default_rng(0), 0.05)
     x = _images()
     params = {"params": variables["params"]["encoder"]}
-    trunk = JaxNesT(img_size=IMG, **CFG, dtypes=f32).apply(params, jnp.asarray(x))
-    recon = ae.apply(variables, jnp.asarray(x))
+    trunk = jax.jit(JaxNesT(img_size=IMG, **CFG, dtypes=f32).apply)(params, jnp.asarray(x))
+    recon = jax.jit(ae.apply)(variables, jnp.asarray(x))
     return {"variables": variables, "params": params, "x": x,
             "tokens": np.asarray(trunk.patch_embedding), "latent": np.asarray(trunk.latent),
             "recon": np.asarray(recon.reconstruction), "ae_latent": np.asarray(recon.latent)}

@@ -66,7 +66,8 @@ def jax_resnet():
     """The JAX encoder at 32 px with jittered weights and running statistics
     away from (0, 1), and its jitted trunk and stage features."""
     enc = JaxResNetEncoder(img_size=IMG, dtypes=JaxDtypePolicy.f32())
-    variables = enc.init(jax.random.key(0), jnp.zeros((1, IMG, IMG, 3)))
+    # jitted: op by op, the init takes twice its compile
+    variables = jax.jit(enc.init)(jax.random.key(0), jnp.zeros((1, IMG, IMG, 3)))
     rng = np.random.default_rng(1)
     params = jitter(variables["params"], rng, 0.02)
     stats = jax.tree_util.tree_map_with_path(

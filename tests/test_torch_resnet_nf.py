@@ -86,7 +86,8 @@ def jax_run(tmp_path_factory):
                                         "widget", img_size=IMG, n_train=12, n_test_good=3,
                                         n_test_defect=3)
     enc = JaxResNetEncoder(img_size=IMG, dtypes=JaxDtypePolicy.f32())
-    variables = enc.init(jax.random.key(0), jnp.zeros((1, IMG, IMG, 3)))
+    # jitted: op by op, the init takes twice its compile
+    variables = jax.jit(enc.init)(jax.random.key(0), jnp.zeros((1, IMG, IMG, 3)))
     rng = np.random.default_rng(1)
     stats = jax.tree_util.tree_map_with_path(
         lambda path, a: (1.0 + 0.3 * rng.random(a.shape) if path[-1].key == "var"
@@ -94,7 +95,7 @@ def jax_run(tmp_path_factory):
         _np(variables["batch_stats"]))
     variables = {"params": jitter(variables["params"], rng, 0.02), "batch_stats": stats}
     flows = _jax_flows()
-    flow_params = [jitter(f.init(jax.random.key(5 + n), jnp.zeros((1, s, s, c))),
+    flow_params = [jitter(jax.jit(f.init)(jax.random.key(5 + n), jnp.zeros((1, s, s, c))),
                           np.random.default_rng(30 + n), 0.05)
                    for n, (f, c, s) in enumerate(
                        (f, STAGE_CHANNELS[i], IMG // STAGE_SCALES[i])
@@ -150,12 +151,16 @@ def test_nf_resnet_batch_fn_stage_maps_match_jax(jax_run):
     assert got.shape == want.shape == (2, IMG, IMG)
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
     x = (images.astype(np.float32) / 255.0 - mean) / std
-    jmaps = r["encoder"].apply(r["variables"], jnp.asarray(x),
-                               method=JaxResNetEncoder.stage_features)
+    # the JAX side jitted: op by op, its ResNet-50 alone takes longer than the
+    # compile
+    jmaps = jax.jit(lambda v, xx: r["encoder"].apply(
+        v, xx, method=JaxResNetEncoder.stage_features))(r["variables"], jnp.asarray(x))
+    jflow = jax.jit(lambda n, p, fm: r["flows"][n].apply(p, fm).anomaly_score_map,
+                    static_argnums=0)
     with torch.no_grad():
         maps = enc.stage_features(torch.from_numpy(x), NF_RESNET_STAGES)
         for n, (i, m, flow) in enumerate(zip(NF_RESNET_STAGES, maps, flows)):
-            stage_want = r["flows"][n].apply(r["flow_params"][n], jmaps[i]).anomaly_score_map
+            stage_want = jflow(n, r["flow_params"][n], jmaps[i])
             np.testing.assert_allclose(flow(m).anomaly_score_map.numpy(),
                                        np.asarray(stage_want), rtol=0, atol=ATOL,
                                        err_msg=f"stage {i}")

@@ -73,7 +73,7 @@ def slice_run(tmp_path_factory):
     enc_params = jax_params(2, seed=11)
     flow = JaxFlow(num_channels=D, img_size=IMG, num_patches=(IMG // PATCH) ** 2,
                    hidden_ratio=RATIO, flow_steps=STEPS, dtypes=JaxDtypePolicy.f32())
-    flow_params = jitter(flow.init(jax.random.key(0), jnp.zeros((1, 4, 4, D))),
+    flow_params = jitter(jax.jit(flow.init)(jax.random.key(0), jnp.zeros((1, 4, 4, D))),
                          np.random.default_rng(12), 0.1)
     hp = JaxHyperParams(img_size=IMG, batch_size=BATCH, dtypes=JaxDtypePolicy.f32())
     mean, std = default_norm_stats()

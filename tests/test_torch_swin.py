@@ -44,8 +44,9 @@ def port_swin(img, dtypes=None, fused_ln=False, generator=None):
 
 
 def jax_params(img, seed=0):
-    params = jax_swin(img, JaxDtypePolicy.f32()).init(jax.random.key(seed),
-                                                      jnp.zeros((1, img, img, 3)))
+    # jitted: op by op, the init takes several times its compile
+    params = jax.jit(jax_swin(img, JaxDtypePolicy.f32()).init)(jax.random.key(seed),
+                                                               jnp.zeros((1, img, img, 3)))
     return jitter(params, np.random.default_rng(seed), 0.05)
 
 

@@ -199,8 +199,9 @@ def trained(category):
     """A tiny MDN trained by the port on the JAX-initialized tiny encoder."""
     mp = pytest.MonkeyPatch()
     pil_decode(mp)
-    enc_params = jax_encoder(2, JaxDtypePolicy.f32()).init(jax.random.key(0),
-                                                          jnp.zeros((1, IMG, IMG, 3)))
+    # jitted: op by op, the init takes several times its compile
+    enc_params = jax.jit(jax_encoder(2, JaxDtypePolicy.f32()).init)(
+        jax.random.key(0), jnp.zeros((1, IMG, IMG, 3)))
     enc = _tiny_port_encoder()
     enc.load_state_dict(vit_state_dict_from_jax(enc_params), strict=True)
     hp = HyperParams(epochs=12, patience=5, learning_rate=3e-3, batch_size=8, img_size=IMG,

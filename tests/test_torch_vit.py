@@ -16,6 +16,15 @@ from vit_ad_tpu_torch.config import DtypePolicy
 from vit_ad_tpu_torch.models.vit import ViTEncoder
 from vit_ad_tpu_torch.utils.convert import vit_state_dict_from_jax
 
+# The suite runs under pytest-xdist, several workers to a host, and every
+# worker collects this module. Torch's default intra-op pool, one thread per
+# core in each worker, oversubscribes the cores: alone, a ResNet-50 CLI test
+# takes twice the CPU time at 8 threads that it takes at 2, for about the
+# same wall time. Two threads a worker (a module that needs the default count
+# sets DEFAULT_TORCH_THREADS back for its own tests).
+DEFAULT_TORCH_THREADS = torch.get_num_threads()
+torch.set_num_threads(min(2, DEFAULT_TORCH_THREADS))
+
 D, IMG, PATCH, DEPTH, HEADS = 32, 32, 8, 2, 4
 # f32: the same math, f32 sums in other orders through two blocks and three
 # LayerNorms of unit-scale tokens.
@@ -48,7 +57,8 @@ def port_encoder(prefix: int, dtypes=None) -> ViTEncoder:
 
 def jax_params(prefix: int, seed: int = 0):
     enc = jax_encoder(prefix, JaxDtypePolicy.f32())
-    params = enc.init(jax.random.key(seed), jnp.zeros((1, IMG, IMG, 3)))
+    # jitted: op by op, the init takes several times its compile
+    params = jax.jit(enc.init)(jax.random.key(seed), jnp.zeros((1, IMG, IMG, 3)))
     return jitter(params, np.random.default_rng(seed), 0.05)
 
 

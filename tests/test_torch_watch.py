@@ -229,7 +229,7 @@ def jax_weights():
     enc_params = jax_params(2, seed=11)
     flow = JaxFlow(num_channels=D, img_size=IMG, num_patches=(IMG // PATCH) ** 2,
                    hidden_ratio=RATIO, flow_steps=STEPS, dtypes=JaxDtypePolicy.f32())
-    flow_params = jitter(flow.init(jax.random.key(0), jnp.zeros((1, 4, 4, D))),
+    flow_params = jitter(jax.jit(flow.init)(jax.random.key(0), jnp.zeros((1, 4, 4, D))),
                          np.random.default_rng(12), 0.1)
     return enc_params, flow, flow_params
 

@@ -1,13 +1,15 @@
 """Per-item dataset honoring the MVTec/BTAD directory contract (port of
-`vit_ad_tpu/data/dataset.py`, image path through PIL only; the native
-decoder is ROADMAP A4).
+`vit_ad_tpu/data/dataset.py`).
 
 Label/mask rules match reference GeneralDataset.__getitem__
 (src/data_loader/GeneralDataset.py:61-117): a directory ending in "good" or
 "ok" is label 0 with a zero mask; "ko" (BTAD) and everything else (MVTec
 defects) is label 1 with its mask under /ground_truth/. Host work is decode +
-resize only (PIL bilinear); scaling and normalization run on the device
-(`data/loader.preprocess`).
+resize only: the native C++ decoder (`data/native.py`, the JAX package's
+`native/dataio.cpp`, PIL's triangle filter) where it builds, else PIL
+bilinear, as the JAX package decodes (its dataset.py:78-100); a file the
+native decoder rejects goes through PIL, so an unreadable one raises PIL's
+error. Scaling and normalization run on the device (`data/loader.preprocess`).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 from PIL import Image
 
 from vit_ad_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
+from vit_ad_tpu_torch.data import native
 
 
 # what decoding an unreadable or half-written image file raises: PIL's
@@ -27,8 +30,12 @@ DECODE_ERRORS = (OSError,)
 
 
 def load_image(path: str, img_size: int) -> np.ndarray:
-    """Decode + bilinear resize → uint8 [img_size, img_size, 3]; raises one
-    of `DECODE_ERRORS` for a file that is not a whole image."""
+    """Decode + bilinear resize → uint8 [img_size, img_size, 3], natively
+    where the library is built, else (and for a file it rejects) through PIL;
+    raises one of `DECODE_ERRORS` for a file that is not a whole image."""
+    img = native.load_image(path, img_size)
+    if img is not None:
+        return img
     with Image.open(path) as im:
         img = im.convert("RGB").resize((img_size, img_size), Image.BILINEAR)
     return np.asarray(img, dtype=np.uint8)
@@ -74,6 +81,9 @@ class AnomalyDataset:
         mp = mask_path_for(image_path)
         if mp is None or (self.missing_mask_ok and not os.path.exists(mp)):
             return np.zeros((self.img_size, self.img_size), dtype=np.uint8)
+        mask = native.load_mask(mp, self.img_size)
+        if mask is not None:
+            return mask
         with Image.open(mp) as im:
             mask = np.asarray(im.resize((self.img_size, self.img_size), Image.BILINEAR))
         if mask.ndim == 3:

@@ -1,6 +1,6 @@
 """Batched data pipeline (port of `vit_ad_tpu/data/loader.py`: the dataset
-layout splits of `DataPipeline` and the explicit file-list scoring path; the
-native decoder is ROADMAP A4).
+layout splits of `DataPipeline` and the explicit file-list scoring path;
+images decode through `data/dataset.py`, natively where the library builds).
 
 Host does decode + resize only; images stay uint8 until the device, where
 `preprocess` scales and standardizes them. Batches are padded to a static

@@ -218,7 +218,7 @@ class EfficientFormer(nn.Module):
                   si > 0, attn, side, mlp_ratio, dtypes)
             for si, (dim, depth) in enumerate(zip(dims, depths)))
         self.norm = LayerNorm(self.embed_dim, eps=LN_EPS, dtypes=dtypes)
-        self._compute_weights = ComputeWeights()
+        self._compute_weights = ComputeWeights(type(self)._cast_weights)
         self.reset_parameters(generator)
         self.eval()
 
@@ -239,7 +239,7 @@ class EfficientFormer(nn.Module):
         scales, the 3D blocks' matmul weights and gathered attention biases
         [H, N, N] f32, all in the compute dtype but the biases; cached until a
         parameter changes (`layers.ComputeWeights`)."""
-        return self._compute_weights.get(self, self.dtypes, self._cast_weights)
+        return self._compute_weights.get(self, self.dtypes)
 
     def _cast_weights(self, cd: torch.dtype) -> Dict[str, Any]:
         out: Dict[str, Any] = {}

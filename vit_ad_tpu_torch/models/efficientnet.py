@@ -153,7 +153,7 @@ class EfficientNetEncoder(nn.Module):
         self.n_layers = len(blocks)
         self.features = ConvBN(cin, self.embed_dim)
         self.num_patches = side * side
-        self._compute_weights = ComputeWeights()
+        self._compute_weights = ComputeWeights(type(self)._cast_weights)
         init_conv_layers(self, generator)
         self.eval()
 
@@ -167,7 +167,7 @@ class EfficientNetEncoder(nn.Module):
         """Conv weights (channels_last) and folded BatchNorms in the compute
         dtype, and the squeeze-excite Linears; cached until a parameter
         changes (`layers.ComputeWeights`)."""
-        return self._compute_weights.get(self, self.dtypes, self._cast_weights)
+        return self._compute_weights.get(self, self.dtypes)
 
     def _cast_weights(self, cd: torch.dtype) -> Dict[str, Any]:
         out: Dict[str, Any] = {}

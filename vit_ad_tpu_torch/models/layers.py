@@ -7,6 +7,7 @@ encoders share."""
 
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 import os
@@ -15,6 +16,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from vit_ad_tpu_torch.config import DtypePolicy
 from vit_ad_tpu_torch.ops.cuda.layer_norm import layer_norm
@@ -170,26 +172,72 @@ def init_conv_layers(module: nn.Module, generator: Optional[torch.Generator]) ->
 
 class ComputeWeights:
     """Compute-dtype copies of a module's matmul weights, and whatever else
-    `make(dtype)` derives from the parameters and buffers (the folded
+    `make(module, dtype)` derives from the parameters and buffers (the folded
     BatchNorms read the running statistics). They are cached and made again
     only when a parameter or buffer changed (storage or in-place version:
     `pipeline/loading.compress_params_bf16` rounds them in place); while
     gradients flow to the parameters they are made per call. (JAX casts them
-    once per call outside its block scan.)"""
+    once per call outside its block scan.) `bake` makes them once as buffers
+    of the module, which a `torch.export` trace then reads as constants (its
+    tensors have no storage to key the cache on). `card_only`: they are
+    kernel operands, read only where the module lies on the card."""
 
-    def __init__(self) -> None:
+    def __init__(self, make: Callable[[nn.Module, torch.dtype], Dict[str, Any]],
+                 card_only: bool = False) -> None:
+        self._make = make
+        self._card_only = card_only
         self._key: Optional[tuple] = None
         self._cast: Optional[Dict[str, Any]] = None
+        self._baked: Optional[tuple] = None  # (leaf sources, tree spec), once baked
 
-    def get(self, module: nn.Module, dtypes: DtypePolicy,
-            make: Callable[[torch.dtype], Dict[str, Any]]) -> Dict[str, Any]:
+    def get(self, module: nn.Module, dtypes: DtypePolicy) -> Dict[str, Any]:
+        if self._baked is not None:
+            sources, spec = self._baked
+            return tree_unflatten([functools.reduce(getattr, src.split("."), module)
+                                   if by_name else src for by_name, src in sources], spec)
         cd = dtypes.compute_dtype
         if torch.is_grad_enabled() and any(p.requires_grad for p in module.parameters()):
-            return make(cd)
+            return self._make(module, cd)
         key = tuple((t.data_ptr(), t._version, t.device)
                     for t in itertools.chain(module.parameters(), module.buffers()))
         if key != self._key:
             with torch.inference_mode(False), torch.no_grad():
-                self._cast = make(cd)
+                self._cast = self._make(module, cd)
             self._key = key
         return self._cast
+
+    def bake(self, module: nn.Module, dtypes: DtypePolicy) -> None:
+        """Make the tensors once, now, and keep each one that is not a
+        parameter or buffer itself as a non-persistent buffer `_baked_<i>`
+        of `module`; `get` returns them from then on (by attribute, so
+        `torch.func.functional_call` reaches them). For the serving export
+        (`serving/aot.py`), on a copy of the models."""
+        if self._card_only and not any(p.is_cuda for p in module.parameters()):
+            return
+        with torch.inference_mode(False), torch.no_grad():
+            leaves, spec = tree_flatten(self._make(module, dtypes.compute_dtype))
+        own = {id(t): n for n, t in itertools.chain(module.named_parameters(),
+                                                    module.named_buffers())}
+        storages = {t.untyped_storage().data_ptr()
+                    for t in itertools.chain(module.parameters(), module.buffers())}
+        sources = []
+        for i, leaf in enumerate(leaves):
+            if not isinstance(leaf, torch.Tensor):
+                sources.append((False, leaf))
+                continue
+            if id(leaf) not in own:
+                if leaf.untyped_storage().data_ptr() in storages:  # a view: a buffer of its own
+                    leaf = leaf.clone()
+                own[id(leaf)] = f"_baked_{i}"
+                storages.add(leaf.untyped_storage().data_ptr())
+                module.register_buffer(own[id(leaf)], leaf, persistent=False)
+            sources.append((True, own[id(leaf)]))
+        self._baked, self._key, self._cast = (sources, spec), None, None
+
+
+def bake_compute_weights(root: nn.Module) -> None:
+    """`ComputeWeights.bake` for every module under `root`."""
+    for module in root.modules():
+        for attr in list(vars(module).values()):
+            if isinstance(attr, ComputeWeights):
+                attr.bake(module, module.dtypes)

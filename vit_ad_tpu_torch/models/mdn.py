@@ -36,7 +36,7 @@ class GaussianMDN(nn.Module):
         self.pi = nn.Linear(features, num_gaussians)
         self.sigma = nn.Linear(features, features * num_gaussians)
         self.mu = nn.Linear(features, features * num_gaussians)
-        self._kernel_operands = ComputeWeights()
+        self._kernel_operands = ComputeWeights(type(self)._operands, card_only=True)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -62,9 +62,11 @@ class GaussianMDN(nn.Module):
         biases component-major). Cached and made again only when a parameter
         changed (storage or in-place version); while gradients flow to the
         parameters they are made per call, as the JAX package casts per call."""
-        return self._kernel_operands.get(
-            self, self.dtypes, lambda cd: kernel_operands(self.sigma.weight, self.sigma.bias,
-                                                          self.mu.weight, self.mu.bias, cd))
+        return self._kernel_operands.get(self, self.dtypes)
+
+    def _operands(self, cd: torch.dtype) -> Dict[str, torch.Tensor]:
+        return kernel_operands(self.sigma.weight, self.sigma.bias, self.mu.weight, self.mu.bias,
+                               cd)
 
     def log_likelihood(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                        tau: float = 1.0) -> torch.Tensor:

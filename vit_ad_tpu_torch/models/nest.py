@@ -165,7 +165,7 @@ class NesT(nn.Module):
             prev = dim
         self.levels = nn.ModuleList(levels)
         self.norm = LayerNorm(self.embed_dim, eps=LN_EPS, dtypes=dtypes, fused=self.fused_ln)
-        self._compute_weights = ComputeWeights()
+        self._compute_weights = ComputeWeights(type(self)._cast_weights)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -183,7 +183,7 @@ class NesT(nn.Module):
         """The conv and matmul weights and the positional embeddings in the
         compute dtype, cached until a parameter changes
         (`layers.ComputeWeights`)."""
-        return self._compute_weights.get(self, self.dtypes, self._cast_weights)
+        return self._compute_weights.get(self, self.dtypes)
 
     def _cast_weights(self, cd: torch.dtype) -> Dict[str, Any]:
         conv = lambda m: m.weight.to(cd).contiguous(memory_format=torch.channels_last)

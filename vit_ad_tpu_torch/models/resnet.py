@@ -86,7 +86,7 @@ class ResNet50(nn.Module):
                 cin = planes * 4
             setattr(self, f"layer{li + 1}", nn.Sequential(*layer))
         self.fc = nn.Linear(2048, 1000)  # the classifier: kept for the keys, never read
-        self._compute_weights = ComputeWeights()
+        self._compute_weights = ComputeWeights(type(self)._cast_weights)
 
     def _cast_weights(self, cd: torch.dtype) -> Dict[str, object]:
         out: Dict[str, object] = {}
@@ -100,7 +100,7 @@ class ResNet50(nn.Module):
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         """x [B, H, W, 3] → the four stage maps [B, C_i, H/s_i, W/s_i]."""
         cd = self.dtypes.compute_dtype
-        w = self._compute_weights.get(self, self.dtypes, self._cast_weights)
+        w = self._compute_weights.get(self, self.dtypes)
         x = x.to(cd).permute(0, 3, 1, 2)  # NCHW view of the NHWC bytes: channels_last
         x = F.relu(_conv_bn(x, self.conv1, self.bn1, w, "conv1", "bn1"))
         x = F.max_pool2d(x, 3, stride=2, padding=1)

@@ -207,7 +207,7 @@ class SwinTransformer(nn.Module):
         self.layers = nn.ModuleList(stages)
         self.num_patches = res * res
         self.norm = LayerNorm(dim, eps=LN_EPS, dtypes=dtypes, fused=self.fused_ln)
-        self._compute_weights = ComputeWeights()
+        self._compute_weights = ComputeWeights(type(self)._cast_weights)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -235,7 +235,7 @@ class SwinTransformer(nn.Module):
         """The matmul weights in the compute dtype and every block's gathered
         relative-position bias [H, N, N] f32, cached until a parameter
         changes (`layers.ComputeWeights`)."""
-        return self._compute_weights.get(self, self.dtypes, self._cast_weights)
+        return self._compute_weights.get(self, self.dtypes)
 
     def _cast_weights(self, cd: torch.dtype) -> Dict[str, Any]:
         stages: List[Dict[str, Any]] = []

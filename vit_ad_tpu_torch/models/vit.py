@@ -136,7 +136,7 @@ class ViTEncoder(nn.Module):
             torch.zeros(1, num_prefix_tokens + self.num_patches, embed_dim))
         self.blocks = nn.ModuleList(Block(embed_dim, mlp_ratio) for _ in range(depth))
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
-        self._compute_weights = ComputeWeights()
+        self._compute_weights = ComputeWeights(type(self)._cast_weights)
         self.reset_parameters(generator)
 
     @property
@@ -180,7 +180,7 @@ class ViTEncoder(nn.Module):
         dtype. Under a bf16 policy the casts are cached and made again only
         when a parameter changed (storage or in-place version); while
         gradients flow to the parameters they are cast per call."""
-        return self._compute_weights.get(self, self.dtypes, self._cast_weights)
+        return self._compute_weights.get(self, self.dtypes)
 
     def _cast_weights(self, cd: torch.dtype) -> Dict[str, object]:
         w = self._matmul_params()

@@ -138,8 +138,14 @@ def device_index(t) -> int:
 
 def aligned_buffer(t, dtype):
     """Tensor `t` as a contiguous, 16-byte aligned buffer of `dtype` (no copy
-    when it is one already): what every entry point takes."""
+    when it is one already): what every entry point takes. While
+    `torch.export` traces, tensors have no storage: the buffer is only made
+    contiguous, and the registered op's body aligns it when it runs."""
+    import torch
+
     t = t.to(dtype).contiguous()
+    if torch.compiler.is_exporting():
+        return t
     return t.clone() if t.data_ptr() % 16 else t
 
 

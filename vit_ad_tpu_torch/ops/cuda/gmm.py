@@ -13,7 +13,9 @@ they are laid out):
   B4  gradient of the features `gmm_backward_x` (only when x needs one)
 
 `gmm_log_likelihood` launches them for CUDA tensors and raises where it
-cannot; for CPU tensors it runs the plain version,
+cannot (B2 as the body of the registered op `vit_ad_tpu_torch::gmm_forward`,
+which `torch.export` carries into a native serving bundle); for CPU tensors it
+runs the plain version,
 `ops/gmm.log_likelihood_from_log_pi`, whose autograd is the plain version of
 B3 and B4. Weights are taken in the reference nn.Linear layout
 ([D*K, D_in], row e*K + k = output feature e of component k), which the
@@ -180,40 +182,87 @@ def _check(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
+def _check_forward_operands(x, x_m, log_pi_t, w_mu, w_sigma, b_mu_t, b_sigma_t) -> str:
+    """Raise unless B2 takes these operands (`gmm_forward_op`); return its
+    route."""
+    md = w_sigma.dtype
+    rows, d = x.shape
+    k = log_pi_t.shape[0]
+    if w_mu.dtype != md or (x_m is None) != (md == torch.float32):
+        raise TypeError(f"kernel operands are {w_sigma.dtype} and {w_mu.dtype}, x_m "
+                        f"{None if x_m is None else x_m.dtype}: the matmul type must be one, "
+                        "with x_m given under bf16 only")
+    for name, t, shape in (("log_pi_t", log_pi_t, (k, rows)), ("w_mu", w_mu, (d * k, d)),
+                           ("w_sigma", w_sigma, (d * k, d)), ("b_mu_t", b_mu_t, (k, d)),
+                           ("b_sigma_t", b_sigma_t, (k, d))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    return forward_route(d, md)
+
+
+@torch.library.custom_op("vit_ad_tpu_torch::gmm_forward", mutates_args=(), device_types="cuda")
+def gmm_forward_op(x: torch.Tensor, x_m: Optional[torch.Tensor], log_pi_t: torch.Tensor,
+                   w_mu: torch.Tensor, w_sigma: torch.Tensor, b_mu_t: torch.Tensor,
+                   b_sigma_t: torch.Tensor) -> torch.Tensor:
+    """One launch of the forward kernel (B2) on CUDA tensors, as a registered
+    op: x [rows, D] f32, x_m its rounding to bf16 under bf16 heads (else
+    None), log_pi_t [K, rows] f32, the heads in the matmul type (Linear
+    layout) and their biases [K, D] f32 (`kernel_operands`) → ll [rows, D]
+    f32."""
+    global fwd_launches, fwd_wgmma_launches, last_fwd_route
+    from vit_ad_tpu_torch.ops.cuda.build import aligned_buffer, device_index, load_library
+
+    want = _check_forward_operands(x, x_m, log_pi_t, w_mu, w_sigma, b_mu_t, b_sigma_t)
+    md, f32 = w_sigma.dtype, torch.float32
+    (rows, d), k = x.shape, log_pi_t.shape[0]
+    xr, lpt, bmt, bst = (aligned_buffer(t, f32) for t in (x, log_pi_t, b_mu_t, b_sigma_t))
+    xm = None if x_m is None else aligned_buffer(x_m, md)
+    wm, ws = aligned_buffer(w_mu, md), aligned_buffer(w_sigma, md)
+    ll = torch.empty((rows, d), dtype=f32, device=x.device)
+    route = ctypes.c_int(0)
+    _check(load_library().gmm_forward(
+        xr.data_ptr(), None if xm is None else xm.data_ptr(), lpt.data_ptr(), wm.data_ptr(),
+        ws.data_ptr(), bmt.data_ptr(), bst.data_ptr(), ll.data_ptr(), rows, d, k,
+        int(md == torch.bfloat16), device_index(x),
+        torch.cuda.current_stream(x.device).cuda_stream, ctypes.byref(route)), "gmm_forward")
+    last_fwd_route = _ROUTES.get(route.value)
+    if last_fwd_route != want:
+        raise RuntimeError(f"gmm_forward launched route {route.value} "
+                           f"({last_fwd_route}), expected {want}")
+    fwd_launches += 1
+    fwd_wgmma_launches += want != "fma"
+    return ll
+
+
+@gmm_forward_op.register_fake
+def _(x, x_m, log_pi_t, w_mu, w_sigma, b_mu_t, b_sigma_t):
+    _check_forward_operands(x, x_m, log_pi_t, w_mu, w_sigma, b_mu_t, b_sigma_t)
+    return x.new_empty(x.shape, dtype=torch.float32)
+
+
+def _forward(x, log_pi, w_sigma, b_sigma, w_mu, b_mu, matmul_dtype, operands):
+    """B2 on CUDA tensors: ll [rows, D] and the operands it read."""
+    from vit_ad_tpu_torch.ops.cuda.build import aligned_buffer
+
+    rows, d, k = check_kernel_shape(x, log_pi, w_sigma, b_sigma, w_mu, b_mu, matmul_dtype)
+    if operands is None:
+        operands = kernel_operands(w_sigma, b_sigma, w_mu, b_mu, matmul_dtype)
+    ws, wm = operands["w_sigma"], operands["w_mu"]
+    if ws.dtype != matmul_dtype or wm.dtype != matmul_dtype:
+        raise TypeError(f"kernel operands are {ws.dtype}, the matmuls {matmul_dtype}")
+    f32 = torch.float32
+    xr = aligned_buffer(x.reshape(rows, d), f32)
+    xm = aligned_buffer(xr, matmul_dtype) if matmul_dtype == torch.bfloat16 else None
+    lpt = component_major(log_pi.reshape(rows, k))
+    ll = gmm_forward_op(xr, xm, lpt, wm, ws, operands["b_mu_t"], operands["b_sigma_t"])
+    return ll, (xr, xm, lpt, ws, wm, operands["b_sigma_t"], operands["b_mu_t"])
+
+
 class _GmmLogLikelihood(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, log_pi, w_sigma, b_sigma, w_mu, b_mu, matmul_dtype, operands):
-        global fwd_launches, fwd_wgmma_launches, last_fwd_route
-        from vit_ad_tpu_torch.ops.cuda.build import aligned_buffer, device_index, load_library
-
-        rows, d, k = check_kernel_shape(x, log_pi, w_sigma, b_sigma, w_mu, b_mu, matmul_dtype)
-        want = forward_route(d, matmul_dtype)
-        if operands is None:
-            operands = kernel_operands(w_sigma, b_sigma, w_mu, b_mu, matmul_dtype)
-        ws, wm = operands["w_sigma"], operands["w_mu"]
-        if ws.dtype != matmul_dtype or wm.dtype != matmul_dtype:
-            raise TypeError(f"kernel operands are {ws.dtype}, the matmuls {matmul_dtype}")
-        lib = load_library()
-        f32 = torch.float32
-        xr = aligned_buffer(x.reshape(rows, d), f32)
-        xm = aligned_buffer(xr, matmul_dtype) if matmul_dtype == torch.bfloat16 else None
-        lpr = aligned_buffer(log_pi.reshape(rows, k), f32)
-        lpt = component_major(lpr)
-        ll = torch.empty((rows, d), dtype=torch.float32, device=x.device)
-        route = ctypes.c_int(0)
-        _check(lib.gmm_forward(xr.data_ptr(), None if xm is None else xm.data_ptr(),
-                               lpt.data_ptr(), wm.data_ptr(), ws.data_ptr(),
-                               operands["b_mu_t"].data_ptr(), operands["b_sigma_t"].data_ptr(),
-                               ll.data_ptr(), rows, d, k, int(matmul_dtype == torch.bfloat16),
-                               device_index(x), torch.cuda.current_stream(x.device).cuda_stream,
-                               ctypes.byref(route)), "gmm_forward")
-        last_fwd_route = _ROUTES.get(route.value)
-        if last_fwd_route != want:
-            raise RuntimeError(f"gmm_forward launched route {route.value} "
-                               f"({last_fwd_route}), expected {want}")
-        fwd_launches += 1
-        fwd_wgmma_launches += want != "fma"
-        ctx.save_for_backward(xr, xm, lpt, ws, wm, operands["b_sigma_t"], operands["b_mu_t"], ll)
+        ll, read = _forward(x, log_pi, w_sigma, b_sigma, w_mu, b_mu, matmul_dtype, operands)
+        ctx.save_for_backward(*read, ll)
         ctx.shapes = (x.shape, log_pi.shape, x.dtype)
         ctx.matmul_dtype = matmul_dtype
         return ll.reshape(x.shape)
@@ -382,8 +431,10 @@ def gmm_log_likelihood(x: torch.Tensor, log_pi: torch.Tensor, w_sigma: torch.Ten
     frozen head's cached copy); made per call when None; the plain version
     does not read it."""
     if x.device.type == "cuda":
-        return _GmmLogLikelihood.apply(x, log_pi, w_sigma, b_sigma, w_mu, b_mu, matmul_dtype,
-                                       operands)
+        ins = (x, log_pi, w_sigma, b_sigma, w_mu, b_mu)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+            return _GmmLogLikelihood.apply(*ins, matmul_dtype, operands)
+        return _forward(*ins, matmul_dtype, operands)[0].reshape(x.shape)
     if x.device.type == "cpu":
         return gmm_log_likelihood_reference(x, log_pi, w_sigma, b_sigma, w_mu, b_mu,
                                             matmul_dtype)

@@ -5,11 +5,13 @@ kernel `_kernel` (:53) becomes the hand-written Hopper kernel
 `vit_ad_tpu_torch/csrc/layer_norm.cu` (see its header for what bounds it on
 the H100 and what the design does about it).
 
-`layer_norm` launches that kernel for a CUDA tensor, and raises where it
-cannot. For a CPU tensor it runs the plain PyTorch version
-`layer_norm_reference`, the expression of the JAX package's `_xla_layer_norm`
-(:117). Its backward recomputes through the plain version, as the JAX custom
-VJP does (:144-147): the TPU kernel had no backward kernel either.
+`layer_norm` launches that kernel for a CUDA tensor through the registered
+op `vit_ad_tpu_torch::layer_norm` (`layer_norm_op`, which `torch.export`
+carries into a native serving bundle), and raises where it cannot. For a CPU
+tensor it runs the plain PyTorch version `layer_norm_reference`, the
+expression of the JAX package's `_xla_layer_norm` (:117). Its backward
+recomputes through the plain version, as the JAX custom VJP does (:144-147):
+the TPU kernel had no backward kernel either.
 """
 
 from __future__ import annotations
@@ -101,10 +103,23 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float
     return out
 
 
+@torch.library.custom_op("vit_ad_tpu_torch::layer_norm", mutates_args=(), device_types="cuda")
+def layer_norm_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    """One launch of the kernel (B7) on CUDA tensors, as a registered op."""
+    return _launch(x, scale, bias, eps)
+
+
+@layer_norm_op.register_fake
+def _(x, scale, bias, eps):
+    check_kernel_shape(x, scale, bias)
+    return x.new_empty(x.shape)
+
+
 def _forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
              eps: float) -> torch.Tensor:
     if x.device.type == "cuda":
-        return _launch(x, scale, bias, eps)
+        return layer_norm_op(x, scale, bias, eps)
     if x.device.type == "cpu":
         return layer_norm_reference(x, scale, bias, eps)
     raise RuntimeError(f"layer_norm has no path for device {x.device}")

@@ -9,12 +9,14 @@ H100 and what the design does about it).
 cannot: under bf16 three kernels behind one entry point (the one-pass
 LayerNorm, then the two products on `wgmma` behind TMA with the GELU and the
 residual in their epilogues, `mlp_route` = "wgmma"), under f32 one fused FMA
-kernel ("fma"). For a CPU tensor it runs the plain PyTorch version
+kernel ("fma"); the launch is the body of the registered op
+`vit_ad_tpu_torch::mlp_block`, which `torch.export` carries into a native
+serving bundle. For a CPU tensor it runs the plain PyTorch version
 `ops/mlp.mlp_block_reference`. Its backward recomputes through the plain
 version, as the JAX custom VJP recomputes through its XLA expression
-(:152-154): the TPU kernel had no backward kernel either. `use_fused_mlp` is
-the shape half of the JAX gate `use_pallas_mlp` (:160); the opt-in half is the
-encoder's `fused_mlp` argument.
+(:152-154): the TPU kernel had no backward kernel either. `use_fused_mlp`
+is the shape half of the JAX gate `use_pallas_mlp` (:160); the opt-in half
+is the encoder's `fused_mlp` argument.
 """
 
 from __future__ import annotations
@@ -106,7 +108,29 @@ def _launch(x, norm_w, norm_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
                            f"or a tensor-map code of csrc/mlp_block.cu)")
     launches += 1
     wgmma_launches += int(ROUTE_NAMES[took.value] == "wgmma")
-    return out.view(x.shape)
+    return out  # xb, and so out, has x's shape
+
+
+@torch.library.custom_op("vit_ad_tpu_torch::mlp_block", mutates_args=(), device_types="cuda")
+def mlp_block_op(x: torch.Tensor, norm_w: torch.Tensor, norm_b: torch.Tensor, w1: torch.Tensor,
+                 b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                 eps: float) -> torch.Tensor:
+    """One launch of the kernel (B6) on CUDA tensors, as a registered op."""
+    return _launch(x, norm_w, norm_b, w1, b1, w2, b2, eps)
+
+
+@mlp_block_op.register_fake
+def _(x, norm_w, norm_b, w1, b1, w2, b2, eps):
+    check_kernel_shape(x, norm_w, norm_b, w1, b1, w2, b2)
+    return x.new_empty(x.shape)
+
+
+def _check_gemm_step(a: torch.Tensor, w: torch.Tensor, on_card: bool = True) -> None:
+    if (on_card and a.device.type != "cuda") or a.dtype != torch.bfloat16 \
+            or w.dtype != torch.bfloat16 or a.dim() != 2 or w.dim() != 2 \
+            or a.shape[1] != w.shape[1]:
+        raise ValueError(f"gemm_step takes bf16 CUDA matrices a [M, K] and w [N, K], got "
+                         f"{a.dtype} {tuple(a.shape)} on {a.device} and {w.dtype} {tuple(w.shape)}")
 
 
 def gemm_step(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epilogue: int,
@@ -116,12 +140,17 @@ def gemm_step(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epilogue: in
     bf16(f32(resid) + (a . w^T + bias)) with `EPILOGUE_RESIDUAL`. a [M, K], w
     [N, K] and resid [M, N] are contiguous bf16 CUDA tensors, bias f32 [N].
     Counts no launch."""
+    _check_gemm_step(a, w)
+    return gemm_step_op(a, w, bias, epilogue, resid)
+
+
+@torch.library.custom_op("vit_ad_tpu_torch::mlp_gemm", mutates_args=(), device_types="cuda")
+def gemm_step_op(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epilogue: int,
+                 resid: Optional[torch.Tensor]) -> torch.Tensor:
+    """One launch of `gemm_step`'s kernel, as a registered op."""
     from vit_ad_tpu_torch.ops.cuda.build import aligned_buffer, device_index, load_library
 
-    if a.device.type != "cuda" or a.dtype != torch.bfloat16 or w.dtype != torch.bfloat16 \
-            or a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[1]:
-        raise ValueError(f"gemm_step takes bf16 CUDA matrices a [M, K] and w [N, K], got "
-                         f"{a.dtype} {tuple(a.shape)} on {a.device} and {w.dtype} {tuple(w.shape)}")
+    _check_gemm_step(a, w)
     a, w = aligned_buffer(a, a.dtype), aligned_buffer(w, a.dtype)
     bias = aligned_buffer(bias, torch.float32)
     if resid is not None:
@@ -137,16 +166,26 @@ def gemm_step(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epilogue: in
     return out
 
 
+@gemm_step_op.register_fake
+def _(a, w, bias, epilogue, resid):
+    _check_gemm_step(a, w, on_card=False)
+    return a.new_empty((a.shape[0], w.shape[0]))
+
+
+def _forward(x, norm_w, norm_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
+    if x.device.type == "cuda":
+        return mlp_block_op(x, norm_w, norm_b, w1, b1, w2, b2, eps)
+    if x.device.type == "cpu":
+        return mlp_block_reference(x, norm_w, norm_b, w1, b1, w2, b2, eps)
+    raise RuntimeError(f"mlp_block has no path for device {x.device}")
+
+
 class _MlpBlock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, norm_w, norm_b, w1, b1, w2, b2, eps):
         ctx.save_for_backward(x, norm_w, norm_b, w1, b1, w2, b2)
         ctx.eps = eps
-        if x.device.type == "cuda":
-            return _launch(x, norm_w, norm_b, w1, b1, w2, b2, eps)
-        if x.device.type == "cpu":
-            return mlp_block_reference(x, norm_w, norm_b, w1, b1, w2, b2, eps)
-        raise RuntimeError(f"mlp_block has no path for device {x.device}")
+        return _forward(x, norm_w, norm_b, w1, b1, w2, b2, eps)
 
     @staticmethod
     def backward(ctx, grad):
@@ -164,4 +203,7 @@ def mlp_block(x: torch.Tensor, norm_w: torch.Tensor, norm_b: torch.Tensor, w1: t
     [H, D] and w2 [D, H] are fc1.weight and fc2.weight in x's dtype. The
     Hopper kernel on CUDA tensors, the plain version on CPU tensors, backward
     by recomputation through the plain version."""
-    return _MlpBlock.apply(x, norm_w, norm_b, w1, b1, w2, b2, eps)
+    ins = (x, norm_w, norm_b, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        return _MlpBlock.apply(*ins, eps)
+    return _forward(*ins, eps)

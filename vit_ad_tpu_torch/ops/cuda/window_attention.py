@@ -24,6 +24,11 @@ versions are `ops/window_attention.window_attention_reference` and
 `window_attention_core_reference`. Both backwards recompute through
 `window_attention_core_reference`, the math the JAX custom VJPs differentiate
 (:360-368, :538-549), and reach q, k, v and the bias table.
+
+Each launch is the body of a registered op (`vit_ad_tpu_torch::
+vit_attention_qkv`, `::swin_window_attention`, `::split_window_attention`),
+with a fake implementation that states the output, so `torch.export` carries
+the kernels into a native serving bundle (`serving/aot.py`).
 """
 
 from __future__ import annotations
@@ -162,9 +167,22 @@ def _launch(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op("vit_ad_tpu_torch::vit_attention_qkv", mutates_args=(),
+                         device_types="cuda")
+def vit_attention_qkv_op(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """One launch of the kernel (B1) on a CUDA tensor, as a registered op."""
+    return _launch(qkv, num_heads)
+
+
+@vit_attention_qkv_op.register_fake
+def _(qkv, num_heads):
+    b, n, c, _ = check_kernel_shape(qkv, num_heads)
+    return qkv.new_empty((b, n, c))
+
+
 def _forward(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     if qkv.device.type == "cuda":
-        return _launch(qkv, num_heads)
+        return vit_attention_qkv_op(qkv, num_heads)
     if qkv.device.type == "cpu":
         return vit_attention_qkv_reference(qkv, num_heads)
     raise RuntimeError(f"vit_attention_qkv has no path for device {qkv.device}")
@@ -192,7 +210,9 @@ def vit_attention_qkv(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     kernel on CUDA tensors, the plain version on CPU tensors, backward by
     recomputation through the plain version."""
     _dims(qkv, num_heads)
-    return _VitAttentionQKV.apply(qkv, num_heads)
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _VitAttentionQKV.apply(qkv, num_heads)
+    return _forward(qkv, num_heads)
 
 
 # ---- Swin window attention ---------------------------------------------------
@@ -247,13 +267,12 @@ def _launch_windows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, row_strid
     return out, last_window_route
 
 
-def _windows_forward(qkv3: torch.Tensor, bias: torch.Tensor, mask: Optional[torch.Tensor],
-                     num_heads: int) -> torch.Tensor:
+@torch.library.custom_op("vit_ad_tpu_torch::swin_window_attention", mutates_args=(),
+                         device_types="cuda")
+def swin_window_attention_op(qkv3: torch.Tensor, bias: torch.Tensor,
+                             mask: Optional[torch.Tensor], num_heads: int) -> torch.Tensor:
+    """One launch of the kernel (B5) on packed CUDA windows, as a registered op."""
     global window_launches, window_one_pass_launches
-    if qkv3.device.type == "cpu":
-        return window_attention_reference(qkv3, bias, mask, num_heads)
-    if qkv3.device.type != "cuda":
-        raise RuntimeError(f"swin_attention_windows has no path for device {qkv3.device}")
     b_, n, c, hd = _dims(qkv3, num_heads)
     qkv3 = _aligned(qkv3)
     out, route = _launch_windows(qkv3, qkv3[..., c:], qkv3[..., 2 * c:], 3 * c, b_, n,
@@ -263,22 +282,53 @@ def _windows_forward(qkv3: torch.Tensor, bias: torch.Tensor, mask: Optional[torc
     return out
 
 
-def split_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           bias: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """The forward of `window_attention` with the bias already gathered: q, k, v
-    [B_, N, H, hd], bias [H, N, N] f32, mask [n_w, N, N] or None → [B_, N, H*hd].
-    The kernel on CUDA tensors, the plain version on CPU tensors; no gradient."""
+@swin_window_attention_op.register_fake
+def _(qkv3, bias, mask, num_heads):
+    b_, n, c, hd = _dims(qkv3, num_heads)
+    _check_window_inputs(n, num_heads, hd, qkv3.dtype, bias, mask, b_)
+    return qkv3.new_empty((b_, n, c))
+
+
+def _windows_forward(qkv3: torch.Tensor, bias: torch.Tensor, mask: Optional[torch.Tensor],
+                     num_heads: int) -> torch.Tensor:
+    if qkv3.device.type == "cuda":
+        return swin_window_attention_op(qkv3, bias, mask, num_heads)
+    if qkv3.device.type == "cpu":
+        return window_attention_reference(qkv3, bias, mask, num_heads)
+    raise RuntimeError(f"swin_attention_windows has no path for device {qkv3.device}")
+
+
+@torch.library.custom_op("vit_ad_tpu_torch::split_window_attention", mutates_args=(),
+                         device_types="cuda")
+def split_window_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              bias: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """One launch of the kernel's split-input entry (B5a), as a registered op."""
     global split_launches, split_one_pass_launches
-    if q.device.type == "cpu":
-        return window_attention_core_reference(q, k, v, bias, mask)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"window_attention has no path for device {q.device}")
     b_, n, h, hd = q.shape
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out, route = _launch_windows(q, k, v, h * hd, b_, n, h, hd, bias, mask, defer_norm=False)
     split_launches += 1
     split_one_pass_launches += int(route == "one_pass")
     return out
+
+
+@split_window_attention_op.register_fake
+def _(q, k, v, bias, mask):
+    b_, n, h, hd = q.shape
+    _check_window_inputs(n, h, hd, q.dtype, bias, mask, b_)
+    return q.new_empty((b_, n, h * hd))
+
+
+def split_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The forward of `window_attention` with the bias already gathered: q, k, v
+    [B_, N, H, hd], bias [H, N, N] f32, mask [n_w, N, N] or None → [B_, N, H*hd].
+    The kernel on CUDA tensors, the plain version on CPU tensors; no gradient."""
+    if q.device.type == "cuda":
+        return split_window_attention_op(q, k, v, bias, mask)
+    if q.device.type == "cpu":
+        return window_attention_core_reference(q, k, v, bias, mask)
+    raise RuntimeError(f"window_attention has no path for device {q.device}")
 
 
 def _recompute_grads(q, k, v, bias, mask, grad):
@@ -338,7 +388,9 @@ def swin_attention_windows(qkv3: torch.Tensor, bias_table: torch.Tensor, num_hea
                          f"got {qkv3.shape[1]}")
     if bias is None:
         bias = gather_bias(bias_table, _index_on(window, window, bias_table.device))
-    return _SwinAttentionWindows.apply(qkv3, bias, mask, num_heads)
+    if torch.is_grad_enabled() and (qkv3.requires_grad or bias.requires_grad):
+        return _SwinAttentionWindows.apply(qkv3, bias, mask, num_heads)
+    return _windows_forward(qkv3, bias, mask, num_heads)
 
 
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -350,4 +402,6 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"expected q, k, v [B_, N, {num_heads}, hd] of one shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     bias = gather_bias(bias_table, _index_on(window[0], window[1], bias_table.device))
-    return _WindowAttention.apply(q, k, v, bias, mask)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
+        return _WindowAttention.apply(q, k, v, bias, mask)
+    return split_window_attention(q, k, v, bias, mask)
