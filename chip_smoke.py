@@ -5,6 +5,7 @@
     python3 chip_smoke.py --against <another checkout>   # kernels A/B, `against`
     python3 chip_smoke.py --gmm-backward-ab <checkout> ...   # B3 terms, B4 A/B
     python3 chip_smoke.py --serve-bundle <bundle> <images.npy> <out.json> [device]
+    CHIP_SMOKE_KMEANS_IMAGES=400 python3 chip_smoke.py   # phase 13's k-means at MVTec size
 
 Drives the port's main paths at full width, bf16 compute, through the port's
 CLIs, after building and checking the hand-written kernels: on a DeiT-base/16
@@ -24,7 +25,9 @@ maps 0-2 through the run directory (train, `cli.score -r`, `--watch`,
 `--heatmaps`, `--weights-dtype bf16`, `cli.validate`); and the DeiT NF, DeiT
 MDN, EsViT NF and ResNet MDN runs as serving bundles (`torch.export`
 programs carrying the kernels as registered ops), each served from a fresh
-process (`--serve-bundle`). Phases:
+process (`--serve-bundle`); the sweep engine over DeiT-base MDN runs
+(sequential, resumed, and through a spawned worker), k-means init, the VAE,
+and the weight CLIs (export and convert). Phases:
 
   1. device   card name and power limit (nvidia-smi)
   2. build    compile the kernels from vit_ad_tpu_torch/csrc (nvcc, sm_90a)
@@ -101,7 +104,25 @@ process (`--serve-bundle`). Phases:
               a copy of the models on the CPU) holds no kernel op, scores on
               the CPU at batch 2 as the port's CPU path, and is moved to the
               card and served there without a launch
- 13. times    kernels vs plain vs the one PyTorch call that computes the same
+ 13. sweep    `cli.trainings_loop -a mdn -m enc_deit` over two synthetic
+              categories (DeiT-base + MDN K=100, batch 64, two epochs): no
+              row with an error, B1, B6, B7 per encoder batch and B2, B3 per
+              step through their redesigned routes, results.csv in the JAX
+              columns; the same command again launches nothing and keeps its
+              rows; the same sweep through one spawned worker pinned to card
+              0, its rows against the sequential ones; `train_mdn` with
+              k-means init at K=100 (the mu bias at the optimizer's start is
+              the centres, the loss falls, the host seconds of k-means; on
+              a category of N images of its own with
+              CHIP_SMOKE_KMEANS_IMAGES=N); the
+              VAE through `run_sweep` (no launch, the loss falls, f32 scores
+              card vs CPU); `cli.export_weights` on phase 6's MDN run (`--pth`
+              on the file scores as `-r` on the run) and on phase 11's
+              NF-ResNet run (three flows and the encoder, strict loads);
+              `cli.convert_weights --arch deit` on a timm-layout file
+              (`-E <dir>` scores as `-E <file>`) and a `student`-wrapped
+              EsViT file through `-E` (scores as its bare state dict)
+ 14. times    kernels vs plain vs the one PyTorch call that computes the same
               function, where there is one, each beside its bound, by events
               and, for the attention kernels and B7, back to back (B5a alone
               with its bias gathered, beside its public entry; B3 and B4 also
@@ -126,7 +147,7 @@ process (`--serve-bundle`). Phases:
               a 32-image `--watch` wave after the first; each bundle's
               uint8→payload img/s beside the live path's on the same batch,
               its export, load and first-call seconds
- 14. result   a kernels JSON line, the nvidia-smi line, and last the
+ 15. result   a kernels JSON line, the nvidia-smi line, and last the
               {"ok": true, "device": ...} line
 
 Every phase raises on failure, so the script exits non-zero and prints no
@@ -2974,6 +2995,355 @@ def bundle_times(b: dict, images, card: str) -> dict:
     return out
 
 
+# the sweep-and-weights phase: `cli.trainings_loop -a mdn -m enc_deit` over two
+# synthetic categories at the root script's MDN defaults (K=100, batch 64,
+# lr 7e-4, wd 7e-4; trainings_loop.py:85-87), two epochs; the same sweep through
+# one spawned worker; k-means init at K=100 on one category's DeiT-base
+# features; the VAE through `run_sweep` at 224 px, one category, two epochs
+SWEEP_CATS, SWEEP_TRAIN, SWEEP_TEST, SWEEP_EPOCHS, SWEEP_BATCH, SWEEP_K = \
+    ("bottle", "cable"), 20, 4, 2, 64, 100
+KMEANS_EPOCHS = 3
+# CHIP_SMOKE_KMEANS_IMAGES=N runs the k-means check on a category of N good
+# images of its own instead: MVTec's hold 200-400, so N=400 gives 320
+# training images x 196 DeiT-base patch tokens = 62720 rows x 768, the host
+# cost of k-means at their size
+KMEANS_IMAGES_ENV = "CHIP_SMOKE_KMEANS_IMAGES"
+VAE_TRAIN, VAE_TEST, VAE_EPOCHS, VAE_BATCH = 40, 4, 2, 16
+# results.csv of an MDN sweep: the JAX engine's columns, in its order (the
+# CPU tests hold the port's header to the JAX package's)
+SWEEP_COLUMNS = ["Name", "dataclass", "model", "epochs_ran", "best_valid_loss",
+                 "image_auroc_score", "pixel_auroc_score", "image_prauc_score",
+                 "pro_score_0.3fp", "aupro_score_0.3fp", "fp_thres"]
+# the spawned worker's rows against the sequential sweep's: the same program,
+# inputs and seeds on the same card, so equal but for a library that chose
+# another algorithm in the fresh process; metrics absolute, the best
+# validation loss relative
+FANOUT_ATOL, FANOUT_RTOL = 1e-9, 1e-6
+
+
+def _deit_mdn_expect(n_tr: int, n_va: int, n_te: int, epochs: int, k: int, batch: int) -> dict:
+    """Launches of a frozen-DeiT-base MDN run: B1, B6 and B7 per encoder batch
+    (the feature cache over the train, validation and test batches), B2 per
+    train and validation step and test batch, B3's two kernels per chunk of
+    components per train step (padded batches: `batch` x 196 rows)."""
+    from vit_ad_tpu_torch.config import DtypePolicy
+    from vit_ad_tpu_torch.ops.cuda import gmm as cgmm
+
+    chunks = -(-k // cgmm.backward_chunk(batch * 196, 768, k, DtypePolicy().compute_dtype))
+    n_enc = n_tr + n_va + n_te
+    return {**NO_LAUNCHES, "B1": 12 * n_enc, "B6": 12 * n_enc, "B7": DEIT_B7_PER_BATCH * n_enc,
+            "B2": epochs * (n_tr + n_va) + n_te, "B3": epochs * n_tr * 2 * chunks}
+
+
+def _check_mdn_routes(got: dict, expect: dict, what: str) -> None:
+    from vit_ad_tpu_torch.ops.cuda import gmm as cgmm
+
+    check_deit_routes(got, expect, what)
+    print(f"{what}: B2 through the wgmma kernel {cgmm.fwd_wgmma_launches}, B3 through its "
+          f"wgmma kernels {cgmm.bwd_wgmma_params_launches}")
+    if cgmm.fwd_wgmma_launches != expect["B2"] or \
+            cgmm.bwd_wgmma_params_launches != expect["B3"]:
+        raise AssertionError(f"{what}: B2 or B3 did not take the wgmma kernels")
+
+
+def _done_rows(out: str, cats) -> list:
+    rows = []
+    for cat in cats:
+        with open(os.path.join(out, cat, "done.json")) as f:
+            rows.append(json.load(f))
+    return rows
+
+
+def sweep_weights_main_path(tmp: str, mdn_run: str, esvit: dict, nfres_run: str,
+                            nf_pth: str, deit_pth: str, img_dir: str, img: int = 224,
+                            device: str = "cuda", k: int = SWEEP_K) -> dict:
+    """Phase 13: the sweep engine and the weight CLIs at full width.
+    `cli.trainings_loop -a mdn -m enc_deit` over two synthetic categories
+    (DeiT-base + MDN K=100, batch 64, bf16, two epochs): no row has an error,
+    B1/B6/B7 per encoder batch and B2/B3 per step through their redesigned
+    routes, results.csv in the JAX columns; the same command again trains
+    nothing (no launch, the same rows); the same sweep through
+    `run_sweep_parallel` with one spawned worker pinned to card 0, its rows
+    against the sequential ones; `train_mdn(kmeans_init=True)` at K=100 (the
+    mu bias at the optimizer's start is the centres, transposed; the loss
+    falls; the host seconds of k-means); the VAE through `run_sweep` (no
+    launch, the loss falls, f32 image scores card against CPU);
+    `cli.export_weights` on phase 6's MDN run scored with `--pth` against
+    `-r` (difference 0) and on phase 11's NF-ResNet run (three flow files and
+    the encoder file, each strict-loading); `cli.convert_weights --arch deit`
+    on a timm-layout DeiT-base file with `module.` and `distillation_token`,
+    `-E <dir>` against `-E <file>`, and a `student`-wrapped EsViT file
+    against its bare state dict (differences 0), scoring phase 7's head
+    (`esvit`: its "pth" and "test_dir"). `img`, `device` and `k` let the
+    phase run small on the CPU (a dry run of its checks; the launch counts
+    then stay 0)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from vit_ad_tpu_torch.cli import convert_weights as convert_cli
+    from vit_ad_tpu_torch.cli import export_weights as export_cli
+    from vit_ad_tpu_torch.cli import score as score_cli
+    from vit_ad_tpu_torch.cli import trainings_loop as sweep_cli
+    from vit_ad_tpu_torch.config import DtypePolicy, HyperParams
+    from vit_ad_tpu_torch.data.dataset import default_norm_stats
+    from vit_ad_tpu_torch.data.loader import DataPipeline
+    from vit_ad_tpu_torch.data.synthetic import make_mvtec_category
+    from vit_ad_tpu_torch.models.resnet import ResNetEncoder
+    from vit_ad_tpu_torch.models.vae import VariationalAutoEncoder
+    from vit_ad_tpu_torch.pipeline import cluster_init
+    from vit_ad_tpu_torch.pipeline import train as train_module
+    from vit_ad_tpu_torch.pipeline.eval import score_vae
+    from vit_ad_tpu_torch.pipeline.loading import load_run_config
+    from vit_ad_tpu_torch.pipeline.sweep import SweepRun, run_sweep, run_sweep_parallel
+    from vit_ad_tpu_torch.registry import get_model
+
+    t_phase = time.perf_counter()
+    total: dict = {}
+    on_card = lambda counts: counts if device == "cuda" else NO_LAUNCHES
+    batches = lambda n, b: -(-n // b)
+
+    # the sweep, sequential, through the CLI
+    root = os.path.join(tmp, "sweep_data")
+    for seed, cat in enumerate(SWEEP_CATS):
+        make_mvtec_category(root, cat, img_size=img, n_train=SWEEP_TRAIN, n_test_good=SWEEP_TEST,
+                            n_test_defect=SWEEP_TEST, seed=seed)
+    out = os.path.join(tmp, "sweep")
+    argv = ["-a", "mdn", "-m", "enc_deit", "-d", root, "-o", out, "-c", ",".join(SWEEP_CATS),
+            "-e", str(SWEEP_EPOCHS), "-p", str(SWEEP_EPOCHS), "-b", str(SWEEP_BATCH), "-i",
+            str(img), "-n", str(k), "--device", device]
+    rc, seq, wall = _launches_of(lambda: sweep_cli.main(argv))
+    _add(total, seq)
+    split = DataPipeline(SWEEP_BATCH, img, base_path=os.path.join(root, SWEEP_CATS[0]),
+                         data_path="train/good")
+    n_tr, n_va = batches(len(split.train_files), SWEEP_BATCH), \
+        batches(len(split.valid_files), SWEEP_BATCH)
+    one = _deit_mdn_expect(n_tr, n_va, batches(2 * SWEEP_TEST, SWEEP_BATCH), SWEEP_EPOCHS, k,
+                           SWEEP_BATCH)
+    expect = on_card({key: len(SWEEP_CATS) * v for key, v in one.items()})
+    print(f"cli.trainings_loop -a mdn -m enc_deit rc={rc} in {wall:.2f} s ({len(SWEEP_CATS)} "
+          f"categories x ({n_tr} train + {n_va} valid batches of {SWEEP_BATCH} x "
+          f"{SWEEP_EPOCHS} epochs, 1 test batch), K={k}); per category {on_card(one)}")
+    _check_mdn_routes(seq, expect, "the sequential sweep")
+    with open(os.path.join(out, "results.csv")) as f:
+        table = list(csv.reader(f))
+    rows = _done_rows(out, SWEEP_CATS)
+    print(f"results.csv columns {table[0]}; rows {[r[:5] for r in table[1:]]}")
+    errors = [r for r in rows if "error" in r]
+    if rc != 0 or errors or table[0] != SWEEP_COLUMNS or len(table) != 1 + len(SWEEP_CATS) \
+            or any(r["epochs_ran"] != SWEEP_EPOCHS for r in rows) \
+            or not all(math.isfinite(r[c]) for r in rows for c in SWEEP_COLUMNS[4:]):
+        raise AssertionError(f"the sweep failed, or a row holds an error: {errors or table}")
+
+    # resume: the same command trains nothing
+    before = open(os.path.join(out, "results.csv")).read()
+    rc, again, wall = _launches_of(lambda: sweep_cli.main(argv))
+    _add(total, again)
+    same = open(os.path.join(out, "results.csv")).read() == before and \
+        _done_rows(out, SWEEP_CATS) == rows
+    print(f"resume: rc={rc} in {wall:.2f} s, launches {again}, rows equal {same}")
+    if rc != 0 or again != NO_LAUNCHES or not same:
+        raise AssertionError("the resumed sweep trained again or changed its rows")
+
+    # fan-out: one spawned worker, pinned to card 0
+    hp = dataclasses.replace(sweep_cli.base_hp("mdn", "enc_deit"), epochs=SWEEP_EPOCHS,
+                             patience=SWEEP_EPOCHS, batch_size=SWEEP_BATCH, img_size=img,
+                             num_gaussians=k)
+    runs = [SweepRun(category=c, data_root=root) for c in SWEEP_CATS]
+    t0 = time.perf_counter()
+    par = run_sweep_parallel("mdn", hp, runs, os.path.join(tmp, "sweep_par"), num_workers=1,
+                             platform="cuda" if device == "cuda" else "cpu")
+    wall = time.perf_counter() - t0
+    strip = lambda r: {key: v for key, v in r.items() if key != "_hp"}
+    bitwise = [json.dumps(p) == json.dumps(s) for p, s in zip(par, rows)]
+    worst = {c: max(abs(p[c] - s[c]) for p, s in zip(par, rows)) for c in SWEEP_COLUMNS[4:]}
+    print(f"run_sweep_parallel(num_workers=1) in {wall:.2f} s (a fresh process: its launches are "
+          f"its own): rows bitwise equal to the sequential ones {bitwise}; max |worker - "
+          f"sequential| {worst}")
+    if [strip(p).keys() for p in par] != [strip(s).keys() for s in rows] or \
+            any(p["_hp"] != s["_hp"] for p, s in zip(par, rows)) or \
+            any(worst[c] > FANOUT_RTOL * max(abs(s["best_valid_loss"]) for s in rows)
+                if c == "best_valid_loss" else worst[c] > FANOUT_ATOL for c in worst):
+        raise AssertionError("the spawned worker's rows differ from the sequential sweep's")
+
+    # k-means init of the MDN head at K=100 on one category's features
+    km_data = split
+    if os.environ.get(KMEANS_IMAGES_ENV):
+        km_cat = make_mvtec_category(os.path.join(tmp, "kmeans_data"), "kmeans", img_size=img,
+                                     n_train=int(os.environ[KMEANS_IMAGES_ENV]), n_test_good=1,
+                                     n_test_defect=1)
+        km_data = DataPipeline(SWEEP_BATCH, img, base_path=km_cat, data_path="train/good")
+    seen: dict = {}
+    real_kmeans, real_adam = cluster_init.kmeans_cluster_centers, train_module.torch_adam
+
+    def kmeans(features, num_clusters, max_samples=100_000):
+        t = time.perf_counter()
+        seen["centers"] = real_kmeans(features, num_clusters, max_samples)
+        seen["rows"], seen["seconds"] = features.shape[0] * features.shape[1], \
+            time.perf_counter() - t
+        return seen["centers"]
+
+    def adam(params, lr, wd=0.0):
+        params = list(params)
+        seen["at_adam"] = [p.detach().clone() for p in params]
+        return real_adam(params, lr, wd)
+
+    cluster_init.kmeans_cluster_centers, train_module.torch_adam = kmeans, adam
+    try:
+        hp_k = dataclasses.replace(hp, epochs=KMEANS_EPOCHS, patience=KMEANS_EPOCHS,
+                                   kmeans_init=True, data_class=SWEEP_CATS[0])
+        enc = get_model("enc_deit", img, generator=torch.Generator().manual_seed(hp.seed))
+        result, launches, wall = _launches_of(lambda: train_module.train_mdn(
+            hp_k, km_data, None, encoder=enc, device=device))
+    finally:
+        cluster_init.kmeans_cluster_centers, train_module.torch_adam = real_kmeans, real_adam
+    _add(total, launches)
+    names = [n for n, _ in result.head.named_parameters()]
+    bias = dict(zip(names, seen["at_adam"]))["mu.bias"].cpu().numpy()
+    seeded = np.array_equal(bias, seen["centers"].T.reshape(-1))
+    losses = result.history["train_loss"]
+    print(f"train_mdn(kmeans_init=True) K={k} in {wall:.2f} s: k-means on the host "
+          f"{seen['seconds']:.3f} s over {seen['rows']} rows x 768; mu bias at the optimizer's "
+          f"start equals centers.T {seeded}; train loss {losses}")
+    km_tr, km_va = batches(len(km_data.train_files), SWEEP_BATCH), \
+        batches(len(km_data.valid_files), SWEEP_BATCH)
+    _check_mdn_routes(launches, on_card(_deit_mdn_expect(km_tr, km_va, 0, KMEANS_EPOCHS, k,
+                                                         SWEEP_BATCH)), "k-means MDN")
+    if not seeded or not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError("the k-means init did not seed the head, or the loss did not fall")
+
+    # the VAE through run_sweep at 224 px
+    vae_root = os.path.join(tmp, "vae_data")
+    vae_cat = make_mvtec_category(vae_root, "vase", img_size=img, n_train=VAE_TRAIN,
+                                  n_test_good=VAE_TEST, n_test_defect=VAE_TEST)
+    got: dict = {}
+
+    def vae_trainer(hp, data, test, **kw):
+        got["result"] = train_module.train_vae(hp, data, test, **kw)
+        return got["result"]
+
+    hp_v = HyperParams(model_name="vae", architecture="vae", epochs=VAE_EPOCHS,
+                       patience=VAE_EPOCHS, batch_size=VAE_BATCH, img_size=img)
+    (row,), launches, wall = _launches_of(lambda: run_sweep(
+        vae_trainer, hp_v, [SweepRun(category="vase", data_root=vae_root)],
+        os.path.join(tmp, "sweep_vae"), device=device))
+    _add(total, launches)
+    losses = got["result"].history["train_loss"]
+    print(f"run_sweep(train_vae) at {img} px in {wall:.2f} s: launches {launches}; train loss "
+          f"{losses}; row {row}")
+    if "error" in row or launches != NO_LAUNCHES or not losses[-1] < losses[0]:
+        raise AssertionError("the VAE run failed, launched a kernel, or its loss did not fall")
+    files = score_cli.list_images(os.path.join(vae_cat, "test"))
+    scores = {}
+    for where in (device, "cpu"):
+        vae = VariationalAutoEncoder(img, dtypes=DtypePolicy.f32())
+        vae.load_state_dict(got["result"].head.state_dict())
+        s = score_vae(vae.to(where).eval(), DataPipeline(2, img, files=[files[0], files[-1]]),
+                      hp_v, *default_norm_stats())
+        scores[where] = s.image_scores
+    rel = np.abs(scores[device] - scores["cpu"]) / np.abs(scores["cpu"])
+    apart = abs(scores["cpu"][0] - scores["cpu"][1]) / np.abs(scores["cpu"]).max()
+    print(f"VAE f32 image scores {device} {scores[device].tolist()} cpu "
+          f"{scores['cpu'].tolist()}: max rel diff {rel.max():.3e} (rtol {SCORE_RTOL_F32:.0e}); "
+          f"{apart:.3e} of the larger apart")
+    if not rel.max() <= SCORE_RTOL_F32 or not apart > SCORE_RTOL_F32:
+        raise AssertionError("CUDA f32 VAE scores disagree with the CPU path, or do not tell a "
+                             "good image from a defective one")
+
+    # export phase 6's MDN run; --pth on the exported file against -r on the run
+    mdn_hp, _ = load_run_config(mdn_run)
+    exported = os.path.join(tmp, "exported", f"{mdn_hp.num_gaussians}_gaussians_enc_deit_"
+                            f"{mdn_hp.data_class}.pth")
+    rc_x = export_cli.main(["--run", mdn_run, "--dst", exported])
+    test_dir = os.path.join(mdn_hp.base_path, "test")
+    by_run, by_pth = os.path.join(tmp, "export_by_run"), os.path.join(tmp, "export_by_pth")
+    rc, r_launch, _ = _launches_of(lambda: score_cli.main(
+        ["-r", mdn_run, "-d", test_dir, "-b", str(MDN_SCORE_BATCH), "-o", by_run, "--device",
+         device]))
+    rc2, p_launch, _ = _launches_of(lambda: score_cli.main(
+        ["--pth", exported, "-a", "mdn", "-m", "enc_deit", "-d", test_dir, "-b",
+         str(MDN_SCORE_BATCH), "-o", by_pth, "-i", str(img), "--device", device]))
+    _add(total, r_launch)
+    _add(total, p_launch)
+    a, b = _scores_of(by_run), _scores_of(by_pth)
+    diff = max(abs(a[key] - b[key]) for key in a) if a.keys() == b.keys() else float("inf")
+    print(f"cli.export_weights on the MDN run rc={rc_x}: {os.path.basename(exported)}; "
+          f"cli.score --pth <exported> rc={rc2} launches {p_launch} against -r rc={rc} launches "
+          f"{r_launch}: max |difference| {diff:.3e}")
+    if rc_x or rc or rc2 or diff != 0.0 or p_launch != r_launch:
+        raise AssertionError("the exported MDN head does not score as its run directory")
+
+    # export phase 11's NF-ResNet run: three flows and the encoder, strict loads
+    res_hp, _ = load_run_config(nfres_run)
+    res_out = os.path.join(tmp, "exported_nf_resnet")
+    rc = export_cli.main(["--run", nfres_run, "--dst", res_out])
+    cls = res_hp.data_class
+    want = sorted([f"NormalizingFlow_{i}_{cls}.pth" for i in train_module.NF_RESNET_STAGES]
+                  + [f"ResNetEncoder_{cls}.pth"])
+    written = sorted(os.listdir(res_out)) if os.path.isdir(res_out) else []
+    load = lambda name: torch.load(os.path.join(res_out, name), map_location="cpu",
+                                   weights_only=True)
+    for i in train_module.NF_RESNET_STAGES:
+        train_module.stage_flow(res_hp, i).load_state_dict(load(f"NormalizingFlow_{i}_{cls}.pth"),
+                                                           strict=True)
+    ResNetEncoder(res_hp.img_size).load_state_dict(load(f"ResNetEncoder_{cls}.pth"), strict=True)
+    print(f"cli.export_weights on the NF-ResNet run rc={rc}: {written}, each strict-loads")
+    if rc or written != want:
+        raise AssertionError(f"the NF-ResNet export wrote {written}, expected {want}")
+
+    # convert a timm-layout DeiT-base file; -E <dir> against -E <file>
+    deit = torch.load(deit_pth, map_location="cpu", weights_only=True)
+    timm = {f"module.{key}": v for key, v in deit.items() if key != "dist_token"}
+    timm["module.distillation_token"] = deit["dist_token"]
+    timm["module.head.weight"], timm["module.head.bias"] = torch.zeros(1000, 768), \
+        torch.zeros(1000)
+    src, conv_dir = os.path.join(tmp, "deit_timm.pth"), os.path.join(tmp, "deit_converted")
+    torch.save(timm, src)
+    rc_c = convert_cli.main(["--arch", "deit", "--src", src, "--dst", conv_dir, "--img-size",
+                             str(img)])
+    outs = {}
+    for what, ckpt in (("dir", conv_dir), ("file", deit_pth)):
+        outs[what] = os.path.join(tmp, f"convert_{what}")
+        rc, launches, _ = _launches_of(lambda: score_cli.main(
+            ["--pth", nf_pth, "-a", "nf", "-m", "enc_deit", "-E", ckpt, "-d", img_dir, "-b",
+             str(SMOKE_BATCH), "-o", outs[what], "-i", str(img), "--device", device]))
+        _add(total, launches)
+        if rc:
+            raise AssertionError(f"cli.score -E <{what}> failed")
+    a, b = _scores_of(outs["dir"]), _scores_of(outs["file"])
+    diff = max(abs(a[key] - b[key]) for key in a) if a.keys() == b.keys() else float("inf")
+    print(f"cli.convert_weights --arch deit rc={rc_c} -> {os.listdir(conv_dir)}; cli.score "
+          f"-E <dir> against -E <file> over {len(a)} images: max |difference| {diff:.3e}; "
+          f"launches of the second {launches}")
+    if rc_c or diff != 0.0:
+        raise AssertionError("the converted DeiT-base does not score as its source file")
+
+    # a student-wrapped EsViT file through -E against its bare state dict
+    swin = get_model("enc_esvit", img, generator=torch.Generator().manual_seed(3)).state_dict()
+    bare, wrapped = os.path.join(tmp, "esvit_bare.pth"), os.path.join(tmp, "checkpoint_best.pth")
+    torch.save(swin, bare)
+    student = {f"module.{key}": v for key, v in swin.items()}
+    torch.save({"student": student, "teacher": student, "epoch": 3}, wrapped)
+    for what, ckpt in (("wrapped", wrapped), ("bare", bare)):
+        outs[what] = os.path.join(tmp, f"esvit_{what}")
+        rc, launches, _ = _launches_of(lambda: score_cli.main(
+            ["--pth", esvit["pth"], "-a", "nf", "-m", "enc_esvit", "-E", ckpt, "-d",
+             esvit["test_dir"], "-b", str(ESVIT_SCORE_BATCH), "-o", outs[what], "-i", str(img),
+             "--device", device]))
+        _add(total, launches)
+        if rc:
+            raise AssertionError(f"cli.score -E <{what} EsViT file> failed")
+    a, b = _scores_of(outs["wrapped"]), _scores_of(outs["bare"])
+    diff = max(abs(a[key] - b[key]) for key in a) if a.keys() == b.keys() else float("inf")
+    print(f"cli.score -m enc_esvit -E <student-wrapped file> against -E <bare state dict> over "
+          f"{len(a)} images: max |difference| {diff:.3e}; launches of the second {launches}")
+    if diff != 0.0:
+        raise AssertionError("the student-wrapped EsViT file does not score as its state dict")
+    wall = time.perf_counter() - t_phase
+    print(f"phase launches {total}; phase wall {wall:.2f} s")
+    return {"launches": total, "seconds": wall}
+
+
 def resnet_joint_step(k: int, images):
     """The ResNet-50 joint train step at batch RESNET_BATCH with two fresh
     K=`k` stage heads (seeded) and the stage norms under Adam: (step,
@@ -3707,7 +4077,13 @@ def main() -> int:
               f"portable DeiT NF bundle on the CPU")
         bundles = bundles_main_path(tmp, nf_pth, deit_pth, img_dir, mdn, esvit, resnet)
 
-        phase("13 times (CUDA events, median of %d after warm-up)" % TIMED_RUNS)
+        phase("13 sweep and weights: cli.trainings_loop (DeiT-base + MDN K=100, two "
+              "categories), resume, a spawned worker, k-means init, the VAE, cli.export_weights, "
+              "cli.convert_weights, a student-wrapped EsViT file")
+        sweep = sweep_weights_main_path(tmp, os.path.dirname(mdn["pth"]), esvit,
+                                        rundir["nf_resnet"], nf_pth, deit_pth, img_dir)
+
+        phase("14 times (CUDA events, median of %d after warm-up)" % TIMED_RUNS)
         qkv = torch.randn(FLAGSHIP_BATCH, 198, 3 * 768, device=dev,
                           generator=gen).to(torch.bfloat16)
         err = (wa.vit_attention_qkv(qkv, 12).float()
@@ -3792,7 +4168,7 @@ def main() -> int:
         del rundir_nums
     torch.cuda.synchronize()
 
-    phase("14 result")
+    phase("15 result")
     kernels = [{
         "name": "vit_attention_qkv",
         "route": "cuda",
@@ -3800,7 +4176,7 @@ def main() -> int:
         "replaces": "vit_ad_tpu/ops/pallas/window_attention.py:375",
         "launches": nf_launches["B1"] + fused["launches"]["B1"] + mdn["launches"]["B1"]
         + recon["launches"]["B1"] + trunks["nest"]["launches"]["B1"]
-        + rundir["launches"]["B1"] + bundle_launches["B1"],
+        + rundir["launches"]["B1"] + bundle_launches["B1"] + sweep["launches"]["B1"],
         "max_abs_err": err,
         "ms": att_ms,
         "plain_ms": att_plain_ms,
@@ -3827,7 +4203,7 @@ def main() -> int:
                         "replaces": replaces,
                         "launches": mdn["launches"][key] + resnet["launches"][key]
                         + trunks["eff_former"]["launches"][key] + rundir["launches"][key]
-                        + bundle_launches[key],
+                        + bundle_launches[key] + sweep["launches"][key],
                         **main, "per_shape": shapes})
     kernels[1]["kernel_route"] = "wgmma_x_resident (D <= 1024), wgmma_x_streamed (above)"
     kernels[1]["design"] = ("64 rows x 128 features a block, two consumer warpgroups of 64 "
@@ -3854,7 +4230,8 @@ def main() -> int:
             ("B7", "layer_norm", "layer_norm.cu", "vit_ad_tpu/ops/pallas/layer_norm.py:53")):
         kernels.append({"name": kernel, "route": "cuda",
                         "source": f"vit_ad_tpu_torch/csrc/{source}", "replaces": replaces,
-                        "launches": esvit["launches"][key] + bundle_launches[key],
+                        "launches": esvit["launches"][key] + bundle_launches[key]
+                        + sweep["launches"][key],
                         **swin[key]})
     # B7 also runs the DeiT blocks' first norm and the final norm, and every
     # NesT-T LayerNorm
@@ -3870,7 +4247,8 @@ def main() -> int:
                     "replaces": "vit_ad_tpu/ops/pallas/mlp.py:44",
                     "launches": nf_launches["B6"] + fused["launches"]["B6"]
                     + mdn["launches"]["B6"] + recon["launches"]["B6"]
-                    + rundir["launches"]["B6"] + bundle_launches["B6"], **mlp})
+                    + rundir["launches"]["B6"] + bundle_launches["B6"]
+                    + sweep["launches"]["B6"], **mlp})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -301,28 +301,17 @@ def test_registry_names_the_roadmap_item():
 
 
 def test_port_imports_no_jax():
+    """Every module of the port (a walk of the package: a new module cannot
+    be missed) and chip_smoke.py import without a card and without jax,
+    flax, orbax, matplotlib or the JAX package. No module of the port needs
+    a card to be imported."""
     code = (
-        "import sys, vit_ad_tpu_torch, vit_ad_tpu_torch.cli.score, "
-        "vit_ad_tpu_torch.pipeline.loading, vit_ad_tpu_torch.pipeline.eval, "
-        "vit_ad_tpu_torch.utils.convert, vit_ad_tpu_torch.registry, "
-        "vit_ad_tpu_torch.ops.cuda.build, vit_ad_tpu_torch.ops.cuda.gmm, "
-        "vit_ad_tpu_torch.ops.gmm, vit_ad_tpu_torch.models.mdn, "
-        "vit_ad_tpu_torch.pipeline.metrics, vit_ad_tpu_torch.pipeline.features, "
-        "vit_ad_tpu_torch.pipeline.optimizers, vit_ad_tpu_torch.pipeline.early_stopping, "
-        "vit_ad_tpu_torch.pipeline.train, vit_ad_tpu_torch.cli.common, "
-        "vit_ad_tpu_torch.cli.train_mdn, vit_ad_tpu_torch.data.files, "
-        "vit_ad_tpu_torch.data.loader, vit_ad_tpu_torch.data.synthetic, "
-        "vit_ad_tpu_torch.ops.window_attention, vit_ad_tpu_torch.ops.cuda.window_attention, "
-        "vit_ad_tpu_torch.ops.cuda.layer_norm, vit_ad_tpu_torch.models.layers, "
-        "vit_ad_tpu_torch.models.swin, vit_ad_tpu_torch.cli.train_nf, "
-        "vit_ad_tpu_torch.ops.mlp, vit_ad_tpu_torch.ops.cuda.mlp, "
-        "vit_ad_tpu_torch.models.vit, vit_ad_tpu_torch.models.resnet, "
-        "vit_ad_tpu_torch.models.cnn, vit_ad_tpu_torch.models.reverse_resnet, "
-        "vit_ad_tpu_torch.models.decoders, vit_ad_tpu_torch.models.autoencoder, "
-        "vit_ad_tpu_torch.ops.ssim, vit_ad_tpu_torch.cli.train_recon, "
-        "vit_ad_tpu_torch.cli.validate, vit_ad_tpu_torch.utils.checkpoint, "
-        "vit_ad_tpu_torch.utils.logging, vit_ad_tpu_torch.utils.images, "
-        "vit_ad_tpu_torch.utils.profiling, chip_smoke\n"
+        "import importlib, pkgutil, sys, vit_ad_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(vit_ad_tpu_torch.__path__, "
+        "'vit_ad_tpu_torch.')]\n"
+        "assert len(mods) > 60, mods\n"
+        "for m in mods + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'orbax', 'matplotlib', 'vit_ad_tpu'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"

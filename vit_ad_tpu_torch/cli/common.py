@@ -38,7 +38,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from vit_ad_tpu_torch.config import HyperParams
+from vit_ad_tpu_torch.config import HyperParams, check_device
 from vit_ad_tpu_torch.data.loader import DataPipeline
 
 BTAD_BASE = "data/btad/BTech_Dataset_transformed/01"
@@ -58,15 +58,6 @@ def derive_dataset_names(data_path: str) -> Tuple[str, str]:
     if len(parts) >= 3:
         return parts[1], parts[2]
     return parts[0] if parts else "dataset", parts[-1] if parts else "class"
-
-
-def check_device(device: str) -> str:
-    """The requested device, or exit: a CUDA device without a card is an
-    error, never a quiet fall back to the CPU."""
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {device}: no CUDA device is available; give --device cpu "
-                         "explicitly to run on the CPU")
-    return device
 
 
 def parse_args(argv: List[str], hp: HyperParams, data_path: str, train_pref: str,

@@ -23,7 +23,8 @@ dispatch to `train_mdn_resnet`) the checkpoints are instead
                                      the heads on stage maps 2 and 3
   ResNetEncoder_<class>.pth          the encoder with its trained stage norms
 which `cli.score --pth <stage2> <stage3> -a mdn -E <encoder>` reads.
-k-means init is ROADMAP A5.
+No flag sets `HyperParams.kmeans_init`, as in the JAX CLI: `pipeline.train.train_mdn`
+takes it from the caller's hyper-parameters.
 """
 
 from __future__ import annotations

@@ -26,6 +26,15 @@ def set_numerics_policy() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def check_device(device: str) -> str:
+    """The requested device, or exit: a CUDA device without a card is an
+    error, never a quiet fall back to the CPU (the CLIs and the sweep)."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {device}: no CUDA device is available; give --device cpu "
+                         "explicitly to run on the CPU")
+    return device
+
+
 @dataclasses.dataclass(frozen=True)
 class DtypePolicy:
     """Numeric policy: params are kept in `param_dtype`, matmuls/convs run in

@@ -21,7 +21,10 @@ of `vit_ad_tpu/pipeline/eval.py`: `make_mdn_batch_fn` :357, `score_mdn` :446,
     ValidatorNF.valid_loop_resnet_nf, :152-219).
   * Reconstruction — anomaly map = the channel mean of the squared error
     between the auto-encoder's reconstruction and its preprocessed input;
-    image score = max (reference ValidatorRecon.py:92-136).
+    image score = max (reference ValidatorRecon.py:92-136). The VAE
+    (`make_vae_batch_fn`, `score_vae`, `evaluate_vae`; JAX `train_vae`'s
+    evaluation :1616-1660) the same, its reconstruction decoded from the
+    posterior mean.
 
 Every `evaluate_*` takes `figures_dir` (write the six figures of
 `save_eval_figures` there; the first 9 images are kept for the overlays) and
@@ -357,10 +360,12 @@ def make_recon_batch_fn(model: torch.nn.Module, mean: Optional[torch.Tensor],
 
 def score_recon(model: torch.nn.Module, test_data: DataPipeline, hp: HyperParams,
                 mean: Optional[np.ndarray] = None, std: Optional[np.ndarray] = None,
-                keep_origs: int = 0) -> ScoreOutput:
-    """Reconstruction scoring on the device the model lives on."""
+                keep_origs: int = 0, make_batch_fn=make_recon_batch_fn) -> ScoreOutput:
+    """Reconstruction scoring on the device the model lives on: the error
+    maps of `make_batch_fn(model, mean, std)` (the VAE's: `score_vae`), image
+    score = max."""
     device = _device_of(model)
-    fn = make_recon_batch_fn(model, _as_device(mean, device), _as_device(std, device))
+    fn = make_batch_fn(model, _as_device(mean, device), _as_device(std, device))
     maps, labels, masks, origs = _collect(test_data.test_batches(hp.prefetch), fn, device,
                                           keep_origs)
     image_scores, maps = payload_to_scores("recon", maps, hp.img_size)
@@ -382,3 +387,37 @@ def evaluate_recon(model: torch.nn.Module, test_data: DataPipeline, hp: HyperPar
                            _as_device(std, device))
             recons = model(x).reconstruction.float().cpu().numpy()
     return metrics_of(s, hp, figures_dir, logger, vmax=0.15, recons=recons)
+
+
+def make_vae_batch_fn(model: torch.nn.Module, mean: Optional[torch.Tensor],
+                      std: Optional[torch.Tensor]) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Per-batch VAE scorer: uint8 images [B, H, W, 3] on the model's device →
+    the channel-mean squared error [B, H, W] f32 of the reconstruction decoded
+    from the posterior mean, a deterministic forward (JAX `train_vae`'s
+    `eval_maps` :1621-1633). The model must be in eval mode."""
+
+    def error_maps(images_u8: torch.Tensor) -> torch.Tensor:
+        if model.training:
+            raise ValueError("VAE scoring: the model must be in eval mode")
+        x = preprocess(images_u8, mean, std)
+        recon = model.decode(model.encode(x)[0])
+        return torch.mean(torch.square(recon.float() - x.float()), dim=-1)
+
+    return error_maps
+
+
+def score_vae(model: torch.nn.Module, test_data: DataPipeline, hp: HyperParams,
+              mean: Optional[np.ndarray] = None, std: Optional[np.ndarray] = None,
+              keep_origs: int = 0) -> ScoreOutput:
+    """VAE scoring on the device the model lives on; image score = max of
+    the error map."""
+    return score_recon(model, test_data, hp, mean, std, keep_origs, make_vae_batch_fn)
+
+
+def evaluate_vae(model: torch.nn.Module, test_data: DataPipeline, hp: HyperParams,
+                 mean: Optional[np.ndarray] = None, std: Optional[np.ndarray] = None,
+                 figures_dir: Optional[str] = None, logger: Any = None) -> Dict[str, float]:
+    """score_vae + the reference metric suite (+ figures, the maps at the
+    recon head's vmax=0.15, as the JAX evaluation draws them)."""
+    s = score_vae(model, test_data, hp, mean, std, keep_origs=9 if figures_dir else 0)
+    return metrics_of(s, hp, figures_dir, logger, vmax=0.15)

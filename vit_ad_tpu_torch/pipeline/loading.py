@@ -25,6 +25,8 @@ import dataclasses
 import itertools
 import json
 import os
+import pickle
+import re
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -44,6 +46,8 @@ from vit_ad_tpu_torch.utils.convert import interpolate_rel_pos_table
 RUN_CONFIG = "config.json"
 # what the JAX trainers' `save_params` leaves in a run directory
 JAX_CHECKPOINTS = ("best_params", "best_params.msgpack")
+# the file `cli.convert_weights` writes into its destination directory
+CONVERTED_ENCODER = "encoder.pth"
 
 
 @dataclass
@@ -164,10 +168,21 @@ def parse_pth_filename(filename: str, arch: str):
 
 
 def load_pth(path: str) -> Dict[str, torch.Tensor]:
-    """A `.pth` state dict on the CPU, unwrapped from a {'state_dict'|'model':
-    ...} container."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    for key in ("state_dict", "model"):
+    """A `.pth` state dict on the CPU, unwrapped from its container as the
+    JAX `torch_convert.load_pth` (:74) unwraps it: the first of 'student'
+    (the EsViT release format {'student': ..., 'teacher': ..., 'epoch': ...},
+    reference TransformerEncoder.py:248), 'state_dict' and 'model' that holds
+    a dict. Tensors only: a file that also pickles another type (a DINO
+    `args` namespace) is refused with the file and the type named."""
+    try:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as e:
+        found = re.search(r"GLOBAL (\S+)", str(e))
+        raise ValueError(
+            f"{path}: holds a pickled {found.group(1) if found else 'object'}, which a "
+            "tensors-only load refuses; save its state dict alone (for example "
+            "torch.save(ckpt['student'], ...)) and pass that file") from None
+    for key in ("student", "state_dict", "model"):
         if isinstance(sd, dict) and isinstance(sd.get(key), dict):
             return sd[key]
     return sd
@@ -241,14 +256,23 @@ def load_encoder_checkpoint(encoder: Encoder, encoder_ckpt: str) -> Encoder:
     `convert_swin` (:1118), `convert_nest` (:200), `convert_efficientformer`
     (:272) and `convert_efficientnet` (:365) do; the BatchNorm batch counts
     and EfficientFormer's `attention_bias_idxs` are the encoder's own, and
-    the Swin file also gets `_swin_checkpoint_surgery`."""
+    the Swin file also gets `_swin_checkpoint_surgery`. A directory that
+    `cli.convert_weights` wrote stands for its `encoder.pth`."""
+    converted = os.path.join(encoder_ckpt, CONVERTED_ENCODER)
+    if os.path.isdir(encoder_ckpt) and os.path.isfile(converted):
+        encoder_ckpt = converted
     if not encoder_ckpt.endswith(".pth"):
         raise SystemExit(
             f"encoder checkpoint {encoder_ckpt!r}: the port reads .pth files; an orbax "
             "checkpoint directory of the JAX package needs jax: convert it with "
             "`python -m vit_ad_tpu.cli.export_weights --run <run dir> --dst <dir>` first")
-    sd = {(k[len("module."):] if k.startswith("module.") else k): v
-          for k, v in load_pth(encoder_ckpt).items()}
+    return load_encoder_state(encoder, load_pth(encoder_ckpt))
+
+
+def load_encoder_state(encoder: Encoder, sd: Dict[str, torch.Tensor]) -> Encoder:
+    """The surgery of `load_encoder_checkpoint` on an unwrapped state dict,
+    then a strict load into `encoder`; returns it."""
+    sd = {(k[len("module."):] if k.startswith("module.") else k): v for k, v in sd.items()}
     if isinstance(encoder, ResNetEncoder):
         encoder.load_state_dict(_resnet_encoder_state(encoder, sd), strict=True)
         return encoder

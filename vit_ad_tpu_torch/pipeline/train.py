@@ -1,7 +1,6 @@
 """Head training loops (port of `vit_ad_tpu/pipeline/train.py`: `train_mdn`
 :113, `train_nf` :286, `train_recon` :461, the joint step of
-`train_mdn_resnet` :805 and `train_nf_resnet` :1264; `train_vae` is ROADMAP
-A8b).
+`train_mdn_resnet` :805, `train_nf_resnet` :1264 and `train_vae` :1454).
 
 `train_mdn` and `train_nf`: the trunk is frozen, its features are extracted
 once and the head trains on them, cached on the device, with torch-semantics
@@ -13,7 +12,8 @@ or three flows on stage maps 0-2), so every step runs the frozen trunk on the
 images.
 `train_recon` trains an auto-encoder's decoder (the vanilla AE: all of it);
 a transformer AE's frozen trunk runs once over the batches (the latent cache)
-and each step runs the decoder alone.
+and each step runs the decoder alone. `train_vae` trains the variational
+auto-encoder end to end (no kernel of the repo on its path).
 The JAX package's scan-of-batches epochs amortize TPU dispatch and are not
 ported: an epoch is a Python loop over the staged batches. Every trainer
 takes `log` (called with each epoch's row and, after the final evaluation,
@@ -38,6 +38,7 @@ from vit_ad_tpu_torch.models.flow import NormalizingFlow, patch_tokens_to_map
 from vit_ad_tpu_torch.models.mdn import GaussianMDN
 from vit_ad_tpu_torch.models.outputs import Encoder
 from vit_ad_tpu_torch.models.resnet import STAGE_CHANNELS, STAGE_SCALES, ResNetEncoder
+from vit_ad_tpu_torch.models.vae import VariationalAutoEncoder, kl_per_example
 from vit_ad_tpu_torch.ops.ssim import ssim_per_image
 from vit_ad_tpu_torch.pipeline.early_stopping import run_epochs
 from vit_ad_tpu_torch.pipeline.features import (
@@ -140,9 +141,6 @@ def _result(head: torch.nn.Module, encoder: Optional[torch.nn.Module], history, 
 
 
 def _check_unported(hp: HyperParams) -> None:
-    if hp.kmeans_init:
-        raise NotImplementedError("k-means init of the MDN (pipeline/cluster_init.py) is not "
-                                  "ported to vit_ad_tpu_torch yet (ROADMAP A5)")
     if hp.mesh != MeshConfig():
         raise NotImplementedError("--mesh training is not ported to vit_ad_tpu_torch yet "
                                   "(ROADMAP A11)")
@@ -211,13 +209,23 @@ def train_mdn(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPipel
 
     `encoder` defaults to the registry trunk with its seeded init; it and
     the head live on `device` (default: the encoder's device, else the CPU).
+    With `hp.kmeans_init` the head's mu bias starts at the k-means centres
+    of the cached training features (`pipeline/cluster_init.py`, on the
+    host), before the optimizer is built (JAX :153-165).
     Each training step draws fresh Gumbel noise from one generator seeded
     with `hp.seed`; the validation loss is noiseless. The head ends with the
     weights of its best validation epoch, and is evaluated on `test_data`."""
+    from vit_ad_tpu_torch.pipeline.cluster_init import kmeans_cluster_centers, seed_mdn_mu_bias
     from vit_ad_tpu_torch.pipeline.eval import evaluate_mdn
 
-    make = lambda feats: GaussianMDN(feats.shape[-1], hp.num_gaussians, dtypes=hp.dtypes,
-                                     generator=torch.Generator().manual_seed(hp.seed))
+    def make(feats: torch.Tensor) -> GaussianMDN:
+        mdn = GaussianMDN(feats.shape[-1], hp.num_gaussians, dtypes=hp.dtypes,
+                          generator=torch.Generator().manual_seed(hp.seed))
+        if hp.kmeans_init:
+            centers = kmeans_cluster_centers(feats.float().cpu().numpy(), hp.num_gaussians)
+            seed_mdn_mu_bias(mdn, centers)
+        return mdn
+
     return _train_head(hp, data, test_data, encoder, device, log, make, masked_mdn_loss, True,
                        evaluate_mdn, figures_dir, logger)
 
@@ -593,5 +601,95 @@ def train_recon(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPip
         trainable.load_state_dict(stopper.best_params)
     model.eval()
     metrics = _evaluated(evaluate_recon, test_data, log, model, hp=hp, mean=mean, std=std,
+                         figures_dir=figures_dir, logger=logger)
+    return _result(model, None, history, metrics, epochs_ran, stopper)
+
+
+def vae_loss(model: VariationalAutoEncoder, images_u8: torch.Tensor, valid: torch.Tensor,
+             mean: Optional[torch.Tensor], std: Optional[torch.Tensor],
+             generator: Optional[torch.Generator] = None,
+             eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The VAE objective on a padded uint8 batch (JAX `loss_fn` :1488-1509):
+    the per-image mean squared error in f32 plus the per-image KL, each a
+    masked mean over the valid rows, from ONE encode (its BatchNorms in
+    whichever mode the model is in); ε is `eps`, else drawn from
+    `generator`."""
+    x = preprocess(images_u8, mean, std)
+    out, mu, log_var = model.forward_with_posterior(x, eps, generator)
+    err = torch.mean(torch.square(out.reconstruction.float() - x.float()), dim=(1, 2, 3))
+    return _masked_mean(err, valid) + _masked_mean(kl_per_example(mu, log_var), valid)
+
+
+def vae_train_step(model: VariationalAutoEncoder, opt: torch.optim.Optimizer,
+                   images_u8: torch.Tensor, valid: torch.Tensor, mean: Optional[torch.Tensor],
+                   std: Optional[torch.Tensor], generator: Optional[torch.Generator] = None,
+                   eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One optimizer step of `train_vae` (model in train mode: the
+    BatchNorms take batch statistics and update their running ones); returns
+    the (detached) loss."""
+    opt.zero_grad(set_to_none=True)
+    loss = vae_loss(model, images_u8, valid, mean, std, generator, eps)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def train_vae(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPipeline] = None,
+              model: Optional[VariationalAutoEncoder] = None, device: Optional[str] = None,
+              log: Log = None, figures_dir: Optional[str] = None,
+              logger: Any = None) -> TrainResult:
+    """Train the variational auto-encoder end to end: loss = masked MSE +
+    masked KL (reference LearnerRecon.learn_vae, LearnerRecon.py:165-276,
+    dead code there; JAX `train_vae` :1454).
+
+    `model` defaults to a `VariationalAutoEncoder` at `hp.img_size` with its
+    init seeded by `hp.seed`; it lives on `device` (default: its own).
+    Torch-semantics Adam over all of it; ε of every training and validation
+    batch comes from one generator seeded with `hp.seed` on the run's
+    device; the validation loss is the same objective in eval mode. The
+    uint8 batches are decoded once and kept on the device. The model ends
+    with the weights and running statistics of its best validation epoch, in
+    eval mode, and is evaluated by decoding the posterior mean
+    (`pipeline.eval.evaluate_vae`). `TrainResult.head` is the model."""
+    from vit_ad_tpu_torch.pipeline.eval import evaluate_vae
+
+    _check_unported(hp)
+    if model is None:
+        model = VariationalAutoEncoder(hp.img_size, dtypes=hp.dtypes,
+                                       generator=torch.Generator().manual_seed(hp.seed))
+    if device is None:
+        device = next(model.parameters()).device
+    device = torch.device(device)
+    model = model.to(device)
+    mean, std = data.compute_mean_std() if hp.centering else default_norm_stats()
+    mean_t, std_t = (torch.as_tensor(a, dtype=torch.float32, device=device) for a in (mean, std))
+    opt = torch_adam(model.parameters(), hp.learning_rate, hp.weight_decay)
+    noise = torch.Generator(device=device).manual_seed(hp.seed)
+    train_batches = stage_image_batches(data.train_batches(hp.prefetch), device)
+    valid_batches = stage_image_batches(data.valid_batches(hp.prefetch), device)
+
+    def train_epoch(epoch: int):
+        model.train()
+        losses, counts = [], []
+        for images, valid, w in train_batches:
+            losses.append(vae_train_step(model, opt, images, valid, mean_t, std_t, noise))
+            counts.append(w)
+        return _weighted_mean(losses, counts), float(sum(counts))
+
+    def valid_epoch() -> float:
+        model.eval()
+        losses, counts = [], []
+        with torch.no_grad():
+            for images, valid, w in valid_batches:
+                losses.append(vae_loss(model, images, valid, mean_t, std_t, noise))
+                counts.append(w)
+        return _weighted_mean(losses, counts)
+
+    history, epochs_ran, stopper = run_epochs(hp, train_epoch, valid_epoch, model.state_dict,
+                                              log)
+    if stopper.best_params is not None:
+        model.load_state_dict(stopper.best_params)
+    model.eval()
+    metrics = _evaluated(evaluate_vae, test_data, log, model, hp=hp, mean=mean, std=std,
                          figures_dir=figures_dir, logger=logger)
     return _result(model, None, history, metrics, epochs_ran, stopper)

@@ -530,3 +530,19 @@ def recon_state_dict_from_jax(variables: Mapping[str, Any],
         raise ValueError(f"no port of the AE encoder with params {sorted(ep)[:6]}")
     return {**{f"encoder.{k}": v for k, v in enc.items()},
             **{f"decoder.{k}": v for k, v in dec.items()}}
+
+
+def vae_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX `VariationalAutoEncoder` variables ({'params', 'batch_stats'} as
+    numpy arrays) → the port's `models/vae.VariationalAutoEncoder` state
+    dict: the vanilla encoder and the small decoder as the AE converters give
+    them, the two Dense heads by a plain transpose (both packages flatten the
+    encoder's map in (h, w, c) order)."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    sd = {f"encoder.{k}": v
+          for k, v in vanilla_encoder_state_dict_from_jax(p["encoder"], s["encoder"]).items()}
+    for name in ("fc_mu", "fc_log_var"):
+        _linear_from_jax(sd, p[name], name)
+    sd.update({f"decoder.{k}": v
+               for k, v in small_decoder_state_dict_from_jax(p["decoder"], s["decoder"]).items()})
+    return sd

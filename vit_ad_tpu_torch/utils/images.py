@@ -1,6 +1,7 @@
 """Figures of the evaluators and trainers (port of `vit_ad_tpu/utils/images.py`:
 `plot_recons` :56, `plot_heatmaps` :74, `plot_loss_curves` :113,
-`plot_roc_curve` :127, `plot_pr_curve` :143), drawn with numpy and PIL.
+`plot_roc_curve` :127, `plot_pr_curve` :143, `plot_dataset_distribution`
+:159), drawn with numpy and PIL.
 
 Every figure is an RGB uint8 array [H, W, 3]: the maps and overlays through a
 256-entry jet table (matplotlib's "jet", segment for segment), grids as tiled
@@ -144,6 +145,28 @@ def plot_loss_curves(history: Dict[str, List[float]]) -> np.ndarray:
                np.asarray(history[k], np.float64), k)
               for k in ("train_loss", "valid_loss") if k in history]
     return _plot(series, "loss", "epoch", "loss")
+
+
+def plot_dataset_distribution(counts: Dict[str, int],
+                              title: str = "dataset distribution") -> np.ndarray:
+    """Bars of the images per class (JAX `plot_dataset_distribution`;
+    reference ImageHelper.py:225-306), each labelled with its class and
+    count."""
+    width = max(400, 40 * len(counts) + 60)
+    im = Image.new("RGB", (width, 300), _WHITE)
+    d = ImageDraw.Draw(im)
+    left, top, right, bottom = 40, 30, width - 15, 260
+    d.rectangle((left, top, right, bottom), outline=(0, 0, 0))
+    d.text((left, 8), title, fill=(0, 0, 0))
+    peak = max(counts.values(), default=0) or 1
+    slot = (right - left) / max(len(counts), 1)
+    for i, (name, n) in enumerate(counts.items()):
+        x0 = left + i * slot + slot * 0.15
+        x1 = left + (i + 1) * slot - slot * 0.15
+        d.rectangle((x0, bottom - (bottom - top - 14) * n / peak, x1, bottom), fill=_CURVE[0])
+        d.text((x0, bottom + 4), str(name)[:8], fill=(0, 0, 0))
+        d.text((x0, bottom - (bottom - top - 14) * n / peak - 12), str(n), fill=(0, 0, 0))
+    return np.asarray(im)
 
 
 def save_png(image: np.ndarray, path: str) -> str:
