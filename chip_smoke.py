@@ -5,6 +5,7 @@
     python3 chip_smoke.py --against <another checkout>   # kernels A/B, `against`
     python3 chip_smoke.py --gmm-backward-ab <checkout> ...   # B3 terms, B4 A/B
     python3 chip_smoke.py --serve-bundle <bundle> <images.npy> <out.json> [device]
+    python3 chip_smoke.py --mesh-rank <spec.json>   # one rank of phase 15 (VITAD_* set)
     CHIP_SMOKE_KMEANS_IMAGES=400 python3 chip_smoke.py   # phase 13's k-means at MVTec size
 
 Drives the port's main paths at full width, bf16 compute, through the port's
@@ -147,7 +148,29 @@ and the weight CLIs (export and convert). Phases:
               a 32-image `--watch` wave after the first; each bundle's
               uint8→payload img/s beside the live path's on the same batch,
               its export, load and first-call seconds
- 15. result   a kernels JSON line, the nvidia-smi line, and last the
+ 15. mesh     B2, B3 and B4 against their plain versions at the shard shapes
+              below (75 of 150 components at D=768; 50 of 100 at D=1024 and
+              2048, with dx); then two ranks of an explicit cluster (the
+              VITAD_* variables, a free local port) on card 0, so their device
+              collectives go over gloo: (a) `cli.train_mdn --mesh 1x2`
+              (DeiT-base + MDN K=150, batch 64, two epochs, phase 13's first
+              category; B2 and B3 on 75
+              components a rank through their wgmma kernels) against the same
+              command in one process (first-step loss, histories, metrics, the
+              mesh run's .pth strict-loaded and scored by `cli.score --pth` as
+              the single run's), and its first step through the API (every
+              head gradient gathered to the full layout); (b) the ResNet-50 MDN
+              joint step at K=100 on 1x2 (B4 on each shard, the partial dx
+              summed before the stage norms) against the same steps in one
+              process (the first step's head and stage-norm gradients, the
+              losses, the parameters after the steps), with each rank's peak
+              memory; (c) ae_cnn steps on 2x1 (global BatchNorm, f32) against
+              one process; (d) `cli.score --mesh 2` (DeiT-base NF, 100 images
+              at batch 128, 64 rows a rank: both ranks score images) against
+              `cli.score`; (e) a bare `--mesh 2x1` refuses on a one-card host
+              with the card count. Step ms of (a) and (b) on the shared card are
+              information only
+ 16. result   a kernels JSON line, the nvidia-smi line, and last the
               {"ok": true, "device": ...} line
 
 Every phase raises on failure, so the script exits non-zero and prints no
@@ -3904,6 +3927,580 @@ def gmm_backward_ab(others: list) -> int:
     return 0
 
 
+# the mesh phase: two ranks of an explicit cluster (the VITAD_* variables)
+# share card 0 (`CUDA_VISIBLE_DEVICES=0` for both), so their device
+# collectives go over gloo. (a) `cli.train_mdn --mesh 1x2` (DeiT-base + MDN
+# K=150, batch 64, two epochs) on phase 13's first category, each rank
+# holding 75 components, and the first step through the API; (b) the
+# ResNet-50 joint MDN step at K=100 on 1x2 through the API (B4's partial dx
+# of each shard summed before the stage norms); (c) ae_cnn recon steps on
+# 2x1 (global BatchNorm); (d) DeiT-base NF scoring of 100 images at batch
+# 128 through `cli.score --mesh 2` (64 rows a rank: rank 0 scores images 0-63,
+# rank 1 images 64-99 and 28 padding rows); (e) a bare `--mesh 2x1` on a
+# one-card host refuses with the card count.
+MESH_K, MESH_BATCH, MESH_EPOCHS = 150, 64, 2
+MESH_RESNET_K, MESH_RESNET_BATCH, MESH_RESNET_STEPS, MESH_RESNET_LR = 100, 16, 3, 2e-4
+MESH_RECON_BATCH, MESH_RECON_STEPS, MESH_RECON_LR = 16, 3, 1e-3
+MESH_SCORE_BATCH, MESH_SCORE_IMAGES = FLAGSHIP_BATCH, 100
+# B2, B3 and B4 against their plain versions at the shard shapes of the
+# phase, before the ranks start: (a)'s 64 x 196 DeiT-base rows on 75 of 150
+# components (a frozen trunk: no dx), (b)'s stage maps of 16 images
+# (ResNet-50 stage 2: 196 tokens of 1024, stage 3: 49 of 2048) on 50 of 100
+# components, with B4's dx
+MESH_GMM_FWD_CASES = [(MESH_BATCH * 196, 768, MESH_K // 2, "bfloat16"),
+                      (MESH_RESNET_BATCH * 196, 1024, MESH_RESNET_K // 2, "bfloat16"),
+                      (MESH_RESNET_BATCH * 49, 2048, MESH_RESNET_K // 2, "bfloat16")]
+MESH_GMM_BWD_CASES = [(*MESH_GMM_FWD_CASES[0], False), (*MESH_GMM_FWD_CASES[1], True),
+                      (*MESH_GMM_FWD_CASES[2], True)]
+MESH_TIMEOUT = 600
+# (a) against one process: the first step's loss (rtol), the first step's
+# head gradients through the API (relative to each tensor's largest entry:
+# the shards' logsumexp merge and the global softmax sum in other orders in
+# f32; the bf16 rounding of the operands is the same), the histories (rtol,
+# after the Adam steps), the metrics (atol), the scores of the mesh run's
+# file against the single run's (rtol)
+MESH_LOSS_RTOL, MESH_GRAD_RTOL, MESH_HIST_RTOL, MESH_METRIC_ATOL, MESH_SCORE_RTOL = \
+    1e-4, 1e-3, 1e-3, 1e-3, 1e-3
+# (b), (c) against the same steps in one process: the losses (rtol) and the
+# parameters after the steps, as the L2 norm of their difference over the L2
+# norm of what the single-process steps moved them (an early Adam step moves
+# every weight by the learning rate in its gradient's sign, and a gradient of
+# noise size takes either sign, so a tensor's largest entry is no scale)
+MESH_STEP_LOSS_RTOL, MESH_STEP_PARAM_RTOL = 1e-3, 5e-2
+
+
+def _mesh_images(n: int, img: int, seed: int):
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(0, 256, (n, img, img, 3), dtype=np.uint8)
+
+
+def _max_rel(got: dict, want: dict) -> float:
+    """The largest |got - want| over each tensor's largest |want|."""
+    out = 0.0
+    for name, w in want.items():
+        w = w.float()
+        scale = float(w.abs().max()) or 1.0
+        out = max(out, float((got[name].float() - w).abs().max()) / scale)
+    return out
+
+
+def _moved_rel(got: dict, want: dict, init: dict) -> float:
+    """||got - want|| / ||want - init|| over every floating tensor of `want`
+    (the parameters after the steps against their move from `init`)."""
+    diff = moved = 0.0
+    for name, w in want.items():
+        if w.is_floating_point():
+            diff += float((got[name].double() - w.double()).square().sum())
+            moved += float((w.double() - init[name].double()).square().sum())
+    return math.sqrt(diff / moved) if moved else math.sqrt(diff)
+
+
+def _mdn_first_step(spec: dict, mc) -> dict:
+    """(a) through the API: the trainer's first step (its seeded K-head, the
+    first training batch's DeiT-base features, the seeded Gumbel noise) on
+    this rank's shard against the full head in this process; the shards'
+    gradients gathered to the full layout."""
+    import torch
+    from vit_ad_tpu_torch.config import DtypePolicy
+    from vit_ad_tpu_torch.data.dataset import default_norm_stats
+    from vit_ad_tpu_torch.data.loader import DataPipeline
+    from vit_ad_tpu_torch.models.mdn import GaussianMDN
+    from vit_ad_tpu_torch.ops.cuda import gmm as cgmm
+    from vit_ad_tpu_torch.parallel.sharding import gather_mdn_state
+    from vit_ad_tpu_torch.pipeline.features import make_feature_extractor
+    from vit_ad_tpu_torch.pipeline.train import masked_mdn_loss
+    from vit_ad_tpu_torch.registry import get_model
+
+    dev, k, img = torch.device(spec["device"]), spec["k"], spec["img"]
+    enc = get_model("enc_deit", img, DtypePolicy(), generator=torch.Generator().manual_seed(24))
+    enc = enc.to(dev).eval()
+    batch = next(iter(DataPipeline(MESH_BATCH, img, base_path=spec["mdn_cat"],
+                                   data_path="train/good").train_batches()))
+    feats = make_feature_extractor(enc, 0, *default_norm_stats())(
+        torch.from_numpy(batch.images).to(dev)).clone()
+    valid = torch.from_numpy(batch.valid).to(device=dev, dtype=torch.float32)
+    del enc
+    head = lambda: GaussianMDN(feats.shape[-1], k, dtypes=DtypePolicy(),
+                               generator=torch.Generator().manual_seed(24)).to(dev)
+    full = head()
+    ref = masked_mdn_loss(full, feats, valid, torch.Generator(device=dev).manual_seed(24))
+    ref.backward()
+    want = {n: p.grad.detach().cpu() for n, p in full.named_parameters()}
+    del full
+    shard = mc.shard_params(head())
+    rows = mc.rows(MESH_BATCH // mc.data_size)
+    reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = masked_mdn_loss(shard, feats[rows], valid[rows],
+                           torch.Generator(device=dev).manual_seed(24), mc)
+    loss.backward()
+    mc.sum_gradients(shard.parameters())
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    grads = GaussianMDN(shard.features, shard.num_gaussians, dtypes=DtypePolicy())
+    with torch.no_grad():
+        for name, p in shard.named_parameters():
+            grads.get_parameter(name).copy_(p.grad)
+    grads.place(mc, shard.components, k)
+    got = gather_mdn_state(grads)
+    return {"loss": float(mc.data_sum(loss.detach())), "loss_ref": float(ref.detach()),
+            "grad_rel": _max_rel(got, want), "components": shard.num_gaussians,
+            "launches": launches, "step_ms": step_ms,
+            "wgmma": [cgmm.fwd_wgmma_launches, cgmm.bwd_wgmma_params_launches],
+            "routes": [cgmm.last_fwd_route, dict(cgmm.last_bwd_routes)]}
+
+
+def _gradients(module, mc) -> dict:
+    """The gradients of `module`'s parameters that have one, on the CPU,
+    summed over the data axis and in the full layout (`host_snapshot`): each
+    parameter holds its gradient while the snapshot is taken."""
+    import torch
+    from vit_ad_tpu_torch.parallel.multihost import host_snapshot
+
+    params = {n: p for n, p in module.named_parameters() if p.grad is not None}
+    if mc is not None:
+        mc.sum_gradients(params.values())
+    kept = {n: p.detach().clone() for n, p in params.items()}
+    with torch.no_grad():
+        for p in params.values():
+            p.copy_(p.grad)
+    grads = {n: v for n, v in host_snapshot(module).items() if n in params}
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(kept[n])
+    module.zero_grad(set_to_none=True)
+    return grads
+
+
+def _resnet_steps(spec: dict, mc) -> dict:
+    """(b): the ResNet-50 joint step at K=MESH_RESNET_K (the trainer's seeded
+    heads and stage norms, seeded images and noise), on the mesh of `mc` or
+    (None) in one process: the first step's gradients of the heads and the
+    stage norms (before any update), then losses, step ms, launches and peak
+    memory of the steps, the state of what trains (full layout) on the CPU."""
+    import torch
+    from vit_ad_tpu_torch.config import DtypePolicy
+    from vit_ad_tpu_torch.data.dataset import default_norm_stats
+    from vit_ad_tpu_torch.models.mdn import GaussianMDN
+    from vit_ad_tpu_torch.models.resnet import STAGE_CHANNELS, ResNetEncoder
+    from vit_ad_tpu_torch.parallel.multihost import host_snapshot
+    from vit_ad_tpu_torch.pipeline.optimizers import torch_adam
+    from vit_ad_tpu_torch.pipeline.train import (
+        RESNET_MDN_STAGES,
+        mdn_resnet_loss,
+        mdn_resnet_train_step,
+    )
+
+    dev, img, k = torch.device(spec["device"]), spec["img"], spec["resnet_k"]
+    encoder = ResNetEncoder(img, DtypePolicy(), generator=torch.Generator().manual_seed(24))
+    encoder = encoder.to(dev).eval()
+    with torch.device(dev):
+        init = torch.Generator(device=dev).manual_seed(24)
+        heads = torch.nn.ModuleList(GaussianMDN(STAGE_CHANNELS[i], k, dtypes=DtypePolicy(),
+                                                generator=init) for i in RESNET_MDN_STAGES)
+    if mc is not None:
+        heads = mc.shard_params(heads)
+    trainable = torch.nn.ModuleDict({"heads": heads, "norms": encoder.norms})
+    opt = torch_adam(trainable.parameters(), MESH_RESNET_LR, 1e-4)
+    noise = torch.Generator(device=dev).manual_seed(24)
+    images = torch.from_numpy(_mesh_images(MESH_RESNET_BATCH, img, 7)).to(dev)
+    valid = torch.ones(MESH_RESNET_BATCH, device=dev)
+    if mc is not None:
+        images, valid = mc.shard_batch(images, valid)
+    mean, std = (torch.as_tensor(a, device=dev) for a in default_norm_stats())
+    init = host_snapshot(trainable) if mc is None else None
+    # the first step's gradients, from a copy of its noise generator
+    mdn_resnet_loss(encoder, heads, images, valid, torch.Generator(device=dev).manual_seed(24),
+                    mean, std, RESNET_MDN_STAGES, mc).backward()
+    grads = _gradients(trainable, mc)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, ms = [], []
+    for _ in range(MESH_RESNET_STEPS):
+        t0 = time.perf_counter()
+        loss = mdn_resnet_train_step(encoder, heads, opt, images, valid, noise, mean, std,
+                                     RESNET_MDN_STAGES, mc)
+        losses.append(float(loss if mc is None else mc.data_sum(loss)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else 0.0
+    launches = read_launches()
+    state = host_snapshot(trainable)
+    return {"losses": losses, "step_ms": ms, "launches": launches, "peak_gib": peak,
+            "state": state, "init": init, "grads": grads,
+            "components": [h.num_gaussians for h in heads]}
+
+
+def _recon_steps(spec: dict, mc) -> dict:
+    """(c): ae_cnn end to end (its BatchNorms in training), f32, seeded init
+    and images, on the mesh of `mc` or (None) in one process: the losses and
+    the state after the steps."""
+    import torch
+    from vit_ad_tpu_torch.config import DtypePolicy
+    from vit_ad_tpu_torch.data.dataset import default_norm_stats
+    from vit_ad_tpu_torch.models.autoencoder import VanillaAutoEncoder
+    from vit_ad_tpu_torch.pipeline.optimizers import torch_adam
+    from vit_ad_tpu_torch.pipeline.train import recon_train_step
+
+    dev, img = torch.device(spec["device"]), spec["img"]
+    model = VanillaAutoEncoder(img, DtypePolicy.f32(),
+                               generator=torch.Generator().manual_seed(24)).to(dev)
+    if mc is not None:
+        model = mc.shard_params(model)
+    opt = torch_adam(model.parameters(), MESH_RECON_LR, 1e-4)
+    images = torch.from_numpy(_mesh_images(MESH_RECON_BATCH, img, 8)).to(dev)
+    valid = torch.ones(MESH_RECON_BATCH, device=dev)
+    if mc is not None:
+        images, valid = mc.shard_batch(images, valid)
+    mean, std = (torch.as_tensor(a, device=dev) for a in default_norm_stats())
+    model.train()
+    init = {n: v.detach().cpu().clone() for n, v in model.state_dict().items()}
+    losses = []
+    for _ in range(MESH_RECON_STEPS):
+        loss = recon_train_step(model, opt, images, valid, None, mean, std, mc=mc)
+        losses.append(float(loss if mc is None else mc.data_sum(loss)))
+    return {"losses": losses, "init": init,
+            "state": {n: v.detach().cpu() for n, v in model.state_dict().items()}}
+
+
+def mesh_rank(spec_path: str) -> int:
+    """One rank of the mesh phase (`python3 chip_smoke.py --mesh-rank
+    <spec.json>`, in a cluster the environment names): runs (a) to (d),
+    compares (b) and (c) with the same steps in one process on rank 0, and
+    writes what it saw to <out>/rank<r>.json."""
+    import importlib
+
+    import torch
+    import torch.distributed as dist
+    from vit_ad_tpu_torch import registry
+    from vit_ad_tpu_torch.cli import score as score_cli
+    from vit_ad_tpu_torch.cli import train_mdn as train_cli
+    from vit_ad_tpu_torch.config import HyperParams, MeshConfig, set_numerics_policy
+    from vit_ad_tpu_torch.ops.cuda import build
+    from vit_ad_tpu_torch.ops.cuda import gmm as cgmm
+    from vit_ad_tpu_torch.parallel.context import MeshContext
+    from vit_ad_tpu_torch.parallel.multihost import barrier, maybe_initialize_distributed
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    if spec.get("enc_deit"):  # a dry run's small trunk
+        mod, attr = spec["enc_deit"].split(":")
+        registry._BUILDERS["enc_deit"] = getattr(importlib.import_module(mod), attr)
+    set_numerics_policy()
+    dev = spec["device"]
+    if dev == "cuda":
+        build.load_library()
+    maybe_initialize_distributed()
+    rank = dist.get_rank()
+    mesh = lambda d, m: MeshContext.from_hp(HyperParams(mesh=MeshConfig(d, m)), devices=dev)
+    out = {"rank": rank}
+
+    # (a) the MDN CLI on 1x2, then its first step through the API
+    argv = ["-d", spec["mdn_cat"], "-t", "train/good", "-v", "test", "-n", str(spec["k"]),
+            "-e", str(MESH_EPOCHS), "-p", str(MESH_EPOCHS), "-b", str(MESH_BATCH), "-i",
+            str(spec["img"]), "--device", dev, "--out", spec["mdn_out"], "--mesh", "1x2"]
+    rc, launches, wall = _launches_of(lambda: train_cli.main(argv))
+    m12 = mesh(1, 2)
+    out["backend"] = m12.mesh.backend
+    out["a"] = {"rc": rc, "launches": launches, "wall": wall,
+                "wgmma": [cgmm.fwd_wgmma_launches, cgmm.bwd_wgmma_params_launches],
+                "routes": [cgmm.last_fwd_route, dict(cgmm.last_bwd_routes)]}
+    out["a_step"] = _mdn_first_step(spec, m12)
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    # (b) ResNet-50 + two MDN heads on 1x2, then the same steps in one process
+    got = _resnet_steps(spec, m12)
+    state, grads = got.pop("state"), got.pop("grads")
+    out["b"] = got
+    if rank == 0:
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        want = _resnet_steps(spec, None)
+        norms = [n for n in want["state"] if n.startswith("norms.")]
+        pick = lambda d, prefix: {n: v for n, v in d.items() if n.startswith(prefix)}
+        out["b_single"] = {"losses": want["losses"], "step_ms": want["step_ms"],
+                           "peak_gib": want["peak_gib"], "launches": want["launches"],
+                           "grad_rel": {part: _max_rel(pick(grads, part),
+                                                       pick(want["grads"], part))
+                                        for part in ("heads.", "norms.")},
+                           "grad_names": sorted(grads) == sorted(want["grads"]),
+                           "param_rel": _moved_rel(state, want["state"], want["init"]),
+                           "norms_rel": _moved_rel(*({n: d[n] for n in norms}
+                                                     for d in (state, want["state"],
+                                                               want["init"])))}
+        del want
+    del state, grads
+    barrier()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    # (c) ae_cnn on 2x1 (global BatchNorm), then the same steps in one process
+    got = _recon_steps(spec, mesh(2, 1))
+    out["c"] = {"losses": got["losses"]}
+    if rank == 0:
+        want = _recon_steps(spec, None)
+        out["c_single"] = {"losses": want["losses"],
+                           "param_rel": _moved_rel(got["state"], want["state"], want["init"])}
+    barrier()
+
+    # (d) DeiT-base NF scoring through cli.score --mesh 2
+    argv = ["--pth", spec["nf_pth"], "-a", "nf", "-m", "enc_deit", "-E", spec["deit_pth"],
+            "-d", spec["img_dir"], "-b", str(MESH_SCORE_BATCH), "-i", str(spec["img"]),
+            "--device", dev, "--mesh", "2", "-o", spec["score_out"]]
+    rc, launches, wall = _launches_of(lambda: score_cli.main(argv))
+    out["d"] = {"rc": rc, "launches": launches, "wall": wall}
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    barrier()
+    return 0
+
+
+def mesh_main_path(tmp: str, mdn_cat: str, nf_pth: str, deit_pth: str, img: int = 224,
+                   device: str = "cuda", k: int = MESH_K, resnet_k: int = MESH_RESNET_K,
+                   enc_deit: str = "") -> dict:
+    """Phase 15: the mesh on the one card. On the card B2, B3 and B4 are
+    first held against their plain versions at the phase's shard shapes.
+    One process then runs (a)'s and (d)'s commands without --mesh; two ranks
+    of an explicit cluster, both on card 0, then run (a) to (d)
+    (`mesh_rank`); their results are held against the single-process ones.
+    `img`, `device`, `k`, `resnet_k` and `enc_deit` ("module:builder" of a
+    small DeiT) let the phase run small on the CPU (a dry run of its checks;
+    the kernel checks are left out and the launch counts stay 0)."""
+    import glob
+    import subprocess
+
+    import numpy as np
+    import torch
+    from vit_ad_tpu_torch.cli import score as score_cli
+    from vit_ad_tpu_torch.cli import train_mdn as train_cli
+    from vit_ad_tpu_torch.models.mdn import GaussianMDN
+    from vit_ad_tpu_torch.parallel.launch import cluster_env, free_port
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    if on_card:
+        gen, dev = torch.Generator(device="cuda").manual_seed(15), torch.device("cuda")
+        for case in MESH_GMM_FWD_CASES:
+            check_gmm_forward(*case, gen, dev)
+        for case in MESH_GMM_BWD_CASES:
+            check_gmm_backward(*case, gen, dev)
+        torch.cuda.empty_cache()
+    img_dir = os.path.join(tmp, "mesh_images")
+    _write_images(img_dir, 0, MESH_SCORE_IMAGES, img)
+    single_run, mesh_run = os.path.join(tmp, "mesh_single"), os.path.join(tmp, "mesh_mdn")
+    argv = ["-d", mdn_cat, "-t", "train/good", "-v", "test", "-n", str(k), "-e",
+            str(MESH_EPOCHS), "-p", str(MESH_EPOCHS), "-b", str(MESH_BATCH), "-i", str(img),
+            "--device", device]
+    rc, single_launches, single_wall = _launches_of(
+        lambda: train_cli.main([*argv, "--out", single_run]))
+    if rc != 0:
+        raise AssertionError(f"the single-process MDN run failed: rc {rc}")
+    single_scores_dir = os.path.join(tmp, "mesh_single_scores")
+    rc = score_cli.main(["--pth", nf_pth, "-a", "nf", "-m", "enc_deit", "-E", deit_pth, "-d",
+                         img_dir, "-b", str(MESH_SCORE_BATCH), "-i", str(img), "--device",
+                         device, "-o", single_scores_dir])
+    if rc != 0:
+        raise AssertionError(f"the single-process NF scoring failed: rc {rc}")
+
+    # (e) a bare --mesh on this one-card host
+    if on_card:
+        try:
+            train_cli.main([*argv, "--mesh", "2x1", "--out", os.path.join(tmp, "mesh_refused")])
+        except SystemExit as e:
+            message = str(e.code)
+        else:
+            raise AssertionError("--mesh 2x1 on a one-card host did not refuse")
+        want = (f"--mesh 2x1 needs 2 cards, one a rank; torch.cuda.device_count() is "
+                f"{torch.cuda.device_count()}")
+        print(f"(e) cli.train_mdn --mesh 2x1 without a cluster: {message!r}")
+        if message != want:
+            raise AssertionError(f"(e) expected {want!r}")
+
+    # (a) to (d) on two ranks sharing the card
+    out = os.path.join(tmp, "mesh_ranks")
+    os.makedirs(out)
+    spec = {"out": out, "img": img, "device": device, "k": k, "resnet_k": resnet_k,
+            "mdn_cat": mdn_cat, "mdn_out": mesh_run, "nf_pth": nf_pth, "deit_pth": deit_pth,
+            "img_dir": img_dir, "score_out": os.path.join(tmp, "mesh_scores"),
+            "enc_deit": enc_deit}
+    spec_path = os.path.join(out, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    if on_card:
+        torch.cuda.empty_cache()
+    coordinator = f"127.0.0.1:{free_port()}"
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for r in range(2):
+        env = {**os.environ, **cluster_env(coordinator, 2, r),
+               "CUDA_VISIBLE_DEVICES": "0" if on_card else ""}
+        logs.append(open(os.path.join(out, f"rank{r}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank", spec_path], env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=logs[-1],
+            stderr=subprocess.STDOUT))
+    try:
+        codes = [p.wait(timeout=MESH_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    ranks_wall = time.perf_counter() - t0
+    for r in range(2):
+        with open(os.path.join(out, f"rank{r}.log")) as f:
+            text = f.read()
+        print(f"--- rank {r} (exit {codes[r]}), the end of its output:\n{text[-1500:]}")
+    if codes != [0, 0]:
+        raise AssertionError(f"the mesh ranks exited with {codes}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    card = ""
+    if on_card:
+        card = card_line()
+    print(f"two ranks on {'card 0' if on_card else 'the CPU'} in {ranks_wall:.2f} s; device "
+          f"collectives over {ranks[0]['backend']}")
+    if ranks[0]["backend"] != "gloo":
+        raise AssertionError("ranks sharing a card must take gloo")
+
+    # (a) against one process
+    with open(os.path.join(single_run, "history.json")) as f:
+        want = json.load(f)
+    with open(os.path.join(mesh_run, "history.json")) as f:
+        got = json.load(f)
+    first = abs(got["train_loss"][0] - want["train_loss"][0]) / abs(want["train_loss"][0])
+    hist = max(abs(g - w) / abs(w) for key in ("train_loss", "valid_loss")
+               for g, w in zip(got[key], want[key]))
+    metric = max(abs(got["metrics"][m] - v) for m, v in want["metrics"].items())
+    print(f"(a) cli.train_mdn --mesh 1x2 (K={k}, batch {MESH_BATCH}, {MESH_EPOCHS} epochs): "
+          f"first-step loss {got['train_loss'][0]} vs {want['train_loss'][0]} (rel "
+          f"{first:.3e}, rtol {MESH_LOSS_RTOL:.0e}); histories max rel {hist:.3e} (rtol "
+          f"{MESH_HIST_RTOL:.0e}); metrics max abs {metric:.3e} (atol {MESH_METRIC_ATOL:.0e})")
+    for r in ranks:
+        a, step = r["a"], r["a_step"]
+        print(f"(a) rank {r['rank']}: rc {a['rc']}, CLI launches {a['launches']} in "
+              f"{a['wall']:.2f} s, B2 / B3 through wgmma {a['wgmma']}, routes {a['routes']}; "
+              f"the API step on {step['components']} of {k} components: loss {step['loss']} vs "
+              f"{step['loss_ref']}, head gradients max rel {step['grad_rel']:.3e} (tol "
+              f"{MESH_GRAD_RTOL:.0e}), launches {step['launches']}, B2 / B3 through wgmma "
+              f"{step['wgmma']}, {step['step_ms']:.2f} ms on the shared card (information)")
+        if a["rc"] != 0 or step["components"] != k // 2 or \
+                not step["grad_rel"] <= MESH_GRAD_RTOL or \
+                not abs(step["loss"] - step["loss_ref"]) <= MESH_LOSS_RTOL * abs(step["loss_ref"]):
+            raise AssertionError(f"(a) rank {r['rank']} disagrees with one process")
+        if on_card and (step["launches"]["B2"] != 1 or step["wgmma"][0] != 1
+                        or step["launches"]["B3"] != step["wgmma"][1]
+                        or step["launches"]["B3"] < 2 or a["launches"]["B2"] == 0
+                        or a["wgmma"][0] != a["launches"]["B2"]
+                        or a["wgmma"][1] != a["launches"]["B3"]):
+            raise AssertionError(f"(a) rank {r['rank']}: B2 and B3 did not launch on the "
+                                 "shard through their wgmma kernels")
+    if not (first <= MESH_LOSS_RTOL and hist <= MESH_HIST_RTOL and metric <= MESH_METRIC_ATOL):
+        raise AssertionError("(a) the mesh run disagrees with one process")
+    (pth,) = glob.glob(os.path.join(mesh_run, f"{k}_gaussians_enc_deit_*.pth"))
+    state = torch.load(pth)
+    GaussianMDN(state["pi.weight"].shape[1], k).load_state_dict(state, strict=True)
+    (single_pth,) = glob.glob(os.path.join(single_run, f"{k}_gaussians_enc_deit_*.pth"))
+    scored = {}
+    for what, p in (("mesh", pth), ("single", single_pth)):
+        d = os.path.join(tmp, f"mesh_{what}_pth_scores")
+        if score_cli.main(["--pth", p, "-a", "mdn", "-m", "enc_deit", "-d",
+                           os.path.join(mdn_cat, "test"), "-b", str(MESH_BATCH), "-i",
+                           str(img), "--device", device, "-o", d]) != 0:
+            raise AssertionError(f"scoring the {what} run's file failed")
+        scored[what] = np.array(list(_scores_of(d).values()))
+    rel = np.abs(scored["mesh"] - scored["single"]) / np.abs(scored["single"])
+    print(f"(a) the mesh run's .pth strict-loads as a K={k} head; cli.score --pth on it vs on "
+          f"the single run's: max rel {rel.max():.3e} (rtol {MESH_SCORE_RTOL:.0e})")
+    if not rel.max() <= MESH_SCORE_RTOL:
+        raise AssertionError("(a) the mesh run's head scores unlike the single run's")
+
+    # (b) ResNet-50 + MDN K=100 on 1x2
+    single = ranks[0]["b_single"]
+    for r in ranks:
+        b = r["b"]
+        print(f"(b) rank {r['rank']}: heads of {b['components']} of {resnet_k} components, "
+              f"losses {b['losses']}, launches {b['launches']}, peak "
+              f"{b['peak_gib']:.2f} GiB, step ms {[round(x, 2) for x in b['step_ms']]} on the "
+              f"shared card (information)")
+        if on_card and (b["launches"]["B4"] == 0 or b["launches"]["B2"] == 0
+                        or b["launches"]["B3"] == 0):
+            raise AssertionError(f"(b) rank {r['rank']}: B2, B3 or B4 did not launch on the "
+                                 "shards")
+        if b["components"] != [resnet_k // 2] * 2:
+            raise AssertionError("(b) the heads are not split over the model axis")
+    loss_rel = max(abs(g - w) / abs(w) for g, w in zip(ranks[0]["b"]["losses"],
+                                                       single["losses"]))
+    grad_rel = single["grad_rel"]
+    print(f"(b) one process: losses {single['losses']}, launches {single['launches']}, peak "
+          f"{single['peak_gib']:.2f} GiB, step ms {[round(x, 2) for x in single['step_ms']]}; "
+          f"mesh vs one process: the first step's gradients (before the update), max "
+          f"|mesh - single| / max |single| of a tensor: heads {grad_rel['heads.']:.3e}, stage "
+          f"norms {grad_rel['norms.']:.3e} (tol {MESH_GRAD_RTOL:.0e}); losses max rel "
+          f"{loss_rel:.3e} (rtol {MESH_STEP_LOSS_RTOL:.0e}), parameters after "
+          f"{MESH_RESNET_STEPS} steps: |mesh - single| / |single - init| "
+          f"{single['param_rel']:.3e}, of the stage norms {single['norms_rel']:.3e} (tol "
+          f"{MESH_STEP_PARAM_RTOL:.0e})")
+    if not (single["grad_names"] and max(grad_rel.values()) <= MESH_GRAD_RTOL
+            and loss_rel <= MESH_STEP_LOSS_RTOL and single["param_rel"] <= MESH_STEP_PARAM_RTOL
+            and single["norms_rel"] <= MESH_STEP_PARAM_RTOL):
+        raise AssertionError("(b) the ResNet mesh steps disagree with one process")
+
+    # (c) ae_cnn on 2x1
+    c, cs = ranks[0]["c"], ranks[0]["c_single"]
+    loss_rel = max(abs(g - w) / abs(w) for g, w in zip(c["losses"], cs["losses"]))
+    print(f"(c) ae_cnn {MESH_RECON_STEPS} steps on 2x1 at batch {MESH_RECON_BATCH} (f32): losses "
+          f"{c['losses']} vs one process {cs['losses']} (max rel {loss_rel:.3e}, rtol "
+          f"{MESH_STEP_LOSS_RTOL:.0e}); parameters and running statistics |mesh - single| / "
+          f"|single - init| {cs['param_rel']:.3e} (tol {MESH_STEP_PARAM_RTOL:.0e})")
+    if c["losses"] != ranks[1]["c"]["losses"] or not (
+            loss_rel <= MESH_STEP_LOSS_RTOL and cs["param_rel"] <= MESH_STEP_PARAM_RTOL):
+        raise AssertionError("(c) the recon mesh steps disagree with one process")
+
+    # (d) cli.score --mesh 2
+    files = score_cli.list_images(img_dir)
+    got = _scores_of(spec["score_out"])
+    want = _scores_of(single_scores_dir)
+    rel = np.abs(np.array([got[p] for p in files]) - np.array([want[p] for p in files])) / \
+        np.abs(np.array([want[p] for p in files]))
+    half = MESH_SCORE_BATCH // 2
+    for r in ranks:
+        print(f"(d) rank {r['rank']}: rc {r['d']['rc']}, launches {r['d']['launches']} "
+              f"({half} rows a rank) in {r['d']['wall']:.2f} s")
+    print(f"(d) cli.score --mesh 2 at batch {MESH_SCORE_BATCH}: {len(got)} rows vs one "
+          f"process: max rel {rel.max():.3e} (rtol {MESH_SCORE_RTOL:.0e}); rank 0's rows "
+          f"0-{half - 1} max rel {rel[:half].max():.3e}, rank 1's rows {half}-{len(files) - 1} "
+          f"max rel {rel[half:].max():.3e}")
+    if len(files) != MESH_SCORE_IMAGES or list(got) != files or \
+            not rel.max() <= MESH_SCORE_RTOL or any(r["d"]["rc"] != 0 for r in ranks):
+        raise AssertionError("(d) mesh scoring disagrees with one process")
+    if on_card:
+        if any(r["d"]["launches"]["B1"] != 12 or r["d"]["launches"]["B6"] != 12
+               or r["d"]["launches"]["B7"] != DEIT_B7_PER_BATCH for r in ranks):
+            raise AssertionError("(d) a rank did not run its half batch through B1, B6, B7")
+        print(card)
+    total = dict(NO_LAUNCHES)
+    for r in ranks:
+        for part in (r["a"]["launches"], r["a_step"]["launches"], r["b"]["launches"],
+                     r["d"]["launches"]):
+            _add(total, part)
+    wall = time.perf_counter() - t_phase
+    print(f"phase launches (both ranks) {total}; single-process launches of (a) "
+          f"{single_launches} in {single_wall:.2f} s; phase wall {wall:.2f} s")
+    return {"launches": total}
+
+
 def main() -> int:
     import torch
 
@@ -4166,9 +4763,16 @@ def main() -> int:
                              f"3 NF-20 flows f32, stage norms, Adam)", rundir_nums["step"], card,
                              top=24)
         del rundir_nums
+        torch.cuda.empty_cache()
+
+        phase("15 mesh: two ranks of an explicit cluster on card 0 (gloo): cli.train_mdn "
+              "--mesh 1x2 (DeiT-base + MDN K=150), the ResNet-50 MDN joint step on 1x2 (K=100), "
+              "ae_cnn on 2x1, cli.score --mesh 2 (DeiT-base NF, batch 128)")
+        mesh = mesh_main_path(tmp, os.path.join(tmp, "sweep_data", SWEEP_CATS[0]), nf_pth,
+                              deit_pth)
     torch.cuda.synchronize()
 
-    phase("15 result")
+    phase("16 result")
     kernels = [{
         "name": "vit_attention_qkv",
         "route": "cuda",
@@ -4176,7 +4780,8 @@ def main() -> int:
         "replaces": "vit_ad_tpu/ops/pallas/window_attention.py:375",
         "launches": nf_launches["B1"] + fused["launches"]["B1"] + mdn["launches"]["B1"]
         + recon["launches"]["B1"] + trunks["nest"]["launches"]["B1"]
-        + rundir["launches"]["B1"] + bundle_launches["B1"] + sweep["launches"]["B1"],
+        + rundir["launches"]["B1"] + bundle_launches["B1"] + sweep["launches"]["B1"]
+        + mesh["launches"]["B1"],
         "max_abs_err": err,
         "ms": att_ms,
         "plain_ms": att_plain_ms,
@@ -4203,7 +4808,8 @@ def main() -> int:
                         "replaces": replaces,
                         "launches": mdn["launches"][key] + resnet["launches"][key]
                         + trunks["eff_former"]["launches"][key] + rundir["launches"][key]
-                        + bundle_launches[key] + sweep["launches"][key],
+                        + bundle_launches[key] + sweep["launches"][key]
+                        + mesh["launches"][key],
                         **main, "per_shape": shapes})
     kernels[1]["kernel_route"] = "wgmma_x_resident (D <= 1024), wgmma_x_streamed (above)"
     kernels[1]["design"] = ("64 rows x 128 features a block, two consumer warpgroups of 64 "
@@ -4237,7 +4843,8 @@ def main() -> int:
     # NesT-T LayerNorm
     kernels[-1]["launches"] += (nf_launches["B7"] + fused["launches"]["B7"]
                                 + mdn["launches"]["B7"] + recon["launches"]["B7"]
-                                + trunks["nest"]["launches"]["B7"] + rundir["launches"]["B7"])
+                                + trunks["nest"]["launches"]["B7"] + rundir["launches"]["B7"]
+                                + mesh["launches"]["B7"])
     kernels[-1]["per_stage"] += trunk_nums["B7"]
     kernels[-1]["design"] = ("rows kernel: D = 8 LPR NV, 32 / LPR rows a warp, scale and bias "
                              "in registers, the warps striding over the rows from D = 384 with "
@@ -4248,7 +4855,7 @@ def main() -> int:
                     "launches": nf_launches["B6"] + fused["launches"]["B6"]
                     + mdn["launches"]["B6"] + recon["launches"]["B6"]
                     + rundir["launches"]["B6"] + bundle_launches["B6"]
-                    + sweep["launches"]["B6"], **mlp})
+                    + sweep["launches"]["B6"] + mesh["launches"]["B6"], **mlp})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -4260,6 +4867,9 @@ if __name__ == "__main__":
     if len(sys.argv) in (5, 6) and sys.argv[1] == "--serve-bundle":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         sys.exit(serve_bundle(*sys.argv[2:]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--mesh-rank":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(mesh_rank(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--against":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         sys.exit(against(sys.argv[2]))

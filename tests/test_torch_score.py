@@ -259,16 +259,20 @@ def test_payload_to_scores_matches_jax(kind, ref_max):
 @pytest.mark.parametrize("args,match", [
     (["-r", "{jax_run}", "--device", "cpu"], "vit_ad_tpu.cli.export_weights --run"),
     (["-r", "{jax_run}", "--watch", "5", "--heatmaps", "2"], "not supported with --watch"),
-    (["--pth", "x.pth", "-a", "nf", "--watch", "5", "--mesh", "2"], "A11"),
-    (["--pth", "x.pth", "-a", "nf", "--mesh", "2"], "A11"),
+    (["--pth", "x.pth", "-a", "nf", "--watch", "5", "--mesh", "auto", "--device", "cpu"],
+     "on the CPU give its sizes"),
+    (["--pth", "x.pth", "-a", "nf", "--mesh", "2"], "needs 2 cards, one a rank"),
     (["--pth", "x.pth"], "-a nf"),
     (["-r", "{tmp}"], "no config.json"),
 ])
-def test_cli_refuses_unported_options_clearly(args, match, tmp_path, capsys):
+def test_cli_refuses_unported_options_clearly(args, match, tmp_path, capsys, monkeypatch):
     """Each refusal names its reason: a JAX run directory (orbax params) names
     the way across, `vit_ad_tpu.cli.export_weights` and then `--pth`;
-    `--heatmaps` needs the whole scored set and so not `--watch`; `--mesh` is
-    ROADMAP A11."""
+    `--heatmaps` needs the whole scored set and so not `--watch`; a bare
+    `--mesh` takes one card a rank (here a host of one card) and on the CPU
+    explicit sizes."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     jax_run = tmp_path / "jax_run"
     (jax_run / "best_params").mkdir(parents=True)
     (jax_run / "config.json").write_text(json.dumps(JaxHyperParams().to_log_dict()))

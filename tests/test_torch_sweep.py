@@ -203,12 +203,22 @@ def test_sweep_parallel_pins_cards(tmp_path, monkeypatch):
 def test_sweep_refuses_a_mesh_and_a_missing_card(tmp_path, monkeypatch):
     runs = [SweepRun(category="bottle", data_root=str(tmp_path))]
     meshed = HyperParams(mesh=MeshConfig(data=2, model=1))
-    with pytest.raises(SystemExit, match="A11"):
-        run_sweep(resolve_trainer("nf"), meshed, runs, str(tmp_path / "a"), device="cpu")
-    with pytest.raises(SystemExit, match="A11"):
+    # the JAX message for "all devices" in a fanned-out sweep
+    with pytest.raises(ValueError, match=r"sweep workers need explicit mesh sizes \(DxM\); -1 "
+                                         r"\('all devices'\) is ambiguous"):
+        run_sweep_parallel("nf", HyperParams(mesh=MeshConfig(data=-1, model=1)), runs,
+                           str(tmp_path / "a"), num_workers=2, platform="cpu")
+    # a worker of a 2x1 mesh takes two cards
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match=r"1 sweep workers need 2 cards each; "
+                                         r"torch.cuda.device_count\(\) is 1"):
         run_sweep_parallel("nf", meshed, runs, str(tmp_path / "b"), num_workers=2)
-    with pytest.raises(SystemExit, match="A11"):
-        trainings_loop.main(["--mesh", "2x1", "--device", "cpu"])
+    with pytest.raises(SystemExit, match=r"--mesh 2x1 needs 2 cards, one a rank"):
+        trainings_loop.main(["--mesh", "2x1"])
+    with pytest.raises(SystemExit, match="on the CPU give its sizes"):
+        trainings_loop.main(["--mesh", "auto", "--device", "cpu"])
+    monkeypatch.undo()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         run_sweep(resolve_trainer("nf"), HyperParams(), runs, str(tmp_path / "c"))

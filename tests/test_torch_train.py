@@ -266,10 +266,14 @@ def test_cli_train_then_score_round_trip(category, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("args,match", [
-    (["--mesh", "2x1", "--device", "cpu"], "A11"),
+    (["--mesh", "2x1"], r"--mesh 2x1 needs 2 cards, one a rank; torch.cuda.device_count\(\) is 1"),
     (["-m", "no_such_model", "--device", "cpu"], "unknown model"),
 ])
-def test_train_cli_refuses_unported_options(args, match):
+def test_train_cli_refuses_unported_options(args, match, monkeypatch):
+    """A bare --mesh spawns one rank a card, so a host of one card refuses
+    2x1 with the count, before anything is spawned."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(SystemExit, match=match):
         train_cli.main(args)
 
@@ -368,7 +372,7 @@ def test_cli_train_nf_then_score_round_trip(swin_category, tmp_path, monkeypatch
 
 @pytest.mark.parametrize("cli,args,match", [
     (train_nf_cli, ["-m", "res_net", "--fused-mlp", "--device", "cpu"], "fused MLP"),
-    (train_nf_cli, ["--mesh", "2x1", "--device", "cpu"], "A11"),
+    (train_nf_cli, ["--mesh", "auto", "--device", "cpu"], "on the CPU give its sizes"),
     (train_nf_cli, ["-m", "deit", "--fused-ln", "--device", "cpu"], "fused"),
 ])
 def test_train_nf_cli_refuses_unported_options(cli, args, match):

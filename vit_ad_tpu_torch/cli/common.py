@@ -14,7 +14,12 @@ unless `--device cpu` is given), `--out` (the run directory, default
 `runs/<run name>`) and `--fused-ln` / `--no-fused-ln` (the trunk's LayerNorms
 through the one-pass kernel or not) and `--fused-mlp` / `--no-fused-mlp` (the
 ViT/DeiT blocks' MLP tail through the fused kernel or not; default of both:
-the model's). `--mesh` is ROADMAP A11 and exits with a message.
+the model's), and `--mesh <DxM|auto>` (JAX :56-82): train as the ranks of a
+(data, model) mesh (`parallel/`). Inside an explicit cluster (the
+`VITAD_COORDINATOR`, `VITAD_NUM_PROCESSES`, `VITAD_PROCESS_ID` variables) the
+process is one rank; without one the CLI spawns the D·M ranks itself, one
+card each (`parallel/launch.launch_cli`; on the CPU under `--device cpu`).
+The primary rank alone writes the run directory.
 
 The run directory is the JAX package's (`utils/logging.MetricLogger`):
   config.json      `HyperParams.to_log_dict()` and `checkpoints`, the weight
@@ -36,17 +41,16 @@ import os
 import warnings
 from typing import Callable, Dict, List, Optional, Tuple
 
-import torch
-
-from vit_ad_tpu_torch.config import HyperParams, check_device
+from vit_ad_tpu_torch.config import HyperParams, MeshConfig, check_device
 from vit_ad_tpu_torch.data.loader import DataPipeline
+from vit_ad_tpu_torch.parallel.multihost import barrier, host_snapshot, is_primary
 
 BTAD_BASE = "data/btad/BTech_Dataset_transformed/01"
 MVTEC_BASE = "data/mvtec_anomaly_detection/hazelnut"
 USAGE = ("usage: -m <modelType> -p <patience> -e <#epochs> -a <amountOfData> -l <learnRate> "
          "-w <weightDecay> -b <batchSize> -d <dataPath> -t <trainPref> -i <imageSize> "
-         "-v <validPref> -s <blockIndex> --centering --device <cuda|cpu> --out <runDir> "
-         "--fused-ln|--no-fused-ln --fused-mlp|--no-fused-mlp")
+         "-v <validPref> -s <blockIndex> --centering --mesh <DxM|auto> --device <cuda|cpu> "
+         "--out <runDir> --fused-ln|--no-fused-ln --fused-mlp|--no-fused-mlp")
 
 
 def derive_dataset_names(data_path: str) -> Tuple[str, str]:
@@ -64,7 +68,11 @@ def parse_args(argv: List[str], hp: HyperParams, data_path: str, train_pref: str
                test_pref: str, extra_short: str = "", usage_extra: str = ""
                ) -> Optional[Tuple[HyperParams, str, str, str, str, str]]:
     """Reference-style flags → (hp, data_path, train_pref, test_pref, device,
-    out_dir); None when -h printed the usage."""
+    out_dir); None when -h printed the usage. A process the environment names
+    a rank of a cluster joins it first (before the device is chosen)."""
+    from vit_ad_tpu_torch.parallel.multihost import maybe_initialize_distributed
+
+    maybe_initialize_distributed()
     opts, _ = getopt.getopt(argv, "hm:p:e:a:l:w:b:s:d:i:v:t:" + extra_short,
                             ["centering", "mesh=", "device=", "out=", "fused-ln",
                              "no-fused-ln", "fused-mlp", "no-fused-mlp"])
@@ -74,8 +82,8 @@ def parse_args(argv: List[str], hp: HyperParams, data_path: str, train_pref: str
             print(USAGE + usage_extra)
             return None
         if opt == "--mesh":
-            raise SystemExit("--mesh is not ported to vit_ad_tpu_torch yet (ROADMAP A11)")
-        if opt == "--centering":
+            hp.mesh = MeshConfig.parse(arg)
+        elif opt == "--centering":
             hp.centering = True
         elif opt in ("--fused-ln", "--no-fused-ln"):
             hp.fused_ln = opt == "--fused-ln"
@@ -144,14 +152,11 @@ def build_pipelines(hp: HyperParams, data_path: str, train_pref: str, test_pref:
     return data, test
 
 
-def _cpu_state(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    return {k: v.detach().cpu() for k, v in module.state_dict().items()}
-
-
 def head_checkpoints(result, hp: HyperParams, pth_name: str) -> Dict[str, Dict]:
     """File name → state dict of a frozen-trunk run: the best head (of a
-    recon run, the whole auto-encoder)."""
-    return {f"{pth_name}_{hp.data_class}.pth": _cpu_state(result.head)}
+    recon run, the whole auto-encoder), a mesh run's in the full layout (every
+    rank gathers it)."""
+    return {f"{pth_name}_{hp.data_class}.pth": host_snapshot(result.head)}
 
 
 def resnet_checkpoints(result, hp: HyperParams, pth_name: str) -> Dict[str, Dict]:
@@ -164,9 +169,9 @@ def resnet_checkpoints(result, hp: HyperParams, pth_name: str) -> Dict[str, Dict
     from vit_ad_tpu_torch.pipeline.train import NF_RESNET_STAGES, RESNET_MDN_STAGES
 
     stages = RESNET_MDN_STAGES if hp.architecture == "mdn" else NF_RESNET_STAGES
-    out = {f"{pth_name}_stage{i}_{hp.data_class}.pth": _cpu_state(head)
+    out = {f"{pth_name}_stage{i}_{hp.data_class}.pth": host_snapshot(head)
            for i, head in zip(stages, result.head)}
-    out[f"ResNetEncoder_{hp.data_class}.pth"] = _cpu_state(result.encoder)
+    out[f"ResNetEncoder_{hp.data_class}.pth"] = host_snapshot(result.encoder)
     return out
 
 
@@ -192,7 +197,10 @@ def run_trainer(parsed: Tuple[HyperParams, str, str, str, str, str], trainer: Ca
     `<log_dir>/<run_name>_<dataset>_<class>`; the files are the module
     docstring's): the checkpoints are `checkpoints(result, hp, pth_name)`, by
     default the best head's state dict as `<pth_name>_<class>.pth`. `banner`
-    and the two names are format strings over the hyper-parameters."""
+    and the two names are format strings over the hyper-parameters. On a mesh
+    every rank trains and gathers the checkpoints; the primary alone prints
+    and writes (the other ranks open no file in the run directory), and the
+    ranks return together once it has."""
     from vit_ad_tpu_torch.config import set_numerics_policy
     from vit_ad_tpu_torch.pipeline.train import default_encoder
     from vit_ad_tpu_torch.utils.checkpoint import save_params
@@ -212,14 +220,22 @@ def run_trainer(parsed: Tuple[HyperParams, str, str, str, str, str], trainer: Ca
     out_dir = os.path.abspath(out_dir or os.path.join(
         hp.log_dir, f"{run_name.format(**fields)}_{hp.dataset}_{hp.data_class}"))
     config = hp.to_log_dict()
-    logger = MetricLogger(os.path.dirname(out_dir), run_name=os.path.basename(out_dir),
-                          config=config, enable_wandb=hp.enable_wandb)
-    print(f"{banner.format(**fields)}, patience {hp.patience}, epochs {hp.epochs}, "
-          f"lr {hp.learning_rate}, wd {hp.weight_decay}, bs {hp.batch_size}, "
-          f"img {hp.img_size}, data {data_path}/{train_pref}, device {device}", flush=True)
+    logger = None
+    if is_primary():
+        logger = MetricLogger(os.path.dirname(out_dir), run_name=os.path.basename(out_dir),
+                              config=config, enable_wandb=hp.enable_wandb)
+        print(f"{banner.format(**fields)}, patience {hp.patience}, epochs {hp.epochs}, "
+              f"lr {hp.learning_rate}, wd {hp.weight_decay}, bs {hp.batch_size}, "
+              f"img {hp.img_size}, data {data_path}/{train_pref}, device {device}", flush=True)
     try:
-        result = trainer(hp, data, test, **model_arg, device=device, log=logger.log,
-                         figures_dir=os.path.join(logger.dir, "figures"), logger=logger)
+        result = trainer(hp, data, test, **model_arg, device=device,
+                         log=logger and logger.log,
+                         figures_dir=logger and os.path.join(logger.dir, "figures"),
+                         logger=logger)
+        states = checkpoints(result, hp, pth_name.format(**fields))
+        if logger is None:
+            barrier()
+            return 0
         print("final metrics:", json.dumps(result.metrics))
         with open(os.path.join(out_dir, "history.json"), "w") as f:
             json.dump({**result.history, "metrics": result.metrics,
@@ -227,12 +243,14 @@ def run_trainer(parsed: Tuple[HyperParams, str, str, str, str, str], trainer: Ca
                        "best_valid_loss": result.best_valid_loss}, f, indent=1)
         save_loss_curves(logger, result.history)
         names = []
-        for name, state in checkpoints(result, hp, pth_name.format(**fields)).items():
+        for name, state in states.items():
             path = save_params(out_dir, name, state)
             logger.log_artifact(path)
             names.append(name)
             print("checkpoint:", path)
         logger.write_config({**config, "checkpoints": names})
     finally:
-        logger.finish()
+        if logger is not None:
+            logger.finish()
+    barrier()
     return 0

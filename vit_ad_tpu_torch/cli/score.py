@@ -3,7 +3,7 @@ weights on the GPU (port of `python -m vit_ad_tpu.cli.score`).
 
     python -m vit_ad_tpu_torch.cli.score -r <run dir> -d /path/to/images \\
         [-o out_dir] [--heatmaps N] [--train-data DIR] [-b BATCH] \\
-        [--weights-dtype auto|f32|bf16] [--watch SECS [--watch-waves N]]
+        [--weights-dtype auto|f32|bf16] [--watch SECS [--watch-waves N]] [--mesh DxM]
     python -m vit_ad_tpu_torch.cli.score --pth <head .pth> -a nf|mdn \\
         -m enc_deit|enc_vit|enc_esvit|enc_nest|enc_eff_former|enc_eff_net \\
         -E <trunk .pth> -d /path/to/images \\
@@ -65,9 +65,16 @@ Image score: max over the NF anomaly map (reference ValidatorNF.py:137-142)
 or over the recon squared-error map (ValidatorRecon.py:115-117); for MDN the
 inverted min patch probability (reference ValidatorMDN.py:133), normalized
 over the scored set (per wave under `--watch`: MDN scores are comparable
-within one invocation or wave). `--mesh` is ROADMAP A11 and exits with a
-message. `--device` defaults to cuda; without a card the CLI exits unless
-`--device cpu` is given.
+within one invocation or wave). `--device` defaults to cuda; without a card
+the CLI exits unless `--device cpu` is given.
+
+`--mesh DxM` (with `--pth`, `-r` and `--watch`; JAX :185-195) scores as the
+ranks of a mesh: each data rank scores its rows of every batch (`-b` must be
+a multiple of D) and the scores are gathered; the primary rank alone writes
+scores.csv, summary.json and the heatmaps, and under `--watch` it picks each
+wave's files for every rank. The ranks come from an explicit cluster (the
+`VITAD_*` variables) or, without one, are spawned by the CLI, one card each
+(`parallel/launch.launch_cli`).
 """
 
 from __future__ import annotations
@@ -83,7 +90,10 @@ from typing import List, Optional
 import numpy as np
 
 from vit_ad_tpu_torch.cli.common import check_device
-from vit_ad_tpu_torch.config import set_numerics_policy
+from vit_ad_tpu_torch.config import MeshConfig, set_numerics_policy
+from vit_ad_tpu_torch.parallel.context import MeshContext
+from vit_ad_tpu_torch.parallel.launch import launch_cli
+from vit_ad_tpu_torch.parallel.multihost import is_primary, maybe_initialize_distributed
 from vit_ad_tpu_torch.data.files import IMAGE_EXTENSIONS
 from vit_ad_tpu_torch.pipeline.loading import RUN_CONFIG
 from vit_ad_tpu_torch.registry import FUSED_LN_MODELS, FUSED_MLP_MODELS, get_possible_models
@@ -133,11 +143,23 @@ def norm_stats_for(centering: bool, train_data: str, img_size: int, batch_size: 
     return default_norm_stats()
 
 
-def _prepare(models, batch: int, centering: bool, train_data: str):
-    """The CLI's batch override on the models' HyperParams; (hp, mean, std)."""
+def _mesh_of(models) -> Optional[MeshContext]:
+    """The scoring mesh of the models' `hp.mesh` (None without one)."""
+    return MeshContext.from_hp(models.hp, devices=next(models.parts[0].parameters()).device)
+
+
+def _prepare(models, batch: int, centering: bool, train_data: str, mesh: str = ""):
+    """The CLI's batch and mesh overrides on the models' HyperParams; (hp,
+    mean, std). A batch the mesh's data axis does not divide exits."""
     hp = models.hp
     if batch:
         hp.batch_size = batch
+    if mesh:
+        hp.mesh = MeshConfig.parse(mesh)
+        try:
+            _mesh_of(models).check_batch(hp.batch_size)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
     return hp, *norm_stats_for(centering, train_data, hp.img_size, hp.batch_size)
 
 
@@ -191,18 +213,20 @@ def score_pth(
     train_data: str = "",
     heatmaps: int = 0,
     weights_dtype: str = "auto",
+    mesh: str = "",
 ) -> dict:
     """Score a folder with a reference-format head `.pth` (plus the pretrained
     trunk `encoder_ckpt`), or with the two stage-head files of the ResNet-MDN
     convention; write scores.csv and summary.json (and `heatmaps` overlays);
     return the summary. The feature depth and the centering come from the
     `config.json` beside the first `.pth` (`run_config`); `train_data` is
-    read by centering runs."""
+    read by centering runs. `mesh`: a `--mesh` spec (this process is a rank
+    of its cluster)."""
     cfg = run_config(pths[0])
     models = _build_pth_models_cli(pths, arch, model_name, img_size, hidden_ratio, flow_steps,
                                    encoder_ckpt, device, fused_ln, fused_mlp, cfg)
     _maybe_compress(models, weights_dtype)
-    hp, mean, std = _prepare(models, batch, cfg.get("centering", False), train_data)
+    hp, mean, std = _prepare(models, batch, cfg.get("centering", False), train_data, mesh)
     return _score_with_models(models, pths[0], {"architecture": arch}, images_dir,
                               out_dir or os.path.splitext(pths[0])[0] + "_scores", mean, std,
                               heatmaps)
@@ -223,12 +247,13 @@ def _load_run_cli(run_dir: str, device, fused_ln: Optional[bool], fused_mlp: Opt
 def score_folder(run_dir: str, images_dir: str, out_dir: Optional[str] = None,
                  heatmaps: int = 0, batch: int = 0, train_data: str = "",
                  weights_dtype: str = "auto", device: Optional[str] = None,
-                 fused_ln: Optional[bool] = None, fused_mlp: Optional[bool] = None) -> dict:
+                 fused_ln: Optional[bool] = None, fused_mlp: Optional[bool] = None,
+                 mesh: str = "") -> dict:
     """Score every image under images_dir with a run directory's models
     (JAX `score_folder`)."""
     models, cfg = _load_run_cli(run_dir, device, fused_ln, fused_mlp)
     _maybe_compress(models, weights_dtype)
-    hp, mean, std = _prepare(models, batch, models.hp.centering, train_data)
+    hp, mean, std = _prepare(models, batch, models.hp.centering, train_data, mesh)
     return _score_with_models(models, run_dir, cfg, images_dir,
                               out_dir or os.path.join(run_dir, "scores"), mean, std, heatmaps)
 
@@ -253,18 +278,12 @@ def _write_scores(path: str, rows) -> None:
 def _score_with_models(models, source: str, cfg: dict, images_dir: str, out_dir: str,
                        mean, std, heatmaps: int = 0) -> dict:
     """The one-shot body: score the folder, write scores.csv, summary.json
-    and the heatmaps; return the summary."""
+    and the heatmaps (the primary rank alone); return the summary."""
     files = list_images(images_dir)
     if not files:
         raise SystemExit(f"no images found under {images_dir!r}")
     hp = models.hp
     s = score_files(models, files, mean, std)
-
-    os.makedirs(out_dir, exist_ok=True)
-    _write_scores(os.path.join(out_dir, "scores.csv"),
-                  [(path, repr(float(score))) for path, score in zip(files, s.image_scores)])
-    if heatmaps:
-        save_heatmaps(s, files, hp.img_size, out_dir, heatmaps)
     summary = {
         "run": source,
         "images": len(files),
@@ -276,6 +295,13 @@ def _score_with_models(models, source: str, cfg: dict, images_dir: str, out_dir:
         "top": [{"path": files[i], "image_score": float(s.image_scores[i])}
                 for i in np.argsort(s.image_scores)[::-1][:5]],
     }
+    if not is_primary():
+        return summary
+    os.makedirs(out_dir, exist_ok=True)
+    _write_scores(os.path.join(out_dir, "scores.csv"),
+                  [(path, repr(float(score))) for path, score in zip(files, s.image_scores)])
+    if heatmaps:
+        save_heatmaps(s, files, hp.img_size, out_dir, heatmaps)
     with open(os.path.join(out_dir, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
     return summary
@@ -342,26 +368,34 @@ def watch_folder(models, source: str, images_dir: str, out_dir: str, mean, std,
     MDN scores are normalized per wave (reference ValidatorMDN.py:133
     semantics), so they are comparable within a wave. summary.json is
     rewritten every wave. `max_waves` bounds the loop (0: until
-    interrupted)."""
+    interrupted). On a mesh the primary rank lists and decodes each wave's
+    files and tells every rank which to score; it alone writes."""
     from vit_ad_tpu_torch.data.dataset import DECODE_ERRORS, load_image
 
     hp = models.hp
-    os.makedirs(out_dir, exist_ok=True)
+    mc = _mesh_of(models)
+    primary = is_primary()
     csv_path = os.path.join(out_dir, "scores.csv")
-    scored = _resume_scored(csv_path)
+    scored = set()
+    if primary:
+        os.makedirs(out_dir, exist_ok=True)
+        scored = _resume_scored(csv_path)
     summary = {"run": source, "images": len(scored), "waves": 0, "arch": hp.architecture,
                "model": hp.model_name}
     failures: dict = {}
 
     def write_summary() -> None:
-        with open(os.path.join(out_dir, "summary.json"), "w") as f:
-            json.dump(summary, f, indent=1)
+        if primary:
+            with open(os.path.join(out_dir, "summary.json"), "w") as f:
+                json.dump(summary, f, indent=1)
 
     waves = 0
     while True:
         try:
-            fresh = [p for p in list_images(images_dir) if os.path.realpath(p) not in scored]
-            good, dead = [], set()
+            fresh, good, dead = [], [], set()
+            if primary:
+                fresh = [p for p in list_images(images_dir)
+                         if os.path.realpath(p) not in scored]
             for p in fresh:
                 try:
                     load_image(p, hp.img_size)
@@ -373,6 +407,8 @@ def watch_folder(models, source: str, images_dir: str, out_dir: str, mean, std,
                         print(f"watch: giving up on {p!r} after 3 failed waves "
                               f"({type(e).__name__}: {e})", file=sys.stderr, flush=True)
                         dead.add(p)
+            if mc is not None:
+                fresh, good, dead = mc.broadcast_object((fresh, good, dead))
             got = {}
             if good:
                 s = score_files(models, good, mean, std)
@@ -380,8 +416,9 @@ def watch_folder(models, source: str, images_dir: str, out_dir: str, mean, std,
             rows = [(p, got[p] if p in got else float("nan")) for p in fresh
                     if p in got or p in dead]
             if rows:
-                with open(csv_path, "a", newline="") as f:
-                    csv.writer(f).writerows((p, repr(x)) for p, x in rows)
+                if primary:
+                    with open(csv_path, "a", newline="") as f:
+                        csv.writer(f).writerows((p, repr(x)) for p, x in rows)
                 scored.update(os.path.realpath(p) for p, _ in rows)
                 finite = [(p, x) for p, x in rows if np.isfinite(x)]
                 if finite:
@@ -420,7 +457,9 @@ def main(argv=None) -> int:
     ap.add_argument("--train-data", default="",
                     help="training image dir (only --centering runs read it: their "
                          "config.json says so)")
-    ap.add_argument("--mesh", default="", help="not ported (ROADMAP A11)")
+    ap.add_argument("--mesh", default="",
+                    help="score as the ranks of a device mesh, DxM or 'auto': batches sharded "
+                         "over the data axis (the trainers' flag)")
     ap.add_argument("--watch", type=float, default=0.0, metavar="SECS",
                     help="continuous serving: poll the images dir every SECS seconds and "
                          "score new images as they arrive (appends to scores.csv)")
@@ -448,9 +487,10 @@ def main(argv=None) -> int:
                     help="weights at rest (auto = f32; bf16 rounds them, opt-in)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; give --device cpu to run on the CPU)")
+    argv = sys.argv[1:] if argv is None else argv
     args = ap.parse_args(argv)
-    if args.mesh:
-        ap.error("--mesh is not ported to vit_ad_tpu_torch yet (ROADMAP A11)")
+    # a rank of a cluster joins it before the device is chosen
+    maybe_initialize_distributed()
     if args.watch and args.heatmaps:
         ap.error("--heatmaps is not supported with --watch (overlays need the whole scored "
                  "set for one colour scale)")
@@ -479,6 +519,10 @@ def main(argv=None) -> int:
         ap.error(f"--fused-mlp/--no-fused-mlp: only -m {' or '.join(FUSED_MLP_MODELS)} has a "
                  "fused MLP path")
     device = check_device(args.device)
+    launched = launch_cli("vit_ad_tpu_torch.cli.score", argv,
+                          MeshConfig.parse(args.mesh) if args.mesh else MeshConfig(), device)
+    if launched is not None:
+        return launched
     set_numerics_policy()
     if not args.watch:
         if args.pth:
@@ -488,14 +532,15 @@ def main(argv=None) -> int:
                                 encoder_ckpt=args.encoder_ckpt, batch=args.batch, device=device,
                                 fused_ln=args.fused_ln, fused_mlp=args.fused_mlp,
                                 train_data=args.train_data, heatmaps=args.heatmaps,
-                                weights_dtype=args.weights_dtype)
+                                weights_dtype=args.weights_dtype, mesh=args.mesh)
         else:
             summary = score_folder(args.run, args.images, out_dir=args.out or None,
                                    heatmaps=args.heatmaps, batch=args.batch,
                                    train_data=args.train_data, weights_dtype=args.weights_dtype,
                                    device=device, fused_ln=args.fused_ln,
-                                   fused_mlp=args.fused_mlp)
-        print(json.dumps(summary))
+                                   fused_mlp=args.fused_mlp, mesh=args.mesh)
+        if is_primary():
+            print(json.dumps(summary))
         return 0
     if args.pth:
         cfg = run_config(args.pth[0])
@@ -509,10 +554,11 @@ def main(argv=None) -> int:
         centering, source = models.hp.centering, args.run
         out = args.out or os.path.join(args.run, "scores")
     _maybe_compress(models, args.weights_dtype)
-    _, mean, std = _prepare(models, args.batch, centering, args.train_data)
+    _, mean, std = _prepare(models, args.batch, centering, args.train_data, args.mesh)
     summary = watch_folder(models, source, args.images, out, mean, std, interval=args.watch,
                            max_waves=args.watch_waves)
-    print(json.dumps(summary))
+    if is_primary():
+        print(json.dumps(summary))
     return 0
 
 

@@ -39,6 +39,7 @@ from vit_ad_tpu_torch.cli.common import (
     run_trainer,
 )
 from vit_ad_tpu_torch.config import HyperParams
+from vit_ad_tpu_torch.parallel.launch import launch_cli
 
 
 def main(argv=None) -> int:
@@ -47,10 +48,14 @@ def main(argv=None) -> int:
     hp = HyperParams(model_name="enc_deit", architecture="mdn", patience=100, epochs=1000,
                      learning_rate=7e-4, weight_decay=7e-4, batch_size=64, num_gaussians=150,
                      img_size=224)
-    parsed = parse_args(sys.argv[1:] if argv is None else argv, hp, BTAD_BASE, "train/ok",
+    argv = sys.argv[1:] if argv is None else argv
+    parsed = parse_args(argv, hp, BTAD_BASE, "train/ok",
                         "test", extra_short="n:", usage_extra=" -n <numGaussians>")
     if parsed is None:
         return 0
+    launched = launch_cli("vit_ad_tpu_torch.cli.train_mdn", argv, parsed[0].mesh, parsed[4])
+    if launched is not None:
+        return launched
     resnet = "res_net" in parsed[0].model_name
     return run_trainer(parsed, train_mdn_resnet if resnet else train_mdn,
                        banner="Training MDN: model {model_name}, K {num_gaussians}",

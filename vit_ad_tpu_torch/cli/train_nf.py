@@ -40,6 +40,7 @@ from vit_ad_tpu_torch.cli.common import (
     run_trainer,
 )
 from vit_ad_tpu_torch.config import HyperParams
+from vit_ad_tpu_torch.parallel.launch import launch_cli
 
 
 def main(argv=None) -> int:
@@ -48,11 +49,15 @@ def main(argv=None) -> int:
     hp = HyperParams(model_name="enc_deit", architecture="nf", patience=60, epochs=500,
                      learning_rate=1e-3, weight_decay=1e-5, batch_size=32, hidden_ratio=0.16,
                      flow_steps=20, img_size=224)
-    parsed = parse_args(sys.argv[1:] if argv is None else argv, hp, MVTEC_BASE, "train/good",
+    argv = sys.argv[1:] if argv is None else argv
+    parsed = parse_args(argv, hp, MVTEC_BASE, "train/good",
                         "test", extra_short="r:f:",
                         usage_extra=" -r <hiddenRatio> -f <flowSteps>")
     if parsed is None:
         return 0
+    launched = launch_cli("vit_ad_tpu_torch.cli.train_nf", argv, parsed[0].mesh, parsed[4])
+    if launched is not None:
+        return launched
     resnet = "res_net" in parsed[0].model_name
     return run_trainer(parsed, train_nf_resnet if resnet else train_nf,
                        banner="Training NF: model {model_name}, hidden_ratio {hidden_ratio}, "

@@ -28,6 +28,7 @@ import sys
 
 from vit_ad_tpu_torch.cli.common import MVTEC_BASE, parse_args, run_trainer
 from vit_ad_tpu_torch.config import HyperParams
+from vit_ad_tpu_torch.parallel.launch import launch_cli
 
 
 def main(argv=None) -> int:
@@ -35,10 +36,14 @@ def main(argv=None) -> int:
 
     hp = HyperParams(model_name="ae_cnn", architecture="reconstruction", patience=30, epochs=50,
                      learning_rate=1e-3, weight_decay=1e-4, batch_size=64, img_size=224)
-    parsed = parse_args(sys.argv[1:] if argv is None else argv, hp, MVTEC_BASE, "train/good",
+    argv = sys.argv[1:] if argv is None else argv
+    parsed = parse_args(argv, hp, MVTEC_BASE, "train/good",
                         "test")
     if parsed is None:
         return 0
+    launched = launch_cli("vit_ad_tpu_torch.cli.train_recon", argv, parsed[0].mesh, parsed[4])
+    if launched is not None:
+        return launched
     if not parsed[0].model_name.startswith("ae_"):
         raise SystemExit(f"-m {parsed[0].model_name}: the recon trainer takes an auto-encoder "
                          "key (ae_*)")

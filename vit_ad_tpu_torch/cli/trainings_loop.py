@@ -6,7 +6,7 @@ per-architecture defaults:
     python -m vit_ad_tpu_torch.cli.trainings_loop -a nf|mdn|recon \\
         -d <data root> -o <out dir> -m <model> -c <cat1,cat2,...> \\
         [-e epochs -b batch -i imgSize -p patience -n gaussians -l lr -w wd] \\
-        [-j workers] [--device cuda|cpu]
+        [-j workers] [--mesh DxM] [--device cuda|cpu]
 
 Defaults: nf 500 epochs, patience 60, lr 1e-3, wd 1e-5, batch 32; mdn 1000,
 100, 7e-4, wd 7e-4, batch 64, K 100; recon 50, 30, 1e-3, wd 1e-4, batch 64
@@ -17,8 +17,11 @@ its path sweeps the BTAD categories on `train/ok`, else the MVTec ones on
 one card each (`run_sweep_parallel`); `--device cpu` runs them on the CPU.
 Without a card `--device cuda` (the default) exits (the sweep's device
 check). The variational auto-encoder has no flag here, as in the root
-script: `run_sweep(resolve_trainer("vae"), ...)` trains it. `--mesh` is
-ROADMAP A11.
+script: `run_sweep(resolve_trainer("vae"), ...)` trains it. `--mesh DxM`
+trains every run sharded over D·M ranks: with `-j N`, each of the N workers
+on its own group of D·M cards (explicit sizes; 'auto' is refused there), else
+the CLI's ranks (an explicit cluster, or spawned by the CLI,
+`parallel/launch.launch_cli`) run the sweep together and the primary writes.
 
 Writes `<out>/results.csv` (one row per category, the reference's metric
 names), `<out>/<category>/done.json` (a finished run is not trained again
@@ -37,8 +40,10 @@ from vit_ad_tpu_torch.config import HyperParams
 
 USAGE = ("python -m vit_ad_tpu_torch.cli.trainings_loop -a <arch: nf|mdn|recon> "
          "-d <dataRoot> -o <outDir> -m <model> -c <cat1,cat2,...> [-e epochs -b batch "
-         "-i imgSize -p patience -n gaussians -l lr -w wd -j workers --device cuda|cpu]\n"
-         "  -j N > 1 fans the categories out to N worker processes, one card each")
+         "-i imgSize -p patience -n gaussians -l lr -w wd -j workers --mesh DxM "
+         "--device cuda|cpu]\n"
+         "  -j N > 1 fans the categories out to N worker processes, one card each (D*M each "
+         "with --mesh DxM)")
 
 
 def base_hp(arch: str, model: str) -> HyperParams:
@@ -59,7 +64,9 @@ def base_hp(arch: str, model: str) -> HyperParams:
 
 
 def main(argv=None) -> int:
-    from vit_ad_tpu_torch.config import set_numerics_policy
+    from vit_ad_tpu_torch.config import MeshConfig, set_numerics_policy
+    from vit_ad_tpu_torch.parallel.launch import launch_cli
+    from vit_ad_tpu_torch.parallel.multihost import is_primary, maybe_initialize_distributed
     from vit_ad_tpu_torch.pipeline.sweep import (
         BTAD_CATEGORIES,
         MVTEC_CATEGORIES,
@@ -71,20 +78,21 @@ def main(argv=None) -> int:
 
     arch, data_root, out_dir, model = "nf", "data/mvtec_anomaly_detection", "sweep_results", \
         "enc_deit"
-    categories, workers, device = None, 1, "cuda"
+    categories, workers, device, mesh = None, 1, "cuda", MeshConfig()
     overrides = {}
     keys = {"-e": ("epochs", int), "-b": ("batch_size", int), "-i": ("img_size", int),
             "-p": ("patience", int), "-n": ("num_gaussians", int),
             "-l": ("learning_rate", float), "-w": ("weight_decay", float)}
-    opts, _ = getopt.getopt(sys.argv[1:] if argv is None else argv,
-                            "ha:d:o:m:c:e:b:i:p:n:l:w:j:", ["mesh=", "device="])
+    argv = sys.argv[1:] if argv is None else argv
+    maybe_initialize_distributed()
+    opts, _ = getopt.getopt(argv, "ha:d:o:m:c:e:b:i:p:n:l:w:j:", ["mesh=", "device="])
     for opt, arg in opts:
         if opt == "-h":
             print(USAGE)
             return 0
         if opt == "--mesh":
-            raise SystemExit("--mesh is not ported to vit_ad_tpu_torch yet (ROADMAP A11)")
-        if opt == "-a":
+            mesh = MeshConfig.parse(arg)
+        elif opt == "-a":
             arch = arg
         elif opt == "-d":
             data_root = arg
@@ -101,13 +109,17 @@ def main(argv=None) -> int:
         elif opt in keys:
             field, kind = keys[opt]
             overrides[field] = kind(arg)
+    if workers == 1:
+        launched = launch_cli("vit_ad_tpu_torch.cli.trainings_loop", argv, mesh, device)
+        if launched is not None:
+            return launched
     set_numerics_policy()
 
     is_btad = "btad" in data_root
     if categories is None:
         categories = list(BTAD_CATEGORIES if is_btad else MVTEC_CATEGORIES)
     train_pref = "train/ok" if is_btad else "train/good"
-    hp = dataclasses.replace(base_hp(arch, model), **overrides)
+    hp = dataclasses.replace(base_hp(arch, model), mesh=mesh, **overrides)
     # the multi-stage ResNet trainers (reference startTraining_*.py:134-152)
     if "res_net" in model and arch in ("mdn", "nf"):
         arch = f"{arch}_resnet"
@@ -118,6 +130,8 @@ def main(argv=None) -> int:
                                   platform="cpu" if device == "cpu" else "cuda")
     else:
         rows = run_sweep(resolve_trainer(arch), hp, runs, out_dir, device=device)
+    if not is_primary():
+        return 0
     ok = [r for r in rows if "image_auroc_score" in r]
     if ok:
         mean = sum(r["image_auroc_score"] for r in ok) / len(ok)

@@ -52,12 +52,31 @@ class DtypePolicy:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Logical device mesh (`vit_ad_tpu/config.py:36-62`). The port runs on one
-    card; multi-GPU scoring is ROADMAP A11."""
+    """Logical device mesh (`vit_ad_tpu/config.py:36-62`): `data` shards the
+    batch, `model` shards the MDN heads' mixture components (`parallel/`).
+    A size of -1 means "every remaining rank". The default (1, 1) requests no
+    mesh: the trainers and evaluators run in one process on one device."""
 
     data: int = 1
     model: int = 1
     axis_names: Sequence[str] = ("data", "model")
+
+    @property
+    def requested(self) -> bool:
+        """True when an axis asks for more than one rank (or for all)."""
+        return self.data != 1 or self.model != 1
+
+    @staticmethod
+    def parse(spec: str) -> "MeshConfig":
+        """A CLI mesh spec: 'DxM' (e.g. '4x2'), a bare data size ('8'), or
+        'auto' (every rank on the data axis)."""
+        spec = spec.strip().lower()
+        if spec in ("auto", "all"):
+            return MeshConfig(data=-1, model=1)
+        if "x" in spec:
+            d, m = spec.split("x", 1)
+            return MeshConfig(data=int(d), model=int(m))
+        return MeshConfig(data=int(spec), model=1)
 
 
 @dataclasses.dataclass

@@ -97,12 +97,19 @@ class FusedBatchNorm(nn.BatchNorm2d):
     and blends the unbiased one into `running_var`: not this function.)
     Parameters and buffers are `nn.BatchNorm2d`'s, so torchvision and the
     reference's state dicts load; `num_batches_tracked` counts the training
-    calls and nothing reads it."""
+    calls and nothing reads it.
+
+    On a mesh with a data axis (`mesh`, set by
+    `parallel.context.MeshContext.shard_params`) the training statistics are
+    the global batch's: the f32 sums of x and x² all-reduced over the data
+    axis with their gradients, over the global count, so the running
+    statistics come out the same on every rank."""
 
     MOMENTUM = 0.9  # flax's convention: the weight of the old statistics
 
     def __init__(self, channels: int, eps: float = 1e-5) -> None:
         super().__init__(channels, eps=eps)
+        self.mesh: Any = None
 
     def folded(self, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(mean, mul, bias) as [1, C, 1, 1] tensors of `dtype`."""
@@ -127,8 +134,15 @@ class FusedBatchNorm(nn.BatchNorm2d):
 
     def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
-        mu = x32.mean(dim=(0, 2, 3))
-        var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mu * mu, min=0.0)
+        if self.mesh is None or self.mesh.data_size == 1:
+            mu = x32.mean(dim=(0, 2, 3))
+            var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mu * mu, min=0.0)
+        else:
+            sums = self.mesh.reduce_sum(torch.cat([x32.sum(dim=(0, 2, 3)),
+                                                   (x32 * x32).sum(dim=(0, 2, 3))]), "data")
+            n = x32.numel() // x32.shape[1] * self.mesh.data_size
+            mu, sq = (sums / n).chunk(2)
+            var = torch.clamp(sq - mu * mu, min=0.0)
         with torch.no_grad():
             m = self.MOMENTUM
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mu)

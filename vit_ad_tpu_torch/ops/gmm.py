@@ -17,7 +17,7 @@ autograd is the plain version of their backwards (B3, B4).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -34,17 +34,23 @@ def log_gaussian_density(sigma: torch.Tensor, mu: torch.Tensor, x: torch.Tensor)
 
 
 def mixture_log_weights(pi_logits: torch.Tensor, generator: Optional[torch.Generator] = None,
-                        tau: float = 1.0) -> torch.Tensor:
+                        tau: float = 1.0, uniform: Optional[torch.Tensor] = None,
+                        softmax: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                        ) -> torch.Tensor:
     """log(softmax-or-gumbel-softmax(pi) + 1e-15). With `generator` the
     logits get Gumbel noise -log(-log u), u uniform in [1e-20, 1) (the
     reference's gumbel_softmax(tau=1)); without it, the deterministic
-    softmax (the eval path)."""
+    softmax (the eval path). `uniform`: the draw of u in [0, 1), made
+    already (a mesh shard's part of the global draw); `softmax`: the softmax
+    over the last axis (a sharded one on a mesh)."""
     logits = pi_logits.float()
-    if generator is not None:
-        u = torch.rand(logits.shape, generator=generator, device=logits.device,
-                       dtype=logits.dtype) * (1.0 - 1e-20) + 1e-20
-        logits = (logits - torch.log(-torch.log(u))) / tau
-    return torch.log(torch.softmax(logits, dim=-1) + 1e-15)
+    if uniform is None and generator is not None:
+        uniform = torch.rand(logits.shape, generator=generator, device=logits.device,
+                             dtype=logits.dtype)
+    if uniform is not None:
+        logits = (logits - torch.log(-torch.log(uniform * (1.0 - 1e-20) + 1e-20))) / tau
+    return torch.log((torch.softmax(logits, dim=-1) if softmax is None else softmax(logits))
+                     + 1e-15)
 
 
 def log_likelihood_dense(x: torch.Tensor, pi_logits: torch.Tensor, sigma: torch.Tensor,

@@ -2,7 +2,11 @@
 `vit_ad_tpu/pipeline/early_stopping.py`: `EarlyStopping` :62 and
 `run_epochs` :108; reference src/util/TrainingsHelper.py:84-140).
 
-The best-weights snapshot is a host copy of the head's state dict. With
+The best-weights snapshot is a host copy of the head's state dict (on a
+mesh, each rank's own: a K-sharded head's shard; the validation loss is the
+global one, so every rank stops at the same epoch and keeps the same one;
+`cli/common.run_trainer` gathers the full layout and the primary writes it,
+as the JAX `save_fn` gating does, :40-92). With
 `VITAD_TRACE=<dir>` in the environment, `run_epochs` captures the second
 epoch's training (the first builds the kernels and warms up) as a Chrome
 trace in `<dir>` (`utils/profiling.trace`), as the JAX loop does (:117-134).

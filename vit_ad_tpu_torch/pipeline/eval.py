@@ -29,6 +29,11 @@ of `vit_ad_tpu/pipeline/eval.py`: `make_mdn_batch_fn` :357, `score_mdn` :446,
 Every `evaluate_*` takes `figures_dir` (write the six figures of
 `save_eval_figures` there; the first 9 images are kept for the overlays) and
 `logger` (a `utils.logging.MetricLogger` the figures are registered with).
+
+With `hp.mesh` the scorers shard every batch over the data axis (JAX
+`_eval_mesh` :100): each data rank scores its rows and the payloads are
+gathered to every rank (`parallel/multihost.fetch_global`), so the metrics
+and figures use the whole set.
 """
 
 from __future__ import annotations
@@ -45,6 +50,8 @@ from vit_ad_tpu_torch.models.flow import NormalizingFlow, patch_tokens_to_map
 from vit_ad_tpu_torch.models.mdn import GaussianMDN
 from vit_ad_tpu_torch.models.outputs import Encoder
 from vit_ad_tpu_torch.models.resnet import ResNetEncoder
+from vit_ad_tpu_torch.parallel.context import MeshContext
+from vit_ad_tpu_torch.parallel.multihost import fetch_global
 from vit_ad_tpu_torch.pipeline import metrics as M
 from vit_ad_tpu_torch.scoring import payload_to_scores
 
@@ -148,6 +155,13 @@ def _device_of(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
+def _eval_mesh(hp: HyperParams, device: torch.device) -> Optional[MeshContext]:
+    """The scorers' mesh from `hp.mesh` (the trainers' configuration), so
+    `--mesh` shards scoring batches over the data axis too; None by
+    default."""
+    return MeshContext.from_hp(hp, devices=device)
+
+
 def score_mdn(encoder: Encoder, mdn: GaussianMDN, test_data: DataPipeline,
               hp: HyperParams, mean: Optional[np.ndarray] = None,
               std: Optional[np.ndarray] = None, keep_origs: int = 0) -> ScoreOutput:
@@ -156,7 +170,7 @@ def score_mdn(encoder: Encoder, mdn: GaussianMDN, test_data: DataPipeline,
     device = _device_of(encoder)
     fn = make_mdn_batch_fn(encoder, mdn, hp, _as_device(mean, device), _as_device(std, device))
     ll, labels, masks, origs = _collect(test_data.test_batches(hp.prefetch), fn, device,
-                                        keep_origs)
+                                        keep_origs, _eval_mesh(hp, device))
     image_scores, pixel_scores = payload_to_scores("mdn", ll, hp.img_size)
     return ScoreOutput(image_scores, pixel_scores, labels, masks, origs)
 
@@ -186,20 +200,23 @@ def make_nf_batch_fn(encoder: Encoder, flow: NormalizingFlow, hp: HyperParams,
 
 def _collect(batches: Iterable[Batch],
              score_fn: Callable[[torch.Tensor], Union[torch.Tensor, Tuple[torch.Tensor, ...]]],
-             device: torch.device, keep_origs: int = 0):
+             device: torch.device, keep_origs: int = 0, mc: Optional[MeshContext] = None):
     """Score every batch; return (payloads, labels, masks, origs) with the
     padded rows trimmed; origs are the first `keep_origs` uint8 images (None
     for 0). A `score_fn` that returns a tuple (one output per stage) gives a
-    tuple of concatenated payloads."""
+    tuple of concatenated payloads. With a mesh each data rank scores its
+    rows of every batch and the payloads are gathered to every rank."""
     payloads, labels, masks, origs = [], [], [], []
     per_stage = False
     kept = 0
     for batch in batches:
         n = int(batch.valid.sum())
+        images = batch.images if mc is None else mc.shard_batch(batch.images)
         with torch.inference_mode():
-            out = score_fn(torch.from_numpy(batch.images).to(device))
+            out = score_fn(torch.from_numpy(images).to(device))
             per_stage = isinstance(out, tuple)
-            payloads.append([o[:n].float().cpu().numpy() for o in (out if per_stage else (out,))])
+            payloads.append([fetch_global(o.float(), mc)[:n]
+                             for o in (out if per_stage else (out,))])
         labels.append(batch.labels[:n])
         masks.append(batch.masks[:n])
         if kept < keep_origs:
@@ -220,7 +237,7 @@ def score_nf(encoder: Encoder, flow: NormalizingFlow, test_data: DataPipeline,
     anomaly_maps = make_nf_batch_fn(encoder, flow, hp, _as_device(mean, device),
                                     _as_device(std, device))
     maps, labels, masks, origs = _collect(test_data.test_batches(hp.prefetch), anomaly_maps,
-                                          device, keep_origs)
+                                          device, keep_origs, _eval_mesh(hp, device))
     image_scores, maps = payload_to_scores("nf", maps, hp.img_size)
     return ScoreOutput(image_scores, maps, labels, masks, origs)
 
@@ -280,7 +297,7 @@ def score_mdn_resnet(encoder: ResNetEncoder, mdns: Sequence[GaussianMDN],
     fn = make_mdn_resnet_batch_fn(encoder, mdns, hp, _as_device(mean, device),
                                   _as_device(std, device), stages)
     stage_lls, labels, masks, origs = _collect(test_data.test_batches(hp.prefetch), fn, device,
-                                               keep_origs)
+                                               keep_origs, _eval_mesh(hp, device))
     image_scores, pixel_scores = payload_to_scores("mdn_resnet", stage_lls, hp.img_size)
     return ScoreOutput(image_scores, pixel_scores, labels, masks, origs)
 
@@ -324,7 +341,7 @@ def score_nf_resnet(encoder: ResNetEncoder, flows: Sequence[NormalizingFlow],
     fn = make_nf_resnet_batch_fn(encoder, flows, hp, _as_device(mean, device),
                                  _as_device(std, device), stages)
     maps, labels, masks, origs = _collect(test_data.test_batches(hp.prefetch), fn, device,
-                                          keep_origs)
+                                          keep_origs, _eval_mesh(hp, device))
     image_scores, maps = payload_to_scores("nf_resnet", maps, hp.img_size)
     return ScoreOutput(image_scores, maps, labels, masks, origs)
 
@@ -367,7 +384,7 @@ def score_recon(model: torch.nn.Module, test_data: DataPipeline, hp: HyperParams
     device = _device_of(model)
     fn = make_batch_fn(model, _as_device(mean, device), _as_device(std, device))
     maps, labels, masks, origs = _collect(test_data.test_batches(hp.prefetch), fn, device,
-                                          keep_origs)
+                                          keep_origs, _eval_mesh(hp, device))
     image_scores, maps = payload_to_scores("recon", maps, hp.img_size)
     return ScoreOutput(image_scores, maps, labels, masks, origs)
 

@@ -4,13 +4,15 @@
 
 The encoder never changes while a head trains, so features are extracted
 once per run and the head trains on the cached [N, P, D] array, staged on
-the device once as padded batches. The JAX package's scan-of-batches epoch
-machinery exists to amortize TPU dispatch and is not ported.
+the device once as padded batches. On a mesh each data rank extracts and
+caches the features of its own rows of every padded batch, with the trunk
+replicated (`shard_feature_batches`). The JAX package's scan-of-batches
+epoch machinery exists to amortize TPU dispatch and is not ported.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,3 +68,29 @@ def stage_feature_batches(features: torch.Tensor, batch_size: int
             valid[k:] = 0.0
         staged.append((feats.contiguous(), valid, float(k)))
     return lambda: iter(staged)
+
+
+def shard_feature_batches(extractor: Callable[[torch.Tensor], torch.Tensor],
+                          batches: Iterable[Batch], device: torch.device, mc: Any
+                          ) -> Callable[[], Iterator[Tuple[torch.Tensor, torch.Tensor, float]]]:
+    """On the mesh of `mc` (a `parallel.context.MeshContext`): this data
+    rank's rows of every padded batch through the extractor, staged on
+    `device` once: a re-iterable of (feats [B/D, P, D], valid [B/D] f32, the
+    batch's global valid count), the rows `stage_feature_batches` would give
+    this rank of the same batches."""
+    staged: List[Tuple[torch.Tensor, torch.Tensor, float]] = []
+    for batch in batches:
+        images, valid = mc.shard_batch(batch.images, batch.valid)
+        feats = extractor(torch.from_numpy(images).to(device)).clone()  # a normal tensor
+        staged.append((feats, torch.from_numpy(valid).to(device=device, dtype=torch.float32),
+                       float(batch.valid.sum())))
+    if not staged:
+        raise ValueError("no batches to extract features from")
+    return lambda: iter(staged)
+
+
+def gather_features(batches: Callable[[], Iterator[Tuple[torch.Tensor, torch.Tensor, float]]],
+                    mc: Any) -> torch.Tensor:
+    """The valid rows of every data rank's staged batches, in order: the
+    [N, P, D] features `extract_features` gives one device."""
+    return torch.cat([torch.cat(mc.gather_rows(feats))[:int(n)] for feats, _, n in batches()])

@@ -18,6 +18,13 @@ with no crash recovery).
 
 The device is explicit: every trainer gets `device=` (the port's trainers
 would otherwise train on the trunk's device, the CPU).
+
+With `hp.mesh` (`--mesh DxM`, JAX :209-250) every run trains sharded over a
+mesh of D·M ranks. `run_sweep` is then run by every rank of a cluster (the
+`VITAD_*` variables), and the primary alone writes the rows, tracebacks and
+`results.csv`; `run_sweep_parallel` gives each worker a disjoint group of
+D·M cards, one process a rank, so `-j 4 --mesh 2x1` keeps four categories in
+flight on eight cards.
 """
 
 from __future__ import annotations
@@ -31,8 +38,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
-from vit_ad_tpu_torch.config import HyperParams, MeshConfig, check_device
+from vit_ad_tpu_torch.config import HyperParams, check_device
 from vit_ad_tpu_torch.data.loader import DataPipeline
+from vit_ad_tpu_torch.parallel.multihost import is_primary, maybe_initialize_distributed
 
 MVTEC_CATEGORIES = (
     "bottle", "cable", "capsule", "carpet", "grid", "hazelnut", "leather",
@@ -76,16 +84,11 @@ def _hp_stamp(hp: HyperParams, run: Optional[SweepRun] = None) -> str:
     return json.dumps(d, sort_keys=True, default=str)
 
 
-def _check_mesh(hp: HyperParams) -> None:
-    if hp.mesh != MeshConfig():
-        raise SystemExit("a sweep over a --mesh is not ported to vit_ad_tpu_torch yet "
-                         "(ROADMAP A11)")
-
-
 def _execute_run(trainer: Callable, base_hp: HyperParams, run: SweepRun, out_dir: str,
                  resume: bool = True, device: str = "cuda") -> Dict[str, Any]:
     """One idempotent run: return its `done.json` row when it matches,
-    else train on `device`, isolate a crash, and persist the row."""
+    else train on `device`, isolate a crash, and persist the row (the
+    primary rank of a mesh alone writes)."""
     run_dir = os.path.join(out_dir, run.name)
     done_path = os.path.join(run_dir, "done.json")
     hp = _effective_hp(base_hp, run)
@@ -95,7 +98,9 @@ def _execute_run(trainer: Callable, base_hp: HyperParams, run: SweepRun, out_dir
             row = json.load(f)
         if row.get("_hp") == hp_stamp:
             return row
-    os.makedirs(run_dir, exist_ok=True)
+    primary = is_primary()
+    if primary:
+        os.makedirs(run_dir, exist_ok=True)
     base = os.path.join(run.data_root, run.category)
     try:
         data = DataPipeline(hp.batch_size, hp.img_size, base_path=base,
@@ -121,24 +126,28 @@ def _execute_run(trainer: Callable, base_hp: HyperParams, run: SweepRun, out_dir
             "model": hp.model_name,
             "error": f"{type(e).__name__}: {e}",
         }
-        with open(os.path.join(run_dir, "traceback.txt"), "w") as f:
-            f.write(traceback.format_exc())
-    with open(done_path, "w") as f:
-        json.dump(row, f, default=float)
+        if primary:
+            with open(os.path.join(run_dir, "traceback.txt"), "w") as f:
+                f.write(traceback.format_exc())
+    if primary:
+        with open(done_path, "w") as f:
+            json.dump(row, f, default=float)
     return row
 
 
 def run_sweep(trainer: Callable, base_hp: HyperParams, runs: Sequence[SweepRun],
               out_dir: str, resume: bool = True, device: str = "cuda") -> List[Dict[str, Any]]:
     """Run the sweep in this process on `device`, run after run; returns
-    the rows and writes `<out_dir>/results.csv` after each."""
-    _check_mesh(base_hp)
+    the rows and writes `<out_dir>/results.csv` after each (on a mesh, every
+    rank runs it and the primary writes)."""
     check_device(device)
-    os.makedirs(out_dir, exist_ok=True)
+    if is_primary():
+        os.makedirs(out_dir, exist_ok=True)
     rows: List[Dict[str, Any]] = []
     for run in runs:
         rows.append(_execute_run(trainer, base_hp, run, out_dir, resume, device))
-        _write_csv(os.path.join(out_dir, "results.csv"), rows)
+        if is_primary():
+            _write_csv(os.path.join(out_dir, "results.csv"), rows)
     return rows
 
 
@@ -160,16 +169,19 @@ def resolve_trainer(arch: str) -> Callable:
 
 def _worker_main(arch: str, base_hp: HyperParams, runs: Sequence[SweepRun], out_dir: str,
                  resume: bool, worker_idx: int, device: str) -> None:
-    """Body of one spawned worker: its slice of the runs on `device` (its
-    card is the one `CUDA_VISIBLE_DEVICES` shows it)."""
+    """Body of one spawned worker (or of one rank of a worker's mesh): its
+    slice of the runs on `device` (its card is the one
+    `CUDA_VISIBLE_DEVICES` shows it)."""
     from vit_ad_tpu_torch.config import set_numerics_policy
 
+    maybe_initialize_distributed()
     set_numerics_policy()
     trainer = resolve_trainer(arch)
     for run in runs:
         row = _execute_run(trainer, base_hp, run, out_dir, resume, device)
-        print(f"[worker {worker_idx}] {run.name}: "
-              f"{row.get('image_auroc_score', row.get('error', '?'))}", flush=True)
+        if is_primary():
+            print(f"[worker {worker_idx}] {run.name}: "
+                  f"{row.get('image_auroc_score', row.get('error', '?'))}", flush=True)
 
 
 def run_sweep_parallel(arch: str, base_hp: HyperParams, runs: Sequence[SweepRun],
@@ -178,46 +190,43 @@ def run_sweep_parallel(arch: str, base_hp: HyperParams, runs: Sequence[SweepRun]
     """Fan independent category runs out to `num_workers` processes (the
     reference's sweep is sequential, trainings_loop.py:146-190). Worker i
     trains the runs i, i + num_workers, ... On `platform` "cuda" it sees
-    card i alone (`CUDA_VISIBLE_DEVICES`, set for the spawn and restored
-    after) and trains on `cuda`; on "cpu" it sees no card and trains on the
-    CPU. Workers are spawned (CUDA does not survive a fork), so the
-    hyper-parameters are pickled. More workers than cards are refused before
-    anything is spawned. The rows come from the `done.json` files with the
-    stamp check of `_execute_run`, so they are those of `run_sweep`; a
-    worker that died raises after `results.csv` is written."""
-    import multiprocessing as mp
+    card i alone (`launch.spawn_pinned`) and trains on `cuda`; on "cpu" it
+    sees no card and trains on the CPU. Workers are spawned (CUDA does not
+    survive a fork), so the hyper-parameters are pickled. More workers than
+    cards are refused before anything is spawned. With `base_hp.mesh` (explicit sizes DxM) a worker
+    is D·M processes, the ranks of its own cluster, on a disjoint group of
+    D·M cards (no card on "cpu"). The rows come from the `done.json` files
+    with the stamp check of `_execute_run`, so they are those of
+    `run_sweep`; a worker that died raises after `results.csv` is
+    written."""
+    from vit_ad_tpu_torch.parallel.launch import spawn_pinned, visible_cards
 
-    _check_mesh(base_hp)
     if platform not in ("cuda", "cpu"):
         raise ValueError(f"platform {platform!r}: 'cuda' or 'cpu'")
+    ranks = 1
+    if base_hp.mesh.requested:
+        if base_hp.mesh.data < 1 or base_hp.mesh.model < 1:
+            raise ValueError(
+                "sweep workers need explicit mesh sizes (DxM); -1 ('all "
+                "devices') is ambiguous when the sweep is also fanning out"
+            )
+        ranks = base_hp.mesh.data * base_hp.mesh.model
     check_device(platform)
     os.makedirs(out_dir, exist_ok=True)
     slices = [list(runs[i::num_workers]) for i in range(num_workers)]
     busy = sum(1 for s in slices if s)
-    if platform == "cuda" and busy > torch.cuda.device_count():
-        raise ValueError(f"{busy} sweep workers need one card each; "
-                         f"torch.cuda.device_count() is {torch.cuda.device_count()}")
+    if platform == "cuda" and busy * ranks > torch.cuda.device_count():
+        raise ValueError(f"{busy} sweep workers need {ranks} card{'s' if ranks > 1 else ''} "
+                         f"each; torch.cuda.device_count() is {torch.cuda.device_count()}")
 
     # card indices as this process sees them, mapped through its own pinning
-    shown = os.environ.get("CUDA_VISIBLE_DEVICES", "")
-    cards = shown.split(",") if shown else [str(c) for c in range(busy)]
-    ctx = mp.get_context("spawn")
+    cards = visible_cards()
     procs = []
-    saved_env = dict(os.environ)
-    try:
-        for i, slice_i in enumerate(slices):
-            if not slice_i:
-                continue
-            # the environment is read when the worker starts: pin, spawn, restore
-            os.environ["CUDA_VISIBLE_DEVICES"] = (
-                "" if platform == "cpu" else cards[i])
-            p = ctx.Process(target=_worker_main,
-                            args=(arch, base_hp, slice_i, out_dir, resume, i, platform))
-            p.start()
-            procs.append(p)
-    finally:
-        os.environ.clear()
-        os.environ.update(saved_env)
+    for i, slice_i in enumerate(slices):
+        if slice_i:
+            group = [""] * ranks if platform == "cpu" else cards[i * ranks:(i + 1) * ranks]
+            procs += spawn_pinned(_worker_main, (arch, base_hp, slice_i, out_dir, resume, i,
+                                                 platform), group, cluster=ranks > 1)
 
     failed = []
     for p in procs:

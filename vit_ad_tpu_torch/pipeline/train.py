@@ -20,6 +20,17 @@ takes `log` (called with each epoch's row and, after the final evaluation,
 the metrics with `"stage": "eval"`, as the JAX trainers log them),
 `figures_dir` (the evaluator's figures) and `logger` (a
 `utils.logging.MetricLogger` the figures are registered with).
+
+With `hp.mesh` (`--mesh DxM`, JAX `_mesh_setup` :103) every trainer runs as one
+rank of a (data, model) mesh (`parallel/context.MeshContext`): each data rank
+takes its rows of every padded batch, the loss is the global masked mean
+(each rank backpropagates its rows' sum over the global valid count and the
+gradients are summed over the data axis), noise is the single-device draw
+(each rank draws the global shape and keeps its rows), the MDN heads hold
+K/M mixture components a model rank, BatchNorms in training take
+global-batch statistics, and everything else is replicated. The validation
+loss is the global one, so every rank takes the same early-stopping
+decisions; the best weights are kept per rank, as shards.
 """
 
 from __future__ import annotations
@@ -30,7 +41,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tupl
 import numpy as np
 import torch
 
-from vit_ad_tpu_torch.config import HyperParams, MeshConfig
+from vit_ad_tpu_torch.config import HyperParams
 from vit_ad_tpu_torch.data.dataset import default_norm_stats
 from vit_ad_tpu_torch.data.loader import Batch, DataPipeline, preprocess
 from vit_ad_tpu_torch.models.autoencoder import TransformerAutoEncoder, VanillaAutoEncoder
@@ -40,16 +51,19 @@ from vit_ad_tpu_torch.models.outputs import Encoder
 from vit_ad_tpu_torch.models.resnet import STAGE_CHANNELS, STAGE_SCALES, ResNetEncoder
 from vit_ad_tpu_torch.models.vae import VariationalAutoEncoder, kl_per_example
 from vit_ad_tpu_torch.ops.ssim import ssim_per_image
+from vit_ad_tpu_torch.parallel.context import MeshContext
 from vit_ad_tpu_torch.pipeline.early_stopping import run_epochs
 from vit_ad_tpu_torch.pipeline.features import (
     extract_features,
+    gather_features,
     make_feature_extractor,
+    shard_feature_batches,
     stage_feature_batches,
 )
 from vit_ad_tpu_torch.pipeline.optimizers import torch_adam
 from vit_ad_tpu_torch.registry import get_model
 
-# loss(head, feats [B, P, D], valid [B], generator | None) → scalar
+# loss(head, feats [B, P, D], valid [B], generator | None, mc=mesh | None) → scalar
 HeadLoss = Callable[[torch.nn.Module, torch.Tensor, torch.Tensor, Optional[torch.Generator]],
                     torch.Tensor]
 Log = Optional[Callable[[Dict[str, Any]], None]]
@@ -74,50 +88,75 @@ def default_encoder(hp: HyperParams) -> torch.nn.Module:
                      fused_mlp=hp.fused_mlp)
 
 
-def _weighted_mean(losses: List[torch.Tensor], weights: List[float]) -> float:
-    """Weighted mean of per-step loss scalars, fetched once per epoch."""
+def _weighted_mean(losses: List[torch.Tensor], weights: List[float],
+                   mc: Optional[MeshContext] = None) -> float:
+    """Weighted mean of per-step loss scalars, fetched once per epoch; on a
+    mesh each scalar is a data rank's part of the step's loss, summed over the
+    data axis first."""
     if not losses:
         return float("nan")
-    vals = torch.stack(losses).double().cpu().numpy()
-    return float(np.average(vals, weights=weights))
+    vals = torch.stack(losses)
+    if mc is not None:
+        vals = mc.data_sum(vals)
+    return float(np.average(vals.double().cpu().numpy(), weights=weights))
 
 
-def _masked_mean(per_example: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Mean over the valid rows of a padded batch."""
-    return torch.sum(per_example * valid) / torch.clamp(torch.sum(valid), min=1.0)
+def _masked_mean(per_example: torch.Tensor, valid: torch.Tensor,
+                 mc: Optional[MeshContext] = None) -> torch.Tensor:
+    """Mean over the valid rows of a padded batch; on a mesh, this data
+    rank's part of the global mean: its rows' sum over the global count."""
+    count = torch.sum(valid)
+    if mc is not None:
+        count = mc.data_sum(count)
+    return torch.sum(per_example * valid) / torch.clamp(count, min=1.0)
 
 
 def masked_mdn_loss(mdn: GaussianMDN, feats: torch.Tensor, valid: torch.Tensor,
-                    generator: Optional[torch.Generator]) -> torch.Tensor:
+                    generator: Optional[torch.Generator],
+                    mc: Optional[MeshContext] = None) -> torch.Tensor:
     """Mean NLL over the valid rows of a padded batch (JAX `masked_loss`
     :171-176); Gumbel noise from `generator` (None: the noiseless eval
     loss)."""
-    return _masked_mean(-torch.mean(mdn.log_likelihood(feats, generator), dim=(1, 2)), valid)
+    return _masked_mean(-torch.mean(mdn.log_likelihood(feats, generator), dim=(1, 2)), valid,
+                        mc)
 
 
 def masked_nf_loss(flow: NormalizingFlow, feats: torch.Tensor, valid: torch.Tensor,
-                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                   generator: Optional[torch.Generator] = None,
+                   mc: Optional[MeshContext] = None) -> torch.Tensor:
     """Mean over the valid rows of ½ Σ z² - logdet of the flow on the
     [B, √P, √P, D] map of the cached tokens (JAX `masked_loss` :341-345).
     The flow draws no noise; `generator` is the trainers' common argument."""
     z, logdet = flow.transform(patch_tokens_to_map(feats))
-    return _masked_mean(0.5 * torch.sum(z * z, dim=(1, 2, 3)) - logdet, valid)
+    return _masked_mean(0.5 * torch.sum(z * z, dim=(1, 2, 3)) - logdet, valid, mc)
+
+
+def optimizer_step(opt: torch.optim.Optimizer, loss: Callable[[], torch.Tensor],
+                   mc: Optional[MeshContext] = None) -> torch.Tensor:
+    """Zero the gradients, backpropagate `loss()`, on a mesh sum the
+    gradients over the data axis, step; returns the (detached) loss."""
+    opt.zero_grad(set_to_none=True)
+    out = loss()
+    out.backward()
+    if mc is not None:
+        mc.sum_gradients(p for group in opt.param_groups for p in group["params"])
+    opt.step()
+    return out.detach()
 
 
 def train_step(loss_fn: HeadLoss, head: torch.nn.Module, opt: torch.optim.Optimizer,
                feats: torch.Tensor, valid: torch.Tensor,
-               generator: Optional[torch.Generator]) -> torch.Tensor:
-    """One optimizer step on one padded batch; returns the (detached) loss."""
-    opt.zero_grad(set_to_none=True)
-    loss = loss_fn(head, feats, valid, generator)
-    loss.backward()
-    opt.step()
-    return loss.detach()
+               generator: Optional[torch.Generator],
+               mc: Optional[MeshContext] = None) -> torch.Tensor:
+    """One optimizer step on one padded batch; returns the (detached) loss
+    (on a mesh, this data rank's part of it)."""
+    return optimizer_step(opt, lambda: loss_fn(head, feats, valid, generator, mc=mc), mc)
 
 
 def mdn_train_step(mdn: GaussianMDN, opt: torch.optim.Optimizer, feats: torch.Tensor,
-                   valid: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-    return train_step(masked_mdn_loss, mdn, opt, feats, valid, generator)
+                   valid: torch.Tensor, generator: Optional[torch.Generator],
+                   mc: Optional[MeshContext] = None) -> torch.Tensor:
+    return train_step(masked_mdn_loss, mdn, opt, feats, valid, generator, mc)
 
 
 def _evaluated(evaluate: Callable[..., Dict[str, float]], test_data: Optional[DataPipeline],
@@ -141,57 +180,90 @@ def _result(head: torch.nn.Module, encoder: Optional[torch.nn.Module], history, 
 
 
 def _check_unported(hp: HyperParams) -> None:
-    if hp.mesh != MeshConfig():
-        raise NotImplementedError("--mesh training is not ported to vit_ad_tpu_torch yet "
-                                  "(ROADMAP A11)")
     if not hp.cache_frozen_features:
         raise NotImplementedError("re-extracting features every epoch is not ported; the "
                                   "port always caches the frozen trunk's features")
 
 
+def _mesh_setup(hp: HyperParams, device: torch.device) -> Optional[MeshContext]:
+    """The trainers' mesh (JAX `_mesh_setup` :103): None without `hp.mesh`,
+    else the validated MeshContext of this rank on `device`."""
+    mc = MeshContext.from_hp(hp, devices=device)
+    if mc is not None:
+        mc.check_batch(hp.batch_size)
+    return mc
+
+
 def _train_head(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPipeline],
                 encoder: Optional[Encoder], device: Optional[str], log: Log,
-                make_head: Callable[[torch.Tensor], torch.nn.Module], loss_fn: HeadLoss,
+                make_head: Callable[[torch.Size], torch.nn.Module], loss_fn: HeadLoss,
                 noisy: bool, evaluate: Callable[..., Dict[str, float]],
-                figures_dir: Optional[str], logger: Any) -> TrainResult:
+                figures_dir: Optional[str], logger: Any,
+                seed_head: Optional[Callable[[torch.nn.Module, torch.Tensor], None]] = None,
+                ) -> TrainResult:
     """The frozen-trunk trainer both heads share: cache the features, build
-    the head from them (`make_head(feats_train)`, on the CPU), train with
-    `loss_fn` (noise from one generator seeded with `hp.seed` when `noisy`;
-    the validation loss is always noiseless), keep the best validation epoch,
-    evaluate on `test_data`."""
+    the head for their [B, P, D] shape (`make_head`, on the CPU), let
+    `seed_head(head, feats_train)` set it from the training features if
+    given, train with `loss_fn` (noise from one generator seeded with
+    `hp.seed` when `noisy`; the validation loss is always noiseless), keep the
+    best validation epoch, evaluate on `test_data`. On a mesh each data rank
+    extracts and caches the features of its own rows of every batch; only
+    `seed_head` needs every rank's, so only then are they gathered, and the
+    primary alone seeds the head and broadcasts it before it is placed on the
+    mesh."""
     _check_unported(hp)
     if encoder is None:
         encoder = default_encoder(hp)
     if device is None:
         device = next(encoder.parameters()).device
     device = torch.device(device)
+    mc = _mesh_setup(hp, device)
     encoder = encoder.to(device).eval()
     # --centering: the train set's statistics; else ImageNet's
     mean, std = data.compute_mean_std() if hp.centering else default_norm_stats()
     extractor = make_feature_extractor(encoder, hp.block_index, mean, std)
-    feats_train = extract_features(extractor, data.train_batches(hp.prefetch), device)
-    feats_valid = extract_features(extractor, data.valid_batches(hp.prefetch), device)
+    if mc is None:
+        feats_train = extract_features(extractor, data.train_batches(hp.prefetch), device)
+        feats_valid = extract_features(extractor, data.valid_batches(hp.prefetch), device)
+        train_batches = stage_feature_batches(feats_train, hp.batch_size)
+        valid_batches = stage_feature_batches(feats_valid, hp.batch_size)
+        head = make_head(feats_train.shape)
+        if seed_head is not None:
+            seed_head(head, feats_train)
+        del feats_train
+    else:
+        train_batches = shard_feature_batches(extractor, data.train_batches(hp.prefetch),
+                                              device, mc)
+        valid_batches = shard_feature_batches(extractor, data.valid_batches(hp.prefetch),
+                                              device, mc)
+        head = make_head(next(train_batches())[0].shape)
+        if seed_head is not None:
+            feats_train = gather_features(train_batches, mc)
+            if mc.mesh.rank == 0:
+                seed_head(head, feats_train)
+            del feats_train
+            mc.replicate(head)
 
-    head = make_head(feats_train).to(device)
+    head = head.to(device)
+    if mc is not None:
+        head = mc.shard_params(head)
     opt = torch_adam(head.parameters(), hp.learning_rate, hp.weight_decay)
     noise = torch.Generator(device=device).manual_seed(hp.seed) if noisy else None
-    train_batches = stage_feature_batches(feats_train, hp.batch_size)
-    valid_batches = stage_feature_batches(feats_valid, hp.batch_size)
 
     def train_epoch(epoch: int):
         losses, weights = [], []
         for feats, valid, w in train_batches():
-            losses.append(train_step(loss_fn, head, opt, feats, valid, noise))
+            losses.append(train_step(loss_fn, head, opt, feats, valid, noise, mc))
             weights.append(w)
-        return _weighted_mean(losses, weights), float(sum(weights))
+        return _weighted_mean(losses, weights, mc), float(sum(weights))
 
     def valid_epoch() -> float:
         losses, weights = [], []
         with torch.no_grad():
             for feats, valid, w in valid_batches():
-                losses.append(loss_fn(head, feats, valid, None))
+                losses.append(loss_fn(head, feats, valid, None, mc=mc))
                 weights.append(w)
-        return _weighted_mean(losses, weights)
+        return _weighted_mean(losses, weights, mc)
 
     history, epochs_ran, stopper = run_epochs(hp, train_epoch, valid_epoch, head.state_dict,
                                               log)
@@ -218,16 +290,16 @@ def train_mdn(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPipel
     from vit_ad_tpu_torch.pipeline.cluster_init import kmeans_cluster_centers, seed_mdn_mu_bias
     from vit_ad_tpu_torch.pipeline.eval import evaluate_mdn
 
-    def make(feats: torch.Tensor) -> GaussianMDN:
-        mdn = GaussianMDN(feats.shape[-1], hp.num_gaussians, dtypes=hp.dtypes,
-                          generator=torch.Generator().manual_seed(hp.seed))
-        if hp.kmeans_init:
-            centers = kmeans_cluster_centers(feats.float().cpu().numpy(), hp.num_gaussians)
-            seed_mdn_mu_bias(mdn, centers)
-        return mdn
+    make = lambda shape: GaussianMDN(shape[-1], hp.num_gaussians, dtypes=hp.dtypes,
+                                     generator=torch.Generator().manual_seed(hp.seed))
+
+    def seed(mdn: GaussianMDN, feats: torch.Tensor) -> None:
+        seed_mdn_mu_bias(mdn, kmeans_cluster_centers(feats.float().cpu().numpy(),
+                                                     hp.num_gaussians))
 
     return _train_head(hp, data, test_data, encoder, device, log, make, masked_mdn_loss, True,
-                       evaluate_mdn, figures_dir, logger)
+                       evaluate_mdn, figures_dir, logger,
+                       seed_head=seed if hp.kmeans_init else None)
 
 
 def train_nf(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPipeline] = None,
@@ -240,8 +312,8 @@ def train_nf(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPipeli
     Arguments as `train_mdn`; the flow's init is seeded with `hp.seed`."""
     from vit_ad_tpu_torch.pipeline.eval import evaluate_nf
 
-    make = lambda feats: NormalizingFlow(
-        num_channels=feats.shape[-1], img_size=hp.img_size, num_patches=feats.shape[1],
+    make = lambda shape: NormalizingFlow(
+        num_channels=shape[-1], img_size=hp.img_size, num_patches=shape[1],
         hidden_ratio=hp.hidden_ratio, flow_steps=hp.flow_steps,
         generator=torch.Generator().manual_seed(hp.seed))
     return _train_head(hp, data, test_data, encoder, device, log, make, masked_nf_loss, False,
@@ -255,7 +327,8 @@ def mdn_resnet_loss(encoder: ResNetEncoder, heads: Sequence[GaussianMDN],
                     images_u8: torch.Tensor, valid: torch.Tensor,
                     generator: Optional[torch.Generator], mean: Optional[torch.Tensor],
                     std: Optional[torch.Tensor],
-                    stages: Sequence[int] = RESNET_MDN_STAGES) -> torch.Tensor:
+                    stages: Sequence[int] = RESNET_MDN_STAGES,
+                    mc: Optional[MeshContext] = None) -> torch.Tensor:
     """The joint objective (JAX `loss_fn` :889): the masked mean NLL of every
     stage head on its LayerNorm'd stage map, summed. The trunk runs without
     gradient; the stage norms and the heads differentiate, so on the card the
@@ -263,7 +336,7 @@ def mdn_resnet_loss(encoder: ResNetEncoder, heads: Sequence[GaussianMDN],
     from vit_ad_tpu_torch.pipeline.eval import resnet_stage_tokens
 
     tokens = resnet_stage_tokens(encoder, images_u8, mean, std, stages)
-    return sum(masked_mdn_loss(mdn, feats, valid, generator)
+    return sum(masked_mdn_loss(mdn, feats, valid, generator, mc)
                for feats, mdn in zip(tokens, heads))
 
 
@@ -271,23 +344,27 @@ def mdn_resnet_train_step(encoder: ResNetEncoder, heads: Sequence[GaussianMDN],
                           opt: torch.optim.Optimizer, images_u8: torch.Tensor,
                           valid: torch.Tensor, generator: Optional[torch.Generator],
                           mean: Optional[torch.Tensor], std: Optional[torch.Tensor],
-                          stages: Sequence[int] = RESNET_MDN_STAGES) -> torch.Tensor:
+                          stages: Sequence[int] = RESNET_MDN_STAGES,
+                          mc: Optional[MeshContext] = None) -> torch.Tensor:
     """One joint optimizer step on one padded uint8 batch; returns the
     (detached) loss."""
-    opt.zero_grad(set_to_none=True)
-    loss = mdn_resnet_loss(encoder, heads, images_u8, valid, generator, mean, std, stages)
-    loss.backward()
-    opt.step()
-    return loss.detach()
+    return optimizer_step(opt, lambda: mdn_resnet_loss(encoder, heads, images_u8, valid,
+                                                       generator, mean, std, stages, mc), mc)
 
 
-def stage_image_batches(batches: Iterable[Batch], device: torch.device
+def stage_image_batches(batches: Iterable[Batch], device: torch.device,
+                        mc: Optional[MeshContext] = None
                         ) -> List[Tuple[torch.Tensor, torch.Tensor, float]]:
     """The padded uint8 batches of a split, decoded once and kept on `device`:
-    (images [B, H, W, 3] uint8, valid [B] f32, valid count)."""
-    return [(torch.from_numpy(b.images).to(device),
-             torch.from_numpy(b.valid).to(device=device, dtype=torch.float32),
-             float(b.valid.sum())) for b in batches]
+    (images [B, H, W, 3] uint8, valid [B] f32, valid count); on a mesh, this
+    data rank's rows of each and the global count."""
+    staged = []
+    for b in batches:
+        images, valid = (b.images, b.valid) if mc is None else mc.shard_batch(b.images, b.valid)
+        staged.append((torch.from_numpy(images).to(device),
+                       torch.from_numpy(valid).to(device=device, dtype=torch.float32),
+                       float(b.valid.sum())))
+    return staged
 
 
 def train_mdn_resnet(hp: HyperParams, data: DataPipeline,
@@ -310,9 +387,14 @@ def train_mdn_resnet(hp: HyperParams, data: DataPipeline,
     1 feed no head and keep their init, as in the reference (torch Adam skips
     parameters without a gradient).
 
+    On a mesh the heads hold K/M components a model rank (the full heads are
+    made from the seed, then sharded) and the stage norms are replicated;
+    the shards' partial feature gradients (B4's) are summed over the model
+    axis before they reach the norms.
+
     Not ported: the K-chunked update of `pipeline/mdn_chunked.py` (a
     workaround for a smaller device memory; PERF.md has what the joint step
-    takes on the H100), `--mesh`."""
+    takes on the H100)."""
     from vit_ad_tpu_torch.pipeline.eval import evaluate_mdn_resnet
 
     _check_unported(hp)
@@ -323,6 +405,7 @@ def train_mdn_resnet(hp: HyperParams, data: DataPipeline,
     if device is None:
         device = next(encoder.parameters()).device
     device = torch.device(device)
+    mc = _mesh_setup(hp, device)
     encoder = encoder.to(device).eval()
     mean, std = data.compute_mean_std() if hp.centering else default_norm_stats()
     mean_t, std_t = (torch.as_tensor(a, dtype=torch.float32, device=device)
@@ -333,30 +416,33 @@ def train_mdn_resnet(hp: HyperParams, data: DataPipeline,
         heads = torch.nn.ModuleList(
             GaussianMDN(STAGE_CHANNELS[i], hp.num_gaussians, dtypes=hp.dtypes, generator=init)
             for i in stages)
+    if mc is not None:
+        heads = mc.shard_params(heads)
+        mc.replicate(encoder.norms)
     # what trains: the heads and the stage norms (the trunk and its BatchNorm
     # statistics never change; `encoder.state_dict()` carries them to a file)
     trainable = torch.nn.ModuleDict({"heads": heads, "norms": encoder.norms})
     opt = torch_adam(trainable.parameters(), hp.learning_rate, hp.weight_decay)
     noise = torch.Generator(device=device).manual_seed(hp.seed)
-    train_batches = stage_image_batches(data.train_batches(hp.prefetch), device)
-    valid_batches = stage_image_batches(data.valid_batches(hp.prefetch), device)
+    train_batches = stage_image_batches(data.train_batches(hp.prefetch), device, mc)
+    valid_batches = stage_image_batches(data.valid_batches(hp.prefetch), device, mc)
 
     def train_epoch(epoch: int):
         losses, weights = [], []
         for images, valid, w in train_batches:
             losses.append(mdn_resnet_train_step(encoder, heads, opt, images, valid, noise,
-                                                mean_t, std_t, stages))
+                                                mean_t, std_t, stages, mc))
             weights.append(w)
-        return _weighted_mean(losses, weights), float(sum(weights))
+        return _weighted_mean(losses, weights, mc), float(sum(weights))
 
     def valid_epoch() -> float:
         losses, weights = [], []
         with torch.no_grad():
             for images, valid, w in valid_batches:
                 losses.append(mdn_resnet_loss(encoder, heads, images, valid, None, mean_t,
-                                              std_t, stages))
+                                              std_t, stages, mc))
                 weights.append(w)
-        return _weighted_mean(losses, weights)
+        return _weighted_mean(losses, weights, mc)
 
     history, epochs_ran, stopper = run_epochs(hp, train_epoch, valid_epoch,
                                               trainable.state_dict, log)
@@ -383,7 +469,8 @@ def stage_flow(hp: HyperParams, stage: int,
 def nf_resnet_loss(encoder: ResNetEncoder, flows: Sequence[NormalizingFlow],
                    images_u8: torch.Tensor, valid: torch.Tensor, mean: Optional[torch.Tensor],
                    std: Optional[torch.Tensor],
-                   stages: Sequence[int] = NF_RESNET_STAGES) -> torch.Tensor:
+                   stages: Sequence[int] = NF_RESNET_STAGES,
+                   mc: Optional[MeshContext] = None) -> torch.Tensor:
     """The objective of `train_nf_resnet` (JAX `loss_fn` :1326): per stage,
     the masked mean over the valid rows of ½ Σ z² - logdet of its flow on
     the LayerNorm'd stage map, summed over the stages. The trunk runs without
@@ -394,7 +481,7 @@ def nf_resnet_loss(encoder: ResNetEncoder, flows: Sequence[NormalizingFlow],
     total = 0.0
     for m, flow in zip(maps, flows):
         z, logdet = flow.transform(m)
-        total = total + _masked_mean(0.5 * torch.sum(z * z, dim=(1, 2, 3)) - logdet, valid)
+        total = total + _masked_mean(0.5 * torch.sum(z * z, dim=(1, 2, 3)) - logdet, valid, mc)
     return total
 
 
@@ -402,14 +489,12 @@ def nf_resnet_train_step(encoder: ResNetEncoder, flows: Sequence[NormalizingFlow
                          opt: torch.optim.Optimizer, images_u8: torch.Tensor,
                          valid: torch.Tensor, mean: Optional[torch.Tensor],
                          std: Optional[torch.Tensor],
-                         stages: Sequence[int] = NF_RESNET_STAGES) -> torch.Tensor:
+                         stages: Sequence[int] = NF_RESNET_STAGES,
+                         mc: Optional[MeshContext] = None) -> torch.Tensor:
     """One joint optimizer step on one padded uint8 batch; returns the
     (detached) loss."""
-    opt.zero_grad(set_to_none=True)
-    loss = nf_resnet_loss(encoder, flows, images_u8, valid, mean, std, stages)
-    loss.backward()
-    opt.step()
-    return loss.detach()
+    return optimizer_step(opt, lambda: nf_resnet_loss(encoder, flows, images_u8, valid, mean,
+                                                      std, stages, mc), mc)
 
 
 def train_nf_resnet(hp: HyperParams, data: DataPipeline,
@@ -443,6 +528,7 @@ def train_nf_resnet(hp: HyperParams, data: DataPipeline,
     if device is None:
         device = next(encoder.parameters()).device
     device = torch.device(device)
+    mc = _mesh_setup(hp, device)
     encoder = encoder.to(device).eval()
     mean, std = data.compute_mean_std() if hp.centering else default_norm_stats()
     mean_t, std_t = (torch.as_tensor(a, dtype=torch.float32, device=device)
@@ -450,26 +536,28 @@ def train_nf_resnet(hp: HyperParams, data: DataPipeline,
     init = torch.Generator().manual_seed(hp.seed)
     flows = torch.nn.ModuleList(stage_flow(hp, i, init) for i in stages).to(device)
     trainable = torch.nn.ModuleDict({"flows": flows, "norms": encoder.norms})
+    if mc is not None:
+        mc.replicate(trainable)
     opt = torch_adam(trainable.parameters(), hp.learning_rate, hp.weight_decay)
-    train_batches = stage_image_batches(data.train_batches(hp.prefetch), device)
-    valid_batches = stage_image_batches(data.valid_batches(hp.prefetch), device)
+    train_batches = stage_image_batches(data.train_batches(hp.prefetch), device, mc)
+    valid_batches = stage_image_batches(data.valid_batches(hp.prefetch), device, mc)
 
     def train_epoch(epoch: int):
         losses, weights = [], []
         for images, valid, w in train_batches:
             losses.append(nf_resnet_train_step(encoder, flows, opt, images, valid, mean_t,
-                                               std_t, stages))
+                                               std_t, stages, mc))
             weights.append(w)
-        return _weighted_mean(losses, weights), float(sum(weights))
+        return _weighted_mean(losses, weights, mc), float(sum(weights))
 
     def valid_epoch() -> float:
         losses, weights = [], []
         with torch.no_grad():
             for images, valid, w in valid_batches:
                 losses.append(nf_resnet_loss(encoder, flows, images, valid, mean_t, std_t,
-                                             stages))
+                                             stages, mc))
                 weights.append(w)
-        return _weighted_mean(losses, weights)
+        return _weighted_mean(losses, weights, mc)
 
     history, epochs_ran, stopper = run_epochs(hp, train_epoch, valid_epoch,
                                               trainable.state_dict, log)
@@ -481,16 +569,20 @@ def train_nf_resnet(hp: HyperParams, data: DataPipeline,
 
 
 def recon_loss(recon: torch.Tensor, x: torch.Tensor, valid: torch.Tensor, use_ssim: bool = False,
-               mse_weight: float = 1.0, ssim_weight: float = 0.0) -> torch.Tensor:
+               mse_weight: float = 1.0, ssim_weight: float = 0.0,
+               mc: Optional[MeshContext] = None) -> torch.Tensor:
     """The recon objective on a padded batch (JAX `loss_fn` :536-559): the
     per-image mean squared error in f32, masked-mean over the valid rows; with
     `use_ssim`, `mse_weight·MSE + ssim_weight·(1 - masked mean SSIM)` (the
     reference's learn_ae_with_SSIM). recon and x are [B, H, W, 3]."""
     recon, x = recon.float(), x.float()
-    loss = _masked_mean(torch.mean(torch.square(recon - x), dim=(1, 2, 3)), valid)
+    loss = _masked_mean(torch.mean(torch.square(recon - x), dim=(1, 2, 3)), valid, mc)
     if use_ssim:
         s = ssim_per_image(recon.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), data_range=1.0)
-        loss = mse_weight * loss + ssim_weight * (1.0 - _masked_mean(s, valid))
+        # on a mesh, 1 - (masked mean SSIM) is a data rank's part: its rows'
+        # part of the mean, and 1 / D of the constant
+        one = 1.0 if mc is None else 1.0 / mc.data_size
+        loss = mse_weight * loss + ssim_weight * (one - _masked_mean(s, valid, mc))
     return loss
 
 
@@ -507,17 +599,18 @@ def recon_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer, images_
                      valid: torch.Tensor, latents: Optional[torch.Tensor],
                      mean: Optional[torch.Tensor], std: Optional[torch.Tensor],
                      use_ssim: bool = False, mse_weight: float = 1.0,
-                     ssim_weight: float = 0.0) -> torch.Tensor:
+                     ssim_weight: float = 0.0,
+                     mc: Optional[MeshContext] = None) -> torch.Tensor:
     """One optimizer step of `train_recon` on one padded uint8 batch (model in
     train mode: the decoder's BatchNorms take batch statistics and update
     their running ones); returns the (detached) loss."""
-    opt.zero_grad(set_to_none=True)
-    x = preprocess(images_u8, mean, std)
-    loss = recon_loss(reconstruct(model, x, latents), x, valid, use_ssim, mse_weight,
-                      ssim_weight)
-    loss.backward()
-    opt.step()
-    return loss.detach()
+
+    def loss() -> torch.Tensor:
+        x = preprocess(images_u8, mean, std)
+        return recon_loss(reconstruct(model, x, latents), x, valid, use_ssim, mse_weight,
+                          ssim_weight, mc)
+
+    return optimizer_step(opt, loss, mc)
 
 
 def cache_latents(model: TransformerAutoEncoder,
@@ -525,11 +618,15 @@ def cache_latents(model: TransformerAutoEncoder,
                   mean: Optional[torch.Tensor], std: Optional[torch.Tensor]) -> List[torch.Tensor]:
     """The frozen trunk's latents [B, D] of every staged batch, in eval mode
     and without gradient (JAX :593-645); a padded row's latent is the last
-    valid row's."""
+    valid row's. (On a mesh a data rank whose rows are all padding keeps the
+    latents of its images, which the loader padded with the last valid
+    image.)"""
     out = []
-    for images, _, w in batches:
+    for images, valid, _ in batches:
         z = model.latent(preprocess(images, mean, std)).clone()
-        z[int(w):] = z[int(w) - 1]
+        n = int(valid.sum())
+        if n:
+            z[n:] = z[n - 1]
         out.append(z)
     return out
 
@@ -550,7 +647,8 @@ def train_recon(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPip
     each step and validation pass runs the decoder alone. The uint8 batches
     are decoded once and kept on the device. The AE ends with the weights and
     running statistics of its best validation epoch, in eval mode, and is
-    evaluated on `test_data`. `TrainResult.head` is the AE."""
+    evaluated on `test_data`. `TrainResult.head` is the AE. On a mesh the AE is
+    replicated and its BatchNorms take global-batch statistics in training."""
     from vit_ad_tpu_torch.pipeline.eval import evaluate_recon
 
     _check_unported(hp)
@@ -559,14 +657,19 @@ def train_recon(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPip
     if device is None:
         device = next(model.parameters()).device
     device = torch.device(device)
+    mc = _mesh_setup(hp, device)
     model = model.to(device)
+    if mc is not None:
+        model = mc.shard_params(model)
     mean, std = data.compute_mean_std() if hp.centering else default_norm_stats()
     mean_t, std_t = (torch.as_tensor(a, dtype=torch.float32, device=device) for a in (mean, std))
     # the vanilla AE trains end to end; a pretrained encoder stays frozen
     trainable = model if isinstance(model, VanillaAutoEncoder) else model.decoder
+    if mc is not None:
+        mc.replicate(trainable)
     opt = torch_adam(trainable.parameters(), hp.learning_rate, hp.weight_decay)
-    train_batches = stage_image_batches(data.train_batches(hp.prefetch), device)
-    valid_batches = stage_image_batches(data.valid_batches(hp.prefetch), device)
+    train_batches = stage_image_batches(data.train_batches(hp.prefetch), device, mc)
+    valid_batches = stage_image_batches(data.valid_batches(hp.prefetch), device, mc)
     train_latents = valid_latents = None
     if isinstance(model, TransformerAutoEncoder):
         model.eval()
@@ -580,9 +683,9 @@ def train_recon(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPip
         for i, (images, valid, w) in enumerate(train_batches):
             z = None if train_latents is None else train_latents[i]
             losses.append(recon_train_step(model, opt, images, valid, z, mean_t, std_t,
-                                           use_ssim, *weights))
+                                           use_ssim, *weights, mc=mc))
             counts.append(w)
-        return _weighted_mean(losses, counts), float(sum(counts))
+        return _weighted_mean(losses, counts, mc), float(sum(counts))
 
     def valid_epoch() -> float:
         model.eval()
@@ -591,9 +694,9 @@ def train_recon(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPip
             for i, (images, valid, w) in enumerate(valid_batches):
                 z = None if valid_latents is None else valid_latents[i]
                 x = preprocess(images, mean_t, std_t)
-                losses.append(recon_loss(reconstruct(model, x, z), x, valid))
+                losses.append(recon_loss(reconstruct(model, x, z), x, valid, mc=mc))
                 counts.append(w)
-        return _weighted_mean(losses, counts)
+        return _weighted_mean(losses, counts, mc)
 
     history, epochs_ran, stopper = run_epochs(hp, train_epoch, valid_epoch,
                                               trainable.state_dict, log)
@@ -608,30 +711,33 @@ def train_recon(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPip
 def vae_loss(model: VariationalAutoEncoder, images_u8: torch.Tensor, valid: torch.Tensor,
              mean: Optional[torch.Tensor], std: Optional[torch.Tensor],
              generator: Optional[torch.Generator] = None,
-             eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+             eps: Optional[torch.Tensor] = None,
+             mc: Optional[MeshContext] = None) -> torch.Tensor:
     """The VAE objective on a padded uint8 batch (JAX `loss_fn` :1488-1509):
     the per-image mean squared error in f32 plus the per-image KL, each a
     masked mean over the valid rows, from ONE encode (its BatchNorms in
     whichever mode the model is in); ε is `eps`, else drawn from
-    `generator`."""
+    `generator` (on a mesh, the global batch's draw, this rank's rows
+    kept)."""
     x = preprocess(images_u8, mean, std)
+    if eps is None and mc is not None:
+        eps = mc.draw_rows(torch.randn, (x.shape[0], model.latent_dim), generator=generator,
+                           device=x.device)
     out, mu, log_var = model.forward_with_posterior(x, eps, generator)
     err = torch.mean(torch.square(out.reconstruction.float() - x.float()), dim=(1, 2, 3))
-    return _masked_mean(err, valid) + _masked_mean(kl_per_example(mu, log_var), valid)
+    return _masked_mean(err, valid, mc) + _masked_mean(kl_per_example(mu, log_var), valid, mc)
 
 
 def vae_train_step(model: VariationalAutoEncoder, opt: torch.optim.Optimizer,
                    images_u8: torch.Tensor, valid: torch.Tensor, mean: Optional[torch.Tensor],
                    std: Optional[torch.Tensor], generator: Optional[torch.Generator] = None,
-                   eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   eps: Optional[torch.Tensor] = None,
+                   mc: Optional[MeshContext] = None) -> torch.Tensor:
     """One optimizer step of `train_vae` (model in train mode: the
     BatchNorms take batch statistics and update their running ones); returns
     the (detached) loss."""
-    opt.zero_grad(set_to_none=True)
-    loss = vae_loss(model, images_u8, valid, mean, std, generator, eps)
-    loss.backward()
-    opt.step()
-    return loss.detach()
+    return optimizer_step(opt, lambda: vae_loss(model, images_u8, valid, mean, std, generator,
+                                                eps, mc), mc)
 
 
 def train_vae(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPipeline] = None,
@@ -650,7 +756,9 @@ def train_vae(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPipel
     uint8 batches are decoded once and kept on the device. The model ends
     with the weights and running statistics of its best validation epoch, in
     eval mode, and is evaluated by decoding the posterior mean
-    (`pipeline.eval.evaluate_vae`). `TrainResult.head` is the model."""
+    (`pipeline.eval.evaluate_vae`). `TrainResult.head` is the model. On a
+    mesh it is replicated and its BatchNorms take global-batch statistics in
+    training."""
     from vit_ad_tpu_torch.pipeline.eval import evaluate_vae
 
     _check_unported(hp)
@@ -660,30 +768,34 @@ def train_vae(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPipel
     if device is None:
         device = next(model.parameters()).device
     device = torch.device(device)
+    mc = _mesh_setup(hp, device)
     model = model.to(device)
+    if mc is not None:
+        model = mc.shard_params(mc.replicate(model))
     mean, std = data.compute_mean_std() if hp.centering else default_norm_stats()
     mean_t, std_t = (torch.as_tensor(a, dtype=torch.float32, device=device) for a in (mean, std))
     opt = torch_adam(model.parameters(), hp.learning_rate, hp.weight_decay)
     noise = torch.Generator(device=device).manual_seed(hp.seed)
-    train_batches = stage_image_batches(data.train_batches(hp.prefetch), device)
-    valid_batches = stage_image_batches(data.valid_batches(hp.prefetch), device)
+    train_batches = stage_image_batches(data.train_batches(hp.prefetch), device, mc)
+    valid_batches = stage_image_batches(data.valid_batches(hp.prefetch), device, mc)
 
     def train_epoch(epoch: int):
         model.train()
         losses, counts = [], []
         for images, valid, w in train_batches:
-            losses.append(vae_train_step(model, opt, images, valid, mean_t, std_t, noise))
+            losses.append(vae_train_step(model, opt, images, valid, mean_t, std_t, noise,
+                                         mc=mc))
             counts.append(w)
-        return _weighted_mean(losses, counts), float(sum(counts))
+        return _weighted_mean(losses, counts, mc), float(sum(counts))
 
     def valid_epoch() -> float:
         model.eval()
         losses, counts = [], []
         with torch.no_grad():
             for images, valid, w in valid_batches:
-                losses.append(vae_loss(model, images, valid, mean_t, std_t, noise))
+                losses.append(vae_loss(model, images, valid, mean_t, std_t, noise, mc=mc))
                 counts.append(w)
-        return _weighted_mean(losses, counts)
+        return _weighted_mean(losses, counts, mc)
 
     history, epochs_ran, stopper = run_epochs(hp, train_epoch, valid_epoch, model.state_dict,
                                               log)
