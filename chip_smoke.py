@@ -166,10 +166,18 @@ and the weight CLIs (export and convert). Phases:
               losses, the parameters after the steps), with each rank's peak
               memory; (c) ae_cnn steps on 2x1 (global BatchNorm, f32) against
               one process; (d) `cli.score --mesh 2` (DeiT-base NF, 100 images
-              at batch 128, 64 rows a rank: both ranks score images) against
-              `cli.score`; (e) a bare `--mesh 2x1` refuses on a one-card host
-              with the card count. Step ms of (a) and (b) on the shared card are
-              information only
+              at batch 128, 64 rows a rank: both ranks score images, the trunk
+              replicated) against `cli.score`; (e), (f), (g) a B=128 batch of
+              DeiT-base, EsViT Swin-T and NesT-T through the trunk sharded over
+              the two model ranks (B1 and B5 on the rank's heads, the GEMM
+              steps of the MLP kernel with the GELU and f32-partial epilogues,
+              gloo sums) against the whole trunk in one process, with the
+              launches a rank; (h) a bare `--mesh 2x1` refuses on a one-card
+              host with the card count. Before the ranks, B1 at 6 and 3 heads,
+              B5 at the half-head EsViT stages and the GEMM steps at the
+              DeiT-base shard shapes are held against their plain versions and
+              timed. (a) runs the sharded trunk too. Step ms of (a), (b) and
+              (e)-(g) on the shared card are information only
  16. result   a kernels JSON line, the nvidia-smi line, and last the
               {"ok": true, "device": ...} line
 
@@ -278,7 +286,10 @@ ESVIT_B5_PER_BATCH, ESVIT_B7_PER_BATCH = 12, 24 + 1 + 3 + 1
 # B7 launches of one DeiT-base encoder batch: the 12 blocks' first norm and the
 # final norm (the second norm is B6's LayerNorm step, or the stock tail's)
 DEIT_B7_PER_BATCH = 12 + 1
-NO_LAUNCHES = {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B5": 0, "B5a": 0, "B6": 0, "B7": 0}
+# "GEMM": `ops/cuda/mlp.gemm_step`, B6's products one at a time (the sharded
+# trunks' MLPs and attention projections)
+NO_LAUNCHES = {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B5": 0, "B5a": 0, "B6": 0, "B7": 0,
+               "GEMM": 0}
 # the ResNet-50 multi-stage MDN main path: heads on stage maps 2 and 3 (D=1024
 # on 14x14 tokens, D=2048 on 7x7), K=100 and K=150 (the reference's two
 # settings; the CLI run uses 100), a few joint steps at batch 16
@@ -1126,6 +1137,8 @@ def reset_launches() -> None:
     from vit_ad_tpu_torch.ops.cuda import mlp as cmlp
     from vit_ad_tpu_torch.ops.cuda import window_attention as wa
 
+    cmlp.gemm_launches = 0
+    cmlp.gemm_route_launches.update(dict.fromkeys(cmlp.gemm_route_launches, 0))
     wa.launches = cgmm.fwd_launches = cgmm.bwd_params_launches = cgmm.bwd_x_launches = 0
     wa.window_launches = wa.split_launches = ln.launches = cmlp.launches = 0
     cgmm.fwd_wgmma_launches = ln.rows_launches = 0
@@ -1142,7 +1155,7 @@ def read_launches() -> dict:
 
     return {"B1": wa.launches, "B2": cgmm.fwd_launches, "B3": cgmm.bwd_params_launches,
             "B4": cgmm.bwd_x_launches, "B5": wa.window_launches, "B5a": wa.split_launches,
-            "B6": cmlp.launches, "B7": ln.launches}
+            "B6": cmlp.launches, "B7": ln.launches, "GEMM": cmlp.gemm_launches}
 
 
 def bound(n_bytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
@@ -3953,20 +3966,238 @@ MESH_GMM_FWD_CASES = [(MESH_BATCH * 196, 768, MESH_K // 2, "bfloat16"),
 MESH_GMM_BWD_CASES = [(*MESH_GMM_FWD_CASES[0], False), (*MESH_GMM_FWD_CASES[1], True),
                       (*MESH_GMM_FWD_CASES[2], True)]
 MESH_TIMEOUT = 600
-# (a) against one process: the first step's loss (rtol), the first step's
-# head gradients through the API (relative to each tensor's largest entry:
-# the shards' logsumexp merge and the global softmax sum in other orders in
-# f32; the bf16 rounding of the operands is the same), the histories (rtol,
-# after the Adam steps), the metrics (atol), the scores of the mesh run's
-# file against the single run's (rtol)
-MESH_LOSS_RTOL, MESH_GRAD_RTOL, MESH_HIST_RTOL, MESH_METRIC_ATOL, MESH_SCORE_RTOL = \
-    1e-4, 1e-3, 1e-3, 1e-3, 1e-3
+# (a)'s first step through the API against one process (the same features):
+# its loss (rtol) and its head gradients (relative to each tensor's largest
+# entry: the shards' logsumexp merge and the global softmax sum in other
+# orders in f32; the bf16 rounding of the operands is the same); (d)'s scores
+# against one process (rtol)
+MESH_LOSS_RTOL, MESH_GRAD_RTOL, MESH_SCORE_RTOL = 1e-4, 1e-3, 1e-3
 # (b), (c) against the same steps in one process: the losses (rtol) and the
 # parameters after the steps, as the L2 norm of their difference over the L2
 # norm of what the single-process steps moved them (an early Adam step moves
 # every weight by the learning rate in its gradient's sign, and a gradient of
 # noise size takes either sign, so a tensor's largest entry is no scale)
 MESH_STEP_LOSS_RTOL, MESH_STEP_PARAM_RTOL = 1e-3, 5e-2
+# (a) runs its DeiT-base trunk sharded over the two model ranks, whose block
+# sums round once where the whole trunk rounds the projection and then the
+# residual (bf16), and whose MLP sums its two partials in f32: features part
+# from one process by bf16 roundings through 12 blocks, as the fused and the
+# stock MLP tails do (FUSED_MLP_SCORE_RTOL). So against one process: the
+# first-step loss and the histories (rtol), the scores of the two .pth files
+# (rtol), and the metrics (atol: the image-level ones step by 1/16 on the 4 +
+# 4 test images, and a pair of images within the scores' tolerance may swap)
+MESH_TP_LOSS_RTOL, MESH_TP_HIST_RTOL, MESH_TP_SCORE_RTOL, MESH_TP_METRIC_ATOL = \
+    5e-3, 5e-3, 2e-2, 0.07
+# (e)-(g): a batch of each trunk sharded over the two model ranks against the
+# whole trunk in one process (max |shard - whole| over max |whole| of the
+# features, bf16: the roundings above), and the kernel launches a rank of the
+# batch: (part, registry key, what, launches, the GEMM steps by epilogue).
+# DeiT-base: norm1, norm2 and the final norm through B7, B1 at 6 heads, the
+# GEMM step three times a block (fc1 GELU [1536, 768], fc2 and proj f32
+# partials [768, 1536] and [768, 384]); EsViT Swin-T: B5 at stage 0 whole (3
+# heads), at stages 1-3 on half the heads, the 29 fused LayerNorms, the GEMM
+# steps where the widths are multiples of 128 (stages 2 and 3: fc1, fc2;
+# stage 3: proj); NesT-T: its attention whole (B1 12), its 27 LayerNorms, the
+# GEMM steps at level 2 (fc1, fc2)
+MESH_TP_BATCH = FLAGSHIP_BATCH
+MESH_TP_FEATURE_RTOL = 5e-2
+MESH_TP_TRUNKS = [
+    ("e", "enc_deit", "DeiT-base", {"B1": 12, "B7": 25, "GEMM": 36},
+     {"gelu": 12, "residual": 0, "partial": 24}),
+    ("f", "enc_esvit", "EsViT Swin-T", {"B5": 12, "B7": ESVIT_B7_PER_BATCH, "GEMM": 18},
+     {"gelu": 8, "residual": 0, "partial": 10}),
+    ("g", "enc_nest", "NesT-T", {"B1": 12, "B7": NEST_B7_PER_BATCH, "GEMM": 16},
+     {"gelu": 8, "residual": 0, "partial": 8}),
+]
+# what a rank holds of one split tensor of each trunk (the full width over
+# 2): DeiT-base block 0's and Swin-T stage 3's qkv rows (3 x 768 / 2), NesT-T
+# level 2's fc1 rows (1536 / 2)
+MESH_TP_SHARD = {"enc_deit": ("blocks.0.attn.qkv.weight", 1152),
+                 "enc_esvit": ("layers.3.blocks.0.attn.qkv.weight", 1152),
+                 "enc_nest": ("levels.2.transformer_encoder.0.mlp.fc1.weight", 768)}
+# the kernels at the shard shapes of (a) and (e)-(g), M = 2, B = 128, bf16:
+# B1 on the rank's heads ([B, N, 3C/M], H/M; and M = 4's 3 heads); B5 at
+# EsViT stages 1-3 on half the heads, the bias gathered from the rank's
+# columns of a whole table: (stage, windows, side, C/M, H/M, windows per
+# image under the mask); the GEMM steps of a DeiT-base block, [M, K] x
+# [N, K]^T: (what, M, N, K, epilogue)
+MESH_B1_CASES = [(MESH_TP_BATCH, 198, 384, 6), (MESH_TP_BATCH, 198, 192, 3)]
+MESH_B5_CASES = [("stage 1", 512, 14, 96, 3, 4), ("stage 2", 128, 14, 192, 6, 0),
+                 ("stage 3", 128, 7, 384, 12, 0)]
+MESH_GEMM_CASES = [("fc1 GELU", MESH_TP_BATCH * 198, 1536, 768, 0),
+                   ("fc2 f32 partial", MESH_TP_BATCH * 198, 768, 1536, 2),
+                   ("proj f32 partial", MESH_TP_BATCH * 198, 768, 384, 2)]
+# the GEMM steps against their plain version, relative to the largest plain
+# entry: GELU rounds to bf16 (MLP_TOL); the f32 partial sums the same bf16
+# products in another order only
+MESH_GEMM_RTOL = {0: MLP_TOL["bfloat16"], 2: 1e-4}
+
+
+def tp_kernel_checks(card: str, gen) -> dict:
+    """Phase 15, before the ranks: B1, B5 and the GEMM steps at the shard
+    shapes (`MESH_B1_CASES`, `MESH_B5_CASES`, `MESH_GEMM_CASES`) against
+    their plain versions, each timed beside its plain version (order plain,
+    kernel, kernel, plain), its library call (SDPA; `torch.matmul` of the
+    same product) and its bound. Returns the numbers by kernel: "B1" and
+    "B5" lists of shapes, "GEMM" the fc2 partial's numbers with every shape
+    in `per_shape`."""
+    import torch
+    from vit_ad_tpu_torch.ops import mlp as mops
+    from vit_ad_tpu_torch.ops import window_attention as wops
+    from vit_ad_tpu_torch.ops.cuda import mlp as cmlp
+    from vit_ad_tpu_torch.ops.cuda import window_attention as wa
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    out = {"B1": [], "B5": [], "GEMM": None}
+    for b, n, c, heads in MESH_B1_CASES:
+        qkv = torch.randn(b, n, 3 * c, device=dev, generator=gen).to(bf16)
+        kern = lambda: wa.vit_attention_qkv(qkv, heads)
+        plain = lambda: wa.vit_attention_qkv_reference(qkv, heads)
+        q, k, v = qkv.reshape(b, n, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)
+        with torch.no_grad():
+            before = wa.launches
+            err = (kern().float() - plain().float()).abs().max().item()
+            if not err <= TOL["bfloat16"] or wa.launches != before + 1:
+                raise AssertionError(f"B1 at {heads} heads disagrees with its plain version: "
+                                     f"{err}")
+            kern_ms, plain_ms = alternate(kern, plain, TIMED_RUNS, 3)
+            lib_ms = median_ms(sdpa, torch)
+        nums = {"shape": f"[{b},{n},{3 * c}] H={heads}", "max_abs_err": err,
+                "ms": statistics.mean(kern_ms), "plain_ms": statistics.mean(plain_ms),
+                "library_ms": lib_ms,
+                **bound(tensor_bytes(qkv) + tensor_bytes(qkv) // 3,
+                        4 * b * heads * n * n * (c // heads))}
+        out["B1"].append(nums)
+        print(f"[{card}] vit_attention_qkv (B1) {nums['shape']} bf16 (a rank's heads): kernel "
+              f"{kern_ms} ms, plain {plain_ms} ms, SDPA {lib_ms:.4f} ms, bound "
+              f"{nums['bound_ms']:.4f} ms by {nums['bound_by']}; max|kernel-plain| {err:.3e} "
+              f"(tol {TOL['bfloat16']:.0e})")
+        del qkv, q, k, v
+    for stage, windows, side, c, heads, n_w in MESH_B5_CASES:
+        case = (windows, side, c, heads, windows // n_w if n_w else 0, 0)
+        qkv3, _, mask = window_inputs(case, bf16, gen, dev)
+        # the rank's columns (the second half) of a table of the whole stage's heads
+        table = 0.5 * torch.randn((2 * side - 1) ** 2, 2 * heads, device=dev, generator=gen)
+        index = torch.from_numpy(wops.relative_position_index(side, side)).to(dev)
+        bias = wops.gather_bias(table[:, heads:], index)
+        if not torch.equal(bias, wops.gather_bias(table, index)[heads:]):
+            raise AssertionError("the sliced table's bias is not the whole bias's heads")
+        q, k, v = wops.split_packed(qkv3, heads)
+        additive = (bias[None] if mask is None else bias[None] + mask[:, None]).to(bf16)
+        kern = lambda: wa.swin_attention_windows(qkv3, table, heads, side, mask, bias=bias)
+        plain = lambda: wops.window_attention_reference(qkv3, bias, mask, heads)
+        with torch.no_grad():
+            before = wa.window_launches
+            got = kern()
+            err = (got.float() - plain().float()).abs().max().item()
+            if not err <= TOL["bfloat16"] or wa.window_launches != before + 1:
+                raise AssertionError(f"B5 at half the heads of {stage} disagrees with its plain "
+                                     f"version: {err}")
+            kern_ms, plain_ms = alternate(kern, plain, TIMED_RUNS, 3)
+            lib_ms, lib_both, _ = sdpa_ms(q, k, v, additive, torch)
+        nums = {"shape": f"{stage} [{windows},{side * side},{3 * c}] H={heads} "
+                         f"mask={'none' if mask is None else n_w}",
+                "max_abs_err": err, "ms": statistics.mean(kern_ms),
+                "plain_ms": statistics.mean(plain_ms), "library_ms": lib_ms,
+                **bound(tensor_bytes(qkv3, got, bias, mask),
+                        4 * windows * heads * side ** 4 * (c // heads))}
+        out["B5"].append(nums)
+        print(f"[{card}] swin_attention_windows (B5) {nums['shape']} bf16 (half the heads, "
+              f"the table's rank columns): kernel {kern_ms} ms, plain {plain_ms} ms, SDPA "
+              f"{lib_both} ms, bound {nums['bound_ms']:.4f} ms by {nums['bound_by']}; "
+              f"max|kernel-plain| {err:.3e} (tol {TOL['bfloat16']:.0e}), route "
+              f"{wa.last_window_route}")
+        del qkv3, q, k, v, got
+    per_shape = []
+    for what, m, n, k, epi in MESH_GEMM_CASES:
+        a = (torch.randn(m, k, device=dev, generator=gen) * 0.5).to(bf16)
+        w = (torch.randn(n, k, device=dev, generator=gen) * k ** -0.5).to(bf16)
+        bias = None if epi == cmlp.EPILOGUE_PARTIAL else \
+            0.1 * torch.randn(n, device=dev, generator=gen)
+        kern = lambda: cmlp.gemm_step(a, w, bias, epi)
+        plain = lambda: mops.gemm_step_reference(a, w, bias, epi)
+        lib = lambda: torch.matmul(a, w.t())
+        with torch.no_grad():
+            before = cmlp.gemm_launches
+            got, want = kern(), plain()
+            scale = want.float().abs().max().item()
+            err = (got.float() - want.float()).abs().max().item()
+            route = cmlp.last_gemm_route
+            if got.dtype != want.dtype or not err <= MESH_GEMM_RTOL[epi] * scale or \
+                    cmlp.gemm_launches != before + 1 or \
+                    route != cmlp.GEMM_ROUTE_NAMES[epi + 1]:
+                raise AssertionError(f"the GEMM step ({what}) disagrees with its plain version: "
+                                     f"{err} of {scale}, route {route!r}")
+            kern_ms, plain_ms = alternate(kern, plain, TIMED_RUNS, 3)
+            lib_ms = median_ms(lib, torch)
+        nums = {"shape": f"{what} [{m},{k}]x[{n},{k}]^T", "max_abs_err": err,
+                "max_abs_plain": scale, "ms": statistics.mean(kern_ms),
+                "plain_ms": statistics.mean(plain_ms), "library_ms": lib_ms,
+                **bound(tensor_bytes(a, w, bias, got), 2 * m * n * k)}
+        per_shape.append(nums)
+        print(f"[{card}] gemm_step {nums['shape']} bf16, route {route}: kernel {kern_ms} ms "
+              f"({2 * m * n * k / nums['ms'] / 1e9:.1f} TFLOP/s), plain {plain_ms} ms, "
+              f"torch.matmul (bf16 out) {lib_ms:.4f} ms, bound {nums['bound_ms']:.4f} ms by "
+              f"{nums['bound_by']}; max|kernel-plain| {err:.3e} of max|plain| {scale:.3e} "
+              f"(rtol {MESH_GEMM_RTOL[epi]:.0e})")
+        del a, w, got, want
+    out["GEMM"] = {**{k: v for k, v in per_shape[1].items() if k != "shape"},
+                   "per_shape": per_shape,
+                   "design": "B6's persistent wgmma GEMM behind TMA (128x192 tiles, 4-stage "
+                             "ring); the f32-partial epilogue stores the accumulator with "
+                             "8-byte stores, no bias"}
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sharded_trunks(spec: dict, mc, rank: int) -> dict:
+    """(e)-(g): a batch of `spec["tp_batch"]` seeded images through each
+    trunk of `MESH_TP_TRUNKS` (seeded weights) sharded over the model ranks
+    of `mc`: the kernel launches and GEMM-step routes of the sharded batch,
+    its ms (information), the features' digest (the ranks must agree to the
+    bit) and, on rank 0, their distance to the whole trunk's features in
+    this process."""
+    import hashlib
+
+    import torch
+    from vit_ad_tpu_torch.config import DtypePolicy
+    from vit_ad_tpu_torch.data.dataset import default_norm_stats
+    from vit_ad_tpu_torch.data.loader import preprocess
+    from vit_ad_tpu_torch.ops.cuda import mlp as cmlp
+    from vit_ad_tpu_torch.parallel.multihost import barrier
+    from vit_ad_tpu_torch.registry import get_model
+
+    dev, img = torch.device(spec["device"]), spec["img"]
+    mean, std = (torch.as_tensor(a, device=dev) for a in default_norm_stats())
+    images = torch.from_numpy(_mesh_images(spec["tp_batch"], img, 9)).to(dev)
+    out = {}
+    for part, key, _, _, _ in MESH_TP_TRUNKS:
+        trunk = get_model(key, img, DtypePolicy(), generator=torch.Generator().manual_seed(24))
+        trunk = trunk.to(dev).eval()
+        with torch.inference_mode():
+            x = preprocess(images, mean, std)
+            whole = trunk(x).patch_embedding.float() if rank == 0 else None
+        trunk = mc.shard_params(trunk)
+        barrier()
+        reset_launches()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            feats = trunk(x).patch_embedding.float()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        got = {"ms": (time.perf_counter() - t0) * 1e3, "launches": read_launches(),
+               "routes": dict(cmlp.gemm_route_launches), "shape": list(feats.shape),
+               "finite": bool(torch.isfinite(feats).all()),
+               "digest": hashlib.sha256(feats.cpu().numpy().tobytes()).hexdigest(),
+               "shard_rows": trunk.state_dict()[MESH_TP_SHARD[key][0]].shape[0]}
+        if whole is not None:
+            got["rel"] = float((feats - whole).abs().max() / whole.abs().max())
+        out[part] = got
+        del trunk, x, whole, feats
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
 
 
 def _mesh_images(n: int, img: int, seed: int):
@@ -4171,7 +4402,7 @@ def _recon_steps(spec: dict, mc) -> dict:
 
 def mesh_rank(spec_path: str) -> int:
     """One rank of the mesh phase (`python3 chip_smoke.py --mesh-rank
-    <spec.json>`, in a cluster the environment names): runs (a) to (d),
+    <spec.json>`, in a cluster the environment names): runs (a) to (g),
     compares (b) and (c) with the same steps in one process on rank 0, and
     writes what it saw to <out>/rank<r>.json."""
     import importlib
@@ -4256,6 +4487,11 @@ def mesh_rank(spec_path: str) -> int:
             "--device", dev, "--mesh", "2", "-o", spec["score_out"]]
     rc, launches, wall = _launches_of(lambda: score_cli.main(argv))
     out["d"] = {"rc": rc, "launches": launches, "wall": wall}
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    # (e)-(g) DeiT-base, EsViT Swin-T and NesT-T sharded on 1x2
+    out["tp"] = _sharded_trunks(spec, m12, rank)
     with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     barrier()
@@ -4264,15 +4500,17 @@ def mesh_rank(spec_path: str) -> int:
 
 def mesh_main_path(tmp: str, mdn_cat: str, nf_pth: str, deit_pth: str, img: int = 224,
                    device: str = "cuda", k: int = MESH_K, resnet_k: int = MESH_RESNET_K,
-                   enc_deit: str = "") -> dict:
+                   enc_deit: str = "", tp_batch: int = MESH_TP_BATCH) -> dict:
     """Phase 15: the mesh on the one card. On the card B2, B3 and B4 are
-    first held against their plain versions at the phase's shard shapes.
+    first held against their plain versions at the phase's shard shapes,
+    and B1, B5 and the GEMM steps at the trunk shards' (`tp_kernel_checks`).
     One process then runs (a)'s and (d)'s commands without --mesh; two ranks
-    of an explicit cluster, both on card 0, then run (a) to (d)
+    of an explicit cluster, both on card 0, then run (a) to (g)
     (`mesh_rank`); their results are held against the single-process ones.
-    `img`, `device`, `k`, `resnet_k` and `enc_deit` ("module:builder" of a
-    small DeiT) let the phase run small on the CPU (a dry run of its checks;
-    the kernel checks are left out and the launch counts stay 0)."""
+    `img`, `device`, `k`, `resnet_k`, `enc_deit` ("module:builder" of a
+    small DeiT) and `tp_batch` let the phase run small on the CPU (a dry run
+    of its checks; the kernel checks are left out and the launch counts stay
+    0)."""
     import glob
     import subprocess
 
@@ -4292,6 +4530,7 @@ def mesh_main_path(tmp: str, mdn_cat: str, nf_pth: str, deit_pth: str, img: int 
         for case in MESH_GMM_BWD_CASES:
             check_gmm_backward(*case, gen, dev)
         torch.cuda.empty_cache()
+        tp_nums = tp_kernel_checks(card_line(), gen)
     img_dir = os.path.join(tmp, "mesh_images")
     _write_images(img_dir, 0, MESH_SCORE_IMAGES, img)
     single_run, mesh_run = os.path.join(tmp, "mesh_single"), os.path.join(tmp, "mesh_mdn")
@@ -4309,7 +4548,7 @@ def mesh_main_path(tmp: str, mdn_cat: str, nf_pth: str, deit_pth: str, img: int 
     if rc != 0:
         raise AssertionError(f"the single-process NF scoring failed: rc {rc}")
 
-    # (e) a bare --mesh on this one-card host
+    # (h) a bare --mesh on this one-card host
     if on_card:
         try:
             train_cli.main([*argv, "--mesh", "2x1", "--out", os.path.join(tmp, "mesh_refused")])
@@ -4319,17 +4558,17 @@ def mesh_main_path(tmp: str, mdn_cat: str, nf_pth: str, deit_pth: str, img: int 
             raise AssertionError("--mesh 2x1 on a one-card host did not refuse")
         want = (f"--mesh 2x1 needs 2 cards, one a rank; torch.cuda.device_count() is "
                 f"{torch.cuda.device_count()}")
-        print(f"(e) cli.train_mdn --mesh 2x1 without a cluster: {message!r}")
+        print(f"(h) cli.train_mdn --mesh 2x1 without a cluster: {message!r}")
         if message != want:
-            raise AssertionError(f"(e) expected {want!r}")
+            raise AssertionError(f"(h) expected {want!r}")
 
-    # (a) to (d) on two ranks sharing the card
+    # (a) to (g) on two ranks sharing the card
     out = os.path.join(tmp, "mesh_ranks")
     os.makedirs(out)
     spec = {"out": out, "img": img, "device": device, "k": k, "resnet_k": resnet_k,
             "mdn_cat": mdn_cat, "mdn_out": mesh_run, "nf_pth": nf_pth, "deit_pth": deit_pth,
             "img_dir": img_dir, "score_out": os.path.join(tmp, "mesh_scores"),
-            "enc_deit": enc_deit}
+            "enc_deit": enc_deit, "tp_batch": tp_batch}
     spec_path = os.path.join(out, "spec.json")
     with open(spec_path, "w") as f:
         json.dump(spec, f)
@@ -4383,10 +4622,11 @@ def mesh_main_path(tmp: str, mdn_cat: str, nf_pth: str, deit_pth: str, img: int 
     hist = max(abs(g - w) / abs(w) for key in ("train_loss", "valid_loss")
                for g, w in zip(got[key], want[key]))
     metric = max(abs(got["metrics"][m] - v) for m, v in want["metrics"].items())
-    print(f"(a) cli.train_mdn --mesh 1x2 (K={k}, batch {MESH_BATCH}, {MESH_EPOCHS} epochs): "
-          f"first-step loss {got['train_loss'][0]} vs {want['train_loss'][0]} (rel "
-          f"{first:.3e}, rtol {MESH_LOSS_RTOL:.0e}); histories max rel {hist:.3e} (rtol "
-          f"{MESH_HIST_RTOL:.0e}); metrics max abs {metric:.3e} (atol {MESH_METRIC_ATOL:.0e})")
+    print(f"(a) cli.train_mdn --mesh 1x2 (K={k}, batch {MESH_BATCH}, {MESH_EPOCHS} epochs, the "
+          f"trunk sharded): first-step loss {got['train_loss'][0]} vs {want['train_loss'][0]} "
+          f"(rel {first:.3e}, rtol {MESH_TP_LOSS_RTOL:.0e}); histories max rel {hist:.3e} (rtol "
+          f"{MESH_TP_HIST_RTOL:.0e}); metrics max abs {metric:.3e} (atol "
+          f"{MESH_TP_METRIC_ATOL:.0e}): {got['metrics']} vs {want['metrics']}")
     for r in ranks:
         a, step = r["a"], r["a_step"]
         print(f"(a) rank {r['rank']}: rc {a['rc']}, CLI launches {a['launches']} in "
@@ -4406,7 +4646,16 @@ def mesh_main_path(tmp: str, mdn_cat: str, nf_pth: str, deit_pth: str, img: int 
                         or a["wgmma"][1] != a["launches"]["B3"]):
             raise AssertionError(f"(a) rank {r['rank']}: B2 and B3 did not launch on the "
                                  "shard through their wgmma kernels")
-    if not (first <= MESH_LOSS_RTOL and hist <= MESH_HIST_RTOL and metric <= MESH_METRIC_ATOL):
+        # the sharded DeiT-base trunk, per encoder batch: B1 12, B7 25, the
+        # GEMM step 36, B6 never
+        n_enc = a["launches"]["B1"] // 12
+        if on_card and (n_enc == 0 or a["launches"]["B1"] != 12 * n_enc
+                        or a["launches"]["B6"] != 0 or a["launches"]["B7"] != 25 * n_enc
+                        or a["launches"]["GEMM"] != 36 * n_enc):
+            raise AssertionError(f"(a) rank {r['rank']}: the trunk did not run sharded "
+                                 f"({a['launches']})")
+    if not (first <= MESH_TP_LOSS_RTOL and hist <= MESH_TP_HIST_RTOL
+            and metric <= MESH_TP_METRIC_ATOL):
         raise AssertionError("(a) the mesh run disagrees with one process")
     (pth,) = glob.glob(os.path.join(mesh_run, f"{k}_gaussians_enc_deit_*.pth"))
     state = torch.load(pth)
@@ -4422,8 +4671,8 @@ def mesh_main_path(tmp: str, mdn_cat: str, nf_pth: str, deit_pth: str, img: int 
         scored[what] = np.array(list(_scores_of(d).values()))
     rel = np.abs(scored["mesh"] - scored["single"]) / np.abs(scored["single"])
     print(f"(a) the mesh run's .pth strict-loads as a K={k} head; cli.score --pth on it vs on "
-          f"the single run's: max rel {rel.max():.3e} (rtol {MESH_SCORE_RTOL:.0e})")
-    if not rel.max() <= MESH_SCORE_RTOL:
+          f"the single run's: max rel {rel.max():.3e} (rtol {MESH_TP_SCORE_RTOL:.0e})")
+    if not rel.max() <= MESH_TP_SCORE_RTOL:
         raise AssertionError("(a) the mesh run's head scores unlike the single run's")
 
     # (b) ResNet-50 + MDN K=100 on 1x2
@@ -4490,15 +4739,35 @@ def mesh_main_path(tmp: str, mdn_cat: str, nf_pth: str, deit_pth: str, img: int 
                or r["d"]["launches"]["B7"] != DEIT_B7_PER_BATCH for r in ranks):
             raise AssertionError("(d) a rank did not run its half batch through B1, B6, B7")
         print(card)
+    # (e)-(g) the trunks sharded on 1x2 against the whole trunk
+    for part, key, what, per_batch, routes in MESH_TP_TRUNKS:
+        got = [r["tp"][part] for r in ranks]
+        for r, g in zip(ranks, got):
+            print(f"({part}) {what} B={tp_batch} bf16 sharded on 1x2, rank {r['rank']}: launches "
+                  f"{g['launches']}, GEMM steps by epilogue {g['routes']}, {g['ms']:.2f} ms on "
+                  f"the shared card (gloo sums; information)")
+        print(f"({part}) {what}: features {got[0]['shape']}, max|shard - whole| / max|whole| "
+              f"{got[0]['rel']:.3e} (rtol {MESH_TP_FEATURE_RTOL:.0e}); the two ranks' features "
+              f"{'equal' if got[0]['digest'] == got[1]['digest'] else 'DIFFER'} to the bit; "
+              f"each rank holds {got[0]['shard_rows']} rows of {MESH_TP_SHARD[key][0]}")
+        if on_card and any(g["shard_rows"] != MESH_TP_SHARD[key][1] for g in got):
+            raise AssertionError(f"({part}) the {what} trunk is not split over the ranks")
+        expect = {**NO_LAUNCHES, **per_batch}
+        if got[0]["digest"] != got[1]["digest"] or not all(g["finite"] for g in got) or \
+                not got[0]["rel"] <= MESH_TP_FEATURE_RTOL:
+            raise AssertionError(f"({part}) the sharded {what} disagrees with the whole trunk")
+        if on_card and any(g["launches"] != expect or g["routes"] != routes for g in got):
+            raise AssertionError(f"({part}) the sharded {what} did not launch {expect}, GEMM "
+                                 f"steps {routes}")
     total = dict(NO_LAUNCHES)
     for r in ranks:
         for part in (r["a"]["launches"], r["a_step"]["launches"], r["b"]["launches"],
-                     r["d"]["launches"]):
+                     r["d"]["launches"], *(t["launches"] for t in r["tp"].values())):
             _add(total, part)
     wall = time.perf_counter() - t_phase
     print(f"phase launches (both ranks) {total}; single-process launches of (a) "
           f"{single_launches} in {single_wall:.2f} s; phase wall {wall:.2f} s")
-    return {"launches": total}
+    return {"launches": total, **(tp_nums if on_card else {})}
 
 
 def main() -> int:
@@ -4766,8 +5035,9 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         phase("15 mesh: two ranks of an explicit cluster on card 0 (gloo): cli.train_mdn "
-              "--mesh 1x2 (DeiT-base + MDN K=150), the ResNet-50 MDN joint step on 1x2 (K=100), "
-              "ae_cnn on 2x1, cli.score --mesh 2 (DeiT-base NF, batch 128)")
+              "--mesh 1x2 (DeiT-base sharded + MDN K=150), the ResNet-50 MDN joint step on 1x2 "
+              "(K=100), ae_cnn on 2x1, cli.score --mesh 2 (DeiT-base NF, batch 128), DeiT-base, "
+              "EsViT Swin-T and NesT-T sharded on 1x2")
         mesh = mesh_main_path(tmp, os.path.join(tmp, "sweep_data", SWEEP_CATS[0]), nf_pth,
                               deit_pth)
     torch.cuda.synchronize()
@@ -4787,7 +5057,7 @@ def main() -> int:
         "plain_ms": att_plain_ms,
         **att_bound,
         "library_ms": att_lib_ms,
-        "per_shape": trunk_nums["B1"],
+        "per_shape": trunk_nums["B1"] + mesh["B1"],
         "design": "one score pass with the 16 x N scores in registers, ldmatrix fragments, "
                   "cp.async staging, keys padded to 16 (two-pass kernel above 208 tokens)",
     }]
@@ -4837,14 +5107,14 @@ def main() -> int:
         kernels.append({"name": kernel, "route": "cuda",
                         "source": f"vit_ad_tpu_torch/csrc/{source}", "replaces": replaces,
                         "launches": esvit["launches"][key] + bundle_launches[key]
-                        + sweep["launches"][key],
+                        + sweep["launches"][key] + mesh["launches"][key],
                         **swin[key]})
+    kernels[-3]["per_stage"] += mesh["B5"]  # B5 at the half-head shard shapes
     # B7 also runs the DeiT blocks' first norm and the final norm, and every
     # NesT-T LayerNorm
     kernels[-1]["launches"] += (nf_launches["B7"] + fused["launches"]["B7"]
                                 + mdn["launches"]["B7"] + recon["launches"]["B7"]
-                                + trunks["nest"]["launches"]["B7"] + rundir["launches"]["B7"]
-                                + mesh["launches"]["B7"])
+                                + trunks["nest"]["launches"]["B7"] + rundir["launches"]["B7"])
     kernels[-1]["per_stage"] += trunk_nums["B7"]
     kernels[-1]["design"] = ("rows kernel: D = 8 LPR NV, 32 / LPR rows a warp, scale and bias "
                              "in registers, the warps striding over the rows from D = 384 with "
@@ -4856,6 +5126,13 @@ def main() -> int:
                     + mdn["launches"]["B6"] + recon["launches"]["B6"]
                     + rundir["launches"]["B6"] + bundle_launches["B6"]
                     + sweep["launches"]["B6"] + mesh["launches"]["B6"], **mlp})
+    # B6's products one at a time, on the trunk shards of phase 15: the GELU
+    # and the f32-partial epilogues; the numbers of the fc2 partial, the new
+    # epilogue, with every shape in `per_shape`
+    kernels.append({"name": "mlp_gemm_step", "route": "cuda",
+                    "source": "vit_ad_tpu_torch/csrc/mlp_block.cu",
+                    "replaces": "vit_ad_tpu/ops/pallas/mlp.py:44",
+                    "launches": mesh["launches"]["GEMM"], **mesh["GEMM"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

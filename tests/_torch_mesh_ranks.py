@@ -220,7 +220,9 @@ def parallel_world4(rank: int, world: int) -> Dict[str, Any]:
 # K=8, batch 8: the last batch of 19 training images is padded), and the
 # ResNet trainers at 32 px with the learning rate of tests/test_torch_resnet.py.
 # "_noiseless": the mixture weights ignore their noise (the JAX comparison);
-# "mdn_kmeans": the mu bias seeded by k-means of the gathered features.
+# "mdn_kmeans": the mu bias seeded by k-means of the gathered features;
+# "recon_deit": the tiny ViT (two prefix tokens) + the small decoder, whose
+# frozen trunk a model axis above one shards.
 BATCH = 8
 _RESNET_MDN = dict(architecture="mdn", num_gaussians=4, epochs=2, patience=2,
                    learning_rate=2e-4)
@@ -230,6 +232,8 @@ CASES = {
     "mdn_kmeans": dict(architecture="mdn", num_gaussians=8, kmeans_init=True),
     "nf": dict(architecture="nf", hidden_ratio=1.0, flow_steps=2),
     "recon": dict(architecture="reconstruction", model_name="ae_cnn", epochs=3, patience=3),
+    "recon_deit": dict(architecture="reconstruction", model_name="ae_deit_small", epochs=3,
+                       patience=3),
     "vae": dict(architecture="reconstruction", epochs=3, patience=3),
     "mdn_resnet": _RESNET_MDN,
     "mdn_resnet_noiseless": _RESNET_MDN,
@@ -250,15 +254,19 @@ def case_hp(case: str, mesh=None):
 def run_case(case: str, category: str, inits: str, mesh=None) -> Dict[str, Any]:
     """One trainer case on the CPU (a rank of `mesh`, or one process): the
     history, metrics and stop epochs, the state of what trains (a shard's
-    for the MDN heads) and the number of k-means runs. `inits` holds the
-    JAX trainers' inits (torch state dicts) of the tiny ViT, the MDN and NF
-    heads, ae_cnn, the VAE, the ResNet-50 trunk and its stage heads, and the
-    ε of the JAX VAE trainer's steps in order (`vae_eps.npy`)."""
+    for the MDN heads; the whole AE, gathered, for recon_deit), the shapes
+    the transformer trunk holds and the number of k-means runs. `inits`
+    holds the JAX trainers' inits (torch state dicts) of the tiny ViT, the
+    MDN and NF heads, ae_cnn, the tiny-ViT AE, the VAE, the ResNet-50 trunk
+    and its stage heads, and the ε of the JAX VAE trainer's steps in order
+    (`vae_eps.npy`)."""
     from vit_ad_tpu_torch.data.loader import DataPipeline
     from vit_ad_tpu_torch.models import autoencoder
     from vit_ad_tpu_torch.models.mdn import GaussianMDN
     from vit_ad_tpu_torch.models.resnet import STAGE_CHANNELS, ResNetEncoder
     from vit_ad_tpu_torch.models.vae import VariationalAutoEncoder
+    from vit_ad_tpu_torch.models.vit import ViTEncoder
+    from vit_ad_tpu_torch.parallel.multihost import host_snapshot
     from vit_ad_tpu_torch.pipeline import cluster_init
     from vit_ad_tpu_torch.pipeline import train as T
 
@@ -327,6 +335,11 @@ def run_case(case: str, category: str, inits: str, mesh=None) -> Dict[str, Any]:
             model.load_state_dict(load("ae_cnn"), strict=True)
             r = T.train_recon(hp, data, test, model=model, device="cpu")
             trained = {"head": r.head}
+        elif case == "recon_deit":
+            model = autoencoder.TransformerAutoEncoder(tiny_vit(), "cnn", IMG, hp.dtypes)
+            model.load_state_dict(load("ae_deit"), strict=True)
+            r = T.train_recon(hp, data, test, model=model, device="cpu")
+            trained = {"head": r.head}
         elif case == "vae":
             T.vae_loss = vae_noise(saved[3])
             r = T.train_vae(hp, data, test, model=loaded(VariationalAutoEncoder, "vae")(
@@ -345,10 +358,16 @@ def run_case(case: str, category: str, inits: str, mesh=None) -> Dict[str, Any]:
     finally:
         (T.GaussianMDN, T.NormalizingFlow, GaussianMDN.log_pi, T.vae_loss,
          cluster_init.kmeans_cluster_centers) = saved
+    trunk = r.head.trunk if case == "recon_deit" else r.encoder
+    state = {k: numpy_state(m) for k, m in trained.items()}
+    if case == "recon_deit":  # the sharded trunk in the full layout
+        state["head"] = {k: v.numpy() for k, v in host_snapshot(r.head).items()}
     return {"history": {k: r.history[k] for k in ("train_loss", "valid_loss")},
             "metrics": r.metrics, "epochs_ran": r.epochs_ran, "best_epoch": r.best_epoch,
             "best_valid_loss": r.best_valid_loss, "kmeans_runs": len(kmeans_runs),
-            "state": {k: numpy_state(m) for k, m in trained.items()}}
+            "state": state,
+            "trunk_shapes": {k: tuple(v.shape) for k, v in trunk.state_dict().items()}
+            if isinstance(trunk, ViTEncoder) else None}
 
 
 def training_world4(rank: int, world: int, category: str, inits: str) -> Dict[str, Any]:
@@ -367,11 +386,12 @@ def training_world4(rank: int, world: int, category: str, inits: str) -> Dict[st
 CLI_RECON_LR = "3e-4"
 
 
-def cli_world2(rank: int, world: int, category: str, root: str) -> Dict[str, Any]:
+def cli_world2(rank: int, world: int, category: str, root: str, inits: str) -> Dict[str, Any]:
     """Two ranks of an explicit cluster (the `VITAD_*` variables) run the
     CLIs with --mesh: ae_cnn recon on 2x1, the tiny DeiT MDN on 1x2, then
     `cli.score --mesh 2` on the MDN file. Returns the files this rank opened
-    for writing under `root`."""
+    for writing under `root`, and the recon_deit case on the 1x2 mesh (its
+    trunk sharded over the two ranks) through the API."""
     import builtins
     import glob
 
@@ -401,4 +421,70 @@ def cli_world2(rank: int, world: int, category: str, root: str) -> Dict[str, Any
                               "--device", "cpu", "--mesh", "2", "-o", f"{root}/scores"]))
     finally:
         builtins.open = real_open
-    return {"rc": rc, "writes": writes}
+    from vit_ad_tpu_torch.config import MeshConfig
+
+    return {"rc": rc, "writes": writes,
+            "recon_deit": run_case("recon_deit", category, inits, MeshConfig(1, 2))}
+
+
+# ---- tests/test_torch_tensor_parallel.py ------------------------------------
+
+def tp_trunk(name: str) -> torch.nn.Module:
+    """The tiny f32 trunks of the tensor-parallel tests, by name: the ViT of
+    tests/test_torch_vit.py, the Swin of tests/test_torch_swin.py at 56 px
+    (heads 1, 2: one stage whole and one split at M = 2), a NesT of one
+    block a level (heads 1, 2, 2) and the EfficientFormer of
+    tests/test_torch_efficientformer.py (two Meta3D blocks)."""
+    from vit_ad_tpu_torch.config import DtypePolicy
+    from vit_ad_tpu_torch.models.efficientformer import EfficientFormer
+    from vit_ad_tpu_torch.models.nest import NesT
+    from vit_ad_tpu_torch.models.swin import SwinTransformer
+
+    f32 = DtypePolicy.f32()
+    if name == "vit":
+        return tiny_vit()
+    if name == "swin":
+        return SwinTransformer(img_size=TP_IMG["swin"], **TP_CFG["swin"], dtypes=f32)
+    if name == "nest":
+        return NesT(img_size=TP_IMG["nest"], **TP_CFG["nest"], dtypes=f32)
+    return EfficientFormer(img_size=TP_IMG["effformer"], **TP_CFG["effformer"], dtypes=f32)
+
+
+TP_IMG = {"vit": IMG, "swin": 56, "nest": 32, "effformer": 32}
+TP_CFG = {"swin": dict(patch_size=4, embed_dim=32, depths=(2, 2), num_heads=(1, 2), window=7),
+          "nest": dict(embed_dims=(32, 64, 64), num_heads=(1, 2, 2), depths=(1, 1, 1)),
+          "effformer": dict(dims=(8, 16), depths=(2, 3), vit_num=2, num_heads=2, key_dim=4,
+                            attn_ratio=2)}
+
+
+def tensor_parallel_world(rank: int, world: int, inputs: str) -> Dict[str, Any]:
+    """Every tiny trunk sharded on the 1 x world mesh, its weights the JAX
+    package's (`<inputs>/<name>.pt`, converted): the tokens of the sharded
+    forward on `<inputs>/<name>_x.npy`, the shapes this rank holds, whether
+    the gathered state equals the full one byte for byte, and whether a
+    forward that would need a gradient raises."""
+    from vit_ad_tpu_torch.config import HyperParams, MeshConfig
+    from vit_ad_tpu_torch.parallel.context import MeshContext
+    from vit_ad_tpu_torch.parallel.multihost import host_snapshot
+
+    mc = MeshContext.from_hp(HyperParams(mesh=MeshConfig(1, world)), devices="cpu")
+    out: Dict[str, Any] = {}
+    for name in TP_IMG:
+        trunk = tp_trunk(name)
+        full = torch.load(os.path.join(inputs, f"{name}.pt"))
+        trunk.load_state_dict(full, strict=True)
+        placed = mc.shard_params(trunk.eval())
+        x = torch.from_numpy(np.load(os.path.join(inputs, f"{name}_x.npy")))
+        with torch.inference_mode():
+            tokens = placed(x).patch_embedding.numpy()
+        try:
+            placed(x.requires_grad_(True))
+            grad_refused = False
+        except RuntimeError as e:
+            grad_refused = "without gradient" in str(e)
+        snapshot = host_snapshot(placed)
+        out[name] = {"tokens": tokens, "grad_refused": grad_refused,
+                     "shapes": {k: tuple(v.shape) for k, v in placed.state_dict().items()},
+                     "gathered_equal": sorted(snapshot) == sorted(full) and all(
+                         torch.equal(snapshot[k], v) for k, v in full.items())}
+    return out

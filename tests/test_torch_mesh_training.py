@@ -11,7 +11,11 @@ the JAX trainer's ε). Replicated parameters end equal, to the bit, on every
 rank; a k-means-seeded head runs k-means once, on the primary.
 Two ranks of an explicit cluster (the `VITAD_*` variables) run the CLIs with
 `--mesh` (ae_cnn recon on 2x1, MDN on 1x2, `cli.score --mesh 2`) against the
-same commands in one process; only the primary writes."""
+same commands in one process; only the primary writes. Wherever the model
+axis is two (the 2x2 MDN, NF and tiny-ViT AE runs, and the AE on 1x2
+against the JAX package's `train_recon` at `MeshConfig(data=1, model=2)`)
+each rank holds the tiny ViT sharded: half its heads' qkv rows, half its
+MLP's hidden units."""
 
 import csv
 import glob
@@ -29,6 +33,7 @@ from test_torch_recon_train import _jax_trainer_init
 from test_torch_vit import jax_encoder, jax_params
 from vit_ad_tpu.config import DtypePolicy as JaxDtypePolicy
 from vit_ad_tpu.config import HyperParams as JaxHyperParams
+from vit_ad_tpu.config import MeshConfig as JaxMeshConfig
 from vit_ad_tpu.data.loader import DataPipeline as JaxPipeline
 from vit_ad_tpu.models import autoencoder as jae
 from vit_ad_tpu.models.flow import NormalizingFlow as JaxFlow
@@ -36,6 +41,7 @@ from vit_ad_tpu.models.mdn import GaussianMDN as JaxMDN
 from vit_ad_tpu.models.resnet import ResNetEncoder as JaxResNetEncoder
 from vit_ad_tpu.models.vae import VariationalAutoEncoder as JaxVAE
 from vit_ad_tpu.ops import gmm as jax_gmm
+from vit_ad_tpu.parallel import context as jax_context
 from vit_ad_tpu.pipeline.train import train_mdn as jax_train_mdn
 from vit_ad_tpu.pipeline.train import train_mdn_resnet as jax_train_mdn_resnet
 from vit_ad_tpu.pipeline.train import train_nf as jax_train_nf
@@ -71,7 +77,7 @@ IMG, BATCH = ranks.IMG, ranks.BATCH
 # are held at the JAX package's own mesh tolerance (tests/test_mesh_training.py
 # `_assert_parity`, 2e-3) and their validation losses at the recon trainer's
 # (5e-3); measured 5.7e-4 and 1.8e-3.
-HISTORY_RTOL = {"recon": (2e-3, 5e-3), "vae": (2e-3, 5e-3)}
+HISTORY_RTOL = {"recon": (2e-3, 5e-3), "recon_deit": (2e-3, 5e-3), "vae": (2e-3, 5e-3)}
 DEFAULT_RTOL = (1e-4, 1e-4)
 METRIC_ATOL = 1e-3
 JAX_CASES = ("nf", "mdn_noiseless", "recon", "vae", "mdn_resnet_noiseless", "nf_resnet")
@@ -130,6 +136,13 @@ def _jax_resnet_heads(resnet_variables):
     return mdn, dict(zip(NF_RESNET_STAGES, nf))
 
 
+def _jax_ae_deit():
+    """The JAX counterpart of the recon_deit case: the tiny ViT with two
+    prefix tokens + the small decoder."""
+    return jae.TransformerAutoEncoder(encoder=jax_encoder(2, JF32), decoder_kind="cnn",
+                                      img_size=IMG, dtypes=JF32)
+
+
 @pytest.fixture(scope="module")
 def inits(tmp_path_factory):
     """The inits the JAX trainers start from (train.py:137-152, :304-335,
@@ -150,18 +163,20 @@ def inits(tmp_path_factory):
                    hidden_ratio=ranks.CASES["nf"]["hidden_ratio"],
                    flow_steps=ranks.CASES["nf"]["flow_steps"], dtypes=JF32)
     ae = jae.VanillaAutoEncoder(img_size=IMG, dtypes=JF32)
+    ae_deit = _jax_ae_deit()
     for name, state in (
             ("encoder", vit_state_dict_from_jax(enc_params)),
             ("mdn", mdn_state_dict_from_jax(jax.jit(mdn.init)(key, jnp.zeros((1, 1, ranks.D))))),
             ("flow", nf_state_dict_from_jax(
                 jax.jit(flow.init)(key, jnp.zeros((1, 4, 4, ranks.D))), 16)),
             ("ae_cnn", recon_state_dict_from_jax(_jax_trainer_init(ae, SEED))),
+            ("ae_deit", recon_state_dict_from_jax(_jax_trainer_init(ae_deit, SEED))),
             ("vae", vae_state_dict_from_jax(vae_vars)),
             ("resnet", resnet_state_dict_from_jax(resnet_vars["params"],
                                                   resnet_vars["batch_stats"])),
             ("mdn_resnet", mdn_resnet), ("nf_resnet", nf_resnet)):
         torch.save(state, os.path.join(out, f"{name}.pt"))
-    return {"dir": out, "enc_params": enc_params, "ae": ae, "vae": vae,
+    return {"dir": out, "enc_params": enc_params, "ae": ae, "ae_deit": ae_deit, "vae": vae,
             "resnet": resnet, "resnet_vars": resnet_vars}
 
 
@@ -172,13 +187,13 @@ def _jax_runs(category, inits):
                      JaxPipeline(batch_size=BATCH, img_size=IMG, base_path=category,
                                  data_path="test", validation_mode=True))
 
-    def hp(case):
+    def hp(case, mesh=JaxMeshConfig()):
         h = ranks.case_hp(case)
         kw = {k: getattr(h, k) for k in ("architecture", "epochs", "patience",
                                           "learning_rate", "weight_decay", "batch_size",
                                           "img_size", "seed", "num_gaussians", "hidden_ratio",
                                           "flow_steps", "model_name")}
-        return JaxHyperParams(**kw, dtypes=JF32)
+        return JaxHyperParams(**kw, dtypes=JF32, mesh=mesh)
 
     enc = lambda: dict(encoder=jax_encoder(2, JF32),
                        enc_params=jax.tree.map(jnp.array, inits["enc_params"]))
@@ -190,6 +205,16 @@ def _jax_runs(category, inits):
            "vae": jax_train_vae(hp("vae"), *pipes(), model=inits["vae"]),
            "nf_resnet": jax_train_nf_resnet(hp("nf_resnet"), *pipes(), **resnet())}
     mp = pytest.MonkeyPatch()
+    # the trunk sharded over two model devices by the JAX rules: a 1x2 mesh
+    # of the first two of the session's virtual CPU devices
+    made = jax_context.create_mesh
+    mp.setattr(jax_context, "create_mesh",
+               lambda data, model, devices=None, **kw: made(data, model, jax.devices()[:2], **kw))
+    try:
+        out["recon_deit"] = jax_train_recon(hp("recon_deit", JaxMeshConfig(data=1, model=2)),
+                                            *pipes(), model=inits["ae_deit"])
+    finally:
+        mp.undo()
     noisy = jax_gmm.mixture_log_weights
     mp.setattr(jax_gmm, "mixture_log_weights",
                lambda logits, rng=None, tau=1.0: noisy(logits, None, tau))
@@ -224,7 +249,7 @@ def runs(category, inits, tmp_path_factory):
         cli_root = str(tmp_path_factory.mktemp("cli_mesh"))
         coordinator = f"127.0.0.1:{free_port()}"
         cli = ranks.Ranks(ranks.cli_world2, 2, str(tmp_path_factory.mktemp("world2")),
-                          category, cli_root,
+                          category, cli_root, inits["dir"],
                           envs=[{**cluster_env(coordinator, 2, r), "VITAD_NO_NATIVE": "1"}
                                 for r in range(2)])
         single = {case: ranks.run_case(case, category, inits["dir"]) for case in ranks.CASES}
@@ -358,3 +383,47 @@ def test_cli_mesh_runs_match_and_only_the_primary_writes(runs, category):
     got, want = _scores(f"{root}/scores/scores.csv"), _scores(f"{out}/scores.csv")
     assert list(got) == list(want) and len(got) == 12
     np.testing.assert_allclose(list(got.values()), list(want.values()), rtol=1e-5)
+
+
+def _assert_sharded_trunk(shapes, model_size, what):
+    """The tiny ViT (width 32, 4 heads, 128 hidden units, two blocks) as a
+    model rank of `model_size` holds it."""
+    for i in range(ranks.DEPTH):
+        b = f"blocks.{i}."
+        assert shapes[b + "attn.qkv.weight"] == (3 * ranks.D // model_size, ranks.D), what
+        assert shapes[b + "attn.qkv.bias"] == (3 * ranks.D // model_size,), what
+        assert shapes[b + "attn.proj.weight"] == (ranks.D, ranks.D // model_size), what
+        assert shapes[b + "mlp.fc1.weight"] == (4 * ranks.D // model_size, ranks.D), what
+        assert shapes[b + "mlp.fc2.weight"] == (ranks.D, 4 * ranks.D // model_size), what
+        assert shapes[b + "mlp.fc2.bias"] == shapes[b + "attn.proj.bias"] == (ranks.D,), what
+
+
+@pytest.mark.parametrize("case", ["mdn", "nf", "recon_deit"])
+def test_trunk_is_sharded_over_the_model_axis(case, runs):
+    """train_mdn, train_nf and train_recon (a transformer AE) hold the frozen
+    trunk sharded over a model axis of two on every rank (the 2x2 runs; the
+    AE on 1x2 too), and whole in one process."""
+    _assert_sharded_trunk(runs["single"][case]["trunk_shapes"], 1, "one process")
+    for r in runs["mesh"]:
+        _assert_sharded_trunk(r["cases"][case]["trunk_shapes"], 2,
+                              f"2x2 rank at data {r['data']}, model {r['model']}")
+    if case == "recon_deit":
+        for r in runs["cli"]:
+            _assert_sharded_trunk(r["recon_deit"]["trunk_shapes"], 2, "1x2")
+
+
+def test_sharded_trunk_recon_on_1x2_matches_jax(runs):
+    """The tiny-ViT AE trained by `train_recon` on 1x2 (the trunk over the two
+    ranks, the decoder replicated) against the JAX package's `train_recon`
+    at `MeshConfig(data=1, model=2)`: histories at the recon tolerances,
+    stop epochs, metrics; both ranks end with the same AE, byte for byte."""
+    want = runs["jax"]["recon_deit"]
+    got = [r["recon_deit"] for r in runs["cli"]]
+    for g in got:
+        assert g["epochs_ran"] == want.epochs_ran and g["best_epoch"] == want.best_epoch
+        _histories(g["history"], want.history, HISTORY_RTOL["recon_deit"], "recon_deit 1x2")
+        for key in ("image_auroc_score", "pixel_auroc_score", "image_prauc_score"):
+            np.testing.assert_allclose(g["metrics"][key], want.metrics[key], rtol=0,
+                                       atol=METRIC_ATOL, err_msg=f"recon_deit 1x2 {key}")
+    for name, v in got[0]["state"]["head"].items():
+        assert np.array_equal(got[1]["state"]["head"][name], v), name

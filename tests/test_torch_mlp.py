@@ -176,13 +176,20 @@ def test_route_counter_reads_the_entry_points_report():
 
 
 def test_gemm_step_is_a_card_side_entry():
-    """`gemm_step` (one product of the bf16 route alone, for the card-side
-    checks) takes bf16 CUDA matrices only and counts no launch."""
+    """`gemm_step` (one product of the bf16 route alone) takes bf16 matrices
+    only; on CPU tensors it is its plain version, which launches nothing and
+    counts no launch, and a device without a path raises."""
     a, w = torch.zeros(4, 128, dtype=torch.bfloat16), torch.zeros(256, 128, dtype=torch.bfloat16)
-    before = cmlp.launches, cmlp.wgmma_launches
-    with pytest.raises(ValueError, match="bf16 CUDA matrices"):
-        cmlp.gemm_step(a, w, torch.zeros(256), cmlp.EPILOGUE_GELU)
-    assert (cmlp.launches, cmlp.wgmma_launches) == before
+    before = cmlp.launches, cmlp.wgmma_launches, cmlp.gemm_launches
+    with pytest.raises(ValueError, match="bf16 matrices"):
+        cmlp.gemm_step(a.float(), w.float(), torch.zeros(256), cmlp.EPILOGUE_GELU)
+    with pytest.raises(ValueError, match="epilogue 1"):
+        cmlp.gemm_step(a, w, torch.zeros(256), cmlp.EPILOGUE_RESIDUAL)
+    out = cmlp.gemm_step(a, w, None, cmlp.EPILOGUE_PARTIAL)
+    assert out.dtype == torch.float32 and out.shape == (4, 256)
+    assert (cmlp.launches, cmlp.wgmma_launches, cmlp.gemm_launches) == before
+    with pytest.raises(RuntimeError, match="no path"):
+        cmlp.gemm_step(a.to("meta"), w.to("meta"), None, cmlp.EPILOGUE_PARTIAL)
 
 
 @pytest.mark.parametrize("shape,w1_shape,dtype,err,match", [
@@ -284,3 +291,38 @@ def test_narrow_encoder_ignores_the_flag(monkeypatch):
     with torch.inference_mode():
         out = enc(torch.zeros(1, 32, 32, 3)).patch_embedding
     assert out.shape == (1, 16, 32)
+
+
+@pytest.mark.parametrize("b,n,d,h,dt", [(2, 12, 16, 64, "float32"), (2, 16, 128, 512, "bfloat16")])
+def test_split_block_matches_the_whole_block(b, n, d, h, dt):
+    """The MLP as a model-axis shard runs it (`models/tensor_parallel.py`),
+    on one process with M = 1 (the one partial is the whole sum): the
+    LayerNorm kernel's plain version, the GELU step (`column_gelu`), the
+    f32-partial step (`row_partial`), then the bias and the residual in f32
+    with one rounding. bf16 at widths the gate admits takes `gemm_step`'s
+    plain versions, f32 the torch products. Against the whole block's plain
+    version and the JAX `_xla_mlp` (the TPU kernel's XLA expression), at TOL."""
+    from vit_ad_tpu.ops.pallas.mlp import _xla_mlp
+    from vit_ad_tpu_torch.models import tensor_parallel as tp
+    from vit_ad_tpu_torch.ops.cuda.layer_norm import layer_norm
+
+    class OneRank:  # the model axis of one rank: the partial is the sum
+        model_sum = staticmethod(lambda t: t)
+
+    dtype = getattr(torch, dt)
+    args = _inputs(b, n, d, h)
+    x, ns, nb, w1, b1, w2, b2 = _port_args(*args, dtype)
+    assert cmlp.use_gemm_step(h, d, dtype) == (dt == "bfloat16")
+    before = cmlp.gemm_launches
+    y = layer_norm(x, ns, nb, 1e-6)
+    partial = tp.row_partial(tp.column_gelu(y, w1, b1, True), w2)
+    assert partial.dtype == torch.float32 and cmlp.gemm_launches == before
+    out = tp.reduce_residual(x, partial, b2, OneRank())
+    assert out.dtype == dtype
+    want = mops.mlp_block_reference(x, ns, nb, w1, b1, w2, b2, 1e-6)
+    np.testing.assert_allclose(out.float().numpy(), want.float().numpy(), rtol=0, atol=TOL[dt])
+    jdt = jnp.float32 if dt == "float32" else jnp.bfloat16
+    xj, nsj, nbj, w1j, b1j, w2j, b2j = (jnp.asarray(a) for a in args)
+    ref = _xla_mlp(xj.astype(jdt), nsj, nbj, w1j.astype(jdt), b1j, w2j.astype(jdt), b2j)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), rtol=0,
+                               atol=TOL[dt])

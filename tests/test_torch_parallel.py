@@ -172,17 +172,27 @@ def test_k_that_the_model_axis_does_not_divide_is_refused():
 
 
 def test_param_shardings_rules():
-    """The MDN heads' components over "model"; the trunk (and everything
-    else) replicated: its tensor-parallel rules are not applied."""
+    """The MDN heads' components over "model"; the trunk's blocks
+    Megatron-style (tests/test_torch_tensor_parallel.py holds the trunk
+    rules against the JAX package's); everything else replicated."""
     from _torch_mesh_ranks import tiny_vit
 
+    from vit_ad_tpu_torch.parallel.sharding import MODEL_COLUMNS, MODEL_HEADS
+
     module = torch.nn.ModuleDict({"trunk": tiny_vit(), "heads": torch.nn.ModuleList([_head()])})
-    specs = param_shardings(module)
+    specs = param_shardings(module, 2)
     assert specs["heads.0.pi.weight"] == specs["heads.0.pi.bias"] == MODEL_ROWS
     assert specs["heads.0.sigma.weight"] == specs["heads.0.mu.bias"] == MODEL_STRIDED
-    trunk = [v for k, v in specs.items() if k.startswith("trunk.")]
-    assert trunk and set(trunk) == {REPLICATED}
-    assert any("qkv" in k for k in specs) and any("fc1" in k for k in specs)
+    for i in range(2):
+        block = f"trunk.blocks.{i}."
+        assert specs[block + "attn.qkv.weight"] == specs[block + "attn.qkv.bias"] == MODEL_HEADS
+        assert specs[block + "mlp.fc1.weight"] == specs[block + "mlp.fc1.bias"] == MODEL_ROWS
+        assert specs[block + "attn.proj.weight"] == specs[block + "mlp.fc2.weight"] \
+            == MODEL_COLUMNS
+        assert specs[block + "attn.proj.bias"] == specs[block + "norm1.weight"] == REPLICATED
+    split = [k for k, v in specs.items() if k.startswith("trunk.") and v != REPLICATED]
+    assert len(split) == 2 * 6
+    assert specs["trunk.pos_embed"] == specs["trunk.norm.weight"] == REPLICATED
 
 
 @pytest.mark.parametrize("case", ["mdn_1x2", "mdn_2x2"])

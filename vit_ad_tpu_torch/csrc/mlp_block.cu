@@ -74,6 +74,17 @@
 // What holds it now: k1's GELU runs on the special-function unit (two
 // operations an element) while the tensor cores wait.
 //
+// The GEMM alone (mlp_gemm_forward) also runs a model-axis shard of a trunk:
+// fc1's hidden block with the GELU epilogue, and proj and fc2 on the rank's
+// input columns with epilogue 2, which stores the f32 accumulator (no bias, no
+// residual) for the sum over the ranks. It leaves by 8-byte stores straight
+// from the registers (a thread's two columns; four lanes fill a 32-byte
+// sector): an f32 output tile of 128 x 192 would take 96 KB of shared memory
+// beside the 160 KB ring. Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (chip_smoke.py phase 15): 0.138-0.142 ms at [25344,1536] x [768,1536]^T
+// (427 TFLOP/s), 0.104-0.109 ms at [25344,384] x [768,384]^T, where its
+// 78 MB of f32 output is the bound.
+//
 // f32 (the f32 numerics policy uses the erf GELU, so this is off the main
 // path): the first version's fused kernel, its sums by FMA (TF32 stays off),
 // for the tight comparison with the plain version.
@@ -120,6 +131,7 @@ constexpr int kConsumers = 2;   // warpgroups; the third warpgroup holds the pro
 constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kEpilogueGelu = 0;      // out = bf16(gelu_tanh(acc + bias))
 constexpr int kEpilogueResidual = 1;  // out = bf16(f32(resid) + (acc + bias))
+constexpr int kEpiloguePartial = 2;   // out = f32(acc): a row-parallel partial sum
 // The output tile leaves (and the residual tile enters) through shared memory
 // in boxes of 64 rows x 64 columns, 128-byte swizzled like the operands.
 constexpr int kBoxBytes = 64 * 64 * 2;
@@ -144,7 +156,7 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_b,
                  const __grid_constant__ CUtensorMap map_resid,
                  const __grid_constant__ CUtensorMap map_out, const float* __restrict__ bias,
-                 int m, int n, int k) {
+                 float* __restrict__ out_f32, int m, int n, int k) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t stages = (shared_address(smem_raw) + 1023u) & ~1023u;
   const uint32_t out_tile = stages + kStages * kStageBytes;  // [warpgroup][box][64][64]
@@ -251,6 +263,26 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
       if (lane == 0) barrier_arrive(empty + 8 * held);
       accumulator_fence(acc);
 
+      if (EPI == kEpiloguePartial) {
+        // The f32 partial leaves straight from the accumulator registers: a
+        // thread's two columns are one 8-byte store, and the four lanes of a
+        // row fill a 32-byte sector. No bias, no rounding: the caller sums the
+        // partials of every model rank first.
+        const int row = m0 + 64 * warpgroup + warp * 16 + g;
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j) {
+          const int col = n0 + 8 * j + 2 * t;
+          if (col >= n) continue;  // n is even: col + 1 < n too
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int r = row + 8 * half;
+            if (r < m)
+              *reinterpret_cast<float2*>(out_f32 + static_cast<size_t>(r) * n + col) =
+                  make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+          }
+        }
+        continue;
+      }
       // Epilogue on the accumulator registers (layout: hopper_mma.cuh),
       // through the output tile in shared memory: element (row r of the
       // warpgroup's 64, column c) lies in box c / 64 at byte
@@ -310,6 +342,7 @@ int launch(const void* a, const void* b, const float* bias, const void* resid, v
   CUtensorMap map_a, map_b, map_resid, map_out;
   int err = vitad_tma::encode_matrix(&map_a, a, m, k, kBM);
   if (err == 0) err = vitad_tma::encode_matrix(&map_b, b, n, k, kBN);
+  // the partial epilogue stores f32 without this map and never touches it
   if (err == 0) err = vitad_tma::encode_matrix(&map_out, out, m, n, 64);
   // without a residual the kernel never touches this map
   if (err == 0)
@@ -323,7 +356,7 @@ int launch(const void* a, const void* b, const float* bias, const void* resid, v
   if (err != 0) return err;
   const int tiles = ((m + kBM - 1) / kBM) * ((n + kBN - 1) / kBN);
   gemm_bf16_kernel<EPI><<<tiles < sms ? tiles : sms, kThreads, kSmemBytes, stream>>>(
-      map_a, map_b, map_resid, map_out, bias, m, n, k);
+      map_a, map_b, map_resid, map_out, bias, static_cast<float*>(out), m, n, k);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -333,6 +366,8 @@ int run(int epilogue, const void* a, const void* b, const float* bias, const voi
     return launch<kEpilogueGelu>(a, b, bias, resid, out, m, n, k, device, stream);
   if (epilogue == kEpilogueResidual)
     return launch<kEpilogueResidual>(a, b, bias, resid, out, m, n, k, device, stream);
+  if (epilogue == kEpiloguePartial)
+    return launch<kEpiloguePartial>(a, b, bias, resid, out, m, n, k, device, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -609,19 +644,28 @@ extern "C" int mlp_block_forward(const void* x, const void* norm_scale, const vo
   return rc;
 }
 
-// One product of the bf16 half-block alone (what k1 and k2 run), for checks
-// and timing: out [m, n] = epilogue(a [m, k] . b [n, k]^T + bias [n]) with
-// epilogue 0 = tanh GELU, 1 = + resid [m, n]. a, b, resid, out are contiguous
-// 16-byte aligned bf16, bias f32; n and k are multiples of 8. Returns as
-// mlp_block_forward does.
+// One product of the bf16 half-block alone (what k1 and k2 run), and the
+// row-parallel step of a model-axis shard: out [m, n] = epilogue(a [m, k] .
+// b [n, k]^T) with epilogue 0 = bf16(gelu_tanh(. + bias [n])), 1 =
+// bf16(resid [m, n] + (. + bias)), 2 = the f32 sums alone (no bias, no
+// residual; out is then f32). a, b, resid and out are contiguous and 16-byte
+// aligned, a, b and resid bf16, bias f32 (unread by epilogue 2); n and k are
+// multiples of 8. On a launch it writes epilogue + 1 to the host int `route`
+// (0 unless the launch went through). Returns as mlp_block_forward does.
 extern "C" int mlp_gemm_forward(const void* a, const void* b, const void* bias, const void* resid,
                                 void* out, int m, int n, int k, int epilogue, int device,
-                                void* stream) {
-  if (m < 1 || n < 8 || k < 8 || n % 8 != 0 || k % 8 != 0 ||
+                                void* stream, int* route) {
+  if (route == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  *route = 0;
+  if (m < 1 || n < 8 || k < 8 || n % 8 != 0 || k % 8 != 0 || epilogue < 0 ||
+      epilogue > gemm::kEpiloguePartial ||
+      (epilogue != gemm::kEpiloguePartial && bias == nullptr) ||
       (epilogue == gemm::kEpilogueResidual && resid == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return gemm::run(epilogue, a, b, static_cast<const float*>(bias), resid, out, m, n, k, device,
-                   static_cast<cudaStream_t>(stream));
+  const int rc = gemm::run(epilogue, a, b, static_cast<const float*>(bias), resid, out, m, n, k,
+                           device, static_cast<cudaStream_t>(stream));
+  if (rc == 0) *route = epilogue + 1;
+  return rc;
 }

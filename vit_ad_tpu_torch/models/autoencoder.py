@@ -14,7 +14,9 @@ Inputs are preprocessed images [B, H, W, 3]; `AutoEncoderOutput.reconstruction`
 is [B, H, W, 3], a view of the decoders' NCHW (channels_last) output. The
 frozen encoders stay in eval mode whatever `.train()` is given (the JAX
 modules run them with `train=False` while the decoder trains, :71) and run
-without gradient. State-dict keys are the reference's .pth layouts, as
+without gradient. On a mesh whose model axis is above one the frozen
+transformer trunk is sharded over it (`parallel/sharding.shard_trunk`) and
+the decoder stays replicated. State-dict keys are the reference's .pth layouts, as
 `utils/torch_convert.export_vanilla_ae` (:1440), `export_resnet_ae` (:1000)
 and `export_transformer_ae` (:1022) emit them: a transformer trunk sits under
 its family's name (`encoder.deit.`, `encoder.vit.`, `encoder.esvit.`,

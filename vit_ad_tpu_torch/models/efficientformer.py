@@ -27,6 +27,12 @@ follows the policy (tanh under bf16). The 3D attention has per-head q, k of
 the gathered attention bias (cached), f32 softmax, probabilities rounded to
 the compute dtype: plain torch ops, as no TPU kernel computes it either.
 Convolutions read NHWC maps as NCHW tensors in channels_last memory.
+
+On a mesh whose model axis is above one the four Meta3D MLPs run as shards
+(`parallel/sharding.shard_trunk`, `models/tensor_parallel.py`): `fc1`'s
+hidden block, `fc2` as an f32 partial summed over "model", then its bias and
+the layer scale. The Meta4D conv MLPs stay whole (their BatchNorms are
+folded per channel).
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from vit_ad_tpu_torch.models.layers import (
     resolve_gelu_approx,
 )
 from vit_ad_tpu_torch.models.outputs import EncoderOutput
+from vit_ad_tpu_torch.models.tensor_parallel import check_no_grad, mlp_residual
 from vit_ad_tpu_torch.models.vit import Mlp
 from vit_ad_tpu_torch.ops.window_attention import attention_scale
 
@@ -163,6 +170,9 @@ def _meta4d_apply(x: torch.Tensor, blk: Meta4D, w: Dict[str, Any], pre: str,
 def _meta3d_apply(x: torch.Tensor, blk: Meta3D, w: Dict[str, Any], pre: str,
                   gelu: str) -> torch.Tensor:
     """One 3D block on tokens [B, N, C] in the compute dtype (JAX `Meta3D`)."""
+    shard = getattr(blk, "model_shard", None)
+    if shard is not None:
+        check_no_grad(x, blk)
     b, n, _ = x.shape
     att = blk.token_mixer
     heads, kd = att.num_heads, att.key_dim
@@ -175,6 +185,8 @@ def _meta3d_apply(x: torch.Tensor, blk: Meta3D, w: Dict[str, Any], pre: str,
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.matmul(probs, v).transpose(1, 2).reshape(b, n, -1)
     x = x + bw["ls1"] * F.linear(out, bw["proj_w"], bw["proj_b"])
+    if shard is not None:
+        return mlp_residual(x, blk.norm2(x), bw, blk.mlp, shard, gelu == "tanh", bw["ls2"])
     h = F.gelu(F.linear(blk.norm2(x), bw["fc1_w"], bw["fc1_b"]), approximate=gelu)
     return x + bw["ls2"] * F.linear(h, bw["fc2_w"], bw["fc2_b"])
 

@@ -27,6 +27,11 @@ too). `fused_ln` sends every LayerNorm (27 at NesT-T) through the one-pass
 kernel (`ops/cuda/layer_norm.py`), the port's counterpart of the JAX
 package's `VITAD_PALLAS_LN=1`. Convolutions read NHWC maps as NCHW tensors in
 channels_last memory.
+
+On a mesh whose model axis is above one the MLPs run as shards
+(`parallel/sharding.shard_trunk`, `models/tensor_parallel.py`): `fc1`'s
+hidden block, `fc2` as an f32 partial summed over "model". The attention
+stays whole, as the JAX rules leave it.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from vit_ad_tpu_torch.models.layers import (
     trunc_normal_,
 )
 from vit_ad_tpu_torch.models.outputs import EncoderOutput
+from vit_ad_tpu_torch.models.tensor_parallel import check_no_grad, mlp_residual
 from vit_ad_tpu_torch.models.vit import Attention, Mlp
 from vit_ad_tpu_torch.ops import window_attention as wa
 from vit_ad_tpu_torch.ops.cuda.window_attention import vit_attention_qkv
@@ -78,9 +84,14 @@ def _block_apply(x: torch.Tensor, blk: NestBlock, w: Dict[str, torch.Tensor], cd
     """One block on the block tokens [B*nB, N, C] in the compute dtype (JAX
     `NestBlock` :50). `w` holds the block's matmul weights in the compute
     dtype, `proj_w` with its columns in (heads, head_dim) order."""
+    shard = getattr(blk, "model_shard", None)
+    if shard is not None:
+        check_no_grad(x, blk)
     qkv = F.linear(blk.norm1(x), w["qkv_w"], w["qkv_b"])  # [B_, N, 3C], [3][H][hd]
     out = vit_attention_qkv(qkv, blk.num_heads).to(cd)
     x = x + F.linear(out, w["proj_w"], w["proj_b"])
+    if shard is not None:
+        return mlp_residual(x, blk.norm2(x), w, blk.mlp, shard, gelu_approx)
     h = F.gelu(F.linear(blk.norm2(x), w["fc1_w"], w["fc1_b"]),
                approximate="tanh" if gelu_approx else "none")
     return x + F.linear(h, w["fc2_w"], w["fc2_b"])

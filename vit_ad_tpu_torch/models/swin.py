@@ -27,6 +27,13 @@ once and reused while the parameters are unchanged. `fused_ln` sends every
 LayerNorm through the one-pass kernel (`ops/cuda/layer_norm.py`). The JAX
 package's scan stacking and its layout and blocking knobs are TPU machinery
 and are not carried over.
+
+On a mesh whose model axis is above one the blocks run as shards
+(`parallel/sharding.shard_trunk`, `models/tensor_parallel.py`): a stage
+whose heads the axis divides runs the window kernel on the rank's heads with
+its columns of the bias table, and `proj` as an f32 partial summed over
+"model"; a stage whose heads it does not divide keeps its attention whole;
+every MLP runs `fc1`'s hidden block and `fc2` as an f32 partial, summed.
 """
 
 from __future__ import annotations
@@ -47,6 +54,11 @@ from vit_ad_tpu_torch.models.layers import (
     trunc_normal_,
 )
 from vit_ad_tpu_torch.models.outputs import EncoderOutput
+from vit_ad_tpu_torch.models.tensor_parallel import (
+    attention_residual,
+    check_no_grad,
+    mlp_residual,
+)
 from vit_ad_tpu_torch.models.vit import Mlp
 from vit_ad_tpu_torch.ops import window_attention as wa
 from vit_ad_tpu_torch.ops.cuda.window_attention import swin_attention_windows
@@ -92,6 +104,9 @@ def _block_apply(x: torch.Tensor, blk: SwinBlock, w: Dict[str, torch.Tensor],
     (JAX `_block_apply` :130). `w` holds the block's matmul weights in the
     compute dtype and its gathered relative-position bias; `mask` is the
     stage's shift mask."""
+    shard = getattr(blk, "model_shard", None)
+    if shard is not None:
+        check_no_grad(x, blk)
     _, h, wd, _ = x.shape
     window, shift = blk.window, blk.shift
     pad_b = (window - h % window) % window
@@ -104,17 +119,28 @@ def _block_apply(x: torch.Tensor, blk: SwinBlock, w: Dict[str, torch.Tensor],
         y = torch.roll(y, shifts=(-shift, -shift), dims=(1, 2))
     windows = wa.window_partition(y, window)  # [B_, N, C]
     qkv = F.linear(windows, w["qkv_w"], w["qkv_b"])  # [B_, N, 3C], packed [3][H][hd]
-    out = swin_attention_windows(qkv, blk.attn.relative_position_bias_table, blk.num_heads,
+    heads = blk.num_heads if shard is None else shard.num_heads(blk.num_heads)
+    out = swin_attention_windows(qkv, blk.attn.relative_position_bias_table, heads,
                                  window, mask if shift > 0 else None, bias=w["bias"])
     y = wa.window_reverse(out, window, hp, wp)
     if shift > 0:
         y = torch.roll(y, shifts=(shift, shift), dims=(1, 2))
     if pad_b or pad_r:
         y = y[:, :h, :wd, :]
+    if shard is not None:
+        x = attention_residual(x, y, w, blk.attn.proj.bias, shard)
+        return mlp_residual(x, blk.norm2(x), w, blk.mlp, shard, gelu_approx)
     x = x + F.linear(y, w["proj_w"], w["proj_b"])
     hdn = F.gelu(F.linear(blk.norm2(x), w["fc1_w"], w["fc1_b"]),
                  approximate="tanh" if gelu_approx else "none")
     return x + F.linear(hdn, w["fc2_w"], w["fc2_b"])
+
+
+def _own_heads(blk: SwinBlock, table: torch.Tensor) -> torch.Tensor:
+    """The bias table's columns of the heads this rank runs (all of them
+    unless the block's attention is split over the model axis)."""
+    shard = getattr(blk, "model_shard", None)
+    return table if shard is None or shard.heads is None else table[:, shard.heads]
 
 
 class PatchMerging(nn.Module):
@@ -245,7 +271,7 @@ class SwinTransformer(nn.Module):
                 "proj_w": b.attn.proj.weight.to(cd), "proj_b": b.attn.proj.bias.to(cd),
                 "fc1_w": b.mlp.fc1.weight.to(cd), "fc1_b": b.mlp.fc1.bias.to(cd),
                 "fc2_w": b.mlp.fc2.weight.to(cd), "fc2_b": b.mlp.fc2.bias.to(cd),
-                "bias": wa.gather_bias(b.attn.relative_position_bias_table,
+                "bias": wa.gather_bias(_own_heads(b, b.attn.relative_position_bias_table),
                                        b.attn.relative_position_index),
             } for b in stage.blocks]
             red = None if stage.downsample is None else stage.downsample.reduction.weight.to(cd)

@@ -18,6 +18,13 @@ there behind `VITAD_PALLAS_MLP=1`), taken only under tanh GELU and where
 `use_fused_mlp` admits the widths. The compute-dtype copies of the weights are
 made once and reused while the parameters are unchanged (JAX casts them once
 per call outside its block scan, :255-258).
+
+On a mesh whose model axis is above one the blocks run as shards
+(`parallel/sharding.shard_trunk`, `models/tensor_parallel.py`): B7 norm1,
+the rank's `qkv` heads, the attention kernel at H/M heads, `proj` as an f32
+partial summed over "model", B7 norm2, `fc1`'s hidden block through the MLP
+kernel's GELU step and `fc2` through its f32-partial step, summed likewise
+(the whole MLP kernel cannot take a split hidden axis).
 """
 
 from __future__ import annotations
@@ -37,6 +44,11 @@ from vit_ad_tpu_torch.models.layers import (
     trunc_normal_,
 )
 from vit_ad_tpu_torch.models.outputs import EncoderOutput
+from vit_ad_tpu_torch.models.tensor_parallel import (
+    attention_residual,
+    check_no_grad,
+    mlp_residual,
+)
 from vit_ad_tpu_torch.ops.cuda.layer_norm import layer_norm
 from vit_ad_tpu_torch.ops.cuda.mlp import mlp_block, use_fused_mlp
 from vit_ad_tpu_torch.ops.cuda.window_attention import vit_attention_qkv
@@ -80,6 +92,9 @@ def _block_apply(x: torch.Tensor, blk: Block, w: Dict[str, torch.Tensor], num_he
     block's matmul weights in the compute dtype. `fused_mlp` sends the MLP
     tail through `mlp_block` when the GELU is the tanh one and the kernel
     takes the widths."""
+    shard = getattr(blk, "model_shard", None)
+    if shard is not None:
+        return _shard_block_apply(x, blk, w, shard.num_heads(num_heads), cd, gelu_approx)
     d = x.shape[-1]
     y = layer_norm(x, blk.norm1.weight, blk.norm1.bias, LN_EPS)  # x is in cd
     qkv = F.linear(y, w["qkv_w"], w["qkv_b"])  # [B, N, 3D] packed
@@ -93,6 +108,18 @@ def _block_apply(x: torch.Tensor, blk: Block, w: Dict[str, torch.Tensor], num_he
     h = F.gelu(F.linear(y, w["fc1_w"], w["fc1_b"]),
                approximate="tanh" if gelu_approx else "none")
     return x + F.linear(h, w["fc2_w"], w["fc2_b"])
+
+
+def _shard_block_apply(x: torch.Tensor, blk: Block, w: Dict[str, torch.Tensor], heads: int,
+                       cd: torch.dtype, gelu_approx: bool) -> torch.Tensor:
+    """One block on a model-axis shard: `w` holds the rank's parts of the
+    matmul weights, `heads` its heads."""
+    check_no_grad(x, blk)
+    y = layer_norm(x, blk.norm1.weight, blk.norm1.bias, LN_EPS)
+    out = vit_attention_qkv(F.linear(y, w["qkv_w"], w["qkv_b"]), heads).to(cd)
+    x = attention_residual(x, out, w, blk.attn.proj.bias, blk.model_shard)
+    y = layer_norm(x, blk.norm2.weight, blk.norm2.bias, LN_EPS)
+    return mlp_residual(x, y, w, blk.mlp, blk.model_shard, gelu_approx)
 
 
 class ViTEncoder(nn.Module):

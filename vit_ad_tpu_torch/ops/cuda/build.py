@@ -111,8 +111,8 @@ ENTRY_POINTS = {
     # x, norm_scale, norm_bias, w1, b1, w2, b2, out, y, hid, rows, d, hidden,
     # eps, is_bf16, device, stream, route
     "mlp_block_forward": [_P] * 10 + [_I] * 3 + [ctypes.c_float, _I, _I, _P, _ROUTE],
-    # a, b, bias, resid, out, m, n, k, epilogue, device, stream
-    "mlp_gemm_forward": [_P] * 5 + [_I] * 5 + [_P],
+    # a, b, bias, resid, out, m, n, k, epilogue, device, stream, route
+    "mlp_gemm_forward": [_P] * 5 + [_I] * 5 + [_P, _ROUTE],
     # x, x_m, log_pi_t, w_mu, w_sigma, b_mu_t, b_sigma_t, ll, rows, d, k,
     # is_bf16, device, stream, route
     "gmm_forward": [_P] * 8 + [_I] * 5 + [_P, _ROUTE],

@@ -17,6 +17,12 @@ version, as the JAX custom VJP recomputes through its XLA expression
 (:152-154): the TPU kernel had no backward kernel either. `use_fused_mlp`
 is the shape half of the JAX gate `use_pallas_mlp` (:160); the opt-in half
 is the encoder's `fused_mlp` argument.
+
+`gemm_step` is one product of the bf16 route alone, with the GELU, the
+residual or the f32-partial epilogue: a model-axis shard of a trunk runs its
+MLP and attention projections through it where `use_gemm_step` admits the
+widths (`models/tensor_parallel.py`). It counts its launches like
+`mlp_block`, by the epilogue the C entry point reports.
 """
 
 from __future__ import annotations
@@ -26,7 +32,13 @@ from typing import Optional
 
 import torch
 
-from vit_ad_tpu_torch.ops.mlp import mlp_block_reference
+from vit_ad_tpu_torch.ops.mlp import (
+    EPILOGUE_GELU,
+    EPILOGUE_PARTIAL,
+    EPILOGUE_RESIDUAL,
+    gemm_step_reference,
+    mlp_block_reference,
+)
 
 # Kernel launches made by `mlp_block` (a plain count, read by chip_smoke.py to
 # show that the main path went through the kernel).
@@ -37,11 +49,17 @@ wgmma_launches = 0
 # `mlp_route`'s names for what `mlp_block_forward` reports as launched
 ROUTE_NAMES = {1: "wgmma", 2: "fma"}
 
+# Kernel launches made by `gemm_step`, and of those the launches by the
+# epilogue `mlp_gemm_forward` reported through its `route` out-parameter
+gemm_launches = 0
+gemm_route_launches = {"gelu": 0, "residual": 0, "partial": 0}
+GEMM_ROUTE_NAMES = {EPILOGUE_GELU + 1: "gelu", EPILOGUE_RESIDUAL + 1: "residual",
+                    EPILOGUE_PARTIAL + 1: "partial"}
+last_gemm_route = ""
+
 # The f32 kernel keeps a block's [32, D] output accumulator in registers: D/8
 # a thread
 MAX_DIM = 1024
-# Epilogues of `gemm_step` (the C side's numbering)
-EPILOGUE_GELU, EPILOGUE_RESIDUAL = 0, 1
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -125,51 +143,75 @@ def _(x, norm_w, norm_b, w1, b1, w2, b2, eps):
     return x.new_empty(x.shape)
 
 
-def _check_gemm_step(a: torch.Tensor, w: torch.Tensor, on_card: bool = True) -> None:
-    if (on_card and a.device.type != "cuda") or a.dtype != torch.bfloat16 \
-            or w.dtype != torch.bfloat16 or a.dim() != 2 or w.dim() != 2 \
-            or a.shape[1] != w.shape[1]:
-        raise ValueError(f"gemm_step takes bf16 CUDA matrices a [M, K] and w [N, K], got "
-                         f"{a.dtype} {tuple(a.shape)} on {a.device} and {w.dtype} {tuple(w.shape)}")
+def use_gemm_step(n: int, k: int, dtype: torch.dtype) -> bool:
+    """Whether a shard's product of w [N, K] takes `gemm_step`: bf16, with N
+    and K multiples of 128 (the rule of `use_fused_mlp`)."""
+    return dtype == torch.bfloat16 and n > 0 and k > 0 and n % 128 == 0 and k % 128 == 0
 
 
-def gemm_step(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epilogue: int,
+def _check_gemm_step(a, w, bias, epilogue, resid) -> None:
+    if a.dtype != torch.bfloat16 or w.dtype != torch.bfloat16 or a.dim() != 2 \
+            or w.dim() != 2 or a.shape[1] != w.shape[1] or w.device != a.device:
+        raise ValueError(f"gemm_step takes bf16 matrices a [M, K] and w [N, K] on one device, "
+                         f"got {a.dtype} {tuple(a.shape)} on {a.device} and {w.dtype} "
+                         f"{tuple(w.shape)} on {w.device}")
+    if epilogue + 1 not in GEMM_ROUTE_NAMES or (epilogue != EPILOGUE_PARTIAL and bias is None) \
+            or (epilogue == EPILOGUE_RESIDUAL and resid is None):
+        raise ValueError(f"gemm_step epilogue {epilogue}: 0 GELU and 1 residual take an f32 "
+                         f"bias [N], 1 a residual [M, N] too, 2 (the f32 partial) neither")
+
+
+def gemm_step(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], epilogue: int,
               resid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One product of the bf16 route alone, for the card-side checks and
-    timings: bf16(gelu_tanh(a . w^T + bias)) with `EPILOGUE_GELU`, or
-    bf16(f32(resid) + (a . w^T + bias)) with `EPILOGUE_RESIDUAL`. a [M, K], w
-    [N, K] and resid [M, N] are contiguous bf16 CUDA tensors, bias f32 [N].
-    Counts no launch."""
-    _check_gemm_step(a, w)
-    return gemm_step_op(a, w, bias, epilogue, resid)
+    """One product of the bf16 route alone: bf16(gelu_tanh(a . w^T + bias))
+    with `EPILOGUE_GELU`, bf16(f32(resid) + (a . w^T + bias)) with
+    `EPILOGUE_RESIDUAL`, the f32 a . w^T with `EPILOGUE_PARTIAL` (bias may be
+    None). a [M, K], w [N, K] and resid [M, N] are bf16, bias f32 [N]. The
+    kernel on CUDA tensors (one launch counted), the plain version
+    `ops/mlp.gemm_step_reference` on CPU tensors; no gradient."""
+    _check_gemm_step(a, w, bias, epilogue, resid)
+    if a.device.type == "cuda":
+        return gemm_step_op(a, w, bias, epilogue, resid)
+    if a.device.type == "cpu":
+        return gemm_step_reference(a, w, bias, epilogue, resid)
+    raise RuntimeError(f"gemm_step has no path for device {a.device}")
 
 
 @torch.library.custom_op("vit_ad_tpu_torch::mlp_gemm", mutates_args=(), device_types="cuda")
-def gemm_step_op(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epilogue: int,
+def gemm_step_op(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], epilogue: int,
                  resid: Optional[torch.Tensor]) -> torch.Tensor:
     """One launch of `gemm_step`'s kernel, as a registered op."""
+    global gemm_launches, last_gemm_route
     from vit_ad_tpu_torch.ops.cuda.build import aligned_buffer, device_index, load_library
 
-    _check_gemm_step(a, w)
+    _check_gemm_step(a, w, bias, epilogue, resid)
     a, w = aligned_buffer(a, a.dtype), aligned_buffer(w, a.dtype)
-    bias = aligned_buffer(bias, torch.float32)
+    if bias is not None:
+        bias = aligned_buffer(bias, torch.float32)
     if resid is not None:
         resid = aligned_buffer(resid, a.dtype)
-    out = torch.empty((a.shape[0], w.shape[0]), dtype=a.dtype, device=a.device)
+    dtype = torch.float32 if epilogue == EPILOGUE_PARTIAL else a.dtype
+    out = torch.empty((a.shape[0], w.shape[0]), dtype=dtype, device=a.device)
+    took = ctypes.c_int(0)
     err = load_library().mlp_gemm_forward(
-        a.data_ptr(), w.data_ptr(), bias.data_ptr(), None if resid is None else resid.data_ptr(),
-        out.data_ptr(), a.shape[0], w.shape[0], a.shape[1], epilogue, device_index(a),
-        torch.cuda.current_stream(a.device).cuda_stream,
+        a.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
+        None if resid is None else resid.data_ptr(), out.data_ptr(), a.shape[0], w.shape[0],
+        a.shape[1], epilogue, device_index(a), torch.cuda.current_stream(a.device).cuda_stream,
+        ctypes.byref(took),
     )
     if err:
         raise RuntimeError(f"mlp gemm kernel launch failed: error {err}")
+    gemm_launches += 1
+    last_gemm_route = GEMM_ROUTE_NAMES[took.value]
+    gemm_route_launches[last_gemm_route] += 1
     return out
 
 
 @gemm_step_op.register_fake
 def _(a, w, bias, epilogue, resid):
-    _check_gemm_step(a, w, on_card=False)
-    return a.new_empty((a.shape[0], w.shape[0]))
+    _check_gemm_step(a, w, bias, epilogue, resid)
+    dtype = torch.float32 if epilogue == EPILOGUE_PARTIAL else a.dtype
+    return a.new_empty((a.shape[0], w.shape[0]), dtype=dtype)
 
 
 def _forward(x, norm_w, norm_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:

@@ -16,7 +16,13 @@ them, and the trainers call them where the math needs them:
     merge take the autograd-aware collectives below (`reduce_sum`,
     `replicate_in`, `gather_own_grad`);
   * BatchNorms in training take global-batch statistics (`shard_params`
-    gives them the mesh; `models/layers.FusedBatchNorm`).
+    gives them the mesh; `models/layers.FusedBatchNorm`);
+  * with a model axis above one, the transformer trunks are sharded over it
+    (`shard_params`, `sharding.shard_trunk`): each block's row-parallel
+    products leave f32 partial sums, which `model_sum` adds up over the
+    model axis (no gradient: the trunks are frozen). A model group's ranks
+    feed their trunk the same rows, so every trunk call is collective over
+    "model" and no rank may make one alone.
 
 Each rank keeps its own optimizer over what it holds: the summed gradient and
 the same Adam update keep replicated parameters equal on every rank.
@@ -133,15 +139,18 @@ class MeshContext:
     def shard_params(self, module: torch.nn.Module) -> torch.nn.Module:
         """Place a module on the mesh: each MDN head is replaced by this
         rank's shard of its mixture components (`sharding.shard_mdn`), each
-        FusedBatchNorm takes global-batch statistics in training; everything
-        else stays, replicated. Returns the module (the shard when `module` is
-        a head)."""
+        transformer trunk by its shard when the model axis is above one
+        (`sharding.shard_trunk`, in place), each FusedBatchNorm takes
+        global-batch statistics in training; everything else stays,
+        replicated. Returns the module (the shard when `module` is a head)."""
         from vit_ad_tpu_torch.models.layers import FusedBatchNorm
         from vit_ad_tpu_torch.models.mdn import GaussianMDN
-        from vit_ad_tpu_torch.parallel.sharding import shard_mdn
+        from vit_ad_tpu_torch.parallel.sharding import is_trunk, shard_mdn, shard_trunk
 
         if isinstance(module, GaussianMDN):
             return shard_mdn(module, self)
+        if self.model_size > 1 and is_trunk(module):
+            return shard_trunk(module, self)
         for name, child in list(module.named_children()):
             placed = self.shard_params(child)
             if placed is not child:
@@ -163,6 +172,17 @@ class MeshContext:
 
     def model_max(self, t: torch.Tensor) -> torch.Tensor:
         return self.mesh.all_reduce(t, "model", dist.ReduceOp.MAX)
+
+    def model_sum(self, partial: torch.Tensor) -> torch.Tensor:
+        """The sum over the model axis of a row-parallel product's f32
+        partial sums, the same bytes on every model rank. No gradient."""
+        if partial.dtype != torch.float32:
+            raise TypeError(f"model_sum adds f32 partial sums, got {partial.dtype}")
+        return self.mesh.all_reduce(partial, "model")
+
+    def model_gather(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """Every model rank's `t`, in model order."""
+        return self.mesh.all_gather(t, "model")
 
     def sum_gradients(self, params: Iterable[torch.nn.Parameter]) -> None:
         """Sum every gradient over the data axis, in one all-reduce a dtype."""

@@ -5,7 +5,8 @@ A JAX process drives every local device of its mesh. Here each rank is a
 process with one device, as is PyTorch's idiom: rank r sits at data index
 r // M and model index r % M, the row-major layout of the JAX mesh
 (`np.asarray(devices).reshape(data, model)`). The data axis shards the batch;
-the model axis shards the MDN heads' mixture components (`sharding.py`).
+the model axis shards the MDN heads' mixture components and the transformer
+trunks (`sharding.py`).
 
 A mesh holds two sets of process groups:
 

@@ -79,17 +79,19 @@ def barrier() -> None:
 
 
 def host_snapshot(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """The module's state dict on the CPU, every K-sharded MDN head inside it
-    gathered back to the full reference layout (a collective: every rank of
-    the head's mesh calls it). Without a sharded head it is the plain state
-    dict, copied to the CPU."""
-    from vit_ad_tpu_torch.parallel.sharding import gather_mdn_state
+    """The module's state dict on the CPU, every K-sharded MDN head and every
+    sharded trunk inside it gathered back to the full reference layout (a
+    collective: every rank of the mesh calls it). Without a shard it is the
+    plain state dict, copied to the CPU."""
+    from vit_ad_tpu_torch.parallel.sharding import gather_mdn_state, gather_trunk_state
 
     out = {k: v.detach().to("cpu", copy=True) for k, v in module.state_dict().items()}
     for prefix, sub in module.named_modules():
+        lead = f"{prefix}." if prefix else ""
         if getattr(sub, "mesh", None) is not None and hasattr(sub, "components"):
-            lead = f"{prefix}." if prefix else ""
             out.update({lead + k: v for k, v in gather_mdn_state(sub).items()})
+        elif getattr(sub, "model_shard", None) is not None and hasattr(sub.model_shard, "rules"):
+            out.update({lead + k: v for k, v in gather_trunk_state(sub).items()})
     return out
 
 

@@ -394,10 +394,14 @@ def evaluate_recon(model: torch.nn.Module, test_data: DataPipeline, hp: HyperPar
                    figures_dir: Optional[str] = None, logger: Any = None) -> Dict[str, float]:
     """score_recon + the reference metric suite (+ figures: the recon grid of
     the kept images, the maps at the reference's vmax=0.15,
-    ValidatorRecon.py:60-90)."""
-    s = score_recon(model, test_data, hp, mean, std, keep_origs=9 if figures_dir else 0)
+    ValidatorRecon.py:60-90). A trunk sharded over the model axis is a
+    collective, so on a mesh every rank reconstructs the kept images, the
+    primary (the one with `figures_dir`) among them."""
+    sharded = any(getattr(m, "model_shard", None) is not None for m in model.modules())
+    s = score_recon(model, test_data, hp, mean, std,
+                    keep_origs=9 if figures_dir or sharded else 0)
     recons = None
-    if figures_dir and s.origs is not None:
+    if (figures_dir or sharded) and s.origs is not None:
         device = _device_of(model)
         with torch.inference_mode():
             x = preprocess(torch.from_numpy(s.origs).to(device), _as_device(mean, device),

@@ -5,8 +5,11 @@
 The encoder never changes while a head trains, so features are extracted
 once per run and the head trains on the cached [N, P, D] array, staged on
 the device once as padded batches. On a mesh each data rank extracts and
-caches the features of its own rows of every padded batch, with the trunk
-replicated (`shard_feature_batches`). The JAX package's scan-of-batches
+caches the features of its own rows of every padded batch
+(`shard_feature_batches`); the ranks of a model group feed the same rows to
+their trunk, which is replicated or, on a model axis above one, sharded
+(`parallel/sharding.shard_trunk`): after its row-parallel sums every model
+rank holds the full features. The JAX package's scan-of-batches
 epoch machinery exists to amortize TPU dispatch and is not ported.
 """
 

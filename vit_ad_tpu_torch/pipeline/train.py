@@ -27,8 +27,12 @@ takes its rows of every padded batch, the loss is the global masked mean
 (each rank backpropagates its rows' sum over the global valid count and the
 gradients are summed over the data axis), noise is the single-device draw
 (each rank draws the global shape and keeps its rows), the MDN heads hold
-K/M mixture components a model rank, BatchNorms in training take
-global-batch statistics, and everything else is replicated. The validation
+K/M mixture components a model rank, the frozen transformer trunks of
+`train_mdn`, `train_nf` and a transformer AE's `train_recon` are sharded
+over the model axis when it is above one (JAX :137-146, :312-320, :496-502;
+every rank of a model group calls the trunk on the same rows, together),
+BatchNorms in training take global-batch statistics, and everything else is
+replicated. The validation
 loss is the global one, so every rank takes the same early-stopping
 decisions; the best weights are kept per rank, as shards.
 """
@@ -219,6 +223,8 @@ def _train_head(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPip
     device = torch.device(device)
     mc = _mesh_setup(hp, device)
     encoder = encoder.to(device).eval()
+    if mc is not None:
+        encoder = mc.shard_params(encoder)
     # --centering: the train set's statistics; else ImageNet's
     mean, std = data.compute_mean_std() if hp.centering else default_norm_stats()
     extractor = make_feature_extractor(encoder, hp.block_index, mean, std)
@@ -647,8 +653,10 @@ def train_recon(hp: HyperParams, data: DataPipeline, test_data: Optional[DataPip
     each step and validation pass runs the decoder alone. The uint8 batches
     are decoded once and kept on the device. The AE ends with the weights and
     running statistics of its best validation epoch, in eval mode, and is
-    evaluated on `test_data`. `TrainResult.head` is the AE. On a mesh the AE is
-    replicated and its BatchNorms take global-batch statistics in training."""
+    evaluated on `test_data`. `TrainResult.head` is the AE. On a mesh the
+    decoder (the vanilla AE whole) is replicated and its BatchNorms take
+    global-batch statistics in training; a transformer AE's frozen trunk is
+    sharded over a model axis above one."""
     from vit_ad_tpu_torch.pipeline.eval import evaluate_recon
 
     _check_unported(hp)
