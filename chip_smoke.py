@@ -28,7 +28,8 @@ MDN, EsViT NF and ResNet MDN runs as serving bundles (`torch.export`
 programs carrying the kernels as registered ops), each served from a fresh
 process (`--serve-bundle`); the sweep engine over DeiT-base MDN runs
 (sequential, resumed, and through a spawned worker), k-means init, the VAE,
-and the weight CLIs (export and convert). Phases:
+and the weight CLIs (export and convert); the mesh; and the model levers of
+the JAX package, each off and on. Phases:
 
   1. device   card name and power limit (nvidia-smi)
   2. build    compile the kernels from vit_ad_tpu_torch/csrc (nvcc, sm_90a)
@@ -178,7 +179,20 @@ and the weight CLIs (export and convert). Phases:
               DeiT-base shard shapes are held against their plain versions and
               timed. (a) runs the sharded trunk too. Step ms of (a), (b) and
               (e)-(g) on the shared card are information only
- 16. result   a kernels JSON line, the nvidia-smi line, and last the
+ 16. levers   the JAX package's opt-in model levers, each off and on (read
+              at call time) on the models above, B=128 bf16: launches of one
+              batch, the scores' drift and uint8→scores ms (order off, on, on,
+              off) with the part the lever changes timed alone; EsViT NF
+              (`VITAD_SWIN_PARTITION=gather`: scores equal to the bit;
+              `VITAD_SWIN_PACKED=0`: B5a 12, B5 0; `VITAD_SWIN_LN_FOLD=1`: B7
+              5), the EsViT NF without the fused LayerNorm (`VITAD_BF16_LN=1`),
+              DeiT NF (`VITAD_VIT_LN_FOLD=1`: B7 1; `VITAD_FOLD_FLOW_PERMS=1`),
+              EfficientNet-B4 NF (`VITAD_EFFNET_HARDSWISH=1`); B5a on the split
+              route at the four Swin-T stages against its plain version, by
+              events beside SDPA; the NF-ResNet step at B=32 with
+              `VITAD_NF_REVERSIBLE=1`: first-step gradients against autodiff,
+              step ms and peak memory each way
+ 17. result   a kernels JSON line, the nvidia-smi line, and last the
               {"ok": true, "device": ...} line
 
 Every phase raises on failure, so the script exits non-zero and prints no
@@ -2661,7 +2675,8 @@ def rundir_main_path(tmp: str, mdn_run: str, img: int = 224, device: str = "cuda
     if rc != 0 or sorted(rows) != ["deit_nf", "mdn", "nf_resnet"] or worst > VALIDATE_ATOL:
         raise AssertionError("cli.validate failed or did not reproduce the recorded metrics")
     print(f"phase launches {total}")
-    return {"launches": total, "nf_resnet": run, "deit_nf": deit_run, "incoming": incoming}
+    return {"launches": total, "nf_resnet": run, "nf_resnet_data": cat, "deit_nf": deit_run,
+            "incoming": incoming}
 
 
 def rundir_times(r: dict, images, card: str) -> dict:
@@ -4770,6 +4785,274 @@ def mesh_main_path(tmp: str, mdn_cat: str, nf_pth: str, deit_pth: str, img: int 
     return {"launches": total, **(tp_nums if on_card else {})}
 
 
+# the levers phase: the JAX package's opt-in model levers, each read from the
+# environment at call time, A/B'd on the models of the earlier phases at
+# B=128 (B=32 for the NF-ResNet step). Launches of one encoder batch with
+# each lever off and on (`NO_LAUNCHES` elsewhere): the EsViT trunk with its
+# fused LayerNorm (B5 12, B7 29 off; the split route B5a 12 for B5; the fold
+# B7 5: patch norm, 3 merge norms, final norm), DeiT-base with the fused MLP
+# (B1 12, B6 12, B7 13 off; the fold B7 1: the final norm; B6 takes norm2)
+ESVIT_OFF = {**NO_LAUNCHES, "B5": ESVIT_B5_PER_BATCH, "B7": ESVIT_B7_PER_BATCH}
+DEIT_OFF = {**NO_LAUNCHES, "B1": 12, "B6": 12, "B7": DEIT_B7_PER_BATCH}
+# B5a on its model path, the split route: the four Swin-T stages of a B=128
+# batch as the blocks call it, q, k, v strided views of the packed qkv and
+# the bias gathered beforehand (`SWIN_STAGES`)
+# reversible against autodiff gradients, |difference| / |autodiff| per tensor
+# (Frobenius norms): the f32 roundoff of the inverse, which the stage norms'
+# gradients (sums over every position, with cancellation) carry furthest;
+# at 224 px on the CPU 3.7e-5 (their max entry 8.2e-4 of the largest)
+REVERSIBLE_GRAD_RTOL = 1e-3
+
+
+def under(var: str, value, fn):
+    """`fn` wrapped so that each call runs with the environment variable
+    `var` set to `value` (or unset for None), restored after."""
+    def call():
+        old = os.environ.get(var)
+        if value is None:
+            os.environ.pop(var, None)
+        else:
+            os.environ[var] = value
+        try:
+            return fn()
+        finally:
+            if old is None:
+                os.environ.pop(var, None)
+            else:
+                os.environ[var] = old
+    return call
+
+
+def lever_ab(name: str, var: str, value: str, m, images, card: str, expect: dict,
+             alone=None) -> dict:
+    """Scoring of the RunModels `m` (trunk + NF-20) on the B=128 uint8 batch
+    with `var=value` off and on: the launches of one batch each way against
+    `expect` ({False: ..., True: ...}), the scores' drift, and the times of
+    uint8→scores and of `alone` (what the lever changes, on its own), order
+    off, on, on, off, median of 10 by events each."""
+    import torch
+    from vit_ad_tpu_torch.data.dataset import default_norm_stats
+    from vit_ad_tpu_torch.ops.cuda import window_attention as wa
+    from vit_ad_tpu_torch.pipeline.eval import make_nf_batch_fn
+
+    mean, std = (torch.as_tensor(a, device=images.device) for a in default_norm_stats())
+    batch_fn = make_nf_batch_fn(*m.parts, m.hp, mean, std)
+
+    def scores():
+        with torch.inference_mode():
+            return batch_fn(images).amax(dim=(1, 2))
+
+    out, launched, one_pass = {}, {}, {}
+    for on in (False, True):
+        reset_launches()
+        out[on] = under(var, value if on else None, scores)()
+        torch.cuda.synchronize()
+        launched[on] = read_launches()
+        one_pass[on] = wa.window_one_pass_launches + wa.split_one_pass_launches
+        if out[on].shape != (FLAGSHIP_BATCH,) or not torch.isfinite(out[on]).all():
+            raise AssertionError(f"{name} {var}={value if on else 'unset'}: non-finite or "
+                                 f"misshapen scores")
+    diff, top = (out[True] - out[False]).abs().max().item(), out[False].abs().max().item()
+    drift = diff / top if top > 0 else diff
+    print(f"{name} {var}={value}: launches of one B={FLAGSHIP_BATCH} batch off {launched[False]}, "
+          f"on {launched[True]} (expected {expect}); window attentions through the one-pass "
+          f"kernel off {one_pass[False]}, on {one_pass[True]}; scores on vs off max |diff| "
+          f"{diff:.3e}, {drift:.3e} of the largest score {top:.6g}")
+    if launched != expect:
+        raise AssertionError(f"{name} {var}={value}: launches {launched}, expected {expect}")
+    if one_pass[True] != launched[True]["B5"] + launched[True]["B5a"]:
+        raise AssertionError(f"{name}: a window attention left the one-pass kernel")
+    times = {}
+    for what, fn in (("uint8→scores", scores),) + ((alone,) if alone else ()):
+        side = {on: under(var, value if on else None, fn) for on in (False, True)}
+        off = [median_ms(side[False], torch, runs=10)]
+        on = [median_ms(side[True], torch, runs=10), median_ms(side[True], torch, runs=10)]
+        off.append(median_ms(side[False], torch, runs=10))
+        rate = lambda ms: FLAGSHIP_BATCH / statistics.mean(ms) * 1e3
+        change = 100 * (statistics.mean(on) / statistics.mean(off) - 1)
+        print(f"[{card}] {name} {what} B={FLAGSHIP_BATCH} bf16, batch on the device: {var} "
+              f"unset {off} ms = {rate(off):.1f} img/s, ={value} {on} ms = {rate(on):.1f} img/s "
+              f"(order off, on, on, off; {change:+.2f}%)")
+        times[what] = {"off": off, "on": on}
+    return {"launches": {k: launched[False][k] + launched[True][k] for k in launched[True]},
+            "drift": drift, "times": times}
+
+
+def split_path_times(card: str, gen) -> list:
+    """B5a as the split route calls it, at the four Swin-T stages of a B=128
+    batch: q, k, v strided views of the packed qkv, the gathered bias and
+    the shift mask passed in; against its plain version, then by events
+    beside SDPA with the additive mask and the bound (B5's bytes: q, k, v,
+    the output, the bias, the mask)."""
+    import torch
+    from vit_ad_tpu_torch.ops import window_attention as wops
+    from vit_ad_tpu_torch.ops.cuda import window_attention as wa
+
+    dev, bf16, per_stage = torch.device("cuda"), torch.bfloat16, []
+    for stage, windows, side, c, heads, n_w in SWIN_STAGES:
+        case = (windows, side, c, heads, windows // n_w if n_w else 0, 0)
+        qkv3, table, mask = window_inputs(case, bf16, gen, dev)
+        n, hd = side * side, c // heads
+        bias = wops.gather_bias(table, torch.from_numpy(
+            wops.relative_position_index(side, side)).to(dev))
+        q, k, v = qkv3.reshape(windows, n, 3, heads, hd).unbind(2)  # as models/swin.py
+        kern = lambda: wa.window_attention(q, k, v, table, heads, (side, side), mask, bias=bias)
+        plain = lambda: wops.window_attention_core_reference(q, k, v, bias, mask)
+        additive = (bias[None] if mask is None else bias[None] + mask[:, None]).to(bf16)
+        with torch.no_grad():
+            before = (wa.window_launches, wa.split_launches)
+            before_one_pass = wa.window_one_pass_launches + wa.split_one_pass_launches
+            got = kern()
+            shape = (f"{stage} [{windows},{n},{heads},{hd}] x3 strided, "
+                     f"mask={'none' if mask is None else n_w}")
+            err = report_window_check(got, plain(), before, before_one_pass, True, "bfloat16",
+                                      f"on the split route, {shape}")
+            kern_ms, plain_ms = alternate(kern, plain, TIMED_RUNS, 3)
+            lib_ms, lib_both, _ = sdpa_ms(*(t.transpose(1, 2) for t in (q, k, v)), additive,
+                                          torch)
+        nums = {"shape": shape, "max_abs_err": err, "ms": statistics.mean(kern_ms),
+                "plain_ms": statistics.mean(plain_ms), "library_ms": lib_ms,
+                **bound(tensor_bytes(q, k, v, got, bias, mask), 4 * windows * heads * n * n * hd)}
+        per_stage.append(nums)
+        print(f"[{card}] window_attention (B5a) on the split route {shape} bf16: kernel "
+              f"{kern_ms} ms (q, k, v copies included), plain {plain_ms} ms (order plain, "
+              f"kernel, kernel, plain), SDPA with additive mask (broadcast, expanded) {lib_both} "
+              f"ms, bound {nums['bound_ms']:.4f} ms by {nums['bound_by']}")
+        del qkv3, q, k, v, got
+    return per_stage
+
+
+def reversible_ab(encoder, flows, batch, images, card: str) -> None:
+    """`VITAD_NF_REVERSIBLE=1` on the NF-ResNet joint step at B=32 (ResNet-50
+    bf16, three NF-20 flows f32, the stage norms, Adam) on the uint8 `batch`
+    (images the flows were trained on): the first step's loss and gradients
+    against autodiff from the same weights, checked, and the same on the
+    first 32 of `images` (other images: the inverse's conditioning,
+    information only); then the step ms (order off, on, on, off) and its
+    peak memory above what is held before each side."""
+    import torch
+    from vit_ad_tpu_torch.data.dataset import default_norm_stats
+    from vit_ad_tpu_torch.pipeline.optimizers import torch_adam
+    from vit_ad_tpu_torch.pipeline.train import nf_resnet_loss, nf_resnet_train_step
+
+    dev, var = torch.device("cuda"), "VITAD_NF_REVERSIBLE"
+    flows.train()
+    mean, std = (torch.as_tensor(a, device=dev) for a in default_norm_stats())
+    valid = torch.ones(NFRES_BATCH, device=dev)
+    trainable = torch.nn.ModuleDict({"flows": flows, "norms": encoder.norms})
+
+    def grads(u8):
+        trainable.zero_grad(set_to_none=True)
+        loss = nf_resnet_loss(encoder, flows, u8, valid, mean, std)
+        loss.backward()
+        return loss.detach(), {k: p.grad.clone() for k, p in trainable.named_parameters()
+                               if p.grad is not None}
+
+    def against_autodiff(u8, what):
+        (l_off, g_off), (l_on, g_on) = grads(u8), under(var, "1", lambda: grads(u8))()
+        rel = {k: ((g_on[k] - g).norm() / g.norm()).item() for k, g in g_off.items()}
+        worst = max(rel, key=rel.get)
+        top = max(((g_on[k] - g).abs().max() / g.abs().max()).item() for k, g in g_off.items())
+        again = grads(u8)[1]  # autodiff twice: the card's own spread
+        floor = max(((again[k] - g).norm() / g.norm()).item() for k, g in g_off.items())
+        print(f"NF-ResNet B={NFRES_BATCH} first step on {what}, {var}=1 against autodiff: loss "
+              f"{l_on.item()} vs {l_off.item()} (equal: {bool(torch.equal(l_on, l_off))}), "
+              f"{len(g_on)} gradients, |reversible - autodiff| / |autodiff| at most "
+              f"{rel[worst]:.3e} ({worst}), max entry difference {top:.3e} of the tensor's "
+              f"largest; autodiff against itself {floor:.3e}")
+        return sorted(g_on) == sorted(g_off) and torch.equal(l_on, l_off), rel[worst]
+
+    same, err = against_autodiff(batch, "training images of the flows")
+    print(f"(tol {REVERSIBLE_GRAD_RTOL:.0e} on the training images)")
+    if not same or not err <= REVERSIBLE_GRAD_RTOL:
+        raise AssertionError(f"the reversible flow backward disagrees with autodiff: {err}")
+    against_autodiff(images[:NFRES_BATCH], "other images (information)")
+    trainable.zero_grad(set_to_none=True)
+    opt = torch_adam(trainable.parameters(), 1e-3, 1e-5)
+    step = lambda: nf_resnet_train_step(encoder, flows, opt, batch, valid, mean, std)
+    ms, peak = {False: [], True: []}, {}
+    for on in (False, True, True, False):
+        fn = under(var, "1" if on else None, step)
+        fn()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        ms[on].append(median_ms(fn, torch, runs=5, warmup=1))
+        peak.setdefault(on, torch.cuda.max_memory_allocated() / 2**30 - held)
+    print(f"[{card}] NF-ResNet joint train step B={NFRES_BATCH} (3 NF-20 flows + stage norms, "
+          f"Adam): {var} unset {ms[False]} ms, peak {peak[False]:.2f} GiB above what is held; "
+          f"=1 {ms[True]} ms, peak {peak[True]:.2f} GiB (order off, on, on, off; "
+          f"{100 * (statistics.mean(ms[True]) / statistics.mean(ms[False]) - 1):+.2f}% time)")
+
+
+def levers_main_path(nf_pth: str, deit_pth: str, esvit_pth: str, effnet_pth: str, nf_resnet,
+                     nf_resnet_batch, images, card: str, gen) -> dict:
+    """Phase 16: each lever A/B'd through the scoring path of its model (the
+    NF heads `nf_pth` on DeiT-base `deit_pth`, `esvit_pth` on EsViT Swin-T,
+    `effnet_pth` on EfficientNet-B4, built as `cli.score` builds them), B5a
+    on the split route's stage shapes, and the reversible step of the
+    NF-ResNet models `nf_resnet` (encoder, flows) on `nf_resnet_batch`, 32
+    of their training images. Returns the launches and B5a's numbers."""
+    import torch
+    from vit_ad_tpu_torch.data.dataset import default_norm_stats
+    from vit_ad_tpu_torch.data.loader import preprocess
+    from vit_ad_tpu_torch.models.flow import patch_tokens_to_map
+    from vit_ad_tpu_torch.pipeline.loading import build_pth_models
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    mean, std = (torch.as_tensor(a, device=dev) for a in default_norm_stats())
+    total = dict(NO_LAUNCHES)
+
+    def encoder_alone(m):
+        def tokens():
+            with torch.inference_mode():
+                return m.parts[0](preprocess(images, mean, std)).patch_embedding
+        return ("uint8→tokens, the trunk alone", tokens)
+
+    def run(name, var, value, m, expect_on, off, alone):
+        r = lever_ab(name, var, value, m, images, card, {False: off, True: expect_on}, alone)
+        _add(total, r["launches"])
+        return r
+
+    m = build_pth_models(esvit_pth, "enc_esvit", "nf", device=dev)
+    enc = encoder_alone(m)
+    r = run("EsViT NF", "VITAD_SWIN_PARTITION", "gather", m, ESVIT_OFF, ESVIT_OFF, enc)
+    if r["drift"] != 0.0:
+        raise AssertionError(f"the gather partition moved the EsViT scores: {r['drift']}")
+    run("EsViT NF", "VITAD_SWIN_PACKED", "0", m,
+        {**ESVIT_OFF, "B5": 0, "B5a": ESVIT_B5_PER_BATCH}, ESVIT_OFF, enc)
+    run("EsViT NF", "VITAD_SWIN_LN_FOLD", "1", m, {**ESVIT_OFF, "B7": 1 + 3 + 1}, ESVIT_OFF, enc)
+    del m, enc
+    m = build_pth_models(esvit_pth, "enc_esvit", "nf", device=dev, fused_ln=False)
+    no_ln = {**ESVIT_OFF, "B7": 0}
+    run("EsViT NF, fused LayerNorm off", "VITAD_BF16_LN", "1", m, no_ln, no_ln,
+        encoder_alone(m))
+    del m
+    m = build_pth_models(nf_pth, "enc_deit", "nf", encoder_ckpt=deit_pth, device=dev)
+    run("DeiT NF", "VITAD_VIT_LN_FOLD", "1", m, {**DEIT_OFF, "B7": 1}, DEIT_OFF, encoder_alone(m))
+    with torch.inference_mode():
+        feats = patch_tokens_to_map(m.parts[0](preprocess(images, mean, std)).patch_embedding)
+
+    def flow_alone():
+        with torch.inference_mode():
+            return m.parts[1](feats).anomaly_score_map
+    run("DeiT NF", "VITAD_FOLD_FLOW_PERMS", "1", m, DEIT_OFF, DEIT_OFF,
+        ("NF-20 alone on the cached [128,14,14,768] tokens", flow_alone))
+    del m, feats
+    m = build_pth_models(effnet_pth, "enc_eff_net", "nf", device=dev)
+    run("EfficientNet-B4 NF", "VITAD_EFFNET_HARDSWISH", "1", m, NO_LAUNCHES, NO_LAUNCHES,
+        encoder_alone(m))
+    del m
+    torch.cuda.empty_cache()
+    split = split_path_times(card, gen)
+    torch.cuda.empty_cache()
+    reversible_ab(*nf_resnet, nf_resnet_batch, images, card)
+    torch.cuda.empty_cache()
+    print(f"phase launches {total}; phase wall {time.perf_counter() - t_phase:.2f} s")
+    return {"launches": total, "B5a": split}
+
+
 def main() -> int:
     import torch
 
@@ -5040,9 +5323,23 @@ def main() -> int:
               "EsViT Swin-T and NesT-T sharded on 1x2")
         mesh = mesh_main_path(tmp, os.path.join(tmp, "sweep_data", SWEEP_CATS[0]), nf_pth,
                               deit_pth)
+
+        phase("16 levers: the JAX package's opt-in model levers off and on, B=128 bf16 "
+              "(EsViT NF: gather, split onto B5a, LN fold; EsViT NF without the fused "
+              "LayerNorm: bf16 LN; DeiT NF: ViT LN fold, folded flow; EfficientNet-B4 NF: "
+              "hard-swish), B5a on the split route, the reversible NF-ResNet step at B=32")
+        from vit_ad_tpu_torch.cli.score import _load_run_cli
+
+        nf_resnet = _load_run_cli(rundir["nf_resnet"], dev, None, None)[0].parts
+        train_split = DataPipeline(NFRES_BATCH, 224, base_path=rundir["nf_resnet_data"],
+                                   data_path="train/good")
+        nf_batch = torch.from_numpy(list(train_split.train_batches())[0].images).to(dev)
+        levers = levers_main_path(nf_pth, deit_pth, esvit["pth"], trunks["eff_net"]["pth"],
+                                  nf_resnet, nf_batch, images, card, gen)
+        del nf_resnet, nf_batch
     torch.cuda.synchronize()
 
-    phase("16 result")
+    phase("17 result")
     kernels = [{
         "name": "vit_attention_qkv",
         "route": "cuda",
@@ -5051,7 +5348,7 @@ def main() -> int:
         "launches": nf_launches["B1"] + fused["launches"]["B1"] + mdn["launches"]["B1"]
         + recon["launches"]["B1"] + trunks["nest"]["launches"]["B1"]
         + rundir["launches"]["B1"] + bundle_launches["B1"] + sweep["launches"]["B1"]
-        + mesh["launches"]["B1"],
+        + mesh["launches"]["B1"] + levers["launches"]["B1"],
         "max_abs_err": err,
         "ms": att_ms,
         "plain_ms": att_plain_ms,
@@ -5096,8 +5393,9 @@ def main() -> int:
                             "against the weights MN-major through 3-D tensor maps, one "
                             "accumulator; a chunk split into partials summed in order where "
                             "the tiles fill the card poorly")
-    # B5a, the split-input entry, is on no CLI path (the JAX package reaches it
-    # only by an experiment toggle): its check and time are phases 3, 10
+    # B5a, the split-input entry, runs on the Swin blocks' split route
+    # (`VITAD_SWIN_PACKED=0`), which phase 16 drives; its numbers are phase
+    # 14's at stage 0 (the kernel alone), every stage on that route in `per_stage`
     for key, kernel, source, replaces in (
             ("B5", "swin_window_attention", "swin_window_attention.cu",
              "vit_ad_tpu/ops/pallas/window_attention.py:212"),
@@ -5107,9 +5405,10 @@ def main() -> int:
         kernels.append({"name": kernel, "route": "cuda",
                         "source": f"vit_ad_tpu_torch/csrc/{source}", "replaces": replaces,
                         "launches": esvit["launches"][key] + bundle_launches[key]
-                        + sweep["launches"][key] + mesh["launches"][key],
-                        **swin[key]})
+                        + sweep["launches"][key] + mesh["launches"][key]
+                        + levers["launches"][key], **swin[key]})
     kernels[-3]["per_stage"] += mesh["B5"]  # B5 at the half-head shard shapes
+    kernels[-2]["per_stage"] = levers["B5a"]
     # B7 also runs the DeiT blocks' first norm and the final norm, and every
     # NesT-T LayerNorm
     kernels[-1]["launches"] += (nf_launches["B7"] + fused["launches"]["B7"]
@@ -5125,7 +5424,8 @@ def main() -> int:
                     "launches": nf_launches["B6"] + fused["launches"]["B6"]
                     + mdn["launches"]["B6"] + recon["launches"]["B6"]
                     + rundir["launches"]["B6"] + bundle_launches["B6"]
-                    + sweep["launches"]["B6"] + mesh["launches"]["B6"], **mlp})
+                    + sweep["launches"]["B6"] + mesh["launches"]["B6"]
+                    + levers["launches"]["B6"], **mlp})
     # B6's products one at a time, on the trunk shards of phase 15: the GELU
     # and the f32-partial epilogues; the numbers of the fc2 partial, the new
     # epilogue, with every shape in `per_shape`

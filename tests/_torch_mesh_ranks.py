@@ -457,12 +457,45 @@ TP_CFG = {"swin": dict(patch_size=4, embed_dim=32, depths=(2, 2), num_heads=(1, 
                             attn_ratio=2)}
 
 
+# the model levers on a shard: case → (trunk, the variables it sets)
+TP_LEVERS = {"swin_gather_split": ("swin", {"VITAD_SWIN_PARTITION": "gather",
+                                            "VITAD_SWIN_PACKED": "0"}),
+             "swin_ln_fold": ("swin", {"VITAD_SWIN_LN_FOLD": "1"}),
+             "vit_ln_fold": ("vit", {"VITAD_VIT_LN_FOLD": "1"})}
+
+
+def _lever_tokens(placed: torch.nn.Module, x: torch.Tensor, env: Dict[str, str]) -> tuple:
+    """The sharded forward's tokens with the variables `env` set, and how many
+    calls the split window attention (B5a's wrapper) took."""
+    from vit_ad_tpu_torch.ops.cuda import window_attention as cwa
+
+    split, calls = cwa.split_window_attention, []
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return split(*args, **kw)
+
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    cwa.split_window_attention = counted
+    try:
+        with torch.inference_mode():
+            return placed(x).patch_embedding.numpy(), len(calls)
+    finally:
+        cwa.split_window_attention = split
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
 def tensor_parallel_world(rank: int, world: int, inputs: str) -> Dict[str, Any]:
     """Every tiny trunk sharded on the 1 x world mesh, its weights the JAX
     package's (`<inputs>/<name>.pt`, converted): the tokens of the sharded
-    forward on `<inputs>/<name>_x.npy`, the shapes this rank holds, whether
-    the gathered state equals the full one byte for byte, and whether a
-    forward that would need a gradient raises."""
+    forward on `<inputs>/<name>_x.npy` (also under each of `TP_LEVERS`), the
+    shapes this rank holds, whether the gathered state equals the full one
+    byte for byte, and whether a forward that would need a gradient raises."""
     from vit_ad_tpu_torch.config import HyperParams, MeshConfig
     from vit_ad_tpu_torch.parallel.context import MeshContext
     from vit_ad_tpu_torch.parallel.multihost import host_snapshot
@@ -477,13 +510,15 @@ def tensor_parallel_world(rank: int, world: int, inputs: str) -> Dict[str, Any]:
         x = torch.from_numpy(np.load(os.path.join(inputs, f"{name}_x.npy")))
         with torch.inference_mode():
             tokens = placed(x).patch_embedding.numpy()
+        levers = {case: _lever_tokens(placed, x, env)
+                  for case, (trunk, env) in TP_LEVERS.items() if trunk == name}
         try:
             placed(x.requires_grad_(True))
             grad_refused = False
         except RuntimeError as e:
             grad_refused = "without gradient" in str(e)
         snapshot = host_snapshot(placed)
-        out[name] = {"tokens": tokens, "grad_refused": grad_refused,
+        out[name] = {"tokens": tokens, "levers": levers, "grad_refused": grad_refused,
                      "shapes": {k: tuple(v.shape) for k, v in placed.state_dict().items()},
                      "gathered_equal": sorted(snapshot) == sorted(full) and all(
                          torch.equal(snapshot[k], v) for k, v in full.items())}

@@ -245,6 +245,23 @@ def test_sharded_forward_matches_jax(name, world, sharded):
         assert np.array_equal(other, got[0])
 
 
+@pytest.mark.parametrize("case", sorted(ranks.TP_LEVERS))
+def test_sharded_forward_under_a_model_lever_matches_jax(case, sharded):
+    """The sharded Swin with the gather partition and the split route onto
+    B5a's plain version (on the rank's heads with its columns of the bias
+    table: 4 calls a rank, none packed), the sharded Swin and ViT with the
+    block norms folded: every rank against the JAX single-device forward of
+    the default route (the levers sum in other orders: the split route
+    within TOKEN_RTOL, the folds within 2e-4), the ranks equal to the bit."""
+    name, _ = ranks.TP_LEVERS[case]
+    want = sharded["jax"][name]
+    rtol = TOKEN_RTOL if case == "swin_gather_split" else 2e-4
+    got = [r[name]["levers"][case] for r in sharded["ranks"][2]]
+    np.testing.assert_allclose(got[0][0], want, rtol=0, atol=rtol * float(np.abs(want).max()))
+    assert all(np.array_equal(tokens, got[0][0]) for tokens, _ in got[1:])
+    assert [calls for _, calls in got] == [4 if case == "swin_gather_split" else 0] * 2
+
+
 @pytest.mark.parametrize("name", TRUNKS)
 @pytest.mark.parametrize("world", [2, 4], ids=["1x2", "1x4"])
 def test_each_rank_holds_its_shard(name, world, sharded):

@@ -22,13 +22,16 @@ BatchNorms are `layers.FusedBatchNorm` in eval form on cached folded
 statistics, the squeeze-excite mean is taken on the compute-dtype map (f32
 sum, compute-dtype result, as `jnp.mean` of bf16). Convolutions, the
 depthwise ones included, are cuDNN's on NCHW tensors in channels_last memory:
-the JAX package has no kernel on this trunk. Its `VITAD_EFFNET_HARDSWISH`
-measurement switch is not carried over.
+the JAX package has no kernel on this trunk. Its measurement switch
+`VITAD_EFFNET_HARDSWISH=1` (JAX :27-50), read at call time and off by
+default, turns every SiLU into hard-swish x·relu6(x+3)/6 and the
+squeeze-excite sigmoid into relu6(x+3)/6 (`F.hardswish`, `F.hardsigmoid`).
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -103,11 +106,25 @@ class MBConv(nn.Module):
         self.residual = stride == 1 and cin == cout
 
 
+def hardswish() -> bool:
+    return os.environ.get("VITAD_EFFNET_HARDSWISH") == "1"
+
+
+def _swish(x: torch.Tensor) -> torch.Tensor:
+    """SiLU, or hard-swish under `VITAD_EFFNET_HARDSWISH=1` (JAX `_swish`)."""
+    return F.hardswish(x) if hardswish() else F.silu(x)
+
+
+def _se_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """The squeeze-excite gate: sigmoid, or hard-sigmoid under the same switch."""
+    return F.hardsigmoid(x) if hardswish() else torch.sigmoid(x)
+
+
 def _conv_bn(x: torch.Tensor, m: ConvBN, w: Dict[str, Any], name: str,
              act: bool = True) -> torch.Tensor:
     weight, folded = w[name]
     y = conv_bn(x, m.conv, m.bn, weight, None, folded)
-    return F.silu(y) if act else y
+    return _swish(y) if act else y
 
 
 def _mbconv_apply(x: torch.Tensor, blk: MBConv, w: Dict[str, Any], pre: str) -> torch.Tensor:
@@ -115,8 +132,8 @@ def _mbconv_apply(x: torch.Tensor, blk: MBConv, w: Dict[str, Any], pre: str) -> 
     h = _conv_bn(h, blk.depsep, w, f"{pre}.depsep")
     sq_w, sq_b, ex_w, ex_b = w[f"{pre}.se"]
     s = h.mean(dim=(2, 3))  # [B, mid] in the compute dtype
-    s = F.linear(F.silu(F.linear(s, sq_w, sq_b)), ex_w, ex_b)
-    h = h * torch.sigmoid(s)[:, :, None, None]
+    s = F.linear(_swish(F.linear(s, sq_w, sq_b)), ex_w, ex_b)
+    h = h * _se_sigmoid(s)[:, :, None, None]
     h = _conv_bn(h, blk.proj, w, f"{pre}.proj", act=False)
     return h + x if blk.residual else h
 

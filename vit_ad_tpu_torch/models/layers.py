@@ -1,9 +1,10 @@
 """Shared building blocks for the backbones (port of
 `vit_ad_tpu/models/layers.py`: `PatchEmbed` :27, `resolve_gelu_approx` :58,
-`FusedBatchNorm` :149, `LayerNorm` :227), the frozen trunks' conv and
-BatchNorm step (`conv_bn`), the JAX initializers of the conv layers
-(`init_conv_layers`), and the cache of compute-dtype weight copies the
-encoders share."""
+`FusedBatchNorm` :149, `LayerNorm` :227, `_token_moments` :296 and
+`_ln_fold_gemm` :304 as `token_moments`, `ln_fold_weights` and
+`ln_fold_gemm`), the frozen trunks' conv and BatchNorm step (`conv_bn`), the
+JAX initializers of the conv layers (`init_conv_layers`), and the cache of
+compute-dtype weight copies the encoders share."""
 
 from __future__ import annotations
 
@@ -60,26 +61,92 @@ def lecun_normal_(t: torch.Tensor, fan_in: int, generator: Optional[torch.Genera
     trunc_normal_(t, math.sqrt(1.0 / fan_in) / 0.87962566103423978, generator)
 
 
+def bf16_ln() -> bool:
+    """`VITAD_BF16_LN=1`: the bf16-normalize control of `LayerNorm`, read at
+    call time as the JAX package reads it (off by default)."""
+    return os.environ.get("VITAD_BF16_LN") == "1"
+
+
 class LayerNorm(nn.LayerNorm):
     """`nn.LayerNorm`'s parameters (`weight`, `bias`) with the forward of the
     JAX package's module: f32 statistics (bf16 variance is too coarse), cast
     to the compute dtype. By default `F.layer_norm` on the f32 cast; `fused`
     takes the one-pass kernel `ops/cuda/layer_norm.layer_norm`, which stores
     in x's dtype (the JAX package's `VITAD_PALLAS_LN=1`, given when the model
-    is built rather than read from the environment)."""
+    is built rather than read from the environment). Under the bf16 policy,
+    `VITAD_BF16_LN=1` turns the non-fused route into the JAX control (:255):
+    f32 mean and variance, the normalize in bf16 ops. `bf16_control = False`
+    keeps a norm out of it where the JAX counterpart is a functional norm
+    the control does not reach (the Swin block norms)."""
 
     def __init__(self, dim: int, eps: float = 1e-6, dtypes: DtypePolicy = DtypePolicy(),
                  fused: bool = False) -> None:
         super().__init__(dim, eps=eps)
         self.compute_dtype = dtypes.compute_dtype
         self.fused = fused
+        self.bf16_control = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
         if self.fused:
             y = layer_norm(x, self.weight, self.bias, self.eps)
+        elif self.bf16_control and cd == torch.bfloat16 and bf16_ln():
+            xf = x.float()
+            mean = xf.mean(dim=-1, keepdim=True)
+            var = (xf - mean).square().mean(dim=-1, keepdim=True)
+            mul = torch.rsqrt(var + self.eps).to(cd)
+            y = (x - mean.to(cd)) * mul * self.weight.to(cd) + self.bias.to(cd)
         else:
             y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
-        return y.to(self.compute_dtype)
+        return y.to(cd)
+
+
+def token_moments(x: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token (mean, rsqrt(var + eps)) over the last axis, f32, keepdim."""
+    xf = x.float()
+    var, mean = torch.var_mean(xf, dim=-1, unbiased=False, keepdim=True)
+    return mean, torch.rsqrt(var + eps)
+
+
+def ln_fold_weights(scale: torch.Tensor, bias: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    cd: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The weight-sized terms of a LayerNorm (`scale`, `bias`: f32 γ, β)
+    folded into the Linear after it (`w` [out, in], `b` [out], both in the
+    compute dtype, as JAX's pre-cast kernels): W' = γ ⊙ W rounded to `cd`,
+    colsum(W') in f32 over the rounded W', b' = W·β + b in f32."""
+    w32 = w.float()
+    wp = (w32 * scale.float()).to(cd)
+    return wp, wp.float().sum(dim=1), w32 @ bias.float() + b.float()
+
+
+def block_ln_folds(blk: nn.Module, bw: Dict[str, torch.Tensor], cd: torch.dtype
+                   ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """`ln_fold_weights` of a pre-LN block: norm1 into `attn.qkv` ("fold1")
+    and norm2 into `mlp.fc1` ("fold2"). `bw` holds the block's compute-dtype
+    weights; on a model-axis shard they are the rank's rows, with the rank's
+    part of fc1's bias."""
+    shard = getattr(blk, "model_shard", None)
+    fc1_b = bw["fc1_b"] if shard is None else shard.local(bw["fc1_b"])
+    return {"fold1": ln_fold_weights(blk.norm1.weight, blk.norm1.bias, bw["qkv_w"], bw["qkv_b"],
+                                     cd),
+            "fold2": ln_fold_weights(blk.norm2.weight, blk.norm2.bias, bw["fc1_w"], fc1_b, cd)}
+
+
+def ln_fold_gemm(x: torch.Tensor, folded: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+                 eps: float, cd: torch.dtype) -> torch.Tensor:
+    """LN(x)·Wᵀ + b without the normalized tensor (the `VITAD_SWIN_LN_FOLD`
+    and `VITAD_VIT_LN_FOLD` levers, JAX `_ln_fold_gemm` :304): the per-token
+    rsqrt commutes with the contraction, so
+    LN(x)·Wᵀ + b = r·(x·W'ᵀ - μ·colsum(W')) + b'. The GEMM reads the raw x in
+    the compute dtype; the correction runs in f32, then one cast to `cd`.
+    `folded` is `ln_fold_weights`. Under bf16 the rounding of the raw x is
+    amplified by |x|/|x - μ| (JAX :317-326). Valid only where no zero padding
+    comes between the norm and the GEMM."""
+    wp, colsum, bp = folded
+    mu, r = token_moments(x, eps)
+    raw = F.linear(x.to(cd), wp)
+    # addcmul promotes the compute-dtype raw to f32 itself
+    return torch.addcmul(bp, r, torch.addcmul(raw, mu, colsum, value=-1)).to(cd)
 
 
 class FusedBatchNorm(nn.BatchNorm2d):
@@ -194,12 +261,15 @@ class ComputeWeights:
     once per call outside its block scan.) `bake` makes them once as buffers
     of the module, which a `torch.export` trace then reads as constants (its
     tensors have no storage to key the cache on). `card_only`: they are
-    kernel operands, read only where the module lies on the card."""
+    kernel operands, read only where the module lies on the card. `variant`
+    names what else `make` reads (an environment lever's state): the cache
+    is made again when it changes."""
 
     def __init__(self, make: Callable[[nn.Module, torch.dtype], Dict[str, Any]],
-                 card_only: bool = False) -> None:
+                 card_only: bool = False, variant: Optional[Callable[[], Any]] = None) -> None:
         self._make = make
         self._card_only = card_only
+        self._variant = variant
         self._key: Optional[tuple] = None
         self._cast: Optional[Dict[str, Any]] = None
         self._baked: Optional[tuple] = None  # (leaf sources, tree spec), once baked
@@ -212,8 +282,9 @@ class ComputeWeights:
         cd = dtypes.compute_dtype
         if torch.is_grad_enabled() and any(p.requires_grad for p in module.parameters()):
             return self._make(module, cd)
-        key = tuple((t.data_ptr(), t._version, t.device)
-                    for t in itertools.chain(module.parameters(), module.buffers()))
+        key = (None if self._variant is None else self._variant(),) + tuple(
+            (t.data_ptr(), t._version, t.device)
+            for t in itertools.chain(module.parameters(), module.buffers()))
         if key != self._key:
             with torch.inference_mode(False), torch.no_grad():
                 self._cast = self._make(module, cd)

@@ -28,6 +28,21 @@ LayerNorm through the one-pass kernel (`ops/cuda/layer_norm.py`). The JAX
 package's scan stacking and its layout and blocking knobs are TPU machinery
 and are not carried over.
 
+Three opt-in levers of the JAX block, read from the environment at call
+time, all off by default:
+  * `VITAD_SWIN_PARTITION=gather` (JAX :203-207): one `index_select` over the
+    flattened padded map replaces the roll and the window partition, another
+    with the inverse permutation the window reverse and the roll back
+    (`ops/window_attention.partition_perm`); the same windows, bit for bit.
+  * `VITAD_SWIN_PACKED=0` (JAX :86-100): q, k, v are split from the packed
+    qkv and go through the split-input entry of the window kernel (B5a,
+    `ops/cuda/window_attention.window_attention`) in place of the packed
+    entry (B5), with the same gathered bias and shift mask.
+  * `VITAD_SWIN_LN_FOLD=1` (JAX :156-168, :222-227): norm1 folds into the
+    qkv GEMM and norm2 into fc1 (`layers.ln_fold_gemm`), so the block norms
+    skip B7; off where the stage pads. The folded weights are cached with
+    the compute-dtype copies.
+
 On a mesh whose model axis is above one the blocks run as shards
 (`parallel/sharding.shard_trunk`, `models/tensor_parallel.py`): a stage
 whose heads the axis divides runs the window kernel on the rank's heads with
@@ -38,6 +53,7 @@ every MLP runs `fc1`'s hidden block and `fc2` as an f32 partial, summed.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Optional, Sequence
 
 import torch
@@ -49,7 +65,9 @@ from vit_ad_tpu_torch.models.layers import (
     ComputeWeights,
     LayerNorm,
     PatchEmbed,
+    block_ln_folds,
     lecun_normal_,
+    ln_fold_gemm,
     resolve_gelu_approx,
     trunc_normal_,
 )
@@ -57,11 +75,12 @@ from vit_ad_tpu_torch.models.outputs import EncoderOutput
 from vit_ad_tpu_torch.models.tensor_parallel import (
     attention_residual,
     check_no_grad,
+    hidden_residual,
     mlp_residual,
 )
 from vit_ad_tpu_torch.models.vit import Mlp
 from vit_ad_tpu_torch.ops import window_attention as wa
-from vit_ad_tpu_torch.ops.cuda.window_attention import swin_attention_windows
+from vit_ad_tpu_torch.ops.cuda.window_attention import swin_attention_windows, window_attention
 
 LN_EPS = 1e-5
 # Whether the LayerNorms go through the one-pass kernel unless the caller says
@@ -69,6 +88,18 @@ LN_EPS = 1e-5
 # with it and 20.8 ms without (chip_smoke.py; PERF.md, Findings). On CPU
 # tensors the kernel's plain version runs either way.
 FUSED_LN_DEFAULT = True
+
+
+def swin_gather() -> bool:
+    return os.environ.get("VITAD_SWIN_PARTITION") == "gather"
+
+
+def swin_split() -> bool:
+    return os.environ.get("VITAD_SWIN_PACKED", "1") == "0"
+
+
+def swin_ln_fold() -> bool:
+    return os.environ.get("VITAD_SWIN_LN_FOLD") == "1"
 
 
 class WindowAttention(nn.Module):
@@ -96,43 +127,71 @@ class SwinBlock(nn.Module):
         self.attn = WindowAttention(dim, window, num_heads)
         self.norm2 = LayerNorm(dim, eps=LN_EPS, dtypes=dtypes, fused=fused_ln)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        # the JAX block norms are its functional `_layer_norm`: no bf16 control
+        self.norm1.bf16_control = self.norm2.bf16_control = False
 
 
-def _block_apply(x: torch.Tensor, blk: SwinBlock, w: Dict[str, torch.Tensor],
+def _block_apply(x: torch.Tensor, blk: SwinBlock, w: Dict[str, Any],
                  mask: Optional[torch.Tensor], gelu_approx: bool) -> torch.Tensor:
     """One Swin block on the [B, H, W, C] feature map in the compute dtype
     (JAX `_block_apply` :130). `w` holds the block's matmul weights in the
-    compute dtype and its gathered relative-position bias; `mask` is the
-    stage's shift mask."""
+    compute dtype and its gathered relative-position bias (and, under
+    `VITAD_SWIN_LN_FOLD=1`, its folded norms); `mask` is the stage's shift
+    mask."""
     shard = getattr(blk, "model_shard", None)
     if shard is not None:
         check_no_grad(x, blk)
-    _, h, wd, _ = x.shape
+    b, h, wd, c = x.shape
+    cd = x.dtype
     window, shift = blk.window, blk.shift
     pad_b = (window - h % window) % window
     pad_r = (window - wd % window) % window
-    y = blk.norm1(x)
+    # padding the normed map gives pad tokens qkv = b; the fold would give b'
+    fold = swin_ln_fold() and not (pad_b or pad_r)
+    gather = swin_gather()
+    y = x if fold else blk.norm1(x)
     if pad_b or pad_r:
         y = F.pad(y, (0, 0, 0, pad_r, 0, pad_b))
     hp, wp = h + pad_b, wd + pad_r
-    if shift > 0:
-        y = torch.roll(y, shifts=(-shift, -shift), dims=(1, 2))
-    windows = wa.window_partition(y, window)  # [B_, N, C]
-    qkv = F.linear(windows, w["qkv_w"], w["qkv_b"])  # [B_, N, 3C], packed [3][H][hd]
+    if gather:
+        perm, inv = wa.partition_indices(hp, wp, window, shift, y.device)
+        windows = y.reshape(b, hp * wp, c).index_select(1, perm).reshape(-1, window * window, c)
+    else:
+        if shift > 0:
+            y = torch.roll(y, shifts=(-shift, -shift), dims=(1, 2))
+        windows = wa.window_partition(y, window)  # [B_, N, C]
+    if fold:
+        qkv = ln_fold_gemm(windows, w["fold1"], LN_EPS, cd)
+    else:
+        qkv = F.linear(windows, w["qkv_w"], w["qkv_b"])  # [B_, N, 3C], packed [3][H][hd]
     heads = blk.num_heads if shard is None else shard.num_heads(blk.num_heads)
-    out = swin_attention_windows(qkv, blk.attn.relative_position_bias_table, heads,
-                                 window, mask if shift > 0 else None, bias=w["bias"])
-    y = wa.window_reverse(out, window, hp, wp)
-    if shift > 0:
-        y = torch.roll(y, shifts=(shift, shift), dims=(1, 2))
+    table, m = blk.attn.relative_position_bias_table, mask if shift > 0 else None
+    if swin_split():
+        b_, n, c3 = qkv.shape
+        q, k, v = qkv.reshape(b_, n, 3, heads, c3 // 3 // heads).unbind(2)
+        out = window_attention(q, k, v, table, heads, (window, window), m, bias=w["bias"])
+    else:
+        out = swin_attention_windows(qkv, table, heads, window, m, bias=w["bias"])
+    if gather:
+        y = out.reshape(b, hp * wp, -1).index_select(1, inv).reshape(b, hp, wp, -1)
+    else:
+        y = wa.window_reverse(out, window, hp, wp)
+        if shift > 0:
+            y = torch.roll(y, shifts=(shift, shift), dims=(1, 2))
     if pad_b or pad_r:
         y = y[:, :h, :wd, :]
+    approx = "tanh" if gelu_approx else "none"
     if shard is not None:
         x = attention_residual(x, y, w, blk.attn.proj.bias, shard)
+        if fold:
+            hdn = F.gelu(ln_fold_gemm(x, w["fold2"], LN_EPS, cd), approximate=approx)
+            return hidden_residual(x, hdn, w, blk.mlp, shard)
         return mlp_residual(x, blk.norm2(x), w, blk.mlp, shard, gelu_approx)
     x = x + F.linear(y, w["proj_w"], w["proj_b"])
-    hdn = F.gelu(F.linear(blk.norm2(x), w["fc1_w"], w["fc1_b"]),
-                 approximate="tanh" if gelu_approx else "none")
+    if fold:
+        hdn = F.gelu(ln_fold_gemm(x, w["fold2"], LN_EPS, cd), approximate=approx)
+    else:
+        hdn = F.gelu(F.linear(blk.norm2(x), w["fc1_w"], w["fc1_b"]), approximate=approx)
     return x + F.linear(hdn, w["fc2_w"], w["fc2_b"])
 
 
@@ -233,7 +292,7 @@ class SwinTransformer(nn.Module):
         self.layers = nn.ModuleList(stages)
         self.num_patches = res * res
         self.norm = LayerNorm(dim, eps=LN_EPS, dtypes=dtypes, fused=self.fused_ln)
-        self._compute_weights = ComputeWeights(type(self)._cast_weights)
+        self._compute_weights = ComputeWeights(type(self)._cast_weights, variant=swin_ln_fold)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -259,7 +318,8 @@ class SwinTransformer(nn.Module):
 
     def compute_weights(self) -> Dict[str, Any]:
         """The matmul weights in the compute dtype and every block's gathered
-        relative-position bias [H, N, N] f32, cached until a parameter
+        relative-position bias [H, N, N] f32 (under `VITAD_SWIN_LN_FOLD=1`
+        also its folded norms), cached until a parameter or the lever
         changes (`layers.ComputeWeights`)."""
         return self._compute_weights.get(self, self.dtypes)
 
@@ -274,6 +334,9 @@ class SwinTransformer(nn.Module):
                 "bias": wa.gather_bias(_own_heads(b, b.attn.relative_position_bias_table),
                                        b.attn.relative_position_index),
             } for b in stage.blocks]
+            if swin_ln_fold():
+                for b, bw in zip(stage.blocks, blocks):
+                    bw.update(block_ln_folds(b, bw, cd))
             red = None if stage.downsample is None else stage.downsample.reduction.weight.to(cd)
             stages.append({"blocks": blocks, "reduction_w": red})
         proj = self.patch_embed.proj

@@ -104,4 +104,12 @@ def mlp_residual(x: torch.Tensor, y: torch.Tensor, w: Dict[str, torch.Tensor],
     normed x; `w` the block's compute-dtype weights, the biases the f32
     parameters)."""
     h = column_gelu(y, w["fc1_w"], shard.local(mlp.fc1.bias), gelu_approx)
+    return hidden_residual(x, h, w, mlp, shard, scale)
+
+
+def hidden_residual(x: torch.Tensor, h: torch.Tensor, w: Dict[str, torch.Tensor],
+                    mlp: torch.nn.Module, shard: BlockShard,
+                    scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x + scale · fc2(h) for the rank's hidden activations `h` (where the
+    GELU'd fc1 product was taken otherwise: a LayerNorm folded into fc1)."""
     return reduce_residual(x, row_partial(h, w["fc2_w"]), mlp.fc2.bias, shard.mc, scale)

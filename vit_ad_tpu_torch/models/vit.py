@@ -25,10 +25,18 @@ the rank's `qkv` heads, the attention kernel at H/M heads, `proj` as an f32
 partial summed over "model", B7 norm2, `fc1`'s hidden block through the MLP
 kernel's GELU step and `fc2` through its f32-partial step, summed likewise
 (the whole MLP kernel cannot take a split hidden axis).
+
+`VITAD_VIT_LN_FOLD=1`, read at call time and off by default (JAX :60-85,
+:129-136): norm1 folds into the qkv GEMM and norm2 into fc1
+(`layers.ln_fold_gemm`, eps 1e-6), so those norms skip B7. The MLP kernel
+takes precedence, as in JAX: norm2 folds only where B6 is not taken. A
+shard folds both. The folded weights are cached with the compute-dtype
+copies.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional
 
 import torch
@@ -39,7 +47,9 @@ from vit_ad_tpu_torch.config import DtypePolicy
 from vit_ad_tpu_torch.models.layers import (
     ComputeWeights,
     PatchEmbed,
+    block_ln_folds,
     lecun_normal_,
+    ln_fold_gemm,
     resolve_gelu_approx,
     trunc_normal_,
 )
@@ -47,6 +57,7 @@ from vit_ad_tpu_torch.models.outputs import EncoderOutput
 from vit_ad_tpu_torch.models.tensor_parallel import (
     attention_residual,
     check_no_grad,
+    hidden_residual,
     mlp_residual,
 )
 from vit_ad_tpu_torch.ops.cuda.layer_norm import layer_norm
@@ -59,6 +70,10 @@ LN_EPS = 1e-6
 # off/on/on/off reading); the JAX package keeps it opt-in. `fused_mlp=False` /
 # `--no-fused-mlp` takes the stock tail.
 FUSED_MLP_DEFAULT = True
+
+
+def vit_ln_fold() -> bool:
+    return os.environ.get("VITAD_VIT_LN_FOLD") == "1"
 
 
 class Attention(nn.Module):
@@ -89,24 +104,32 @@ class Block(nn.Module):
 def _block_apply(x: torch.Tensor, blk: Block, w: Dict[str, torch.Tensor], num_heads: int,
                  cd: torch.dtype, gelu_approx: bool, fused_mlp: bool = False) -> torch.Tensor:
     """One pre-LN transformer block (JAX `_block_apply` :70). `w` holds the
-    block's matmul weights in the compute dtype. `fused_mlp` sends the MLP
-    tail through `mlp_block` when the GELU is the tanh one and the kernel
-    takes the widths."""
+    block's matmul weights in the compute dtype (and, under
+    `VITAD_VIT_LN_FOLD=1`, its folded norms). `fused_mlp` sends the MLP tail
+    through `mlp_block` when the GELU is the tanh one and the kernel takes
+    the widths."""
     shard = getattr(blk, "model_shard", None)
     if shard is not None:
         return _shard_block_apply(x, blk, w, shard.num_heads(num_heads), cd, gelu_approx)
     d = x.shape[-1]
-    y = layer_norm(x, blk.norm1.weight, blk.norm1.bias, LN_EPS)  # x is in cd
-    qkv = F.linear(y, w["qkv_w"], w["qkv_b"])  # [B, N, 3D] packed
+    fold = vit_ln_fold()
+    if fold:
+        qkv = ln_fold_gemm(x, w["fold1"], LN_EPS, cd)
+    else:
+        y = layer_norm(x, blk.norm1.weight, blk.norm1.bias, LN_EPS)  # x is in cd
+        qkv = F.linear(y, w["qkv_w"], w["qkv_b"])  # [B, N, 3D] packed
     out = vit_attention_qkv(qkv, num_heads).to(cd)
     x = x + F.linear(out, w["proj_w"], w["proj_b"])
     if fused_mlp and gelu_approx and use_fused_mlp(d, w["fc1_w"].shape[0]):
         # f32 norm affine and biases, compute-dtype weights, as the JAX call
         return mlp_block(x, blk.norm2.weight, blk.norm2.bias, w["fc1_w"], blk.mlp.fc1.bias,
                          w["fc2_w"], blk.mlp.fc2.bias, LN_EPS)
-    y = F.layer_norm(x.float(), (d,), blk.norm2.weight, blk.norm2.bias, LN_EPS).to(cd)
-    h = F.gelu(F.linear(y, w["fc1_w"], w["fc1_b"]),
-               approximate="tanh" if gelu_approx else "none")
+    approx = "tanh" if gelu_approx else "none"
+    if fold:
+        h = F.gelu(ln_fold_gemm(x, w["fold2"], LN_EPS, cd), approximate=approx)
+    else:
+        y = F.layer_norm(x.float(), (d,), blk.norm2.weight, blk.norm2.bias, LN_EPS).to(cd)
+        h = F.gelu(F.linear(y, w["fc1_w"], w["fc1_b"]), approximate=approx)
     return x + F.linear(h, w["fc2_w"], w["fc2_b"])
 
 
@@ -115,9 +138,18 @@ def _shard_block_apply(x: torch.Tensor, blk: Block, w: Dict[str, torch.Tensor], 
     """One block on a model-axis shard: `w` holds the rank's parts of the
     matmul weights, `heads` its heads."""
     check_no_grad(x, blk)
-    y = layer_norm(x, blk.norm1.weight, blk.norm1.bias, LN_EPS)
-    out = vit_attention_qkv(F.linear(y, w["qkv_w"], w["qkv_b"]), heads).to(cd)
+    fold = vit_ln_fold()
+    if fold:
+        qkv = ln_fold_gemm(x, w["fold1"], LN_EPS, cd)
+    else:
+        qkv = F.linear(layer_norm(x, blk.norm1.weight, blk.norm1.bias, LN_EPS), w["qkv_w"],
+                       w["qkv_b"])
+    out = vit_attention_qkv(qkv, heads).to(cd)
     x = attention_residual(x, out, w, blk.attn.proj.bias, blk.model_shard)
+    if fold:
+        h = F.gelu(ln_fold_gemm(x, w["fold2"], LN_EPS, cd),
+                   approximate="tanh" if gelu_approx else "none")
+        return hidden_residual(x, h, w, blk.mlp, blk.model_shard)
     y = layer_norm(x, blk.norm2.weight, blk.norm2.bias, LN_EPS)
     return mlp_residual(x, y, w, blk.mlp, blk.model_shard, gelu_approx)
 
@@ -163,7 +195,7 @@ class ViTEncoder(nn.Module):
             torch.zeros(1, num_prefix_tokens + self.num_patches, embed_dim))
         self.blocks = nn.ModuleList(Block(embed_dim, mlp_ratio) for _ in range(depth))
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
-        self._compute_weights = ComputeWeights(type(self)._cast_weights)
+        self._compute_weights = ComputeWeights(type(self)._cast_weights, variant=vit_ln_fold)
         self.reset_parameters(generator)
 
     @property
@@ -204,14 +236,18 @@ class ViTEncoder(nn.Module):
 
     def compute_weights(self) -> Dict[str, object]:
         """The matmul weights, prefix tokens and pos_embed in the compute
-        dtype. Under a bf16 policy the casts are cached and made again only
-        when a parameter changed (storage or in-place version); while
-        gradients flow to the parameters they are cast per call."""
+        dtype (under `VITAD_VIT_LN_FOLD=1` also the blocks' folded norms).
+        Under a bf16 policy the casts are cached and made again only when a
+        parameter changed (storage or in-place version) or the lever did;
+        while gradients flow to the parameters they are cast per call."""
         return self._compute_weights.get(self, self.dtypes)
 
     def _cast_weights(self, cd: torch.dtype) -> Dict[str, object]:
         w = self._matmul_params()
         blocks = [{n: t.to(cd) for n, t in b.items()} for b in w.pop("blocks")]
+        if vit_ln_fold():
+            for blk, bw in zip(self.blocks, blocks):
+                bw.update(block_ln_folds(blk, bw, cd))
         return {**{k: v.to(cd) for k, v in w.items()}, "blocks": blocks}
 
     def _final_norm(self, x: torch.Tensor) -> torch.Tensor:

@@ -395,13 +395,17 @@ def swin_attention_windows(qkv3: torch.Tensor, bias_table: torch.Tensor, num_hea
 
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias_table: torch.Tensor, num_heads: int, window: Tuple[int, int],
-                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     mask: Optional[torch.Tensor] = None,
+                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Differentiable window attention from split q, k, v [B_, N, H, hd] →
-    [B_, N, H*hd] (the split-input entry of the same kernel)."""
+    [B_, N, H*hd] (the split-input entry of the same kernel). As for
+    `swin_attention_windows`, a caller whose table is constant passes the
+    gathered `bias` [H, N, N] and skips the gather."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape or q.shape[2] != num_heads:
         raise ValueError(f"expected q, k, v [B_, N, {num_heads}, hd] of one shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    bias = gather_bias(bias_table, _index_on(window[0], window[1], bias_table.device))
+    if bias is None:
+        bias = gather_bias(bias_table, _index_on(window[0], window[1], bias_table.device))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
         return _WindowAttention.apply(q, k, v, bias, mask)
     return split_window_attention(q, k, v, bias, mask)

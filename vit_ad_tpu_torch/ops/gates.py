@@ -11,9 +11,14 @@ never holds, so they have no op. `tests/test_torch_serving.py` greps
 without a fake implementation.
 
 Unlike the JAX registry, this one switches nothing: a CUDA tensor always
-reaches its kernel, and no environment variable turns a kernel off. A
-portable bundle holds no op because it is traced from a copy of the models
-on the CPU, where every wrapper takes its plain version.
+reaches its kernel, and no environment variable turns a kernel off. Two of
+the JAX package's opt-in model levers choose between kernels or around
+one, and neither is such a gate: `VITAD_SWIN_PACKED=0` sends the Swin
+blocks' attention through B5a in place of B5 (either launches or raises),
+and `VITAD_SWIN_LN_FOLD=1` / `VITAD_VIT_LN_FOLD=1` fold the block norms into
+the following GEMM, so those norms are no longer a LayerNorm for B7 to run.
+A portable bundle holds no op because it is traced from a copy of the
+models on the CPU, where every wrapper takes its plain version.
 
 No imports beyond the standard library: a serving site loads this module.
 """

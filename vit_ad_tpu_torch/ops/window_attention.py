@@ -13,8 +13,10 @@ the two window-attention kernels of `csrc/swin_window_attention.cu`:
     (:46) and of `window_attention_core` (:117): the normalised probabilities
     are rounded before PV.
 
-Under f32 the two agree to summation order. `partition_perm` (:51), the
-gather partition, is an opt-in lever of the JAX package and is not ported.
+Under f32 the two agree to summation order. `partition_perm` (:51) is the
+gather partition of `VITAD_SWIN_PARTITION=gather` (`models/swin.py`): the
+cyclic shift and the window partition as one token permutation, and its
+inverse; `partition_indices` holds the pair as int64 tensors per device.
 """
 
 from __future__ import annotations
@@ -40,6 +42,30 @@ def window_reverse(windows: torch.Tensor, window: int, h: int, w: int) -> torch.
     b = windows.shape[0] // (h * w // window // window)
     x = windows.reshape(b, h // window, w // window, window, window, c)
     return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
+
+
+@lru_cache(maxsize=None)
+def partition_perm(hp: int, wp: int, window: int, shift: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(perm, inv): the roll by -shift and the window partition of an
+    hp x wp map as one gather over its flattened tokens, and the window
+    reverse and the roll back as one gather with `inv`. Slot j of the
+    windows layout reads token perm[j] = flat((h_j + shift) % hp,
+    (w_j + shift) % wp). hp and wp must be multiples of the window."""
+    if hp % window or wp % window:
+        raise ValueError(f"a {hp}x{wp} map is no whole number of {window}x{window} windows")
+    wi, wj, r, c = np.meshgrid(np.arange(hp // window), np.arange(wp // window),
+                               np.arange(window), np.arange(window), indexing="ij")
+    h = (wi * window + r + shift) % hp
+    w = (wj * window + c + shift) % wp
+    perm = (h * wp + w).reshape(-1)
+    return perm, np.argsort(perm)
+
+
+@lru_cache(maxsize=None)
+def partition_indices(hp: int, wp: int, window: int, shift: int,
+                      device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`partition_perm` as int64 tensors on `device`, made once."""
+    return tuple(torch.from_numpy(a).to(device) for a in partition_perm(hp, wp, window, shift))
 
 
 @lru_cache(maxsize=None)
