@@ -28,8 +28,8 @@ MDN, EsViT NF and ResNet MDN runs as serving bundles (`torch.export`
 programs carrying the kernels as registered ops), each served from a fresh
 process (`--serve-bundle`); the sweep engine over DeiT-base MDN runs
 (sequential, resumed, and through a spawned worker), k-means init, the VAE,
-and the weight CLIs (export and convert); the mesh; and the model levers of
-the JAX package, each off and on. Phases:
+and the weight CLIs (export and convert); the mesh; the model levers of the
+JAX package, each off and on; and the quality-parity harness. Phases:
 
   1. device   card name and power limit (nvidia-smi)
   2. build    compile the kernels from vit_ad_tpu_torch/csrc (nvcc, sm_90a)
@@ -192,7 +192,21 @@ the JAX package, each off and on. Phases:
               events beside SDPA; the NF-ResNet step at B=32 with
               `VITAD_NF_REVERSIBLE=1`: first-step gradients against autodiff,
               step ms and peak memory each way
- 17. result   a kernels JSON line, the nvidia-smi line, and last the
+ 17. parity   the quality-parity harness (`cli.parity_matrix`): (a) its
+              `--rehearse` run on the card (the six §6 entries on enc_cnn and
+              ae_cnn at 32 px, K=2), exit 0 with six entries compared, each
+              entry's seconds and launches (B2 and B3 per MDN step through
+              their wgmma kernels on the two gmm entries); (b) the same six
+              entries under the f32 policy on the card and on the CPU, the
+              card's results.csv through the tool's 0.5-pt gate against the
+              CPU's rows; (c) nf_mvtec_lastblock and gmm_mvtec_100_gaussians
+              with their own models (DeiT-base, 224 px, bf16, NF-20 and
+              K=100, batch 64, two epochs) through the real-data path on one
+              synthetic MVTec category of phase 13's size: B1, B6, B7 per
+              encoder batch and B2, B3 per MDN step through their redesigned
+              routes, no row with an error, the gate against a stand-in, each
+              entry's seconds beside phase 13's per category
+ 18. result   a kernels JSON line, the nvidia-smi line, and last the
               {"ok": true, "device": ...} line
 
 Every phase raises on failure, so the script exits non-zero and prints no
@@ -3072,18 +3086,30 @@ SWEEP_COLUMNS = ["Name", "dataclass", "model", "epochs_ran", "best_valid_loss",
 FANOUT_ATOL, FANOUT_RTOL = 1e-9, 1e-6
 
 
-def _deit_mdn_expect(n_tr: int, n_va: int, n_te: int, epochs: int, k: int, batch: int) -> dict:
-    """Launches of a frozen-DeiT-base MDN run: B1, B6 and B7 per encoder batch
-    (the feature cache over the train, validation and test batches), B2 per
-    train and validation step and test batch, B3's two kernels per chunk of
-    components per train step (padded batches: `batch` x 196 rows)."""
+def _mdn_head_expect(n_tr: int, n_va: int, n_te: int, epochs: int, k: int, rows: int,
+                     d: int = 768) -> dict:
+    """Launches of a frozen-trunk MDN head under the default bf16 policy: B2
+    per train and validation step and test batch, B3's two kernels per chunk
+    of components per train step (padded batches of `rows` feature rows)."""
     from vit_ad_tpu_torch.config import DtypePolicy
     from vit_ad_tpu_torch.ops.cuda import gmm as cgmm
 
-    chunks = -(-k // cgmm.backward_chunk(batch * 196, 768, k, DtypePolicy().compute_dtype))
-    n_enc = n_tr + n_va + n_te
-    return {**NO_LAUNCHES, "B1": 12 * n_enc, "B6": 12 * n_enc, "B7": DEIT_B7_PER_BATCH * n_enc,
-            "B2": epochs * (n_tr + n_va) + n_te, "B3": epochs * n_tr * 2 * chunks}
+    chunks = -(-k // cgmm.backward_chunk(rows, d, k, DtypePolicy().compute_dtype))
+    return {**NO_LAUNCHES, "B2": epochs * (n_tr + n_va) + n_te,
+            "B3": epochs * n_tr * 2 * chunks}
+
+
+def _deit_nf_expect(n_enc: int) -> dict:
+    """Launches of `n_enc` DeiT-base encoder batches (`DEIT_OFF` each)."""
+    return {key: n_enc * v for key, v in DEIT_OFF.items()}
+
+
+def _deit_mdn_expect(n_tr: int, n_va: int, n_te: int, epochs: int, k: int, batch: int) -> dict:
+    """Launches of a frozen-DeiT-base MDN run: B1, B6 and B7 per encoder batch
+    (the feature cache over the train, validation and test batches) and the
+    head's (`_mdn_head_expect`, `batch` x 196 rows a step)."""
+    head = _mdn_head_expect(n_tr, n_va, n_te, epochs, k, batch * 196)
+    return {**_deit_nf_expect(n_tr + n_va + n_te), "B2": head["B2"], "B3": head["B3"]}
 
 
 def _check_mdn_routes(got: dict, expect: dict, what: str) -> None:
@@ -3165,6 +3191,7 @@ def sweep_weights_main_path(tmp: str, mdn_run: str, esvit: dict, nfres_run: str,
             str(img), "-n", str(k), "--device", device]
     rc, seq, wall = _launches_of(lambda: sweep_cli.main(argv))
     _add(total, seq)
+    category_seconds = wall / len(SWEEP_CATS)
     split = DataPipeline(SWEEP_BATCH, img, base_path=os.path.join(root, SWEEP_CATS[0]),
                          data_path="train/good")
     n_tr, n_va = batches(len(split.train_files), SWEEP_BATCH), \
@@ -3392,7 +3419,7 @@ def sweep_weights_main_path(tmp: str, mdn_run: str, esvit: dict, nfres_run: str,
         raise AssertionError("the student-wrapped EsViT file does not score as its state dict")
     wall = time.perf_counter() - t_phase
     print(f"phase launches {total}; phase wall {wall:.2f} s")
-    return {"launches": total, "seconds": wall}
+    return {"launches": total, "seconds": wall, "category_seconds": category_seconds}
 
 
 def resnet_joint_step(k: int, images):
@@ -5053,6 +5080,172 @@ def levers_main_path(nf_pth: str, deit_pth: str, esvit_pth: str, effnet_pth: str
     return {"launches": total, "B5a": split}
 
 
+
+# the parity phase: the port's quality-parity harness (`cli/parity_matrix.py`)
+# gated at the tool's default tolerance, 0.5 pt of image AUROC; (c) runs these
+# entries of its matrix with their own models on one synthetic MVTec category
+# of phase 13's size, two epochs
+PARITY_GATE, PARITY_METRICS = 0.005, ["image_auroc_score"]
+PARITY_FULL = ("nf_mvtec_lastblock", "gmm_mvtec_100_gaussians")
+
+
+def _head_batches(cat_dir: str, batch: int, img: int) -> tuple:
+    """(train, validation, test) batches of a category as the sweep reads it."""
+    from vit_ad_tpu_torch.data.loader import DataPipeline
+
+    split = DataPipeline(batch, img, base_path=cat_dir, data_path="train/good")
+    test = DataPipeline(batch, img, base_path=cat_dir, data_path="test", validation_mode=True)
+    n = lambda files: -(-len(files) // batch)
+    return n(split.train_files), n(split.valid_files), n(test.test_files)
+
+
+def _gated(pm, rows, ours_csv: str, ref_rows, ref_csv: str, what: str) -> float:
+    """`ours_csv` through the tool's gate against `ref_rows` written as a
+    stand-in reference; raises unless it passes with no error row and the same
+    categories; returns the largest |Δ image AUROC|."""
+    pm._write_stand_in_reference(ref_rows, ref_csv, PARITY_METRICS)
+    ok, lines = pm.compare_entry(ours_csv, ref_csv, PARITY_GATE, PARITY_METRICS)
+    errors = [r for r in rows + ref_rows if "error" in r]
+    same = [r["dataclass"] for r in rows] == [r["dataclass"] for r in ref_rows]
+    delta = max(abs(a["image_auroc_score"] - b["image_auroc_score"])
+                for a, b in zip(rows, ref_rows)) if same and not errors else float("inf")
+    print(f"{what}: gate {'OK' if ok else 'FAIL'}; max |Δ image AUROC| {delta:.3e}")
+    for line in lines:
+        print("   " + line)
+    if not ok or errors or not same:
+        raise AssertionError(f"{what}: the parity gate failed, or a row holds an error: "
+                             f"{errors or lines}")
+    return delta
+
+
+def parity_main_path(tmp: str, sweep_category_seconds: float = float("nan"), img: int = 224,
+                     device: str = "cuda") -> dict:
+    """Phase 17: the port's quality-parity harness (`cli/parity_matrix.py`).
+    (a) `main(["--rehearse", ...])` on `device`: the six entries of the §6
+    matrix on the rehearsal's models (enc_cnn, ae_cnn at 32 px, K=2), exit 0
+    with six entries compared, each entry's seconds and launches (B2 and B3
+    per MDN step through their wgmma kernels on the two gmm entries, nothing
+    on the others); (b) the same six entries through `run_entry` under the
+    f32 policy on `device` and on the CPU, on (a)'s folders, the card's
+    results.csv gated against the CPU's rows as a stand-in reference, the
+    largest |Δ image AUROC| of each; (c) `nf_mvtec_lastblock` and
+    `gmm_mvtec_100_gaussians` with their own models (DeiT-base at `img` px,
+    bf16, NF-20 and K=100, batch 64, two epochs) through the tool's real-data
+    path on one synthetic MVTec category of phase 13's size: B1, B6, B7 per
+    encoder batch and B2, B3 per MDN step through their redesigned routes, no
+    row with an error, the stand-in gate, each entry's seconds beside phase
+    13's per category (`sweep_category_seconds`). On the CPU (`img=32,
+    device="cpu"`) a dry run of the checks; the launch counts then stay 0."""
+    from vit_ad_tpu_torch.cli import parity_matrix as pm
+    from vit_ad_tpu_torch.config import DtypePolicy, HyperParams
+    from vit_ad_tpu_torch.data.synthetic import make_mvtec_category
+    from vit_ad_tpu_torch.ops.cuda import gmm as cgmm
+
+    t_phase = time.perf_counter()
+    total: dict = {}
+    on_card = lambda counts: counts if device == "cuda" else NO_LAUNCHES
+
+    # (a) the rehearsal through the tool's main, each entry's launches counted
+    out = os.path.join(tmp, "parity_rehearsal")
+    seen: dict = {}
+    real_run_entry = pm.run_entry
+
+    def counted(entry, *args, **kw):
+        result, launches, wall = _launches_of(lambda: real_run_entry(entry, *args, **kw))
+        seen[entry["name"]] = (result[1], launches, wall, cgmm.fwd_wgmma_launches,
+                               cgmm.bwd_wgmma_params_launches)
+        return result
+
+    pm.run_entry = counted
+    try:
+        rc = pm.main(["--rehearse", "--out", out, "--device", device])
+    finally:
+        pm.run_entry = real_run_entry
+    with open(os.path.join(out, "parity_summary.json")) as f:
+        summary = json.load(f)
+    data_root = os.path.join(out, "synthetic_data")
+    hp = pm.REHEARSAL_HP
+    for entry in pm.MATRIX:
+        rows, launches, wall, fwd_wgmma, bwd_wgmma = seen[entry["name"]]
+        _add(total, launches)
+        # as the JAX tool, the rehearsal asks for every category of the
+        # dataset; those without a folder end as error rows, out of the gate
+        cats, root = pm._dataset_cats_and_root(entry["dataset"], data_root)
+        trained = [r for r in rows if os.path.isdir(os.path.join(root, r["dataclass"]))]
+        expect = dict(NO_LAUNCHES)
+        if entry["arch"] == "mdn":
+            for r in trained:  # enc_cnn at 32 px: one token of 768 an image
+                head = _mdn_head_expect(*_head_batches(os.path.join(root, r["dataclass"]),
+                                                       hp["batch_size"], hp["img_size"]),
+                                        r["epochs_ran"], hp["num_gaussians"], hp["batch_size"])
+                _add(expect, {key: head[key] for key in ("B2", "B3")})
+        expect = on_card(expect)
+        print(f"rehearsal {entry['name']} ({len(trained)} categories trained, "
+              f"{len(rows) - len(trained)} without data) in {wall:.2f} s: launches {launches}, "
+              f"expected {expect}; B2 wgmma {fwd_wgmma}, B3 wgmma {bwd_wgmma}")
+        if launches != expect or fwd_wgmma != expect["B2"] or bwd_wgmma != expect["B3"] \
+                or [r["dataclass"] for r in trained] != list(cats[:2]) \
+                or any("error" in r for r in trained):
+            raise AssertionError(f"rehearsal {entry['name']}: a row holds an error, or the "
+                                 "MDN head did not launch B2 and B3 through their wgmma "
+                                 "kernels as expected")
+    if rc != 0 or summary["ok"] is not True or len(summary["entries"]) != len(pm.MATRIX) \
+            or not all(e["ok"] for e in summary["entries"]):
+        raise AssertionError(f"the rehearsal exited {rc}: {summary}")
+    print(f"parity_matrix --rehearse --device {device}: rc={rc}, {len(summary['entries'])} "
+          f"entries compared, all ok")
+
+    # (b) the card against the CPU: the same entries, folders and seeds, f32,
+    # on the rehearsal's categories
+    f32 = {**hp, "dtypes": DtypePolicy.f32()}
+    for entry in pm.rehearsal_matrix(pm.MATRIX):
+        cats = list(pm._dataset_cats_and_root(entry["dataset"], data_root)[0][:2])
+        runs = {}
+        for role, where in (("card", device), ("cpu", "cpu")):
+            (csv_path, rows), launches, wall = _launches_of(lambda: pm.run_entry(
+                entry, data_root, os.path.join(tmp, f"parity_f32_{role}"), f32, cats, where))
+            runs[role] = (csv_path, rows, wall)
+            if role == "card":
+                _add(total, launches)
+        ref = os.path.join(tmp, "parity_f32_cpu_refs", entry["name"] + ".csv")
+        _gated(pm, runs["card"][1], runs["card"][0], runs["cpu"][1], ref,
+               f"f32 {entry['name']}: {device} ({runs['card'][2]:.2f} s) against the CPU "
+               f"({runs['cpu'][2]:.2f} s)")
+
+    # (c) full width through the real-data path: its own models, one category
+    cat = SWEEP_CATS[0]
+    full_root = os.path.join(tmp, "parity_full")
+    make_mvtec_category(os.path.join(full_root, pm.MVTEC_DIR), cat, img_size=img,
+                        n_train=SWEEP_TRAIN, n_test_good=SWEEP_TEST, n_test_defect=SWEEP_TEST)
+    full = {"epochs": SWEEP_EPOCHS, "patience": SWEEP_EPOCHS, "img_size": img}
+    seconds = {}
+    for entry in (e for e in pm.MATRIX if e["name"] in PARITY_FULL):
+        (csv_path, rows), launches, wall = _launches_of(lambda: pm.run_entry(
+            entry, full_root, os.path.join(tmp, "parity_full_out"), full, [cat], device))
+        _add(total, launches)
+        seconds[entry["name"]] = wall
+        if [r["dataclass"] for r in rows] != [cat] or "error" in rows[0]:
+            raise AssertionError(f"{entry['name']} at full width: {rows}")
+        batch = HyperParams().batch_size  # the real-data path's default
+        n_tr, n_va, n_te = _head_batches(os.path.join(full_root, pm.MVTEC_DIR, cat), batch, img)
+        epochs = rows[0]["epochs_ran"]
+        if entry["arch"] == "mdn":
+            expect = _deit_mdn_expect(n_tr, n_va, n_te, epochs,
+                                      entry["overrides"]["num_gaussians"], batch)
+        else:
+            expect = _deit_nf_expect(n_tr + n_va + n_te)
+        what = (f"{entry['name']} ({entry['overrides']['model_name']}, {img} px, bf16) in "
+                f"{wall:.2f} s (phase 13: {sweep_category_seconds:.2f} s a category)")
+        (_check_mdn_routes if entry["arch"] == "mdn" else check_deit_routes)(
+            launches, on_card(expect), what)
+        _gated(pm, rows, csv_path, rows, os.path.join(tmp, "parity_full_refs",
+                                                      entry["name"] + ".csv"),
+               f"{entry['name']} against its stand-in")
+    wall = time.perf_counter() - t_phase
+    print(f"phase launches {total}; full-width seconds {seconds}; phase wall {wall:.2f} s")
+    return {"launches": total, "seconds": wall}
+
+
 def main() -> int:
     import torch
 
@@ -5337,9 +5530,16 @@ def main() -> int:
         levers = levers_main_path(nf_pth, deit_pth, esvit["pth"], trunks["eff_net"]["pth"],
                                   nf_resnet, nf_batch, images, card, gen)
         del nf_resnet, nf_batch
+        torch.cuda.empty_cache()
+
+        phase("17 parity: the quality-parity harness (cli.parity_matrix): the six-entry "
+              "rehearsal on the card, its rows on the card against the CPU (f32), and "
+              "nf_mvtec_lastblock and gmm_mvtec_100_gaussians with their own models (DeiT-base, "
+              "224 px, bf16, K=100) through the real-data path")
+        parity = parity_main_path(tmp, sweep["category_seconds"])
     torch.cuda.synchronize()
 
-    phase("17 result")
+    phase("18 result")
     kernels = [{
         "name": "vit_attention_qkv",
         "route": "cuda",
@@ -5348,7 +5548,7 @@ def main() -> int:
         "launches": nf_launches["B1"] + fused["launches"]["B1"] + mdn["launches"]["B1"]
         + recon["launches"]["B1"] + trunks["nest"]["launches"]["B1"]
         + rundir["launches"]["B1"] + bundle_launches["B1"] + sweep["launches"]["B1"]
-        + mesh["launches"]["B1"] + levers["launches"]["B1"],
+        + mesh["launches"]["B1"] + levers["launches"]["B1"] + parity["launches"]["B1"],
         "max_abs_err": err,
         "ms": att_ms,
         "plain_ms": att_plain_ms,
@@ -5376,7 +5576,7 @@ def main() -> int:
                         "launches": mdn["launches"][key] + resnet["launches"][key]
                         + trunks["eff_former"]["launches"][key] + rundir["launches"][key]
                         + bundle_launches[key] + sweep["launches"][key]
-                        + mesh["launches"][key],
+                        + mesh["launches"][key] + parity["launches"][key],
                         **main, "per_shape": shapes})
     kernels[1]["kernel_route"] = "wgmma_x_resident (D <= 1024), wgmma_x_streamed (above)"
     kernels[1]["design"] = ("64 rows x 128 features a block, two consumer warpgroups of 64 "
@@ -5406,7 +5606,7 @@ def main() -> int:
                         "source": f"vit_ad_tpu_torch/csrc/{source}", "replaces": replaces,
                         "launches": esvit["launches"][key] + bundle_launches[key]
                         + sweep["launches"][key] + mesh["launches"][key]
-                        + levers["launches"][key], **swin[key]})
+                        + levers["launches"][key] + parity["launches"][key], **swin[key]})
     kernels[-3]["per_stage"] += mesh["B5"]  # B5 at the half-head shard shapes
     kernels[-2]["per_stage"] = levers["B5a"]
     # B7 also runs the DeiT blocks' first norm and the final norm, and every
@@ -5425,7 +5625,7 @@ def main() -> int:
                     + mdn["launches"]["B6"] + recon["launches"]["B6"]
                     + rundir["launches"]["B6"] + bundle_launches["B6"]
                     + sweep["launches"]["B6"] + mesh["launches"]["B6"]
-                    + levers["launches"]["B6"], **mlp})
+                    + levers["launches"]["B6"] + parity["launches"]["B6"], **mlp})
     # B6's products one at a time, on the trunk shards of phase 15: the GELU
     # and the f32-partial epilogues; the numbers of the fc2 partial, the new
     # epilogue, with every shape in `per_shape`
