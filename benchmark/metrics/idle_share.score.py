@@ -1,0 +1,6 @@
+"""% of the traced scoring window in which no kernel and no copy ran on the
+device."""
+
+
+def read(r):
+    return r.idle_share("score")
