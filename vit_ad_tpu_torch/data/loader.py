@@ -19,6 +19,7 @@ import torch
 
 from vit_ad_tpu_torch.data.dataset import AnomalyDataset
 from vit_ad_tpu_torch.data.files import join_to_file_list, train_valid_split
+from vit_ad_tpu_torch.utils.profiling import span
 
 
 class Batch(NamedTuple):
@@ -34,13 +35,14 @@ def preprocess(images_u8: torch.Tensor, mean: Optional[torch.Tensor] = None,
                std: Optional[torch.Tensor] = None,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """uint8 [B, H, W, 3] → float [0, 1], optionally standardized per channel."""
-    x = images_u8.to(dtype) / torch.tensor(255.0, dtype=dtype, device=images_u8.device)
-    if mean is not None:
-        if std is None:
-            raise ValueError("preprocess: mean given without std — "
-                             "standardization needs both (or neither)")
-        x = (x - mean.to(dtype)) / std.to(dtype)
-    return x
+    with span("preprocess"):
+        x = images_u8.to(dtype) / torch.tensor(255.0, dtype=dtype, device=images_u8.device)
+        if mean is not None:
+            if std is None:
+                raise ValueError("preprocess: mean given without std — "
+                                 "standardization needs both (or neither)")
+            x = (x - mean.to(dtype)) / std.to(dtype)
+        return x
 
 
 def _batches_from_dataset(ds: AnomalyDataset, batch_size: int) -> Iterator[Batch]:

@@ -57,6 +57,7 @@ from vit_ad_tpu_torch.models.outputs import EncoderOutput
 from vit_ad_tpu_torch.models.tensor_parallel import check_no_grad, mlp_residual
 from vit_ad_tpu_torch.models.vit import Mlp
 from vit_ad_tpu_torch.ops.window_attention import attention_scale
+from vit_ad_tpu_torch.utils.profiling import span
 
 LN_EPS = 1e-6
 BN_EPS = 1e-5
@@ -286,29 +287,32 @@ class EfficientFormer(nn.Module):
 
     def forward(self, x: torch.Tensor, block_index: int = 0) -> EncoderOutput:
         """`block_index` is accepted and ignored, as in the JAX module."""
-        cd = self.dtypes.compute_dtype
-        w = self.compute_weights()
-        gelu = "tanh" if resolve_gelu_approx(self.dtypes) else "none"
-        b = x.shape[0]
-        xm = x.to(cd).permute(0, 3, 1, 2)  # NCHW view of the NHWC bytes: channels_last
-        xm = F.gelu(conv_bn(xm, self.stem.conv1, self.stem.norm1, *w["stem1"]), approximate=gelu)
-        xm = F.gelu(conv_bn(xm, self.stem.conv2, self.stem.norm2, *w["stem2"]), approximate=gelu)
-        tokens = None
-        for si, stage in enumerate(self.stages):
-            if stage.downsample is not None:
-                xm = conv_bn(xm, stage.downsample.conv, stage.downsample.norm,
-                             *w[f"{si}.down"])
-            for bj, blk in enumerate(stage.blocks):
-                if isinstance(blk, Meta4D):
-                    xm = _meta4d_apply(xm, blk, w, f"{si}.{bj}", gelu)
-                elif isinstance(blk, Flat):
-                    tokens = xm.permute(0, 2, 3, 1).reshape(b, -1, xm.shape[1])
-                else:
-                    tokens = _meta3d_apply(tokens, blk, w, f"{si}.{bj}", gelu)
-        if tokens is None:
-            tokens = xm.permute(0, 2, 3, 1).reshape(b, -1, xm.shape[1])
-        tokens = self.norm(tokens)
-        return EncoderOutput(patch_embedding=tokens, latent=tokens.mean(dim=1))
+        with span("encoder"):
+            cd = self.dtypes.compute_dtype
+            w = self.compute_weights()
+            gelu = "tanh" if resolve_gelu_approx(self.dtypes) else "none"
+            b = x.shape[0]
+            xm = x.to(cd).permute(0, 3, 1, 2)  # NCHW view of the NHWC bytes: channels_last
+            xm = F.gelu(conv_bn(xm, self.stem.conv1, self.stem.norm1, *w["stem1"]),
+                        approximate=gelu)
+            xm = F.gelu(conv_bn(xm, self.stem.conv2, self.stem.norm2, *w["stem2"]),
+                        approximate=gelu)
+            tokens = None
+            for si, stage in enumerate(self.stages):
+                if stage.downsample is not None:
+                    xm = conv_bn(xm, stage.downsample.conv, stage.downsample.norm,
+                                 *w[f"{si}.down"])
+                for bj, blk in enumerate(stage.blocks):
+                    if isinstance(blk, Meta4D):
+                        xm = _meta4d_apply(xm, blk, w, f"{si}.{bj}", gelu)
+                    elif isinstance(blk, Flat):
+                        tokens = xm.permute(0, 2, 3, 1).reshape(b, -1, xm.shape[1])
+                    else:
+                        tokens = _meta3d_apply(tokens, blk, w, f"{si}.{bj}", gelu)
+            if tokens is None:
+                tokens = xm.permute(0, 2, 3, 1).reshape(b, -1, xm.shape[1])
+            tokens = self.norm(tokens)
+            return EncoderOutput(patch_embedding=tokens, latent=tokens.mean(dim=1))
 
 
 def efficientformer_l3(img_size: int = 224, dtypes: DtypePolicy = DtypePolicy(),

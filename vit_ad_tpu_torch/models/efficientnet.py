@@ -46,6 +46,7 @@ from vit_ad_tpu_torch.models.layers import (
     init_conv_layers,
 )
 from vit_ad_tpu_torch.models.outputs import EncoderOutput
+from vit_ad_tpu_torch.utils.profiling import span
 
 BN_EPS = 1e-3
 # (expand_ratio, channels, repeats, stride, kernel): the EfficientNet-B0 base
@@ -199,14 +200,15 @@ class EfficientNetEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor, block_index: int = 0) -> EncoderOutput:
         """`block_index` is accepted and ignored, as in the JAX module."""
-        w = self.compute_weights()
-        xm = x.to(self.dtypes.compute_dtype).permute(0, 3, 1, 2)  # channels_last NCHW view
-        xm = _conv_bn(xm, self.stem, w, "stem")
-        for name, blk in self.layers():
-            xm = _mbconv_apply(xm, blk, w, name)
-        xm = _conv_bn(xm, self.features, w, "features")
-        tokens = xm.permute(0, 2, 3, 1).reshape(x.shape[0], -1, self.embed_dim)
-        return EncoderOutput(patch_embedding=tokens, latent=tokens.mean(dim=1))
+        with span("encoder"):
+            w = self.compute_weights()
+            xm = x.to(self.dtypes.compute_dtype).permute(0, 3, 1, 2)  # channels_last NCHW view
+            xm = _conv_bn(xm, self.stem, w, "stem")
+            for name, blk in self.layers():
+                xm = _mbconv_apply(xm, blk, w, name)
+            xm = _conv_bn(xm, self.features, w, "features")
+            tokens = xm.permute(0, 2, 3, 1).reshape(x.shape[0], -1, self.embed_dim)
+            return EncoderOutput(patch_embedding=tokens, latent=tokens.mean(dim=1))
 
 
 def efficientnet_b4(img_size: int = 224, dtypes: DtypePolicy = DtypePolicy(),

@@ -45,6 +45,7 @@ from torch import nn
 
 from vit_ad_tpu_torch.models.outputs import FlowOutput
 from vit_ad_tpu_torch.ops.resize import interpolate_bilinear
+from vit_ad_tpu_torch.utils.profiling import span
 
 # softplus_{beta=0.5} parameter value p with 0.1 * softplus(p) == 1.0
 _GLOBAL_SCALE_INIT = 2.0 * math.log(math.exp(5.0) - 1.0)
@@ -282,15 +283,17 @@ class NormalizingFlow(nn.Module):
 
     def transform(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """[B, H, W, C] → (z [B, H, W, C], logdet [B])."""
-        z, logdet = self._transform_nchw(x)
-        return z.permute(0, 2, 3, 1), logdet
+        with span("flow"):
+            z, logdet = self._transform_nchw(x)
+            return z.permute(0, 2, 3, 1), logdet
 
     def transform_folded(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The permutation-folded forward (JAX :511): z in the ORIGINAL
         channel order, not invertible against `inverse`; its channel sums of
         z² and its logdet are `transform`'s."""
-        z, logdet = self._transform_folded_nchw(x)
-        return z.permute(0, 2, 3, 1), logdet
+        with span("flow"):
+            z, logdet = self._transform_folded_nchw(x)
+            return z.permute(0, 2, 3, 1), logdet
 
     def inverse(self, z: torch.Tensor) -> torch.Tensor:
         x = z.float().permute(0, 3, 1, 2).contiguous()
@@ -302,14 +305,15 @@ class NormalizingFlow(nn.Module):
         """Loss + anomaly map (reference NormalizingFlow.forward, :118-145).
         x: [B, H', W', C] feature map. `VITAD_FOLD_FLOW_PERMS=1` scores
         through the folded forward (the same loss and map)."""
-        z, logdet = (self._transform_folded_nchw if fold_flow_perms()
-                     else self._transform_nchw)(x)
-        zz = z * z
-        loss = torch.mean(0.5 * zz.sum(dim=(1, 2, 3)) - logdet)
-        anomaly = 1.0 - torch.exp(-0.5 * zz.mean(dim=1))  # [B, H', W']
-        anomaly_map = interpolate_bilinear(anomaly, self.img_size, self.img_size,
-                                           align_corners=False)
-        return FlowOutput(loss=loss, anomaly_score_map=anomaly_map)
+        with span("flow"):
+            z, logdet = (self._transform_folded_nchw if fold_flow_perms()
+                         else self._transform_nchw)(x)
+            zz = z * z
+            loss = torch.mean(0.5 * zz.sum(dim=(1, 2, 3)) - logdet)
+            anomaly = 1.0 - torch.exp(-0.5 * zz.mean(dim=1))  # [B, H', W']
+            anomaly_map = interpolate_bilinear(anomaly, self.img_size, self.img_size,
+                                               align_corners=False)
+            return FlowOutput(loss=loss, anomaly_score_map=anomaly_map)
 
 
 def patch_tokens_to_map(patch_embedding: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,7 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from vit_ad_tpu_torch.config import DtypePolicy
 from vit_ad_tpu_torch.ops.cuda.layer_norm import layer_norm
+from vit_ad_tpu_torch.utils.profiling import span
 
 
 class PatchEmbed(nn.Module):
@@ -281,12 +282,13 @@ class ComputeWeights:
                                    if by_name else src for by_name, src in sources], spec)
         cd = dtypes.compute_dtype
         if torch.is_grad_enabled() and any(p.requires_grad for p in module.parameters()):
-            return self._make(module, cd)
+            with span("operands"):
+                return self._make(module, cd)
         key = (None if self._variant is None else self._variant(),) + tuple(
             (t.data_ptr(), t._version, t.device)
             for t in itertools.chain(module.parameters(), module.buffers()))
         if key != self._key:
-            with torch.inference_mode(False), torch.no_grad():
+            with span("operands"), torch.inference_mode(False), torch.no_grad():
                 self._cast = self._make(module, cd)
             self._key = key
         return self._cast

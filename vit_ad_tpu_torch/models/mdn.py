@@ -30,6 +30,7 @@ from vit_ad_tpu_torch.config import DtypePolicy
 from vit_ad_tpu_torch.models.layers import ComputeWeights, trunc_normal_
 from vit_ad_tpu_torch.ops import gmm
 from vit_ad_tpu_torch.ops.cuda.gmm import gmm_log_likelihood, kernel_operands
+from vit_ad_tpu_torch.utils.profiling import span
 
 
 class GaussianMDN(nn.Module):
@@ -111,14 +112,15 @@ class GaussianMDN(nn.Module):
         log-likelihoods merge by a logsumexp whose backward keeps this rank's
         slice (`MeshContext.gather_own_grad`)."""
         sharded = self.mesh is not None and self.mesh.model_size > 1
-        xf = x.float()
-        if sharded:
-            xf = self.mesh.replicate_in(xf)
-        ll = gmm_log_likelihood(xf, self.log_pi(xf, generator, tau), self.sigma.weight,
-                                self.sigma.bias, self.mu.weight, self.mu.bias,
-                                self.dtypes.compute_dtype,
-                                self.kernel_operands() if x.is_cuda else None)
-        return torch.logsumexp(self.mesh.gather_own_grad(ll), dim=0) if sharded else ll
+        with span("mdn"):
+            xf = x.float()
+            if sharded:
+                xf = self.mesh.replicate_in(xf)
+            ll = gmm_log_likelihood(xf, self.log_pi(xf, generator, tau), self.sigma.weight,
+                                    self.sigma.bias, self.mu.weight, self.mu.bias,
+                                    self.dtypes.compute_dtype,
+                                    self.kernel_operands() if x.is_cuda else None)
+            return torch.logsumexp(self.mesh.gather_own_grad(ll), dim=0) if sharded else ll
 
     def loss(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         return gmm.mdn_loss_from_log_likelihood(self.log_likelihood(x, generator))

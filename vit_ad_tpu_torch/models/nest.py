@@ -56,6 +56,7 @@ from vit_ad_tpu_torch.models.tensor_parallel import check_no_grad, mlp_residual
 from vit_ad_tpu_torch.models.vit import Attention, Mlp
 from vit_ad_tpu_torch.ops import window_attention as wa
 from vit_ad_tpu_torch.ops.cuda.window_attention import vit_attention_qkv
+from vit_ad_tpu_torch.utils.profiling import span
 
 LN_EPS = 1e-6
 # Whether the LayerNorms go through the one-pass kernel unless the caller says
@@ -216,24 +217,25 @@ class NesT(nn.Module):
 
     def forward(self, x: torch.Tensor, block_index: int = 0) -> EncoderOutput:
         """`block_index` is accepted and ignored, as in the JAX module."""
-        cd = self.dtypes.compute_dtype
-        w = self.compute_weights()
-        b, p = x.shape[0], self.patch_size
-        xm = self.patch_embed(x.to(cd), w["patch_w"], w["patch_b"])
-        xm = xm.reshape(b, x.shape[1] // p, x.shape[2] // p, -1)
-        gelu_approx = resolve_gelu_approx(self.dtypes)
-        n = self.block * self.block
-        for level, lw in zip(self.levels, w["levels"]):
-            if level.pool is not None:
-                xm = level.pool(xm, lw["pool_w"], lw["pool_b"])
-            _, h, wd, c = xm.shape
-            tokens = wa.window_partition(xm, self.block)  # [B*nB, N, C], JAX's block order
-            tokens = (tokens.reshape(b, -1, n, c) + lw["pos"]).reshape(-1, n, c)
-            for blk, bw in zip(level.transformer_encoder, lw["blocks"]):
-                tokens = _block_apply(tokens, blk, bw, cd, gelu_approx)
-            xm = wa.window_reverse(tokens, self.block, h, wd)
-        tokens = self.norm(xm).reshape(b, -1, self.embed_dim)
-        return EncoderOutput(patch_embedding=tokens, latent=tokens.mean(dim=1))
+        with span("encoder"):
+            cd = self.dtypes.compute_dtype
+            w = self.compute_weights()
+            b, p = x.shape[0], self.patch_size
+            xm = self.patch_embed(x.to(cd), w["patch_w"], w["patch_b"])
+            xm = xm.reshape(b, x.shape[1] // p, x.shape[2] // p, -1)
+            gelu_approx = resolve_gelu_approx(self.dtypes)
+            n = self.block * self.block
+            for level, lw in zip(self.levels, w["levels"]):
+                if level.pool is not None:
+                    xm = level.pool(xm, lw["pool_w"], lw["pool_b"])
+                _, h, wd, c = xm.shape
+                tokens = wa.window_partition(xm, self.block)  # [B*nB, N, C], JAX's block order
+                tokens = (tokens.reshape(b, -1, n, c) + lw["pos"]).reshape(-1, n, c)
+                for blk, bw in zip(level.transformer_encoder, lw["blocks"]):
+                    tokens = _block_apply(tokens, blk, bw, cd, gelu_approx)
+                xm = wa.window_reverse(tokens, self.block, h, wd)
+            tokens = self.norm(xm).reshape(b, -1, self.embed_dim)
+            return EncoderOutput(patch_embedding=tokens, latent=tokens.mean(dim=1))
 
 
 def nest_tiny(img_size: int = 224, dtypes: DtypePolicy = DtypePolicy(),

@@ -29,6 +29,7 @@ from torch import nn
 from vit_ad_tpu_torch.config import DtypePolicy
 from vit_ad_tpu_torch.models.layers import ComputeWeights, FusedBatchNorm, conv_bn, lecun_normal_
 from vit_ad_tpu_torch.models.outputs import EncoderOutput
+from vit_ad_tpu_torch.utils.profiling import span
 
 STAGE_CHANNELS = (256, 512, 1024, 2048)
 STAGE_SCALES = (4, 8, 16, 32)
@@ -99,17 +100,18 @@ class ResNet50(nn.Module):
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         """x [B, H, W, 3] → the four stage maps [B, C_i, H/s_i, W/s_i]."""
-        cd = self.dtypes.compute_dtype
-        w = self._compute_weights.get(self, self.dtypes)
-        x = x.to(cd).permute(0, 3, 1, 2)  # NCHW view of the NHWC bytes: channels_last
-        x = F.relu(_conv_bn(x, self.conv1, self.bn1, w, "conv1", "bn1"))
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
-        stages = []
-        for li in range(1, 5):
-            for bi, blk in enumerate(getattr(self, f"layer{li}")):
-                x = _bottleneck_apply(x, blk, w, f"layer{li}.{bi}")
-            stages.append(x)
-        return stages
+        with span("encoder"):
+            cd = self.dtypes.compute_dtype
+            w = self._compute_weights.get(self, self.dtypes)
+            x = x.to(cd).permute(0, 3, 1, 2)  # NCHW view of the NHWC bytes: channels_last
+            x = F.relu(_conv_bn(x, self.conv1, self.bn1, w, "conv1", "bn1"))
+            x = F.max_pool2d(x, 3, stride=2, padding=1)
+            stages = []
+            for li in range(1, 5):
+                for bi, blk in enumerate(getattr(self, f"layer{li}")):
+                    x = _bottleneck_apply(x, blk, w, f"layer{li}.{bi}")
+                stages.append(x)
+            return stages
 
 
 def stage_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

@@ -81,6 +81,7 @@ from vit_ad_tpu_torch.models.tensor_parallel import (
 from vit_ad_tpu_torch.models.vit import Mlp
 from vit_ad_tpu_torch.ops import window_attention as wa
 from vit_ad_tpu_torch.ops.cuda.window_attention import swin_attention_windows, window_attention
+from vit_ad_tpu_torch.utils.profiling import span
 
 LN_EPS = 1e-5
 # Whether the LayerNorms go through the one-pass kernel unless the caller says
@@ -344,19 +345,20 @@ class SwinTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor, block_index: int = 0) -> EncoderOutput:
         """`block_index` is accepted and ignored, as in the JAX module."""
-        cd = self.dtypes.compute_dtype
-        w = self.compute_weights()
-        b, side = x.shape[0], x.shape[1] // self.patch_size
-        tokens = self.patch_embed(x.to(cd), w["patch_w"], w["patch_b"])
-        xm = self.patch_embed.norm(tokens).reshape(b, side, x.shape[2] // self.patch_size, -1)
-        gelu_approx = resolve_gelu_approx(self.dtypes)
-        for stage, sw in zip(self.layers, w["stages"]):
-            for blk, bw in zip(stage.blocks, sw["blocks"]):
-                xm = _block_apply(xm, blk, bw, stage.attn_mask, gelu_approx)
-            if stage.downsample is not None:
-                xm = stage.downsample(xm, sw["reduction_w"])
-        region = self.norm(xm.reshape(b, -1, xm.shape[-1]))
-        return EncoderOutput(patch_embedding=region, latent=region.mean(dim=1))
+        with span("encoder"):
+            cd = self.dtypes.compute_dtype
+            w = self.compute_weights()
+            b, side = x.shape[0], x.shape[1] // self.patch_size
+            tokens = self.patch_embed(x.to(cd), w["patch_w"], w["patch_b"])
+            xm = self.patch_embed.norm(tokens).reshape(b, side, x.shape[2] // self.patch_size, -1)
+            gelu_approx = resolve_gelu_approx(self.dtypes)
+            for stage, sw in zip(self.layers, w["stages"]):
+                for blk, bw in zip(stage.blocks, sw["blocks"]):
+                    xm = _block_apply(xm, blk, bw, stage.attn_mask, gelu_approx)
+                if stage.downsample is not None:
+                    xm = stage.downsample(xm, sw["reduction_w"])
+            region = self.norm(xm.reshape(b, -1, xm.shape[-1]))
+            return EncoderOutput(patch_embedding=region, latent=region.mean(dim=1))
 
 
 class EsViTEncoder(SwinTransformer):

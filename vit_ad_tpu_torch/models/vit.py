@@ -63,6 +63,7 @@ from vit_ad_tpu_torch.models.tensor_parallel import (
 from vit_ad_tpu_torch.ops.cuda.layer_norm import layer_norm
 from vit_ad_tpu_torch.ops.cuda.mlp import mlp_block, use_fused_mlp
 from vit_ad_tpu_torch.ops.cuda.window_attention import vit_attention_qkv
+from vit_ad_tpu_torch.utils.profiling import span
 
 LN_EPS = 1e-6
 # The MLP tail through the MLP kernel (`ops/cuda/mlp.mlp_block`): on. On the
@@ -108,29 +109,30 @@ def _block_apply(x: torch.Tensor, blk: Block, w: Dict[str, torch.Tensor], num_he
     `VITAD_VIT_LN_FOLD=1`, its folded norms). `fused_mlp` sends the MLP tail
     through `mlp_block` when the GELU is the tanh one and the kernel takes
     the widths."""
-    shard = getattr(blk, "model_shard", None)
-    if shard is not None:
-        return _shard_block_apply(x, blk, w, shard.num_heads(num_heads), cd, gelu_approx)
-    d = x.shape[-1]
-    fold = vit_ln_fold()
-    if fold:
-        qkv = ln_fold_gemm(x, w["fold1"], LN_EPS, cd)
-    else:
-        y = layer_norm(x, blk.norm1.weight, blk.norm1.bias, LN_EPS)  # x is in cd
-        qkv = F.linear(y, w["qkv_w"], w["qkv_b"])  # [B, N, 3D] packed
-    out = vit_attention_qkv(qkv, num_heads).to(cd)
-    x = x + F.linear(out, w["proj_w"], w["proj_b"])
-    if fused_mlp and gelu_approx and use_fused_mlp(d, w["fc1_w"].shape[0]):
-        # f32 norm affine and biases, compute-dtype weights, as the JAX call
-        return mlp_block(x, blk.norm2.weight, blk.norm2.bias, w["fc1_w"], blk.mlp.fc1.bias,
-                         w["fc2_w"], blk.mlp.fc2.bias, LN_EPS)
-    approx = "tanh" if gelu_approx else "none"
-    if fold:
-        h = F.gelu(ln_fold_gemm(x, w["fold2"], LN_EPS, cd), approximate=approx)
-    else:
-        y = F.layer_norm(x.float(), (d,), blk.norm2.weight, blk.norm2.bias, LN_EPS).to(cd)
-        h = F.gelu(F.linear(y, w["fc1_w"], w["fc1_b"]), approximate=approx)
-    return x + F.linear(h, w["fc2_w"], w["fc2_b"])
+    with span("block"):
+        shard = getattr(blk, "model_shard", None)
+        if shard is not None:
+            return _shard_block_apply(x, blk, w, shard.num_heads(num_heads), cd, gelu_approx)
+        d = x.shape[-1]
+        fold = vit_ln_fold()
+        if fold:
+            qkv = ln_fold_gemm(x, w["fold1"], LN_EPS, cd)
+        else:
+            y = layer_norm(x, blk.norm1.weight, blk.norm1.bias, LN_EPS)  # x is in cd
+            qkv = F.linear(y, w["qkv_w"], w["qkv_b"])  # [B, N, 3D] packed
+        out = vit_attention_qkv(qkv, num_heads).to(cd)
+        x = x + F.linear(out, w["proj_w"], w["proj_b"])
+        if fused_mlp and gelu_approx and use_fused_mlp(d, w["fc1_w"].shape[0]):
+            # f32 norm affine and biases, compute-dtype weights, as the JAX call
+            return mlp_block(x, blk.norm2.weight, blk.norm2.bias, w["fc1_w"], blk.mlp.fc1.bias,
+                             w["fc2_w"], blk.mlp.fc2.bias, LN_EPS)
+        approx = "tanh" if gelu_approx else "none"
+        if fold:
+            h = F.gelu(ln_fold_gemm(x, w["fold2"], LN_EPS, cd), approximate=approx)
+        else:
+            y = F.layer_norm(x.float(), (d,), blk.norm2.weight, blk.norm2.bias, LN_EPS).to(cd)
+            h = F.gelu(F.linear(y, w["fc1_w"], w["fc1_b"]), approximate=approx)
+        return x + F.linear(h, w["fc2_w"], w["fc2_b"])
 
 
 def _shard_block_apply(x: torch.Tensor, blk: Block, w: Dict[str, torch.Tensor], heads: int,
@@ -255,26 +257,27 @@ class ViTEncoder(nn.Module):
                           LN_EPS)
 
     def forward(self, x: torch.Tensor, block_index: int = 0) -> EncoderOutput:
-        cd = self.dtypes.compute_dtype
-        w = self.compute_weights()
-        tokens = self.patch_embed(x.to(cd), w["patch_w"], w["patch_b"])
-        prefix = w["prefix"].expand(x.shape[0], -1, -1)
-        tokens = torch.cat([prefix, tokens], dim=1) + w["pos"]
-        gelu_approx = resolve_gelu_approx(self.dtypes, self.gelu_tanh)
-        if block_index != 0:
-            # FastFlow truncation: final norm after every block
-            # (reference TransformerEncoder.py:159-163)
-            for blk, bw in zip(self.blocks[: block_index + 1], w["blocks"][: block_index + 1]):
-                tokens = _block_apply(tokens, blk, bw, self.num_heads, cd, gelu_approx,
-                                      self.fused_mlp)
+        with span("encoder"):
+            cd = self.dtypes.compute_dtype
+            w = self.compute_weights()
+            tokens = self.patch_embed(x.to(cd), w["patch_w"], w["patch_b"])
+            prefix = w["prefix"].expand(x.shape[0], -1, -1)
+            tokens = torch.cat([prefix, tokens], dim=1) + w["pos"]
+            gelu_approx = resolve_gelu_approx(self.dtypes, self.gelu_tanh)
+            if block_index != 0:
+                # FastFlow truncation: final norm after every block
+                # (reference TransformerEncoder.py:159-163)
+                for blk, bw in zip(self.blocks[: block_index + 1], w["blocks"][: block_index + 1]):
+                    tokens = _block_apply(tokens, blk, bw, self.num_heads, cd, gelu_approx,
+                                          self.fused_mlp)
+                    tokens = self._final_norm(tokens)
+            else:
+                for blk, bw in zip(self.blocks, w["blocks"]):
+                    tokens = _block_apply(tokens, blk, bw, self.num_heads, cd, gelu_approx,
+                                          self.fused_mlp)
                 tokens = self._final_norm(tokens)
-        else:
-            for blk, bw in zip(self.blocks, w["blocks"]):
-                tokens = _block_apply(tokens, blk, bw, self.num_heads, cd, gelu_approx,
-                                      self.fused_mlp)
-            tokens = self._final_norm(tokens)
-        return EncoderOutput(patch_embedding=tokens[:, self.num_prefix_tokens:, :],
-                             latent=tokens[:, 0, :])
+            return EncoderOutput(patch_embedding=tokens[:, self.num_prefix_tokens:, :],
+                                 latent=tokens[:, 0, :])
 
 
 def deit_base_distilled_patch16(img_size: int = 224, dtypes: DtypePolicy = DtypePolicy(),

@@ -10,6 +10,9 @@ as the JAX `save_fn` gating does, :40-92). With
 `VITAD_TRACE=<dir>` in the environment, `run_epochs` captures the second
 epoch's training (the first builds the kernels and warms up) as a Chrome
 trace in `<dir>` (`utils/profiling.trace`), as the JAX loop does (:117-134).
+The trace holds the program's spans (`utils/profiling.span`): one
+`vitad::train_step` a step, with its `zero_grad`, `loss`, `backward` and
+`optimizer` phases and the layers inside them (`mdn`, `flow`, `operands`).
 """
 
 from __future__ import annotations

@@ -38,6 +38,7 @@ and figures use the whole set.
 
 from __future__ import annotations
 
+import itertools
 import os
 from typing import Any, Callable, Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -54,6 +55,7 @@ from vit_ad_tpu_torch.parallel.context import MeshContext
 from vit_ad_tpu_torch.parallel.multihost import fetch_global
 from vit_ad_tpu_torch.pipeline import metrics as M
 from vit_ad_tpu_torch.scoring import payload_to_scores
+from vit_ad_tpu_torch.utils.profiling import span
 
 
 class ScoreOutput(NamedTuple):
@@ -142,11 +144,13 @@ def make_mdn_batch_fn(encoder: Encoder, mdn: GaussianMDN, hp: HyperParams,
     → per-patch mean log-likelihood [B, P] (the device half of
     `score_mdn`). The mixture weights are the deterministic softmax; the
     log-likelihood is the GMM kernel (B2) on the card."""
+    batches = itertools.count()
 
     def loglik_map(images_u8: torch.Tensor) -> torch.Tensor:
-        x = preprocess(images_u8, mean, std)
-        feats = encoder(x, block_index=hp.block_index).patch_embedding
-        return torch.mean(mdn.log_likelihood(feats), dim=2)
+        with span("payload", {"batch": next(batches)}):
+            x = preprocess(images_u8, mean, std)
+            feats = encoder(x, block_index=hp.block_index).patch_embedding
+            return torch.mean(mdn.log_likelihood(feats), dim=2)
 
     return loglik_map
 
@@ -189,11 +193,13 @@ def make_nf_batch_fn(encoder: Encoder, flow: NormalizingFlow, hp: HyperParams,
                      ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Per-batch NF scorer: uint8 images [B, H, W, 3] on the models' device →
     anomaly maps [B, H, W] f32 (the device half of `score_nf`)."""
+    batches = itertools.count()
 
     def anomaly_maps(images_u8: torch.Tensor) -> torch.Tensor:
-        x = preprocess(images_u8, mean, std)
-        feats = encoder(x, block_index=hp.block_index).patch_embedding
-        return flow(patch_tokens_to_map(feats)).anomaly_score_map
+        with span("payload", {"batch": next(batches)}):
+            x = preprocess(images_u8, mean, std)
+            feats = encoder(x, block_index=hp.block_index).patch_embedding
+            return flow(patch_tokens_to_map(feats)).anomaly_score_map
 
     return anomaly_maps
 
@@ -274,11 +280,13 @@ def make_mdn_resnet_batch_fn(encoder: ResNetEncoder, mdns: Sequence[GaussianMDN]
     models' device → one [B, h*w] per-patch mean log-likelihood per stage (the
     device half of `score_mdn_resnet`); the GMM kernel (B2) once per stage on
     the card."""
+    batches = itertools.count()
 
     def stage_logliks(images_u8: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        tokens = resnet_stage_tokens(encoder, images_u8, mean, std, stages)
-        return tuple(torch.mean(mdn.log_likelihood(feats), dim=2)
-                     for feats, mdn in zip(tokens, mdns))
+        with span("payload", {"batch": next(batches)}):
+            tokens = resnet_stage_tokens(encoder, images_u8, mean, std, stages)
+            return tuple(torch.mean(mdn.log_likelihood(feats), dim=2)
+                         for feats, mdn in zip(tokens, mdns))
 
     return stage_logliks
 
@@ -321,11 +329,13 @@ def make_nf_resnet_batch_fn(encoder: ResNetEncoder, flows: Sequence[NormalizingF
     models' device → the mean of the stages' anomaly maps [B, H, W] f32 (the
     device half of `score_nf_resnet`). No kernel of the repo runs here: the
     trunk, the stage norms and the flows are torch ops."""
+    batches = itertools.count()
 
     def anomaly_maps(images_u8: torch.Tensor) -> torch.Tensor:
-        maps = resnet_stage_maps(encoder, images_u8, mean, std, stages)
-        return torch.mean(torch.stack([flow(m).anomaly_score_map
-                                       for m, flow in zip(maps, flows)], -1), dim=-1)
+        with span("payload", {"batch": next(batches)}):
+            maps = resnet_stage_maps(encoder, images_u8, mean, std, stages)
+            return torch.mean(torch.stack([flow(m).anomaly_score_map
+                                           for m, flow in zip(maps, flows)], -1), dim=-1)
 
     return anomaly_maps
 
@@ -364,13 +374,15 @@ def make_recon_batch_fn(model: torch.nn.Module, mean: Optional[torch.Tensor],
     input (the device half of `score_recon`). The model must be in eval mode
     when it is called (the JAX scorer's `train=False`: BatchNorms on their
     running statistics, which a training-mode call would also move)."""
+    batches = itertools.count()
 
     def error_maps(images_u8: torch.Tensor) -> torch.Tensor:
         if model.training:
             raise ValueError("recon scoring: the auto-encoder must be in eval mode")
-        x = preprocess(images_u8, mean, std)
-        recon = model(x).reconstruction
-        return torch.mean(torch.square(recon.float() - x.float()), dim=-1)
+        with span("payload", {"batch": next(batches)}):
+            x = preprocess(images_u8, mean, std)
+            recon = model(x).reconstruction
+            return torch.mean(torch.square(recon.float() - x.float()), dim=-1)
 
     return error_maps
 
@@ -416,13 +428,15 @@ def make_vae_batch_fn(model: torch.nn.Module, mean: Optional[torch.Tensor],
     the channel-mean squared error [B, H, W] f32 of the reconstruction decoded
     from the posterior mean, a deterministic forward (JAX `train_vae`'s
     `eval_maps` :1621-1633). The model must be in eval mode."""
+    batches = itertools.count()
 
     def error_maps(images_u8: torch.Tensor) -> torch.Tensor:
         if model.training:
             raise ValueError("VAE scoring: the model must be in eval mode")
-        x = preprocess(images_u8, mean, std)
-        recon = model.decode(model.encode(x)[0])
-        return torch.mean(torch.square(recon.float() - x.float()), dim=-1)
+        with span("payload", {"batch": next(batches)}):
+            x = preprocess(images_u8, mean, std)
+            recon = model.decode(model.encode(x)[0])
+            return torch.mean(torch.square(recon.float() - x.float()), dim=-1)
 
     return error_maps
 

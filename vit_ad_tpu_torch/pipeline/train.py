@@ -40,6 +40,7 @@ decisions; the best weights are kept per rank, as shards.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -66,11 +67,15 @@ from vit_ad_tpu_torch.pipeline.features import (
 )
 from vit_ad_tpu_torch.pipeline.optimizers import torch_adam
 from vit_ad_tpu_torch.registry import get_model
+from vit_ad_tpu_torch.utils.profiling import span
 
 # loss(head, feats [B, P, D], valid [B], generator | None, mc=mesh | None) → scalar
 HeadLoss = Callable[[torch.nn.Module, torch.Tensor, torch.Tensor, Optional[torch.Generator]],
                     torch.Tensor]
 Log = Optional[Callable[[Dict[str, Any]], None]]
+# the number of each `optimizer_step` in the process, the args of its span:
+# a label in a trace, read by nothing in the program
+_steps = itertools.count()
 
 
 @dataclasses.dataclass
@@ -138,14 +143,21 @@ def masked_nf_loss(flow: NormalizingFlow, feats: torch.Tensor, valid: torch.Tens
 def optimizer_step(opt: torch.optim.Optimizer, loss: Callable[[], torch.Tensor],
                    mc: Optional[MeshContext] = None) -> torch.Tensor:
     """Zero the gradients, backpropagate `loss()`, on a mesh sum the
-    gradients over the data axis, step; returns the (detached) loss."""
-    opt.zero_grad(set_to_none=True)
-    out = loss()
-    out.backward()
-    if mc is not None:
-        mc.sum_gradients(p for group in opt.param_groups for p in group["params"])
-    opt.step()
-    return out.detach()
+    gradients over the data axis, step; returns the (detached) loss. The
+    step is the span `train_step`, numbered in the process's order."""
+    with span("train_step", {"step": next(_steps)}):
+        with span("zero_grad"):
+            opt.zero_grad(set_to_none=True)
+        with span("loss"):
+            out = loss()
+        with span("backward"):
+            out.backward()
+        if mc is not None:
+            with span("grad_sum"):
+                mc.sum_gradients(p for group in opt.param_groups for p in group["params"])
+        with span("optimizer"):
+            opt.step()
+        return out.detach()
 
 
 def train_step(loss_fn: HeadLoss, head: torch.nn.Module, opt: torch.optim.Optimizer,

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from vit_ad_tpu_torch.ops.resize import interpolate_bilinear
+from vit_ad_tpu_torch.utils.profiling import span
 
 
 def ll_to_anomaly_maps(ll: np.ndarray, img_size: int, ref_max: Optional[float] = None):
@@ -71,8 +72,9 @@ def scores_tail(kind: str, img_size: int, ref_max_ll: Optional[Sequence[float]])
     cannot live inside a fixed per-chunk graph) and raise without it."""
     if kind in ("nf", "nf_resnet", "recon"):
         def tail(payload: torch.Tensor) -> torch.Tensor:
-            maps = payload.float()
-            return torch.amax(maps.reshape(maps.shape[0], -1), dim=1)
+            with span("tail"):
+                maps = payload.float()
+                return torch.amax(maps.reshape(maps.shape[0], -1), dim=1)
 
         return tail
     if kind not in ("mdn", "mdn_resnet"):
@@ -89,19 +91,21 @@ def scores_tail(kind: str, img_size: int, ref_max_ll: Optional[Sequence[float]])
 
     if kind == "mdn":
         def tail(ll: torch.Tensor) -> torch.Tensor:
-            return (torch.amin(prob(ll, rms[0]), dim=1) * -1.0) + 1.0
+            with span("tail"):
+                return (torch.amin(prob(ll, rms[0]), dim=1) * -1.0) + 1.0
 
         return tail
 
     def tail(payload) -> torch.Tensor:
-        anoms = []
-        for ll, rm in zip(payload, rms):
-            p = prob(ll, rm)
-            side = int(round(float(np.sqrt(p.shape[1]))))
-            up = interpolate_bilinear(p.reshape(-1, side, side), img_size, img_size,
-                                      align_corners=True)
-            anoms.append((up * -1.0) + 1.0)
-        pix = torch.mean(torch.stack(anoms, -1), dim=-1)
-        return torch.amax(pix.reshape(pix.shape[0], -1), dim=1)
+        with span("tail"):
+            anoms = []
+            for ll, rm in zip(payload, rms):
+                p = prob(ll, rm)
+                side = int(round(float(np.sqrt(p.shape[1]))))
+                up = interpolate_bilinear(p.reshape(-1, side, side), img_size, img_size,
+                                          align_corners=True)
+                anoms.append((up * -1.0) + 1.0)
+            pix = torch.mean(torch.stack(anoms, -1), dim=-1)
+            return torch.amax(pix.reshape(pix.shape[0], -1), dim=1)
 
     return tail
