@@ -669,6 +669,88 @@ def check_layer_norm(rows: int, d: int, dt: str, gen, dev) -> float:
     return diff.max().item()
 
 
+def flow_step_inputs(b: int, c: int, h: int, w: int, kernel: int, gen, dev):
+    """A seeded flow step on the card (global scales spread around their
+    init, conv weights x3 so the soft clamp's atan works off its linear
+    range) and its tail's operands as the op takes them: x1, x2, the second
+    convolution's output without its bias, that bias, g, o, perm, coeff."""
+    import torch
+    import torch.nn.functional as F
+    from vit_ad_tpu_torch.models.flow import AllInOneBlock
+
+    perm = torch.randperm(c, generator=torch.Generator().manual_seed(c)).numpy()
+    blk = AllInOneBlock(c, max(1, int((c - c // 2) * 0.16)), kernel, perm).to(dev)
+    with torch.no_grad():
+        blk.global_scale.add_(2.0 * torch.randn(blk.global_scale.shape, device=dev,
+                                                generator=gen))
+        blk.global_offset.copy_(0.3 * torch.randn(blk.global_offset.shape, device=dev,
+                                                  generator=gen))
+        for conv in (blk.subnet[0], blk.subnet[2]):
+            conv.weight.mul_(3.0)
+        x = torch.randn(b, c, h, w, device=dev, generator=gen)
+        x1, x2 = x[:, : blk.split1].contiguous(), x[:, blk.split1:].contiguous()
+        p = blk.step_params()
+        pad = kernel // 2
+        a = F.conv2d(F.relu(F.conv2d(x1, p[0], p[1], padding=pad)), p[2], None, padding=pad)
+    return blk, (x1, x2, a, *p[3:], blk.perm, blk.clamp * 0.636)
+
+
+def flow_coupling_times(card: str, gen, batch: int = FLAGSHIP_BATCH) -> dict:
+    """Phase 14, F1 at DeiT-base's map [batch, 768, 14, 14] (both kernels'
+    steps alike: the tail does not see the kernel), checked against the plain
+    tail on the same inputs (its card tests: tests/test_torch_flow_coupling.py
+    -m card) and timed against it by events (order plain, kernel, kernel,
+    plain) and back to back, beside its bound; then the NF-20 flow's forward
+    on that map (`transform`) through F1 and through the plain tail."""
+    import torch
+    import torch.nn.functional as F
+    from vit_ad_tpu_torch.models.flow import NormalizingFlow
+    from vit_ad_tpu_torch.ops.cuda import flow as cflow
+
+    dev = torch.device("cuda")
+    _, args = flow_step_inputs(batch, 768, 14, 14, 3, gen, dev)
+    kern = lambda: cflow.flow_coupling_op(*args)
+    plain = lambda: cflow.flow_coupling_reference(*args)
+    with torch.no_grad():
+        kern_ms, plain_ms = alternate(kern, plain, TIMED_RUNS, 3)
+        b2b = {name: back_to_back_ms(fn, torch, launches=100)
+               for name, fn in (("kernel", kern), ("plain", plain))}
+        got, want = kern(), plain()
+    for g, w in zip(got[:2], want[:2]):
+        if not bool(((g - w).abs() <= 8 * 2.0 ** -23 * w.abs().max()).all()):
+            raise AssertionError("F1 disagrees with the plain tail at DeiT-base's map")
+    nbytes = tensor_bytes(*args[:3], *got[:2])  # x1, x2, a in; y out
+    nums = {"ms": statistics.mean(kern_ms), "plain_ms": statistics.mean(plain_ms),
+            "back_to_back_ms": b2b["kernel"], "plain_back_to_back_ms": b2b["plain"],
+            **bound(nbytes, 20.0 * batch * 196 * 384 + 2.0 * batch * 196 * 384, 67e12)}
+    print(f"[{card}] flow_coupling (F1) [{batch},768,14,14]: kernel {kern_ms} ms, plain tail "
+          f"{plain_ms} ms (order plain, kernel, kernel, plain); back to back (100 calls) "
+          f"kernel {b2b['kernel']:.4f} ms, plain {b2b['plain']:.4f} ms; bound "
+          f"{nums['bound_ms']:.4f} ms by {nums['bound_by']} ({nbytes / 1e6:.1f} MB; kernel back "
+          f"to back at {nums['bound_ms'] / b2b['kernel']:.3f} of it)")
+    flow = NormalizingFlow(768, 224, 196, hidden_ratio=0.16, flow_steps=20).to(dev)
+    x = torch.randn(batch, 14, 14, 768, device=dev, generator=gen)
+
+    def plain_flow():
+        split = flow.steps[0].split1
+        z1 = x[..., :split].permute(0, 3, 1, 2).contiguous()
+        z2 = x[..., split:].permute(0, 3, 1, 2).contiguous()
+        for blk in flow.steps:
+            p = blk.step_params()
+            z1, pad = z1.contiguous(), p[0].shape[-1] // 2
+            a = F.conv2d(F.relu(F.conv2d(z1, p[0], p[1], padding=pad)), p[2], p[3], padding=pad)
+            z1, z2, _ = cflow.flow_coupling_reference(z1, z2, a, None, p[4], p[5], blk.perm,
+                                                      blk.clamp * 0.636)
+        return z1, z2
+
+    with torch.no_grad():
+        flow_ms, plain_flow_ms = alternate(lambda: flow.transform(x), plain_flow, 10, 2)
+    nums.update(flow_ms=statistics.mean(flow_ms), plain_flow_ms=statistics.mean(plain_flow_ms))
+    print(f"[{card}] NF-20 transform [{batch},14,14,768] f32: through F1 {flow_ms} ms, through "
+          f"the plain tail {plain_flow_ms} ms (order plain, F1, F1, plain)")
+    return nums
+
+
 def mlp_inputs(rows: int, d: int, hidden: int, dtype, gen, dev):
     """Seeded inputs of the fused MLP half-block: x [rows, D] with a mean and
     a spread the LayerNorm has to remove, a norm affine away from (1, 0), and
@@ -5475,6 +5557,7 @@ def main() -> int:
         deit_fns = fused_mlp_ab(nf_pth, deit_pth, images, card)
         vit_norm_ab(nf_pth, deit_pth, images, card)
         mlp = mlp_times(card, gen)
+        flow_coupling_times(card, gen)
         gmm_times = mdn_times(mdn, images, card, gen)
         wide = resnet_times(resnet, images, card, gen)
         swin = swin_times(card, gen)

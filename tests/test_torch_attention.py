@@ -117,12 +117,12 @@ def test_build_is_keyed_on_the_sources():
     assert path.parent == build.BUILD_DIR and path.suffix == ".so"
     assert path == build.library_path()
     assert [f.name for f in build.source_files()] == [
-        "gmm.cu", "layer_norm.cu", "mlp_block.cu", "swin_window_attention.cu",
-        "vit_attention_qkv.cu", "attention_common.cuh", "hopper_mma.cuh",
-        "launch_common.cuh", "layer_norm_common.cuh", "tensor_map.cuh"]
+        "flow_coupling.cu", "gmm.cu", "layer_norm.cu", "mlp_block.cu",
+        "swin_window_attention.cu", "vit_attention_qkv.cu", "attention_common.cuh",
+        "hopper_mma.cuh", "launch_common.cuh", "layer_norm_common.cuh", "tensor_map.cuh"]
     assert set(build.ENTRY_POINTS) >= {"vit_attention_qkv_forward", "layer_norm_forward",
                                        "swin_window_attention_forward", "mlp_block_forward",
-                                       "mlp_gemm_forward"}
+                                       "mlp_gemm_forward", "flow_coupling_forward"}
 
 
 # Every edge the card-side check drives through the kernels (chip_smoke.py

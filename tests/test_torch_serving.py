@@ -36,6 +36,7 @@ from vit_ad_tpu_torch.models.resnet import ResNetEncoder
 from vit_ad_tpu_torch.models.vit import ViTEncoder
 from vit_ad_tpu_torch.ops import gates
 from vit_ad_tpu_torch.ops.cuda import build
+from vit_ad_tpu_torch.ops.cuda import flow as cflow
 from vit_ad_tpu_torch.ops.cuda import gmm as cgmm
 from vit_ad_tpu_torch.ops.cuda import layer_norm as cln
 from vit_ad_tpu_torch.ops.cuda import mlp as cmlp
@@ -345,6 +346,9 @@ def _op_cases():
     gx, glp, ws, bs, wm, bm = r(rows, d), r(rows, kk), r(d * kk, d), r(d * kk), r(d * kk, d), \
         r(d * kk)
     ops = cgmm.kernel_operands(ws, bs, wm, bm, torch.float32)
+    fx1, fx2, fa, fb, fg, fo = r(2, 4, 3, 3), r(2, 3, 3, 3), r(2, 6, 3, 3), r(6), \
+        r(1, 7, 1, 1), r(1, 7, 1, 1)
+    fperm = torch.randperm(7, generator=gen)
     return {
         "layer_norm": ((x, s, b, 1e-6), cln.layer_norm_reference(x, s, b)),
         "vit_attention_qkv": ((qkv, 2), cwa.vit_attention_qkv_reference(qkv, 2)),
@@ -361,6 +365,8 @@ def _op_cases():
                          ops["b_mu_t"], ops["b_sigma_t"]),
                         cgmm.gmm_log_likelihood_reference(gx[None], glp[None], ws, bs, wm,
                                                           bm)[0]),
+        "flow_coupling": ((fx1, fx2, fa, fb, fg, fo, fperm, 1.272),
+                          cflow.flow_coupling_reference(fx1, fx2, fa, fb, fg, fo, fperm, 1.272)),
     }
 
 
@@ -372,7 +378,8 @@ def test_each_op_has_a_fake_that_states_the_plain_versions_output(op):
     with FakeTensorMode() as mode:
         fake = [mode.from_tensor(t) if isinstance(t, torch.Tensor) else t for t in args]
         got = getattr(torch.ops.vit_ad_tpu_torch, op)(*fake)
-    assert tuple(got.shape) == tuple(want.shape) and got.dtype == want.dtype
+    got, want = ((v,) if isinstance(v, torch.Tensor) else tuple(v) for v in (got, want))
+    assert [(tuple(t.shape), t.dtype) for t in got] == [(tuple(t.shape), t.dtype) for t in want]
 
 
 @pytest.fixture(scope="module")

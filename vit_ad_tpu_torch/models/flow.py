@@ -17,6 +17,14 @@ then out[:, i] = y[:, perm[i]], an index gather (the JAX one-hot matmul was a
 TPU workaround, flow.py:81-92). Internally the flow runs NCHW; its public
 functions keep the JAX layouts ([B, H', W', C] in, [B, H, W] maps out).
 
+Between steps the state is carried as its two halves, [B, C - C//2, H, W]
+and [B, C//2, H, W]: each step's first convolution reads the first half as
+it is, and the step from the subnet's second convolution on is one call of
+`ops/cuda/flow.flow_coupling`: on the card the convolution and one kernel
+launch (F1), which makes the convolution's bias add and everything after it
+to the permuted output and the logdet, and stores the two halves of the next
+step's input; on the CPU the expression above.
+
 Two opt-in levers of the JAX flow, read from the environment at call time,
 off by default:
   * `VITAD_FOLD_FLOW_PERMS=1` (JAX :398-435, :511-545): `forward` scores
@@ -44,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vit_ad_tpu_torch.models.outputs import FlowOutput
+from vit_ad_tpu_torch.ops.cuda.flow import Halves, affine_scale, flow_coupling
 from vit_ad_tpu_torch.ops.resize import interpolate_bilinear
 from vit_ad_tpu_torch.utils.profiling import span
 
@@ -108,21 +117,18 @@ class AllInOneBlock(nn.Module):
         s = self.clamp * 0.636 * torch.atan(a[:, : self.split2])
         return s, a[:, self.split2:]
 
-    @staticmethod
-    def _affine_scale(g: torch.Tensor) -> torch.Tensor:
-        return 0.2 * torch.logaddexp(torch.zeros_like(g), 0.5 * g)
+    def step_halves(self, x1: torch.Tensor, x2: torch.Tensor, p: StepParams) -> Halves:
+        """The forward on the input's halves [B, split1, H, W] and [B, split2,
+        H, W] and the parameters `p` (`step_params`): the output's halves and
+        the logdet [B]."""
+        hidden = F.relu(F.conv2d(x1, p[0], p[1], padding=p[0].shape[-1] // 2))
+        return flow_coupling(x1, x2, hidden, p[2], p[3], p[4], p[5], self.perm,
+                             self.clamp * 0.636)
 
     def step(self, x: torch.Tensor, p: StepParams) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The forward on the parameters `p` (`step_params`)."""
-        h, w = x.shape[2], x.shape[3]
-        x1, x2 = x[:, : self.split1], x[:, self.split1:]
-        s, t = self._coupling(x1, p)
-        x2 = x2 * torch.exp(s) + t
-        logdet = s.sum(dim=(1, 2, 3))
-        scale = self._affine_scale(p[4])
-        y = torch.cat([x1, x2], dim=1) * scale + p[5]
-        logdet = logdet + h * w * torch.log(scale).sum()
-        return y.index_select(1, self.perm), logdet
+        """The forward on the whole map and the parameters `p` (`step_params`)."""
+        y1, y2, logdet = self.step_halves(x[:, : self.split1], x[:, self.split1:], p)
+        return torch.cat([y1, y2], dim=1), logdet
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.step(x, self.step_params())
@@ -132,7 +138,7 @@ class AllInOneBlock(nn.Module):
         step's own)."""
         p = self.step_params() if p is None else p
         y = torch.empty_like(y).index_copy_(1, self.perm, y)
-        y = (y - p[5]) / self._affine_scale(p[4])
+        y = (y - p[5]) / affine_scale(p[4])
         x1, x2 = y[:, : self.split1], y[:, self.split1:]
         s, t = self._coupling(x1, p)
         return torch.cat([x1, (x2 - t) * torch.exp(-s)], dim=1)
@@ -164,7 +170,7 @@ class AllInOneBlock(nn.Module):
         s = self.clamp * 0.636 * torch.atan(a[:, :c])
         x = x * torch.exp(s) + a[:, c:]
         logdet = s.sum(dim=(1, 2, 3))
-        scale = self._affine_scale(p[4])
+        scale = affine_scale(p[4])
         return x * scale + p[5], logdet + h * w * torch.log(scale).sum()
 
 
@@ -261,15 +267,19 @@ class NormalizingFlow(nn.Module):
         return np.stack([b.perm.cpu().numpy() for b in self.steps]).astype(np.int32)
 
     def _transform_nchw(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        z = x.float().permute(0, 3, 1, 2).contiguous()
         if torch.is_grad_enabled() and reversible():
+            z = x.float().permute(0, 3, 1, 2).contiguous()
             params = [t for blk in self.steps for t in blk.step_params()]
             return _ReversibleSteps.apply(self.steps, z, *params)
-        logdet = torch.zeros(z.shape[0], dtype=torch.float32, device=z.device)
+        x = x.float()
+        split = self.steps[0].split1
+        z1 = x[..., :split].permute(0, 3, 1, 2).contiguous()
+        z2 = x[..., split:].permute(0, 3, 1, 2).contiguous()
+        logdet = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
         for blk in self.steps:
-            z, ld = blk(z)
+            z1, z2, ld = blk.step_halves(z1, z2, blk.step_params())
             logdet = logdet + ld
-        return z, logdet
+        return torch.cat([z1, z2], dim=1), logdet
 
     def _transform_folded_nchw(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         z = x.float().permute(0, 3, 1, 2).contiguous()

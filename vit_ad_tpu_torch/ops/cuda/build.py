@@ -97,7 +97,7 @@ def build() -> Path:
     return out
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ROUTE = ctypes.POINTER(ctypes.c_int)  # out: which kernel the entry point launched
 # Every entry point's argument types; each returns a CUDA error code (int).
 ENTRY_POINTS = {
@@ -126,6 +126,9 @@ ENTRY_POINTS = {
     # dmu, dpre, w_mu, w_sigma, dmu_sum, dx, dx_part, k0, kc, first, last,
     # splits, rows, d, k, is_bf16, device, stream, route
     "gmm_backward_x": [_P] * 7 + [_I] * 10 + [_P, _ROUTE],
+    # x1, x2, a, bias, g, o, perm, y1, y2, logdet, batch, c1, c2, hw, x1_batch,
+    # x2_batch, coeff, device, stream, route
+    "flow_coupling_forward": [_P] * 10 + [_I] * 4 + [_L, _L, ctypes.c_float, _I, _P, _ROUTE],
 }
 
 

@@ -48,4 +48,7 @@ GATES: Dict[str, Gate] = {
     "B2": Gate(("gmm_forward",), ("gmm_forward",)),
     "B3": Gate(("gmm_backward_terms", "gmm_backward_weights"), ()),
     "B4": Gate(("gmm_backward_x",), ()),
+    # ops/cuda/flow: the flow's coupling tail. F1 ports no Pallas kernel (the
+    # JAX flow leaves that tail to XLA); it was added for the port alone.
+    "F1": Gate(("flow_coupling_forward",), ("flow_coupling",)),
 }
