@@ -14,22 +14,12 @@ from __future__ import annotations
 
 from typing import List, Tuple
 
+from harness import spec
+
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 
 Work = List[Tuple[float, str]]  # (FLOP, stated precision)
-
-
-def trunk_forward(cfg: dict) -> Work:
-    """One image through the DeiT/ViT trunk: patch convolution, and per
-    block qkv, q·kᵀ, p·v, proj, fc1, fc2."""
-    d, p, img = cfg["embed_dim"], cfg["patch_size"], cfg["img_size"]
-    patches = (img // p) ** 2
-    t = patches + cfg["num_prefix_tokens"]
-    hidden = int(d * cfg["mlp_ratio"])
-    block = 2 * t * d * (3 * d) + 2 * 2 * t * t * d + 2 * t * d * d + 2 * 2 * t * d * hidden
-    prec = cfg["trunk_dtype"]
-    return [(2.0 * patches * d * 3 * p * p, prec), (float(cfg["depth"] * block), prec)]
 
 
 def _flow_convs(cfg: dict) -> List[float]:
@@ -71,10 +61,13 @@ def mdn_train(cfg: dict) -> Work:
 
 
 def per_image(cfg: dict, kind: str) -> Work:
-    """The work one image costs in a cell of traffic kind `kind`."""
+    """The work one image costs in a cell of traffic kind `kind`: in
+    scoring the trunk family's (`trunks/<trunk>.py`, `forward_work`) and
+    the head's forward, in training the head's step on cached features."""
     head = cfg["head"]
     if kind == "score":
-        return trunk_forward(cfg) + (flow_forward(cfg) if head == "nf" else mdn_forward(cfg))
+        trunk = spec.trunk(cfg).forward_work(cfg)
+        return trunk + (flow_forward(cfg) if head == "nf" else mdn_forward(cfg))
     return flow_train(cfg) if head == "nf" else mdn_train(cfg)
 
 

@@ -1,6 +1,7 @@
-"""The system under test: the port's models, built by its registry and
-filled through its own loaders (`pipeline/loading`) from state dicts in the
-upstream layouts, as a user's checkpoints would be loaded. The modules are
+"""The system under test: the port's models, built by its registry, held to
+the configuration's widths by the trunk family's check, and filled through
+its own loaders (`pipeline/loading`) from state dicts in the upstream
+layouts, as a user's checkpoints would be loaded. The modules are
 constructed on the device (their own seeded init is overwritten by the
 load, so it is not paid on the host)."""
 
@@ -10,6 +11,7 @@ from typing import Dict
 
 import torch
 
+from harness import spec
 from vit_ad_tpu_torch.config import DtypePolicy, HyperParams
 from vit_ad_tpu_torch.models.flow import NormalizingFlow
 from vit_ad_tpu_torch.models.mdn import GaussianMDN
@@ -26,21 +28,9 @@ def hyper_params(cfg: dict) -> HyperParams:
                      num_gaussians=cfg.get("num_gaussians", 150),
                      fused_mlp=cfg.get("fused_mlp"))
     hp.dtypes = DtypePolicy(compute_dtype=DTYPES[cfg["trunk_dtype"]])
+    if "block_index" in cfg:  # the feature block; HyperParams' default is the last
+        hp.block_index = int(cfg["block_index"])
     return hp
-
-
-def check_widths(encoder: torch.nn.Module, cfg: dict) -> None:
-    """The registry model must be the configuration's, width for width."""
-    have = {"embed_dim": encoder.embed_dim, "depth": encoder.depth,
-            "num_heads": encoder.num_heads, "patch_size": encoder.patch_size,
-            "num_prefix_tokens": encoder.num_prefix_tokens, "img_size": encoder.img_size,
-            "mlp_hidden": encoder.blocks[0].mlp.fc1.out_features}
-    want = {k: cfg[k] for k in have if k in cfg}
-    want["mlp_hidden"] = int(cfg["embed_dim"] * cfg["mlp_ratio"])
-    bad = {k: (have[k], want[k]) for k in want if have[k] != want[k]}
-    if bad:
-        raise ValueError(f"the port's {cfg['model_name']} differs from the configuration "
-                         f"(have, want): {bad}")
 
 
 def build_encoder(cfg: dict, hp: HyperParams, trunk_sd: Dict[str, torch.Tensor],
@@ -48,7 +38,7 @@ def build_encoder(cfg: dict, hp: HyperParams, trunk_sd: Dict[str, torch.Tensor],
     with torch.device(device):
         encoder = get_model(hp.model_name, hp.img_size, hp.dtypes, generator=None,
                             fused_mlp=hp.fused_mlp)
-    check_widths(encoder, cfg)
+    spec.trunk(cfg).check_widths(encoder, cfg)
     loading.load_encoder_state(encoder, dict(trunk_sd))
     return encoder.eval()
 

@@ -1,7 +1,8 @@
 """What a per-layer reader (`metrics/<name>.py`) is handed: the traced
-window of a `--trace 1` run, the cell, and the host's enqueue times of the
-untraced part of the window. Each reader returns a number, or None where it
-finds nothing to read (the harness then leaves the metric out)."""
+window of a `--trace 1` run, the cell, and the host's enqueue times and
+batch latencies of the untraced part of the window. Each reader returns a
+number, or None where it finds nothing to read (the harness then leaves the
+metric out)."""
 
 from __future__ import annotations
 
@@ -10,9 +11,15 @@ import statistics
 from types import SimpleNamespace
 from typing import List, Optional
 
+import numpy as np
+
 from harness import flops, spec
 from harness.spec import Cell
 from harness.trace import Trace
+
+
+def percentile(values: List[float], q: float) -> float:
+    return float(np.percentile(np.asarray(values, np.float64), q))
 
 
 @dataclasses.dataclass
@@ -22,6 +29,7 @@ class Reading:
     units: int            # batches or steps whose launch lay in the traced window
     images: int           # their images (scoring) or rows (training)
     enqueue_s: List[float]
+    latency_s: List[float] = dataclasses.field(default_factory=list)  # scoring batches
 
     @property
     def kind(self) -> str:
@@ -31,6 +39,13 @@ class Reading:
         if self.kind != kind or not self.enqueue_s:
             return None
         return 1e3 * statistics.fmean(self.enqueue_s)
+
+    def latency_p95_ms(self, kind: str) -> Optional[float]:
+        """The 95th percentile of the untraced batches' latencies, as the
+        end-to-end `score_p95_ms` takes it over the whole window."""
+        if self.kind != kind or not self.latency_s:
+            return None
+        return 1e3 * percentile(self.latency_s, 95)
 
     def range_ms(self, name: str, kind: str) -> Optional[float]:
         """Device ms a unit of the kernels launched inside the range `name`."""

@@ -4,17 +4,18 @@ traced run, the check against the reference, and the result line."""
 from __future__ import annotations
 
 import gc
+import importlib
 import json
 import subprocess
 import sys
 import time
-from typing import Callable, Dict, List
+from types import ModuleType
+from typing import Callable, Dict, List, Tuple
 
-import numpy as np
 import torch
 
 from harness import check, spec
-from harness.reading import Reading
+from harness.reading import Reading, percentile
 from harness.score import ScoreCell
 from harness.spec import Cell
 from harness.trace import Trace
@@ -41,17 +42,21 @@ def power_limit() -> str:
         return f"unknown ({e})"
 
 
-def launch_counts() -> Dict[str, int]:
-    """The port's own launch counters (proof that the cell's kernels ran)."""
-    from vit_ad_tpu_torch.ops.cuda import gmm, layer_norm, mlp, window_attention
+def launch_counters() -> Dict[str, Tuple[ModuleType, str]]:
+    """The port's launch counters that kernel files name (`COUNTERS =
+    {label: "module.attribute"}` in `kernels/<id>.py`), label → (module,
+    attribute), sorted by label: proof that the cell's kernels ran, and a
+    new kernel's file puts its counter on the launch line."""
+    out = {}
+    for kernel in spec.kernel_names():
+        for label, where in getattr(spec.kernel_count(kernel), "COUNTERS", {}).items():
+            module, attr = where.rsplit(".", 1)
+            out[label] = (importlib.import_module(module), attr)
+    return dict(sorted(out.items()))
 
-    return {"B1": window_attention.launches, "B6": mlp.launches,
-            "B6_wgmma": mlp.wgmma_launches, "B7": layer_norm.launches,
-            "B2": gmm.fwd_launches, "B3": gmm.bwd_params_launches, "B4": gmm.bwd_x_launches}
 
-
-def percentile(values: List[float], q: float) -> float:
-    return float(np.percentile(np.asarray(values, np.float64), q))
+def launch_counts(counters: Dict[str, Tuple[ModuleType, str]]) -> Dict[str, int]:
+    return {label: getattr(module, attr) for label, (module, attr) in counters.items()}
 
 
 def run(cell: Cell, seed: int, seconds: float, trace: bool, device: torch.device,
@@ -65,10 +70,11 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: torch.device
     runner = KINDS[cell.kind](cell, seed, device)
     runner.warm_up()
     trace_s = float(cell.traffic["trace_seconds"]) if trace else 0.0
-    before = launch_counts()
+    counters = launch_counters()
+    before = launch_counts(counters)
     setup_s = time.perf_counter() - t_process
     units, window_s, traced = runner.window(seconds, min(trace_s, seconds))
-    after = launch_counts()
+    after = launch_counts(counters)
     per_unit = {k: (after[k] - before[k]) / units for k in after}
     log("launches a " + ("batch" if cell.kind == "score" else "step") + ": "
         + ", ".join(f"{k} {v:g}" for k, v in per_unit.items()))
@@ -84,7 +90,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: torch.device
         del prof
         reading = Reading(cell=cell, trace=t, units=traced_units,
                           images=traced_units * runner.batch,
-                          enqueue_s=runner.enqueue)
+                          enqueue_s=runner.enqueue,
+                          latency_s=getattr(runner, "latency", [])[:len(runner.enqueue)])
         for m in cell.per_layer:
             v = spec.metric_reader(m["name"]).read(reading)
             if v is not None:

@@ -18,9 +18,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from harness import check, images, port, weights
+from harness import check, images, port, spec, weights
 from harness.trace import WINDOW, Ranges, start_profiler
-from reference.deit import DeiT
 from reference.precision import set_f32_numerics
 from reference.flow import Flow, anomaly_maps, tokens_to_map
 from reference.mdn import MDN
@@ -158,7 +157,7 @@ class ScoreCell:
         set_f32_numerics()
         cfg = self.cell.config
         trunk_sd, head_sd = weights.make_states(cfg, self.seed, self.device)
-        trunk = DeiT(trunk_sd, cfg)
+        trunk = spec.trunk(cfg).reference(trunk_sd, cfg, control=False)
         ref_scores, ref_payloads = self._reference_outputs(trunk, head_sd, control=False)
         score_gap = max(check.abs_gap(host, ref_scores[k]) for k, host in self.answers)
         kept = sorted(self.kept)
@@ -167,9 +166,10 @@ class ScoreCell:
         return {"score_gap": score_gap, "payload_gap": payload_gap}
 
     @torch.no_grad()
-    def _reference_outputs(self, trunk: DeiT, head_sd, control: bool):
+    def _reference_outputs(self, trunk, head_sd, control: bool):
         """({pool index: reference scores}, {pool index: reference payload})
-        of every pool batch, with the reference's own normalizer."""
+        of every pool batch, with the reference's own normalizer. `trunk` is
+        the trunk family's plain reference."""
         cfg = self.cell.config
         img = cfg["img_size"]
         if cfg["head"] == "nf":
@@ -207,8 +207,10 @@ class ScoreCell:
         set_f32_numerics()
         cfg = self.cell.config
         trunk_sd, head_sd = weights.make_states(cfg, self.seed, self.device)
-        ref_s, ref_p = self._reference_outputs(DeiT(trunk_sd, cfg), head_sd, control=False)
-        ctl_s, ctl_p = self._reference_outputs(DeiT(trunk_sd, cfg, control=True), head_sd,
+        reference = spec.trunk(cfg).reference
+        ref_s, ref_p = self._reference_outputs(reference(trunk_sd, cfg, control=False), head_sd,
+                                               control=False)
+        ctl_s, ctl_p = self._reference_outputs(reference(trunk_sd, cfg, control=True), head_sd,
                                                control=True)
         keys = sorted(ref_s)
         return {"score_gap": max(check.abs_gap(ctl_s[k], ref_s[k]) for k in keys),

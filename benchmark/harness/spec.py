@@ -1,15 +1,17 @@
 """Finds what a cell needs by the names in `BENCHMARK.json`: the cell, its
-configuration file, its traffic mix (`traffic/<name>.json`), its limits
-(`limits/<cell>.json`), the readers of its per-layer metrics
-(`metrics/<metric>.py`) and the kernel counts (`kernels/<id>.py`). A new
-cell, mix, metric or kernel is a new file and a new entry; nothing here
-names one."""
+configuration file, the trunk family it names (`trunks/<trunk>.py`), its
+traffic mix (`traffic/<name>.json`), its limits (`limits/<cell>.json`), the
+readers of its per-layer metrics (`metrics/<metric>.py`) and the kernel
+counts (`kernels/<id>.py`). A new cell, configuration, trunk, mix, metric or
+kernel is a new file and a new entry; nothing here names one."""
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib.util
 import json
+import re
 from pathlib import Path
 from types import ModuleType
 from typing import List
@@ -61,6 +63,7 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
     w = cells[name]
     configs = {c["name"]: c for c in bench["configs"]}
     config = _load_json(root / configs[w["config"]]["file"])
+    trunk_file(config)
     traffic = _load_json(BENCH_DIR / "traffic" / f"{w['traffic']}.json")
     limits = _load_json(BENCH_DIR / "limits" / f"{name}.json")
     e2e = [m for m in bench["end_to_end"] if _applies(m, name)]
@@ -77,3 +80,40 @@ def metric_reader(name: str) -> ModuleType:
 
 def kernel_count(kernel: str) -> ModuleType:
     return load_module(BENCH_DIR / "kernels" / f"{kernel}.py", f"bench_kernel_{kernel}")
+
+
+def kernel_names() -> List[str]:
+    """Every kernel count's id (`kernels/<id>.py`), sorted."""
+    return sorted(p.stem for p in (BENCH_DIR / "kernels").glob("*.py"))
+
+
+def trunk_file(cfg: dict) -> Path:
+    """`trunks/<trunk>.py` of the trunk family the configuration names;
+    stops the run where the configuration names none or the file is not
+    there."""
+    name = cfg.get("trunk")
+    if name is None:
+        raise SystemExit(f"configuration {cfg.get('name')!r} names no trunk family: it needs a "
+                         f'key "trunk" that names a file benchmark/trunks/<trunk>.py')
+    path = BENCH_DIR / "trunks" / f"{name}.py"
+    if not re.fullmatch(r"[A-Za-z0-9_]+", str(name)) or not path.is_file():
+        raise SystemExit(f"configuration {cfg.get('name')!r} names trunk {name!r}, but there is "
+                         f"no file benchmark/trunks/{name}.py")
+    return path
+
+
+def trunk(cfg: dict) -> ModuleType:
+    """The configuration's trunk family: `state(cfg, gen, device)` (the
+    seeded state dict in the upstream layout), `check_widths(encoder, cfg)`,
+    `reference(sd, cfg, control)` (the plain trunk, with
+    `patch_features(images_u8, mean, std)` → [N, P, D] float32),
+    `forward_work(cfg)` (one image's products as (FLOP, precision)) and
+    `PUBLISHED` (each registry model's published widths, by `model_name`,
+    which the tests hold every configuration to). Each
+    file is loaded once, as a module is imported once."""
+    return _trunk_module(trunk_file(cfg))
+
+
+@functools.lru_cache(maxsize=None)
+def _trunk_module(path: Path) -> ModuleType:
+    return load_module(path, f"bench_trunk_{path.stem}")

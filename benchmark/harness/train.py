@@ -19,9 +19,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from harness import check, images, port, weights
+from harness import check, images, port, spec, weights
 from harness.trace import WINDOW, Ranges, start_profiler
-from reference.deit import DeiT
 from reference.precision import set_f32_numerics
 from reference.train import FAULTS, head_steps
 
@@ -186,7 +185,8 @@ class TrainCell:
     def free(self) -> None:
         del self.encoder, self.head, self.opt, self.staged, self.noise
 
-    def _reference_batches(self, trunk: DeiT) -> List[torch.Tensor]:
+    def _reference_batches(self, trunk) -> List[torch.Tensor]:
+        """The check's batches through the trunk family's plain reference."""
         x = torch.from_numpy(self.images).to(self.device)
         feats = trunk.patch_features(x, self.mean, self.std)
         return [feats[s * self.batch:(s + 1) * self.batch] for s in range(self.check_steps)]
@@ -195,7 +195,7 @@ class TrainCell:
         set_f32_numerics()
         cfg, tr = self.cell.config, self.cell.traffic
         trunk_sd, head_sd = weights.make_states(cfg, self.seed, self.device)
-        batches = self._reference_batches(DeiT(trunk_sd, cfg, control))
+        batches = self._reference_batches(spec.trunk(cfg).reference(trunk_sd, cfg, control))
         del trunk_sd
         return head_steps(cfg["head"], cfg, head_sd, batches, cfg["train"]["learning_rate"],
                           cfg["train"]["weight_decay"],

@@ -1,13 +1,9 @@
 """Seeded weights in the upstream layouts, made on the device in a few large
-draws: a timm DeiT/ViT state dict, a FrEIA `SequenceINN` of AllInOneBlocks
-(`module_list.{i}.*`), and the MDN's `pi` / `sigma` / `mu` `nn.Linear`
-heads. No checkpoint ships with the repo, so the values are random
-(`assumed` in the configuration files):
-  * timm trunk: Linear weights N(0, 0.02²) (timm's init), the patch
-    convolution and the classifier heads U(±1/sqrt(fan_in)) (torch's
-    default), LayerNorm scales 1 + N(0, 0.1²) and every bias and LayerNorm
-    shift N(0, 0.02²), so that no term is an identity; prefix tokens and
-    position embedding N(0, 0.02²);
+draws: the trunk's state dict by its family's file (`trunks/<trunk>.py`,
+`state`), a FrEIA `SequenceINN` of AllInOneBlocks (`module_list.{i}.*`),
+and the MDN's `pi` / `sigma` / `mu` `nn.Linear` heads. No checkpoint ships
+with the repo, so the values are random (`assumed` in the configuration
+files):
   * flow: each subnet convolution and bias U(±1/sqrt(fan_in)) (torch's
     default), `global_scale` at FrEIA's init for a unit scale plus
     N(0, 0.1²), `global_offset` N(0, 0.02²), a random permutation per step
@@ -22,6 +18,8 @@ import math
 from typing import Dict, List, Tuple
 
 import torch
+
+from harness import spec
 
 Shapes = List[Tuple[str, Tuple[int, ...]]]
 
@@ -44,7 +42,7 @@ def _split(flat: torch.Tensor, shapes: Shapes) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _draw(shapes: Shapes, gen: torch.Generator, device, kind: str) -> Dict[str, torch.Tensor]:
+def draw(shapes: Shapes, gen: torch.Generator, device, kind: str) -> Dict[str, torch.Tensor]:
     """One draw for all of `shapes`: N(0, 1) ("normal") or U(-1, 1)."""
     total = sum(math.prod(s) for _, s in shapes)
     if kind == "normal":
@@ -52,38 +50,6 @@ def _draw(shapes: Shapes, gen: torch.Generator, device, kind: str) -> Dict[str, 
     else:
         flat = torch.rand(total, generator=gen, device=device).mul_(2.0).sub_(1.0)
     return _split(flat, shapes)
-
-
-def deit_state(cfg: dict, gen: torch.Generator, device) -> Dict[str, torch.Tensor]:
-    d, depth, p = cfg["embed_dim"], cfg["depth"], cfg["patch_size"]
-    hidden = int(d * cfg["mlp_ratio"])
-    tokens = cfg["num_prefix_tokens"] + (cfg["img_size"] // p) ** 2
-    normal: Shapes = [("cls_token", (1, 1, d)), ("pos_embed", (1, tokens, d))]
-    if cfg["num_prefix_tokens"] == 2:
-        normal.append(("dist_token", (1, 1, d)))
-    lin = {"attn.qkv": (3 * d, d), "attn.proj": (d, d), "mlp.fc1": (hidden, d),
-           "mlp.fc2": (d, hidden)}
-    for i in range(depth):
-        for name, shape in lin.items():
-            normal += [(f"blocks.{i}.{name}.weight", shape), (f"blocks.{i}.{name}.bias",
-                                                              (shape[0],))]
-        for n in ("norm1", "norm2"):
-            normal += [(f"blocks.{i}.{n}.weight", (d,)), (f"blocks.{i}.{n}.bias", (d,))]
-    normal += [("norm.weight", (d,)), ("norm.bias", (d,)), ("patch_embed.proj.bias", (d,))]
-    uniform: Shapes = [("patch_embed.proj.weight", (d, 3, p, p))]
-    heads = ["head"] + (["head_dist"] if cfg["num_prefix_tokens"] == 2 else [])
-    for h in heads:
-        uniform += [(f"{h}.weight", (cfg["classes"], d)), (f"{h}.bias", (cfg["classes"],))]
-    sd = _draw(normal, gen, device, "normal")
-    for k, v in sd.items():
-        if k.endswith(".weight") and ".norm" in k or k == "norm.weight":
-            v.mul_(0.1).add_(1.0)
-        else:
-            v.mul_(0.02)
-    for k, v in _draw(uniform, gen, device, "uniform").items():
-        fan_in = d if k.startswith("head") else 3 * p * p
-        sd[k] = v.mul_(1.0 / math.sqrt(fan_in))
-    return sd
 
 
 def flow_state(cfg: dict, gen: torch.Generator, device) -> Dict[str, torch.Tensor]:
@@ -99,14 +65,14 @@ def flow_state(cfg: dict, gen: torch.Generator, device) -> Dict[str, torch.Tenso
                     (pre + "2.weight", (2 * c2, hidden, k, k)), (pre + "2.bias", (2 * c2,))]
         fan[pre + "0."] = c1 * k * k
         fan[pre + "2."] = hidden * k * k
-    sd = _draw(uniform, gen, device, "uniform")
+    sd = draw(uniform, gen, device, "uniform")
     for name, v in sd.items():
         v.mul_(1.0 / math.sqrt(fan[name.rsplit(".", 1)[0] + "."]))
     normal: Shapes = []
     for i in range(cfg["flow_steps"]):
         normal += [(f"module_list.{i}.global_scale", (1, c, 1, 1)),
                    (f"module_list.{i}.global_offset", (1, c, 1, 1))]
-    for name, v in _draw(normal, gen, device, "normal").items():
+    for name, v in draw(normal, gen, device, "normal").items():
         sd[name] = (v.mul_(0.1).add_(FREIA_SCALE_INIT) if name.endswith("scale")
                     else v.mul_(0.02))
     eye = torch.eye(c, device=device)
@@ -122,7 +88,7 @@ def mdn_state(cfg: dict, gen: torch.Generator, device) -> Dict[str, torch.Tensor
     d, k = cfg["embed_dim"], cfg["num_gaussians"]
     shapes: Shapes = [("pi.weight", (k, d)), ("pi.bias", (k,)), ("sigma.weight", (d * k, d)),
                       ("sigma.bias", (d * k,)), ("mu.weight", (d * k, d)), ("mu.bias", (d * k,))]
-    sd = _draw(shapes, gen, device, "uniform")
+    sd = draw(shapes, gen, device, "uniform")
     for v in sd.values():
         v.mul_(1.0 / math.sqrt(d))
     return sd
@@ -131,8 +97,8 @@ def mdn_state(cfg: dict, gen: torch.Generator, device) -> Dict[str, torch.Tensor
 def make_states(cfg: dict, seed: int, device) -> Tuple[Dict[str, torch.Tensor],
                                                       Dict[str, torch.Tensor]]:
     """(trunk state dict, head state dict) of `cfg` from `seed`."""
-    trunk = deit_state(cfg, torch.Generator(device=device).manual_seed(sub_seed(seed, "trunk")),
-                       device)
+    gen = torch.Generator(device=device).manual_seed(sub_seed(seed, "trunk"))
+    trunk = spec.trunk(cfg).state(cfg, gen, device)
     make = {"nf": flow_state, "mdn": mdn_state}[cfg["head"]]
     head = make(cfg, torch.Generator(device=device).manual_seed(sub_seed(seed, "head")), device)
     return trunk, head

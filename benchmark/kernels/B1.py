@@ -6,6 +6,7 @@ Work of a launch: 2·T²·hd FLOP for q kᵀ and as many for p·v, per image and
 head; bytes: the qkv read once and the output written once."""
 
 PATTERN = r"(?<!window_)attention_(one_pass|bf16|f32)_kernel"
+COUNTERS = {"B1": "vit_ad_tpu_torch.ops.cuda.window_attention.launches"}
 BF16 = 2
 
 

@@ -8,6 +8,7 @@ and the log mixture weights read once, both bf16 weight matrices and the f32
 biases read once, ll written once."""
 
 PATTERN = r"gmm_forward(_wgmma)?_kernel"
+COUNTERS = {"B2": "vit_ad_tpu_torch.ops.cuda.gmm.fwd_launches"}
 BF16, F32 = 2, 4
 
 

@@ -10,6 +10,10 @@ bytes: x and the log mixture weights and the incoming gradient read once,
 the bf16 weights read once, the f32 weight gradients written once."""
 
 PATTERN = r"gmm_(terms|wgrad)(_wgmma)?_kernel"
+# B4, the backward to the features, has no count of its own; its launches
+# are counted here beside B3's
+COUNTERS = {"B3": "vit_ad_tpu_torch.ops.cuda.gmm.bwd_params_launches",
+            "B4": "vit_ad_tpu_torch.ops.cuda.gmm.bwd_x_launches"}
 BF16, F32 = 2, 4
 
 

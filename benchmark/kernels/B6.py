@@ -9,6 +9,8 @@ Work of a pair: 2·M·D·H FLOP each; bytes: the operands read once, the
 residual read once, the outputs written once (bf16; the f32 biases)."""
 
 PATTERN = r"gemm_bf16_kernel"
+COUNTERS = {"B6": "vit_ad_tpu_torch.ops.cuda.mlp.launches",
+            "B6_wgmma": "vit_ad_tpu_torch.ops.cuda.mlp.wgmma_launches"}
 BF16, F32 = 2, 4
 
 

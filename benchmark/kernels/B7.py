@@ -8,6 +8,7 @@ Work of a launch: ~8·M·D FLOP; bytes: the rows read once and written once,
 the f32 scale and shift read once."""
 
 PATTERN = r"layer_norm(_rows)?_kernel"
+COUNTERS = {"B7": "vit_ad_tpu_torch.ops.cuda.layer_norm.launches"}
 BF16, F32 = 2, 4
 
 

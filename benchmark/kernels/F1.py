@@ -11,6 +11,7 @@ bytes: x1, x2 and a read once, the output written once, the per-channel global
 scale and offset (f32) and perm (int64) read once, the logdet written once."""
 
 PATTERN = r"flow_coupling_kernel"
+COUNTERS = {"F1": "vit_ad_tpu_torch.ops.cuda.flow.launches"}
 F32, I64 = 4, 8
 FLOP_COUPLED, FLOP_PASSED = 20, 2
 

@@ -35,13 +35,14 @@ def card():
     return torch.device("cuda", 0)
 
 
-def tiny_cell(name: str, **config):
-    """Cell `name` of BENCHMARK.json at a size the CPU holds: 32-px images
-    (DeiT-base's widths, 4 patches), K=4, batches of 4, two pool batches,
-    8 training images. `config` overrides configuration keys."""
+def tiny_cell(name: str, root: Path = ROOT, **config):
+    """Cell `name` of `<root>/BENCHMARK.json` at a size the CPU holds: 32-px
+    images (the published widths, 4 patches at patch 16), K=4, batches of 4,
+    two pool batches, 12 training images. `config` overrides configuration
+    keys."""
     from harness import spec
 
-    cell = copy.deepcopy(spec.load_cell(name, ROOT))
+    cell = copy.deepcopy(spec.load_cell(name, root))
     cell.config.update({"img_size": 32, "num_gaussians": 4, **config})
     if cell.kind == "score":
         cell.traffic.update(batch=4, pool_batches=2, trace_seconds=0.3)

@@ -45,7 +45,26 @@ def test_traced_tiny_run_prints_per_layer_metrics():
     assert res["correct"]
     assert set(res["metrics"]) <= {m["name"] for m in cell.per_layer}
     assert "enqueue_ms.score" in res["metrics"]  # the CPU has no device events
+    assert "batch_p95_ms.score" in res["metrics"]
     assert {"busy_s", "window_s"} <= set(res["device"]) and "breakdown" in res
+
+
+@pytest.mark.parametrize("name", SCORE + TRAIN)
+def test_batch_p95_reads_the_untraced_latencies(name):
+    """`batch_p95_ms.score` is the end-to-end p95's statistic over the
+    untraced batches, and nothing in a training cell or without batches."""
+    from harness import spec
+    from harness.reading import Reading
+
+    cell = tiny_cell(name)
+    latency = [0.030 + 0.001 * (i % 17) for i in range(200)]
+    read = spec.metric_reader("batch_p95_ms.score").read
+    r = Reading(cell=cell, trace=None, units=0, images=0, enqueue_s=[], latency_s=latency)
+    if cell.kind == "score":
+        assert read(r) == pytest.approx(1e3 * np.percentile(latency, 95))
+    else:
+        assert read(r) is None
+    assert read(Reading(cell=cell, trace=None, units=0, images=0, enqueue_s=[])) is None
 
 
 def test_same_seed_same_inputs():
@@ -166,6 +185,7 @@ def test_fault_gumbel_noise_left_out(monkeypatch):
 def test_a_reader_that_loads_jax_stops_the_run(tmp_path, monkeypatch):
     """A per-layer metric's reader, loaded after the window, that imports a
     module named `jax` (a stub): the run ends with no result."""
+    import shutil
     import sys
 
     from harness import spec
@@ -173,6 +193,8 @@ def test_a_reader_that_loads_jax_stops_the_run(tmp_path, monkeypatch):
     (tmp_path / "stub" / "jax").mkdir(parents=True)
     (tmp_path / "stub" / "jax" / "__init__.py").write_text("")
     (tmp_path / "bench" / "metrics").mkdir(parents=True)
+    for files in ("trunks", "kernels"):  # the cell's trunk family and the launch line's
+        shutil.copytree(spec.BENCH_DIR / files, tmp_path / "bench" / files)
     (tmp_path / "bench" / "metrics" / "planted.score.py").write_text(
         "import jax  # noqa: F401\n\n\ndef read(r):\n    return None\n")
     cell = tiny_cell("deit_mdn.score_b128")

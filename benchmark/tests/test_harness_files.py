@@ -1,6 +1,7 @@
 """BENCHMARK.json, the configuration, traffic and limits files parse, meet
 the benchmark's rules, and the harness finds each file by the name an entry
-gives it, a new one included."""
+gives it, a new one included: a cell, or a configuration of a trunk family
+that only its own file under `trunks/` defines."""
 
 from __future__ import annotations
 
@@ -72,16 +73,35 @@ def test_each_cell_finds_its_files(cell):
         assert callable(spec.metric_reader(m["name"]).read)
 
 
+# What a configuration may cut from its published model: depth, the one cut
+# of the sizing rules that applies while no trunk is shared over chips.
+MAY_CUT = {"depth"}
+
+
 @pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])
 def test_configuration_files(config):
+    import torch
+
+    from harness import port
+    from vit_ad_tpu_torch.registry import get_model
+
     entry = next(c for c in BENCH["configs"] if c["name"] == config)
     cfg = json.loads((ROOT / entry["file"]).read_text())
     assert cfg["name"] == config and cfg["source"] == entry["source"]
-    assert cfg["reduced"] == entry["reduced"] == []
-    # published widths: DeiT-base/16 at 224 px
-    assert (cfg["embed_dim"], cfg["depth"], cfg["num_heads"], cfg["mlp_ratio"],
-            cfg["patch_size"], cfg["img_size"]) == (768, 12, 12, 4.0, 16, 224)
+    assert cfg["reduced"] == entry["reduced"]
+    # the published widths, from the trunk family's file: kept but for the cuts listed
+    assert set(cfg["reduced"]) <= MAY_CUT
+    family = spec.trunk(cfg)
+    published = family.PUBLISHED[cfg["model_name"]]
+    kept = {k: v for k, v in published.items() if k not in cfg["reduced"]}
+    assert {k: cfg[k] for k in kept} == kept
     assert cfg["assumed"]
+    # the trunk family's file, and the port's registry model at its widths
+    hp = port.hyper_params(cfg)
+    with torch.device("meta"):
+        encoder = get_model(hp.model_name, hp.img_size, hp.dtypes, generator=None,
+                            fused_mlp=hp.fused_mlp)
+    family.check_widths(encoder, cfg)
 
 
 def test_a_new_cell_is_found_by_name(tmp_path, monkeypatch):
@@ -114,3 +134,82 @@ def test_a_new_cell_is_found_by_name(tmp_path, monkeypatch):
 def test_unknown_cell_is_refused():
     with pytest.raises(SystemExit):
         spec.load_cell("no.such_cell", ROOT)
+
+
+TOY_TRUNK = '''"""A trunk family of its own name: DeiT's functions, each call marked in
+`toy.calls` beside this file."""
+from pathlib import Path
+
+from harness import spec
+
+DEIT = spec.load_module(Path(__file__).with_name("deit.py"), "toy_deit")
+
+
+def _mark(name):
+    with open(Path(__file__).with_name("toy.calls"), "a") as f:
+        f.write(name + "\\n")
+
+
+def state(cfg, gen, device):
+    _mark("state")
+    return DEIT.state(cfg, gen, device)
+
+
+def check_widths(encoder, cfg):
+    _mark("check_widths")
+    DEIT.check_widths(encoder, cfg)
+
+
+def reference(sd, cfg, control=False):
+    _mark("reference")
+    return DEIT.reference(sd, cfg, control)
+
+
+def forward_work(cfg):
+    _mark("forward_work")
+    return DEIT.forward_work(cfg)
+'''
+
+
+def test_a_new_trunk_family_is_found_by_name(tmp_path, monkeypatch):
+    """A later change adds a trunk family's file, a configuration that names
+    it, its cells' limits and the entries; scoring (traced: the mfu reader
+    counts the trunk's work) and training run through it with no edit to the
+    harness, and stay correct."""
+    from conftest import run_tiny, tiny_cell
+
+    from harness import flops
+
+    bench = tmp_path / "benchmark"
+    shutil.copytree(BENCH_DIR, bench, ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    (bench / "trunks" / "toy.py").write_text(TOY_TRUNK)
+    cfg = json.loads((bench / "configs" / "deit_base_mdn150.json").read_text())
+    cfg.update(name="toy_mdn150", trunk="toy")
+    (bench / "configs" / "toy_mdn150.json").write_text(json.dumps(cfg))
+    b = json.loads((ROOT / "BENCHMARK.json").read_text())
+    b["configs"].append({"name": "toy_mdn150", "source": cfg["source"],
+                         "file": "benchmark/configs/toy_mdn150.json", "reduced": [],
+                         "why": "a trunk family that only its own file defines"})
+    for cell, like in (("toy.score_b128", "deit_mdn.score_b128"),
+                       ("toy.train_b64", "deit_mdn.train_b64")):
+        shutil.copy(bench / "limits" / f"{like}.json", bench / "limits" / f"{cell}.json")
+        w = next(w for w in b["workloads"] if w["name"] == like)
+        b["workloads"].append({**w, "name": cell, "config": "toy_mdn150"})
+        for m in b["end_to_end"] + b["per_layer"]:
+            if like in m.get("workloads", []):
+                m["workloads"].append(cell)
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(b))
+    monkeypatch.setattr(spec, "BENCH_DIR", bench)
+    calls = bench / "trunks" / "toy.calls"
+
+    score = tiny_cell("toy.score_b128", root=tmp_path)
+    res = run_tiny(score, seconds=0.6, trace=True)
+    assert res["correct"], res["checks"]
+    assert set(calls.read_text().split()) == {"state", "check_widths", "reference",
+                                              "forward_work"}
+    assert flops.per_image(score.config, "score")[:2] == spec.trunk(
+        {**score.config, "trunk": "deit"}).forward_work(score.config)
+    calls.unlink()
+    res = run_tiny(tiny_cell("toy.train_b64", root=tmp_path))
+    assert res["correct"], res["checks"]
+    assert set(calls.read_text().split()) == {"state", "check_widths", "reference"}

@@ -1,13 +1,14 @@
 """Each kernel count (`kernels/B*.py`) against a hand count at a small shape
 and against PERF.md's bound at the cell's shape (the H100's 989 TFLOP/s
-bf16 and 3.35 TB/s), and the whole-step FLOP of the mfu metrics."""
+bf16 and 3.35 TB/s), the whole-step FLOP of the mfu metrics, and the kernel
+files' launch counters on the launch line."""
 
 from __future__ import annotations
 
 from types import SimpleNamespace
 
 import pytest
-from conftest import ROOT
+from conftest import BENCH_DIR, ROOT
 
 from harness import flops, spec
 
@@ -77,7 +78,7 @@ def test_kernel_name_patterns(kernel, name, hit):
 
 
 def test_whole_step_flop():
-    trunk = sum(f for f, _ in flops.trunk_forward(NF))
+    trunk = sum(f for f, _ in spec.trunk(NF).forward_work(NF))
     block = 2 * 198 * 768 * 2304 + 4 * 198 * 198 * 768 + 2 * 198 * 768 * 768 \
         + 4 * 198 * 768 * 3072
     assert trunk == 2 * 196 * 768 * 768 + 12 * block  # ~35.3 GFLOP an image
@@ -90,3 +91,43 @@ def test_whole_step_flop():
     # least time an image: bf16 trunk at 989 TFLOP/s, f32 flow at 67
     assert flops.least_seconds(flops.per_image(NF, "score")) == pytest.approx(
         trunk / 989e12 + flow / 67e12)
+
+
+# `flops.per_image` of each configuration and kind, as the harness counted
+# them while the DeiT trunk's count sat in `harness/flops.py`
+PER_IMAGE = {
+    ("deit_nf.score_b128", "score"): [(231211008.0, "bfloat16"), (35079340032.0, "bfloat16"),
+                                      (2754662400.0, "float32")],
+    ("deit_nf.score_b128", "train"): [(8181347328.0, "float32")],
+    ("deit_mdn.score_b128", "score"): [(231211008.0, "bfloat16"), (35079340032.0, "bfloat16"),
+                                       (45158400.0, "float32"), (69363302400.0, "bfloat16")],
+    ("deit_mdn.score_b128", "train"): [(90316800.0, "float32"), (138726604800.0, "bfloat16")],
+}
+
+
+@pytest.mark.parametrize("cell,kind", sorted(PER_IMAGE))
+def test_per_image_work_is_unchanged(cell, kind):
+    cfg = spec.load_cell(cell, ROOT).config
+    assert flops.per_image(cfg, kind) == PER_IMAGE[cell, kind]
+
+
+def test_kernel_files_put_their_counters_on_the_launch_line(tmp_path, monkeypatch):
+    """The launch line's counters are those that kernel files name, sorted
+    by label: F1's among them, and a new kernel file's with no edit to the
+    harness."""
+    import shutil
+
+    from harness import runner
+    from vit_ad_tpu_torch.ops.cuda import flow, gmm
+
+    labels = ["B1", "B2", "B3", "B4", "B6", "B6_wgmma", "B7", "F1"]
+    counters = runner.launch_counters()
+    assert list(counters) == labels
+    assert counters["F1"] == (flow, "launches") and counters["B4"] == (gmm, "bwd_x_launches")
+    assert runner.launch_counts(counters)["F1"] == flow.launches
+    bench = tmp_path / "benchmark"
+    shutil.copytree(BENCH_DIR, bench, ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    (bench / "kernels" / "Z9.py").write_text(
+        'COUNTERS = {"Z9": "vit_ad_tpu_torch.ops.cuda.gmm.fwd_wgmma_launches"}\n')
+    monkeypatch.setattr(spec, "BENCH_DIR", bench)
+    assert list(runner.launch_counters()) == labels + ["Z9"]
